@@ -1,0 +1,67 @@
+"""Carry state between the JAX package and the port, as numpy arrays.
+
+Each ``*_from_numpy`` takes array-likes (numpy arrays, or anything
+``np.asarray`` accepts, such as the JAX package's arrays and NamedTuples of
+them) and returns the port's tensors on ``device``; ``to_numpy`` goes back.
+Flat thetas are checked against the port's ``MLP.num_params``.
+"""
+
+import numpy as np
+import torch
+
+from eeyore_tpu_torch.models.priors import IIDNormalPrior
+from eeyore_tpu_torch.ops.fused_hmc import FusedHMCState
+from eeyore_tpu_torch.tuners.dual_averaging import DualAveragingState
+
+
+def _tensor(a, device, dtype=None):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def thetas_from_numpy(thetas, model, device="cuda", dtype=torch.float32):
+    """Flat thetas [..., P] -> tensor, with P checked against the model."""
+    thetas = np.asarray(thetas)
+    if thetas.shape[-1] != model.num_params:
+        raise ValueError(f"thetas have {thetas.shape[-1]} parameters, "
+                         f"the model has {model.num_params}")
+    return _tensor(thetas, device, dtype)
+
+
+def prior_from_numpy(loc, scale, device="cuda", dtype=None):
+    """(loc, scale) of an IID Normal prior -> ``IIDNormalPrior``."""
+    return IIDNormalPrior(np.array(loc), np.array(scale), dtype=dtype, device=device)
+
+
+def temperature_from_numpy(temperature):
+    """A temperature (None, or a scalar array) -> None or a Python float."""
+    return None if temperature is None else float(np.asarray(temperature))
+
+
+def dual_averaging_state_from_numpy(state, device="cuda", dtype=None):
+    return DualAveragingState(*(_tensor(getattr(state, f), device, dtype)
+                                for f in DualAveragingState._fields))
+
+
+def fused_hmc_state_from_numpy(state, model, device="cuda"):
+    """A ``FusedHMCState`` of the JAX package (or its numpy image) -> the port's."""
+    f32 = torch.float32
+    return FusedHMCState(
+        thetas=thetas_from_numpy(state.thetas, model, device, f32),
+        target_vals=_tensor(state.target_vals, device, f32),
+        grads=thetas_from_numpy(state.grads, model, device, f32),
+        step=_tensor(state.step, device, f32),
+        num_steps=_tensor(state.num_steps, device, torch.int32),
+        tuner=dual_averaging_state_from_numpy(state.tuner, device, f32),
+    )
+
+
+def to_numpy(obj):
+    """Tensor -> numpy array; NamedTuple of tensors -> the same NamedTuple of
+    numpy arrays; None stays None."""
+    if obj is None:
+        return None
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_numpy(v) for v in obj))
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    return np.asarray(obj)

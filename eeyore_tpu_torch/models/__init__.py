@@ -1,0 +1,11 @@
+from eeyore_tpu_torch.models import mlp
+from eeyore_tpu_torch.models.losses import (
+    binary_classification_loss,
+    binary_cross_entropy,
+    cross_entropy,
+    loss_functions,
+    multiclass_classification_loss,
+)
+from eeyore_tpu_torch.models.mlp import MLP
+from eeyore_tpu_torch.models.model import BayesianModel, LogTargetModel
+from eeyore_tpu_torch.models.priors import IIDNormalPrior
