@@ -1,0 +1,3 @@
+from eeyore_tpu_torch.chains.chain import Chain
+from eeyore_tpu_torch.chains.chain_list import ChainList
+from eeyore_tpu_torch.chains.chain_lists import ChainLists

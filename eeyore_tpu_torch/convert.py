@@ -11,6 +11,7 @@ import torch
 
 from eeyore_tpu_torch.models.priors import IIDNormalPrior
 from eeyore_tpu_torch.ops.fused_hmc import FusedHMCState
+from eeyore_tpu_torch.samplers.hmc import HMCState
 from eeyore_tpu_torch.tuners.dual_averaging import DualAveragingState
 
 
@@ -52,6 +53,22 @@ def fused_hmc_state_from_numpy(state, model, device="cuda"):
         step=_tensor(state.step, device, f32),
         num_steps=_tensor(state.num_steps, device, torch.int32),
         tuner=dual_averaging_state_from_numpy(state.tuner, device, f32),
+    )
+
+
+def hmc_state_from_numpy(state, model, device="cuda", dtype=torch.float32):
+    """An ``HMCState`` of the JAX package with chains stacked first (a
+    vmapped state, or its numpy image) -> the port's batched ``HMCState``."""
+    return HMCState(
+        sample=thetas_from_numpy(state.sample, model, device, dtype),
+        target_val=_tensor(state.target_val, device, dtype),
+        grad_val=thetas_from_numpy(state.grad_val, model, device, dtype),
+        momentum=thetas_from_numpy(state.momentum, model, device, dtype),
+        hamiltonian=_tensor(state.hamiltonian, device, dtype),
+        accepted=_tensor(state.accepted, device, torch.int32),
+        step=_tensor(state.step, device, dtype),
+        num_steps=_tensor(state.num_steps, device, torch.int32),
+        tuner=dual_averaging_state_from_numpy(state.tuner, device, dtype),
     )
 
 

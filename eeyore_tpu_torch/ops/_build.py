@@ -3,12 +3,16 @@
 Each source in ``ops/csrc/`` exposes a plain C interface and includes no
 PyTorch header, so ``nvcc`` compiles it in seconds. ``torch.utils.
 cpp_extension.load`` drives the build (nvcc, then the link) and rebuilds
-only when the source or the flags change. Code is generated for Hopper only
-(``sm_90a``) and without ``--use_fast_math``. The build goes to
-``ops/_build/<name>/``, which git ignores. A failed build raises.
+only when the listed source or the flags change; it does not track the
+``csrc/*.cuh`` headers a source includes, so a hash of the headers goes into
+the library's name, and an edited header never loads a stale build. Code is
+generated for Hopper only (``sm_90a``) and without ``--use_fast_math``. The
+build goes to ``ops/_build/<name>/``, which git ignores. A failed build
+raises.
 """
 
 import ctypes
+import hashlib
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -18,10 +22,20 @@ CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 _libraries = {}
 
 
+def headers_hash():
+    """Short hash of every ``csrc/*.cuh`` header, by name and content."""
+    digest = hashlib.sha256()
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return digest.hexdigest()[:10]
+
+
 def load_library(name, source, defines=()):
     """Compile ``csrc/<source>`` with the ``-D`` ``defines`` into a shared
-    library called ``name`` (once per process and per name), and return it
-    as a ``ctypes.CDLL``."""
+    library called ``name`` plus the headers' hash (once per process and per
+    name), and return it as a ``ctypes.CDLL``."""
+    name = f"{name}_{headers_hash()}"
     if name in _libraries:
         return _libraries[name]
     from torch.utils.cpp_extension import load

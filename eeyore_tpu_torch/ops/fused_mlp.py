@@ -27,19 +27,28 @@ KERNEL = "fused_mlp_vg"
 launch_counts = {KERNEL: 0}
 
 
-def load_kernel(model):
-    """Build (at first use) and load the fused kernel for ``model``'s
-    architecture, which the kernel takes as compile-time constants."""
+def arch_defines(model):
+    """(name tag, ``-D`` defines) of ``model``'s architecture, which the
+    kernels of ``csrc/mlp_vg.cuh`` take as compile-time constants."""
     dims, bias, loss_kind, _ = extract_arch(model)
     if len(dims) > 8 or max(dims) > 255:
-        raise ValueError(f"fused_mlp_vg takes at most 7 layers of width <= 255, got {dims}")
-    ce = int(loss_kind == "ce")
-    name = "{}_{}_b{}_{}".format(KERNEL, "x".join(map(str, dims)),
-                                 "".join(str(int(b)) for b in bias), loss_kind)
+        raise ValueError(f"the MLP kernels take at most 7 layers of width <= 255, got {dims}")
+    tag = "{}_b{}_{}".format("x".join(map(str, dims)), "".join(str(int(b)) for b in bias),
+                             loss_kind)
     defines = (f"FMV_NUM_LAYERS={len(dims) - 1}",
                f"FMV_DIMS={sum(d << (8 * l) for l, d in enumerate(dims)):#x}",
                f"FMV_BIAS={sum(1 << l for l, b in enumerate(bias) if b):#x}",
-               f"FMV_CE={ce}")
+               f"FMV_CE={int(loss_kind == 'ce')}")
+    return tag, defines
+
+
+def load_kernel(model):
+    """Build (at first use) and load the fused kernel for ``model``'s
+    architecture, which the kernel takes as compile-time constants."""
+    dims, _, loss_kind, _ = extract_arch(model)
+    ce = int(loss_kind == "ce")
+    tag, defines = arch_defines(model)
+    name = f"{KERNEL}_{tag}"
     lib = _build.load_library(name, "fused_mlp_vg.cu", defines)
     lib.fused_mlp_vg_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int]

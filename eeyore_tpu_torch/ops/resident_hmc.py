@@ -1,0 +1,292 @@
+"""The whole HMC loop of a population of MLP chains in one kernel.
+
+Counterpart of ``eeyore_tpu/ops/resident_hmc.py``. ``make_resident_hmc``
+returns ``fn(seed, theta0s [C, P]) -> (samples [kept, C, P], final [C, P],
+accept_counts [C])``, plus ``target_val [kept, C]`` and ``accepted [kept, C]``
+(int32) with ``record_extras``. On CUDA tensors every call is one launch of
+``ops/csrc/resident_hmc.cu``; on CPU tensors it runs the plain version
+below, a PyTorch loop over iterations and leapfrog steps on ``[P, C]`` with
+``mlp_math.make_vg``, the same Threefry stream (``kernel_prng.hmc_draws``)
+and the same population tuner algebra. There is no fallback from one to the
+other: the kernel's wrapper ``resident_hmc`` raises on anything but CUDA
+tensors.
+
+With a ``tuner`` (an ``HMCDATuner``), dual averaging runs inside the loop
+during burn-in on the mean acceptance rate of each block of ``chain_block``
+chains, the l-rule sets the trajectory length (capped at ``max_num_steps``),
+and the last burn-in iteration freezes the averaged step. ``l_rounding=
+"stochastic"`` freezes per-chain trajectory lengths ``floor(l/e) +
+Bernoulli(frac(l/e))``. On the card a tuning group is one CUDA block, so a
+tuned run takes ``chain_block <= MAX_BLOCK``.
+
+The TPU kernel's schedule knobs (``stream``, ``mxu_layer0``,
+``matmul_precision``, ``vmem_limit_bytes``) have no counterpart: the CUDA
+body streams the data rows one at a time. Only their defaults are accepted.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from eeyore_tpu_torch.ops import _build, kernel_prng
+from eeyore_tpu_torch.ops.fused_mlp import arch_defines
+from eeyore_tpu_torch.ops.mlp_math import extract_arch, make_vg, prepare_data
+
+KERNEL = "resident_hmc"
+# Most threads of one block, hence of one tuning group.
+MAX_BLOCK = 1024
+# Threads per block of an untuned run, where blocks share nothing.
+UNTUNED_BLOCK = 256
+
+# Launches of each kernel of this module, counted where they happen.
+launch_counts = {KERNEL: 0}
+
+
+class ResidentHMCParams(ctypes.Structure):
+    """The kernel's scalar arguments (``ResidentHMCParams`` in the source)."""
+
+    _fields_ = ([(name, ctypes.c_int) for name in (
+        "seed", "num_chains", "n_rows", "num_iters", "num_burnin_iters", "record_thin",
+        "kept", "num_steps", "tuned", "stochastic", "max_num_steps", "record_extras")]
+        + [(name, ctypes.c_float) for name in (
+            "step", "tuner_m", "d", "g", "t0", "k", "l", "log_eub", "prior_const",
+            "temperature")])
+
+
+def load_kernel(model):
+    """Build (at first use) and load the resident HMC kernel for ``model``'s
+    architecture, which it takes as compile-time constants."""
+    tag, defines = arch_defines(model)
+    lib = _build.load_library(f"{KERNEL}_{tag}", "resident_hmc.cu", defines)
+    lib.resident_hmc_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ResidentHMCParams), ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    lib.resident_hmc_launch.restype = ctypes.c_int
+    lib.resident_hmc_error_string.argtypes = [ctypes.c_int]
+    lib.resident_hmc_error_string.restype = ctypes.c_char_p
+    for fn in (lib.resident_hmc_arch, lib.resident_hmc_resources):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+
+    dims, _, loss_kind, _ = extract_arch(model)
+    arch = (ctypes.c_int * 5)()
+    lib.resident_hmc_arch(arch)
+    expected = [model.num_params, dims[0], dims[-1], int(loss_kind == "ce"), MAX_BLOCK]
+    if list(arch) != expected:
+        raise RuntimeError(f"{KERNEL}_{tag}: library built for {list(arch)}, "
+                           f"model needs {expected}")
+    return lib
+
+
+def kernel_resources(lib):
+    """Registers and local-memory (spill) bytes per thread of the loaded
+    kernel, and the most threads its blocks can have with those registers,
+    as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 3)()
+    err = lib.resident_hmc_resources(out)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL}: {lib.resident_hmc_error_string(err).decode()}")
+    return {"registers": out[0], "local_bytes": out[1], "max_threads_per_block": out[2]}
+
+
+def resident_hmc(lib, theta0, x, y, mask, loc, ivar, params, threads):
+    """Launch the kernel: theta0 [P, C] -> (samples [kept, rows, C], final
+    [P, C], accepts [C]), f32 on one CUDA device, on the current stream.
+    ``params`` is a filled ``ResidentHMCParams``; rows = P (+2 with
+    record_extras)."""
+    P, C = theta0.shape
+    for t in (theta0, x, y, mask, loc, ivar):
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("resident_hmc takes contiguous float32 CUDA tensors")
+        if t.device != theta0.device:
+            raise ValueError("resident_hmc takes its tensors on one device")
+    if params.num_chains != C or params.n_rows != x.shape[0] or loc.numel() != P:
+        raise ValueError("resident_hmc: inconsistent shapes")
+    max_threads = kernel_resources(lib)["max_threads_per_block"]
+    if threads > max_threads:
+        raise ValueError(f"resident_hmc: blocks of {threads} threads, but this build's "
+                         f"registers allow {max_threads}")
+    rows = P + 2 if params.record_extras else P
+    samples = torch.empty((params.kept, rows, C), dtype=torch.float32, device=theta0.device)
+    final = torch.empty((P, C), dtype=torch.float32, device=theta0.device)
+    accepts = torch.empty((C,), dtype=torch.float32, device=theta0.device)
+    stream = torch.cuda.current_stream(theta0.device).cuda_stream
+    err = lib.resident_hmc_launch(
+        theta0.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(), loc.data_ptr(),
+        ivar.data_ptr(), ctypes.byref(params), threads, samples.data_ptr(), final.data_ptr(),
+        accepts.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"resident_hmc launch failed: {lib.resident_hmc_error_string(err)}")
+    launch_counts[KERNEL] += 1
+    return samples, final, accepts
+
+
+def _population_tune(pr, t, barh, logbare, mean_rate):
+    """The in-loop dual averaging of every tuning group at iteration ``t``
+    (resident_hmc.py:184-218), in float32: returns (barh, logbare, step),
+    each [groups]; the last burn-in iteration returns the averaged step."""
+    it = torch.tensor(t + 1, dtype=torch.float32, device=barh.device)
+    d_w = 1.0 / (it + pr.t0)
+    e_w = torch.exp(-pr.k * torch.log(it))  # it ** -k
+    barh = (1.0 - d_w) * barh + d_w * (pr.d - mean_rate)
+    loge = torch.clamp(pr.tuner_m - torch.sqrt(it) * barh / pr.g, max=pr.log_eub)
+    logbare = e_w * loge + (1.0 - e_w) * logbare
+    last = t == pr.num_burnin_iters - 1
+    return barh, logbare, torch.exp(logbare) if last else torch.exp(loge)
+
+
+def _run_plain(vg, arrays, pr, chain_block, theta):
+    """The kernel's computation in PyTorch, on [P, C] tensors: same inputs
+    and outputs as ``resident_hmc``, plus {"evaluations": the single-chain
+    value-and-gradient evaluations the run needed (a 0-d tensor), "step" and
+    "num_steps": each chain's final step and trajectory length, [C]}."""
+    P, C = theta.shape
+    f32 = dict(dtype=torch.float32, device=theta.device)
+    chains = torch.arange(C, dtype=torch.int64, device=theta.device)
+    val, grad = vg(theta, *arrays)
+    val = val[0]
+    step = torch.full((C,), pr.step, **f32)
+    n_steps = torch.full((C,), pr.num_steps, dtype=torch.int32, device=theta.device)
+    groups = C // chain_block
+    barh = torch.zeros(groups, **f32)
+    logbare = torch.zeros(groups, **f32)
+    rows = P + 2 if pr.record_extras else P
+    samples = torch.empty((pr.kept, rows, C), **f32)
+    accepts = torch.zeros(C, **f32)
+    evaluations = torch.tensor(C, device=theta.device)
+
+    for t in range(pr.num_iters):
+        mom, u_accept, u_round = kernel_prng.hmc_draws(pr.seed, chains, t, P)
+        h_cur = -val + 0.5 * torch.sum(mom * mom, dim=0)
+        th, g, v = theta, grad, val
+        p = mom + (0.5 * step) * g
+        # per-chain trajectory lengths: run to the longest, finished chains frozen
+        for s in range(int(n_steps.max()) if C else 0):
+            active = s < n_steps
+            evaluations = evaluations + active.sum()
+            th_s = th + step * p
+            v_s, g_s = vg(th_s, *arrays)
+            f = torch.where(n_steps - 1 == s, 0.5, 1.0) * step
+            p_s = p + f * g_s
+            th = torch.where(active, th_s, th)
+            p = torch.where(active, p_s, p)
+            v = torch.where(active, v_s[0], v)
+            g = torch.where(active, g_s, g)
+        h_prop = -v + 0.5 * torch.sum(p * p, dim=0)
+        rate = torch.clamp(torch.exp(h_cur - h_prop), max=1.0)
+        accept = u_accept < rate
+        moved = accept & torch.any(th != theta, dim=0)
+        theta = torch.where(accept, th, theta)
+        grad = torch.where(accept, g, grad)
+        val = torch.where(accept, v, val)
+        if t >= pr.num_burnin_iters:
+            accepts += accept.to(torch.float32)
+
+        if pr.tuned and t < pr.num_burnin_iters:
+            mean_rate = rate.reshape(groups, chain_block).mean(dim=1)
+            barh, logbare, group_step = _population_tune(pr, t, barh, logbare, mean_rate)
+            step = group_step.repeat_interleave(chain_block)
+            ratio = pr.l / step
+            n = torch.round(ratio)
+            if pr.stochastic and t == pr.num_burnin_iters - 1:
+                n_lo = torch.floor(ratio)
+                n = n_lo + (u_round < ratio - n_lo).to(torch.float32)
+            n_steps = torch.clamp(n, 1, pr.max_num_steps).to(torch.int32)
+
+        since = t - pr.num_burnin_iters
+        if since >= 0 and since % pr.record_thin == 0 and since // pr.record_thin < pr.kept:
+            out = samples[since // pr.record_thin]
+            out[:P] = theta
+            if pr.record_extras:
+                out[P] = val
+                out[P + 1] = moved.to(torch.float32)
+    return samples, theta, accepts, {"evaluations": evaluations, "step": step,
+                                     "num_steps": n_steps}
+
+
+def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=0,
+                      chain_block=256, record_thin=1, tuner=None, max_num_steps=64,
+                      stream=None, vmem_limit_bytes=None, mxu_layer0=None,
+                      matmul_precision=None, l_rounding="round", record_extras=False,
+                      device="cuda"):
+    """Build ``fn(seed, theta0s [C, P]) -> (samples [kept, C, P], final [C,
+    P], accept_counts [C])`` running the whole HMC loop, with ``kept =
+    (num_iters - num_burnin_iters) // record_thin``; with ``record_extras``
+    also ``target_val [kept, C]`` and ``accepted [kept, C]`` (int32, exact
+    moved flags). C must be a multiple of ``chain_block``. ``device`` is
+    where the data lives and the tensors ``fn`` takes: on a CUDA device
+    every call launches the kernel, on the CPU it runs the plain version.
+    The samples come back as a transposed view of the kernel's chain-minor
+    output."""
+    for name, value in (("stream", stream), ("vmem_limit_bytes", vmem_limit_bytes),
+                        ("mxu_layer0", mxu_layer0), ("matmul_precision", matmul_precision)):
+        if value is not None:
+            raise ValueError(f"{name} is a TPU schedule setting with no CUDA counterpart; "
+                             "leave it None")
+    if l_rounding not in ("round", "stochastic"):
+        raise ValueError(f"l_rounding must be 'round' or 'stochastic', got {l_rounding!r}")
+    if tuner is not None and chain_block > MAX_BLOCK:
+        raise ValueError(f"a tuned run's chain_block (its tuning group, one CUDA block) "
+                         f"is at most {MAX_BLOCK}, got {chain_block}")
+    device = torch.device(device)
+    x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature = prepare_data(model, x, y)
+    P = model.num_params
+    kept = (num_iters - num_burnin_iters) // record_thin
+    f32 = np.float32
+    params = ResidentHMCParams(
+        num_chains=0, n_rows=x_pad.shape[0], num_iters=num_iters,
+        num_burnin_iters=num_burnin_iters, record_thin=record_thin, kept=kept,
+        num_steps=int(num_steps), tuned=int(tuner is not None),
+        stochastic=int(tuner is not None and l_rounding == "stochastic"),
+        max_num_steps=int(max_num_steps), record_extras=int(record_extras),
+        step=float(step), tuner_m=float(np.log(f32(10.0) * f32(step))),
+        prior_const=prior_const, temperature=temperature)
+    if tuner is not None:
+        params.d, params.g, params.t0, params.k = tuner.d, tuner.g, tuner.t0, tuner.k
+        params.l = tuner.l
+        params.log_eub = np.inf if tuner.eub is None else float(f32(np.log(tuner.eub)))
+    arrays = [torch.as_tensor(a, device=device).contiguous()
+              for a in (x_pad, y_pad, row_mask, loc, ivar)]
+    lib = load_kernel(model) if device.type == "cuda" else None
+    vg = make_vg(model, x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature)
+
+    def setup(seed, theta0s):
+        C = theta0s.shape[0]
+        if C % chain_block != 0:
+            raise ValueError(f"{C} chains not a multiple of chain_block {chain_block}")
+        pr = ResidentHMCParams.from_buffer_copy(params)
+        pr.seed, pr.num_chains = int(seed), C
+        return pr, theta0s.to(torch.float32).T.contiguous()  # [P, C]
+
+    def unpack(samples, final, acc):
+        # [kept, rows, C] -> [kept, C, P], as views
+        out = (samples[:, :P, :].transpose(1, 2), final.T, acc)
+        if record_extras:
+            out = out + (samples[:, P, :], samples[:, P + 1, :].to(torch.int32))
+        return out
+
+    def fn(seed, theta0s):
+        if theta0s.device.type != device.type:
+            raise ValueError(f"theta0s on {theta0s.device}, but the function was built for "
+                             f"device={device}")
+        pr, theta_t = setup(seed, theta0s)
+        if lib is None:
+            return unpack(*_run_plain(vg, arrays, pr, chain_block, theta_t)[:3])
+        if chain_block % 32 != 0:
+            raise ValueError(f"on the card chain_block must be a multiple of 32, "
+                             f"got {chain_block}")
+        threads = chain_block if tuner is not None else min(chain_block, UNTUNED_BLOCK)
+        return unpack(*resident_hmc(lib, theta_t, *arrays, pr, threads))
+
+    def plain(seed, theta0s):
+        """The plain version on ``device``'s tensors, whichever the device:
+        ``fn``'s outputs and a dict of the run's single-chain evaluation
+        count ("evaluations", an int) and each chain's final "step" and
+        "num_steps". For holding the kernel against it on the card."""
+        pr, theta_t = setup(seed, theta0s)
+        samples, final, acc, info = _run_plain(vg, arrays, pr, chain_block, theta_t)
+        return unpack(samples, final, acc), dict(info, evaluations=int(info["evaluations"]))
+
+    fn.plain = plain
+    return fn

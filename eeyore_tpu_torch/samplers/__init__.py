@@ -1,0 +1,3 @@
+from eeyore_tpu_torch.samplers.base import TransitionKernel
+from eeyore_tpu_torch.samplers.hmc import HMC, HMCState
+from eeyore_tpu_torch.samplers.runner import sample_chain, sample_chains

@@ -1,0 +1,245 @@
+"""Kernel-backend dispatch: route ``sample_chains`` onto the whole-loop HMC
+kernel when the configuration is eligible.
+
+Counterpart of the HMC part of ``eeyore_tpu/samplers/dispatch.py``.
+``resolve_backend`` decides, per (transition kernel, model, data, chain
+count), which engine runs the request, and ``run_kernel_backend`` runs it
+and re-wraps the kernel's outputs in the stacked-tensor contract of the
+generic path.
+
+Backends:
+- ``"resident"``: ``ops/resident_hmc.py::make_resident_hmc``, the whole HMC
+  loop in one CUDA kernel. Needs the model and the data on a CUDA device, a
+  full-batch schedule, an ``extract_arch``-able MLP, at most
+  ``MAX_DISPATCH_PARAMS`` parameters and a chain count divisible by 128.
+- ``"dense"``: the dense kernel (``make_resident_hmc_dense``) is not ported
+  yet; asking for it raises.
+- ``"scan"``: the generic path; always eligible.
+- ``"auto"``: resident if eligible, for any number of data rows, else scan.
+
+Only HMC has a kernel backend in the port; every other sampler runs the
+generic path under ``"auto"``.
+
+Statistical contract: the kernel draws its own numbers (``ops/
+kernel_prng.py``) from a seed taken from the caller's generator, so its runs
+are statistically equivalent to, not equal to, the generic path's. Recorded
+keys by default are ``sample`` plus a derived ``accepted`` flag (sample[t]
+!= sample[t-1], with the first kept row set from the kernel's accept count);
+an explicit ``record_keys`` containing ``target_val`` turns on the kernel's
+extras rows, which carry the value and an exact moved flag. Any other key
+forces the generic path.
+"""
+
+import numpy as np
+import torch
+
+from eeyore_tpu_torch.datasets import as_schedule
+
+BACKENDS = ("auto", "scan", "resident", "dense")
+
+# keys the kernel backend can record; an explicit request for anything else
+# forces the generic path
+KERNEL_RECORD_KEYS = frozenset({"sample", "accepted", "target_val"})
+
+_RESIDENT_BLOCKS = (4096, 2048, 1024, 512, 256, 128)
+MAX_DISPATCH_PARAMS = 256
+# Largest chain_block (a tuned run's tuning group, one CUDA block) that
+# dispatch picks on Hopper, from the registers of the kernel's builds on an
+# H100 (chip_smoke.py, build phase): iris MLP(4,3,3) takes 254 registers a
+# thread, so at most 256 threads a block; XOR MLP(2,2,1) takes 93, so at
+# most 640.
+HOPPER_BLOCK_CAP_WIDE = 256
+HOPPER_BLOCK_CAP_SMALL = 512
+SMALL_MODEL_ROWS = 32
+KERNEL_MAX_NUM_STEPS = 64
+
+
+def _freeze(v):
+    """Hashable fingerprint of a maker argument, by value: arrays by their
+    bytes, config objects (tuners) by their type and scalar attributes, so
+    two equal configurations share a cache entry."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    if isinstance(v, np.ndarray):
+        return ("ndarray", v.shape, str(v.dtype), v.tobytes())
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    return (type(v).__name__, tuple(sorted(
+        (k, _freeze(x)) for k, x in vars(v).items()
+        if isinstance(x, (bool, int, float, str, type(None))))))
+
+
+def _data_fingerprint(x, y):
+    return (x.shape, str(x.dtype), hash(x.tobytes()),
+            y.shape, str(y.dtype), hash(y.tobytes()))
+
+
+class _Plan:
+    def __init__(self, backend, maker, kwargs, chain_block):
+        self.backend = backend
+        self.maker = maker
+        self.kwargs = kwargs
+        self.chain_block = chain_block
+
+
+def _pick_block(num_chains, candidates, cap=None):
+    for cb in candidates:
+        if cap is not None and cb > cap:
+            continue
+        if num_chains % cb == 0:
+            return cb
+    return None
+
+
+def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_thin,
+                  want_dense, record_extras=False):
+    """Return a _Plan for the transition kernel, or (None, reason)."""
+    from eeyore_tpu_torch.samplers.hmc import HMC
+
+    if type(kernel) is not HMC:
+        return None, f"{type(kernel).__name__} has no kernel backend yet"
+    if want_dense:
+        return None, ("the dense kernel (make_resident_hmc_dense) is not yet ported; "
+                      "use backend='resident' or 'auto'")
+    hmc_kw = dict(step=float(kernel.step0), num_steps=int(kernel.num_steps0),
+                  tuner=kernel.tuner, num_iters=num_iters, num_burnin_iters=num_burnin_iters,
+                  record_thin=record_thin, record_extras=record_extras)
+    if kernel.tuner is not None:
+        # the kernel caps the trajectory: shortening a user-configured
+        # ceiling would change the sampler, so an explicit one above the cap
+        # is ineligible; the default ceiling takes the kernel's cap
+        if kernel.explicit_max_num_steps:
+            if int(kernel.max_num_steps) > KERNEL_MAX_NUM_STEPS:
+                return None, (f"max_num_steps={kernel.max_num_steps} > the kernel cap "
+                              f"{KERNEL_MAX_NUM_STEPS}; use the generic path or lower "
+                              "max_num_steps")
+            hmc_kw["max_num_steps"] = int(kernel.max_num_steps)
+        else:
+            hmc_kw["max_num_steps"] = min(int(kernel.max_num_steps), KERNEL_MAX_NUM_STEPS)
+        hmc_kw["l_rounding"] = kernel.l_rounding
+    from eeyore_tpu_torch.ops.resident_hmc import make_resident_hmc
+
+    cap = HOPPER_BLOCK_CAP_WIDE if x.shape[0] >= SMALL_MODEL_ROWS else HOPPER_BLOCK_CAP_SMALL
+    cb = _pick_block(num_chains, _RESIDENT_BLOCKS, cap=cap)
+    if cb is None:
+        return None, "resident HMC needs chains divisible by 128"
+    return _Plan("resident", make_resident_hmc, dict(chain_block=cb, **hmc_kw), cb), None
+
+
+def _platform(kernel, schedule):
+    """"cuda" when the model and the data live on a CUDA device."""
+    model_device = getattr(kernel.model, "device", None)
+    on_cuda = schedule.x.is_cuda and (model_device is None
+                                      or torch.device(model_device).type == "cuda")
+    return "cuda" if on_cuda else schedule.x.device.type
+
+
+def resolve_backend(kernel, data, num_chains, num_iters, num_burnin_iters=0, record_thin=1,
+                    backend="auto", platform=None, record_keys=None):
+    """Decide which engine runs this request.
+
+    Returns ``(plan_or_None, reason)``: a :class:`_Plan` when the kernel
+    backend will run, else ``(None, why_generic)``. Explicit "resident" and
+    "dense" raise when ineligible instead of falling back. ``platform``
+    ("cuda" or "cpu") defaults to where the model and data live.
+    ``record_keys``: the caller's explicit record request (None = the
+    sampler's default); a key the kernel cannot record is an ineligibility.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "scan":
+        return None, "explicit backend='scan'"
+
+    def fail(reason):
+        if backend in ("resident", "dense"):
+            raise ValueError(f"backend={backend!r} requested but ineligible: {reason}")
+        return None, reason
+
+    record_extras = False
+    if record_keys is not None:
+        extra = set(record_keys) - KERNEL_RECORD_KEYS
+        if extra:
+            return fail(f"record_keys {sorted(extra)} not recordable by the kernel backend "
+                        f"(it records {sorted(KERNEL_RECORD_KEYS)} only)")
+        record_extras = "target_val" in record_keys
+
+    schedule = as_schedule(data)
+    platform = platform or _platform(kernel, schedule)
+    if platform != "cuda":
+        return fail(f"the kernel backend needs the model and data on a CUDA device "
+                    f"(they are on {platform})")
+    if schedule.num_batches != 1:
+        return fail("the kernel backend runs full-batch only")
+    x, y = schedule.x[0], schedule.y[0]
+    model = kernel.model
+    try:
+        from eeyore_tpu_torch.ops.mlp_math import extract_arch
+        extract_arch(model)
+    except (ValueError, AttributeError) as err:
+        return fail(f"model not kernel-compatible: {err}")
+    if model.num_params > MAX_DISPATCH_PARAMS:
+        return fail(f"{model.num_params} params > MAX_DISPATCH_PARAMS={MAX_DISPATCH_PARAMS} "
+                    "(one thread carries a chain's state in registers)")
+    plan, reason = _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters,
+                                 record_thin, backend == "dense",
+                                 record_extras=record_extras)
+    if plan is not None:
+        return plan, None
+    return fail(reason)
+
+
+def run_kernel_backend(kernel, generator, theta0s, data, num_iters, num_burnin_iters, plan,
+                       record_thin=1, needs_accepted=True):
+    """Execute a resolved plan; returns ``(recorded, info)`` where
+    ``recorded`` matches ``sample_chains(..., return_arrays=True)``'s
+    stacked tensors ({"sample": [C, kept, P], "accepted": [C, kept], and
+    "target_val" [C, kept] with extras}) and ``info`` carries the kernel's
+    exact per-chain accept counts and the final states. The kernel's seed is
+    drawn from ``generator``.
+
+    ``needs_accepted=False`` skips the derived accepted flags (a pass over
+    the samples)."""
+    schedule = as_schedule(data)
+    x, y = schedule.x[0].cpu().numpy(), schedule.y[0].cpu().numpy()
+    theta0s = torch.as_tensor(theta0s)
+
+    cache = getattr(kernel, "_backend_cache", None)
+    if cache is None:
+        cache = kernel._backend_cache = {}
+    # the maker copies the data and constants to the device: key on values
+    cache_key = (plan.maker.__name__, str(theta0s.device), plan.chain_block,
+                 _data_fingerprint(x, y), _freeze(plan.kwargs))
+    if cache_key not in cache:
+        cache[cache_key] = plan.maker(kernel.model, x, y, device=theta0s.device,
+                                      **plan.kwargs)
+    fn = cache[cache_key]
+    want_extras = bool(plan.kwargs.get("record_extras", False))
+
+    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device if generator is not None else "cpu"))
+    out = fn(seed, theta0s)
+    # [kept, C, P] view of the kernel's [kept, P, C] -> [C, kept, P], one copy
+    samples = out[0].transpose(0, 1).contiguous()
+    final, acc = out[1], out[2]
+    recorded = {"sample": samples}
+    if want_extras:
+        recorded["accepted"] = out[4].T.contiguous()
+        recorded["target_val"] = out[3].T.contiguous()
+    elif needs_accepted:
+        # derived accepted: moved against the previous kept row; the first
+        # kept row takes the remainder of the exact count (record_thin 1)
+        moved = torch.any(samples[:, 1:, :] != samples[:, :-1, :], dim=-1)
+        if record_thin == 1:
+            first = torch.clamp(torch.round(acc - moved.sum(dim=1)), 0, 1)
+        else:
+            first = torch.ones(moved.shape[0], dtype=acc.dtype, device=acc.device)
+        recorded["accepted"] = torch.cat([first[:, None].to(moved.dtype), moved],
+                                         dim=1).to(torch.int32)
+    del out
+    kept = (num_iters - num_burnin_iters) // record_thin
+    info = {"accept_counts": acc, "final": final, "kept": kept, "backend": plan.backend}
+    return recorded, info

@@ -1,0 +1,245 @@
+"""Port, kernel-backend dispatch: the HMC cases of tests/test_dispatch.py
+rewritten for the port. Plans are made for platform="cuda" on the CPU, as
+the JAX tests plan for "tpu"; a plan run on CPU tensors goes through the
+kernel's plain version, so ``sample_chains(backend="resident")`` is tested
+here end to end into ``ChainLists`` (the CUDA kernel itself is held against
+the plain version on the card by ``chip_smoke.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from eeyore_tpu_torch.datasets import BatchSchedule, XYDataset
+from eeyore_tpu_torch.models import MLP, loss_functions, mlp
+from eeyore_tpu_torch.ops import resident_hmc
+from eeyore_tpu_torch.samplers import HMC, TransitionKernel, sample_chain, sample_chains
+from eeyore_tpu_torch.samplers import dispatch
+from eeyore_tpu_torch.samplers.dispatch import resolve_backend
+from eeyore_tpu_torch.tuners import HMCDATuner
+
+XOR = (np.array([[0., 0.], [0., 1.], [1., 0.], [1., 1.]]), np.array([[0.], [1.], [1.], [0.]]))
+
+
+def xor_model(dtype=torch.float32):
+    return MLP(loss=loss_functions["binary_classification"], dtype=dtype, device="cpu",
+               hparams=mlp.Hyperparameters(dims=[2, 2, 1]))
+
+
+def iris_model():
+    return MLP(loss=loss_functions["multiclass_classification"], dtype=torch.float32,
+               device="cpu",
+               hparams=mlp.Hyperparameters(dims=[4, 3, 3], activations=[mlp.sigmoid, None]))
+
+
+def iris_data():
+    ds = XYDataset.from_eeyore("iris", yonehot=True)
+    return ds.x, ds.y
+
+
+def test_iris_resolves_resident_with_block_256():
+    plan, reason = resolve_backend(HMC(iris_model(), step=0.02, num_steps=8), iris_data(),
+                                   16384, 256, platform="cuda")
+    assert plan is not None, reason
+    assert plan.backend == "resident" and plan.maker.__name__ == "make_resident_hmc"
+    assert plan.chain_block == 256
+
+
+@pytest.mark.parametrize("chains,block", [(131072, 512), (8192, 512), (384, 128)])
+def test_xor_resolves_resident_under_the_small_model_cap(chains, block):
+    plan, reason = resolve_backend(HMC(xor_model(), step=0.05, num_steps=10), XOR, chains, 256,
+                                   platform="cuda")
+    assert plan is not None, reason
+    assert plan.backend == "resident" and plan.chain_block == block
+    assert plan.kwargs["step"] == 0.05 and plan.kwargs["num_steps"] == 10
+
+
+def test_dense_raises_not_yet_ported():
+    with pytest.raises(ValueError, match="not yet ported"):
+        resolve_backend(HMC(xor_model(), step=0.05), XOR, 8192, 256, platform="cuda",
+                        backend="dense")
+
+
+def test_tuner_and_rounding_are_forwarded():
+    tuner = HMCDATuner(l=0.5)
+    plan, _ = resolve_backend(HMC(xor_model(), tuner=tuner), XOR, 1024, 256, platform="cuda")
+    assert plan.kwargs["tuner"] is tuner and plan.kwargs["l_rounding"] == "round"
+    assert plan.kwargs["max_num_steps"] == 64  # the default ceiling takes the kernel cap
+    plan, _ = resolve_backend(HMC(xor_model(), tuner=tuner, l_rounding="stochastic"), XOR,
+                              1024, 256, platform="cuda")
+    assert plan.kwargs["l_rounding"] == "stochastic"
+
+
+@pytest.mark.parametrize("max_num_steps,eligible", [(128, False), (64, True), (16, True)])
+def test_explicit_max_num_steps_above_the_cap_is_ineligible(max_num_steps, eligible):
+    kernel = HMC(xor_model(), tuner=HMCDATuner(l=0.5), max_num_steps=max_num_steps)
+    plan, reason = resolve_backend(kernel, XOR, 8192, 256, platform="cuda")
+    if eligible:
+        assert plan is not None and plan.kwargs["max_num_steps"] == max_num_steps
+    else:
+        assert plan is None and "64" in reason
+
+
+def test_large_models_are_ineligible():
+    wide = MLP(loss=loss_functions["multiclass_classification"], dtype=torch.float32,
+               device="cpu",
+               hparams=mlp.Hyperparameters(dims=[64, 8, 2], activations=[mlp.sigmoid, None]))
+    assert wide.num_params > 256
+    x = np.zeros((16, 64))
+    y = np.zeros((16, 2))
+    y[:, 0] = 1.0
+    plan, reason = resolve_backend(HMC(wide, step=0.01), (x, y), 8192, 256, platform="cuda")
+    assert plan is None and "MAX_DISPATCH_PARAMS" in reason
+
+
+@pytest.mark.parametrize("keys,eligible,extras", [
+    (("sample", "grad_val"), False, None), (("sample",), True, False),
+    (("sample", "accepted"), True, False), (("sample", "target_val", "accepted"), True, True),
+    (None, True, False)])
+def test_record_key_contract(keys, eligible, extras):
+    plan, reason = resolve_backend(HMC(xor_model(), step=0.05), XOR, 8192, 256,
+                                   platform="cuda", record_keys=keys)
+    if eligible:
+        assert plan is not None and plan.kwargs["record_extras"] is extras
+    else:
+        assert plan is None and "grad_val" in reason
+
+
+def test_explicit_backends_raise_when_ineligible():
+    with pytest.raises(ValueError, match="ineligible"):
+        resolve_backend(HMC(xor_model(), step=0.05), XOR, 8192, 256, platform="cpu",
+                        backend="resident")
+    with pytest.raises(ValueError, match="record_keys"):
+        resolve_backend(HMC(xor_model(), step=0.05), XOR, 8192, 256, platform="cuda",
+                        backend="resident", record_keys=("momentum",))
+    with pytest.raises(ValueError, match="divisible by 128"):
+        resolve_backend(HMC(xor_model(), step=0.05), XOR, 1000, 256, platform="cuda",
+                        backend="resident")
+    with pytest.raises(ValueError, match="backend"):
+        resolve_backend(HMC(xor_model(), step=0.05), XOR, 8192, 256, backend="gpu")
+
+
+def test_ineligible_configs_fall_back_under_auto():
+    model = xor_model()
+    plan, reason = resolve_backend(HMC(model, step=0.05), XOR, 1000, 256, platform="cuda")
+    assert plan is None and "divisible" in reason
+    plan, reason = resolve_backend(HMC(model, step=0.05), XOR, 8192, 256, backend="scan")
+    assert plan is None and "scan" in reason
+
+    class Walk(TransitionKernel):
+        pass
+
+    plan, reason = resolve_backend(Walk(model), XOR, 8192, 256, platform="cuda")
+    assert plan is None and "no kernel backend yet" in reason
+    lr = MLP(loss=lambda out, y: out.sum(), dtype=torch.float32, device="cpu",
+             hparams=mlp.Hyperparameters(dims=[2, 2, 1]))
+    plan, reason = resolve_backend(HMC(lr, step=0.05), XOR, 8192, 256, platform="cuda")
+    assert plan is None and "kernel-compatible" in reason
+
+
+def test_minibatch_schedule_goes_generic():
+    x, y = (torch.as_tensor(a) for a in XOR)
+    sched = BatchSchedule(torch.stack([x[:2], x[2:]]), torch.stack([y[:2], y[2:]]))
+    plan, reason = resolve_backend(HMC(xor_model(), step=0.05), sched, 8192, 256,
+                                   platform="cuda")
+    assert plan is None and "full-batch" in reason
+
+
+def test_cpu_platform_goes_generic_and_auto_equals_scan():
+    """Model and data on the CPU: no plan, and ``backend="auto"`` is exactly
+    the generic path."""
+    plan, reason = resolve_backend(HMC(xor_model(), step=0.05), XOR, 8192, 256)
+    assert plan is None and "CUDA" in reason
+    theta0s = 0.1 * torch.randn(4, 9, generator=torch.Generator().manual_seed(1))
+    out = [sample_chains(HMC(xor_model(), step=0.05), torch.Generator().manual_seed(2),
+                         theta0s, XOR, 30, return_arrays=True, backend=backend)
+           for backend in ("auto", "scan")]
+    assert torch.equal(out[0]["sample"], out[1]["sample"])
+
+
+def test_cache_keys_by_value():
+    a = dict(step=0.1, tuner=HMCDATuner(l=0.5), temperatures=np.arange(4.0))
+    b = dict(step=0.1, tuner=HMCDATuner(l=0.5), temperatures=np.arange(4.0))
+    assert dispatch._freeze(a) == dispatch._freeze(b)  # equal configs, other objects
+    b["tuner"].d = 0.9
+    assert dispatch._freeze(a) != dispatch._freeze(b)
+    assert dispatch._freeze(dict(a, step=0.2)) != dispatch._freeze(a)
+    x1, y = np.zeros((4, 2), np.float32), np.zeros((4, 1), np.float32)
+    assert dispatch._data_fingerprint(x1, y) == dispatch._data_fingerprint(x1.copy(), y)
+    assert dispatch._data_fingerprint(x1, y) != dispatch._data_fingerprint(x1 + 1, y)
+
+    kernel = HMC(xor_model(), step=0.05, num_steps=3)
+    gen = torch.Generator().manual_seed(0)
+    theta0s = torch.zeros(128, 9)
+    for _ in range(2):
+        sample_chains(kernel, gen, theta0s, XOR, 6, backend="resident", platform="cuda")
+    sample_chains(kernel, gen, theta0s, (XOR[0].copy(), XOR[1].copy()), 6,
+                  backend="resident", platform="cuda")
+    assert len(kernel._backend_cache) == 1  # the same values reuse one function
+    kernel.step0 = 0.07
+    sample_chains(kernel, gen, theta0s, XOR, 6, backend="resident", platform="cuda")
+    assert len(kernel._backend_cache) == 2
+
+
+@pytest.mark.parametrize("record_keys", [None, ("sample", "target_val", "accepted")])
+def test_slice_runs_the_plain_kernel_into_chainlists(record_keys):
+    """``sample_chains(..., backend="resident", platform="cuda")`` on CPU
+    tensors: dispatch, the plain version of the kernel through
+    ``run_kernel_backend``, the [C, kept, P] re-layout, the accepted flags
+    (derived, or the kernel's exact ones with target_val) and ``ChainLists``
+    statistics; no kernel launch."""
+    model = iris_model()
+    x, y = iris_data()
+    C, iters, burnin = 128, 60, 30
+    theta0s = 0.1 * torch.randn(C, model.num_params, generator=torch.Generator().manual_seed(3))
+    kernel = HMC(model, tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64)
+    before = resident_hmc.launch_counts[resident_hmc.KERNEL]
+    chains, state = sample_chains(kernel, torch.Generator().manual_seed(4), theta0s, (x, y),
+                                  iters, burnin, record_keys=record_keys, return_state=True,
+                                  backend="resident", platform="cuda")
+    assert resident_hmc.launch_counts[resident_hmc.KERNEL] == before
+    samples = chains.get_samples()
+    assert samples.shape == (C, iters - burnin, model.num_params)
+    assert set(chains.keys()) == set(record_keys or ("sample", "accepted"))
+    flags = chains.tensor("accepted")
+    assert flags.dtype == torch.int32 and flags.shape == (C, iters - burnin)
+    moved = torch.any(samples[:, 1:] != samples[:, :-1], dim=-1)
+    assert torch.equal(flags[:, 1:].bool(), moved)
+    assert 0.3 < chains.acceptance_summary() < 1.0
+    if record_keys:
+        vals, _ = model.upto_grad_log_target(samples.reshape(-1, model.num_params),
+                                             torch.as_tensor(x, dtype=torch.float32),
+                                             torch.as_tensor(y, dtype=torch.float32))
+        torch.testing.assert_close(chains.tensor("target_val").reshape(-1), vals,
+                                   rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(state.sample, samples[:, -1])
+    summary = type(chains).from_arrays({"sample": samples[:8, :, :3]}).summary()
+    assert np.isfinite(summary["multi_rhat"]) and np.isfinite(summary["multi_ess"])
+
+
+def test_sample_chain_takes_chain_zero_of_a_block():
+    kernel = HMC(xor_model(), step=0.05, num_steps=5)
+    chain = sample_chain(kernel, torch.Generator().manual_seed(0), torch.zeros(9), XOR, 20, 5,
+                         backend="resident", platform="cuda")
+    assert chain.get_samples().shape == (15, 9) and len(chain) == 15
+    assert 0 < chain.acceptance_rate() <= 1
+
+
+def test_minibatch_schedule_runs_the_generic_path_with_recompute():
+    """``BatchSchedule.from_dataset`` shuffles once with a torch.Generator and
+    drops the uneven tail; a minibatch run takes the generic path, which
+    recomputes the current target on each incoming batch."""
+    ds = XYDataset.from_eeyore("iris", yonehot=True)
+    sched = BatchSchedule.from_dataset(ds, batch_size=40, generator=torch.Generator().manual_seed(0))
+    assert sched.num_batches == 3 and sched.x.shape == (3, 40, 4) and sched.y.shape == (3, 40, 3)
+    rows = {tuple(r) for r in sched.x.reshape(-1, 4).tolist()}
+    assert rows <= {tuple(r) for r in ds.x.tolist()}
+    assert not torch.equal(sched.x.reshape(-1, 4), torch.as_tensor(ds.x[:120]))  # shuffled
+    assert BatchSchedule.from_dataset(ds).num_batches == 1
+    with pytest.raises(ValueError, match="uneven"):
+        BatchSchedule.from_dataset(ds, batch_size=40, drop_last=False)
+    kernel = HMC(iris_model(), step=0.02, num_steps=3)
+    chains = sample_chains(kernel, torch.Generator().manual_seed(1),
+                           0.1 * torch.randn(4, 27, generator=torch.Generator().manual_seed(2)),
+                           sched.to(dtype=torch.float32), 9, 3, backend="auto",
+                           platform="cuda")
+    assert kernel.recompute_current and chains.get_samples().shape == (4, 6, 27)
