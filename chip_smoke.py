@@ -5,11 +5,13 @@
 Run from the repository root on a machine with a CUDA card (Hopper: the
 kernels are built for sm_90a). Phases, one JSON line each:
 
-1. build: builds the fused log-posterior kernel ``fused_mlp_vg`` for the
-   three architectures below and the whole-loop ``resident_hmc`` kernel for
-   iris MLP(4,3,3) CE and XOR MLP(2,2,1) BCE, all at once from
-   ``eeyore_tpu_torch/ops/csrc/``, and reports each build's registers and
-   local-memory (spill) bytes per thread.
+1. build: builds, all at once from ``eeyore_tpu_torch/ops/csrc/``, the fused
+   log-posterior kernel ``fused_mlp_vg`` for the three architectures below;
+   ``resident_hmc`` for iris MLP(4,3,3) CE and XOR MLP(2,2,1) BCE;
+   ``resident_hmc_dense`` for XOR MLP(2,2,1); ``resident_walk`` (MH and MALA)
+   for iris; ``resident_walk_dense`` for XOR MLP(2,2,1) and MLP(2,3,2,1). It
+   reports each build's registers and local-memory (spill) bytes per thread,
+   and the thread-block cluster a population-tuned dense run takes.
 2. kernel vs plain: calls ``fused_mlp_vg``'s wrapper on the card at C =
    32768 and 131072 seeded random chains (the main paths' chain counts) and
    holds it against the plain PyTorch ``make_vg`` on the same inputs (rtol
@@ -17,18 +19,24 @@ kernels are built for sm_90a). Phases, one JSON line each:
    compare), for iris MLP(4,3,3) CE, XOR MLP(2,2,1) BCE and MLP(3,4,2,1)
    without biases on layers 0 and 2, a (0.5, 2.0) prior and temperature
    0.3; and times both.
-3. resident vs plain: ``resident_hmc`` against its plain version (same
-   seed, same inputs, on the card) on untuned iris (32768 chains, step 0.02,
-   8 leapfrog steps, 20 iterations, record_extras), untuned XOR (131072
-   chains, step 0.05, 10 steps, 20 iterations) and tuned iris (the dispatch
-   plan of BASELINE.md config 3: step 0.1, 10 steps, HMCDATuner(l=0.15,
-   e0=0.02), chain_block 256) with 5 burn-in and 5 kept iterations and with
-   20 and 20. A chain agrees when all its outputs are within atol 1e-3 +
-   rtol 1e-3 of the plain version's; at least 99% of chains must agree (an
-   accept decision at u ~ rate may flip on f32 rounding and part a chain's
-   path); the 20-iteration burn-in, where early long steps make the
-   leapfrog chaotic, is held statistically instead (pooled means within 5
-   pooled standard errors, acceptance within 0.01).
+3. resident vs plain: each whole-loop kernel against its plain version (same
+   seed, same inputs, on the card), at its main path's chain count:
+   ``resident_hmc`` on untuned iris (step 0.02, 8 leapfrog steps, 20
+   iterations, record_extras), untuned XOR (131072 chains, step 0.05, 10
+   steps) and tuned iris (the dispatch plan of BASELINE.md config 3);
+   ``resident_hmc_dense`` on untuned XOR (131072 chains, extras), tuned in
+   population groups of 8192 chains (a cluster) and per chain;
+   ``resident_walk`` on iris MH (scale 0.1) and MALA (step 0.003), 32768
+   chains, extras; ``resident_walk_dense`` on XOR MH MLP(2,2,1) (scale 0.1)
+   and MALA MLP(2,3,2,1) (step 0.01), untuned with extras and tuned. A chain
+   agrees when all its outputs are within atol 1e-3 + rtol 1e-3 of the plain
+   version's; at least 99% of chains must agree on the untuned runs and on
+   the tuned runs with 5 burn-in iterations (an accept decision at u ~ rate
+   may flip on f32 rounding and part a chain's path); a tuned run with 20
+   burn-in iterations, where early long steps make the dynamics chaotic, is
+   held statistically instead (pooled means within 5 pooled standard
+   errors, acceptance within 0.01). The HMC kernels' evaluation counters
+   must equal the plain versions' counts.
 4. main path, iris, FusedHMC: tuned ``FusedHMC`` on config 3 (32768 chains,
    1500 iterations, 500 burn-in). Checks finite samples, post-burn-in
    acceptance in 0.65 +- 0.15, and pooled posterior means within 5 pooled
@@ -45,14 +53,25 @@ kernels are built for sm_90a). Phases, one JSON line each:
    means within 5 pooled standard errors of phase 4's fused run, and finite
    ``ChainLists.multi_rhat`` / ``multi_ess`` on the first 64 chains.
 8. main path, XOR, sample_chains: the bench.py problem (HMC step 0.05, 10
-   steps, 131072 chains x 256) through ``backend="auto"``; one launch,
-   acceptance in (0.2, 1].
+   steps, 131072 chains x 256) through ``backend="auto"``, which now takes
+   ``resident_hmc_dense``, and through ``backend="resident"``; one launch
+   each, acceptance in (0.2, 1], pooled means of the two, and of the dense
+   run and the generic path at 4096 chains, within 5 pooled standard errors.
 9. generic vs kernel: config 3 through ``sample_chains(backend="scan")``
    (the batched-autograd generic path) at 4096 chains; pooled means within
    5 pooled standard errors of phase 7's kernel run.
 10. profile, sample_chains: device time by kernel of one iris call of phase
-    7, against its host-clock time.
-11. kernels: each kernel's launches on the main paths, its error against its
+    7, against its host-clock time, and the bound of that launch from its
+    evaluation counter.
+11. main paths, walks, sample_chains(backend="auto"): BASELINE.md config 1
+    (MH scale 0.1, MLP(2,2,1), XOR) and config 2 (MALA step 0.01,
+    MLP(2,3,2,1), XOR) on ``resident_walk_dense``, iris MALA (step 0.003) and
+    iris MH (scale 0.1) on config 3's MLP(4,3,3) on ``resident_walk``; 32768
+    chains x 2048 iterations, 1024 burn-in each. Each checks one launch of
+    its kernel, finite samples, pooled means within 5 pooled standard errors
+    of the generic path of the same configuration at 4096 chains, and finite
+    ``multi_rhat`` / ``multi_ess`` on the first 64 chains.
+12. kernels: each kernel's launches on the main paths, its error against its
     plain version, its time, the plain version's time and its bound.
 
 Then the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -84,6 +103,12 @@ FUSED_SOURCE = "eeyore_tpu_torch/ops/csrc/fused_mlp_vg.cu"
 FUSED_REPLACES = "eeyore_tpu/ops/fused_mlp.py:63"
 RESIDENT_SOURCE = "eeyore_tpu_torch/ops/csrc/resident_hmc.cu"
 RESIDENT_REPLACES = "eeyore_tpu/ops/resident_hmc.py:256"
+DENSE_SOURCE = "eeyore_tpu_torch/ops/csrc/resident_hmc_dense.cu"
+DENSE_REPLACES = "eeyore_tpu/ops/resident_hmc_dense.py:303"
+WALK_SOURCE = "eeyore_tpu_torch/ops/csrc/resident_walk.cu"
+WALK_REPLACES = "eeyore_tpu/ops/resident_walk.py:166"
+WALK_DENSE_SOURCE = "eeyore_tpu_torch/ops/csrc/resident_walk_dense.cu"
+WALK_DENSE_REPLACES = "eeyore_tpu/ops/resident_walk_dense.py:125"
 # resident vs plain: a chain agrees when every value it recorded is within
 # RESIDENT_ATOL + RESIDENT_RTOL * |plain value|; at least RESIDENT_MIN_AGREEING
 # of the chains must agree
@@ -147,24 +172,35 @@ def event_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def vg_work(dims, bias, ce, n_rows, C):
+def vg_work(dims, bias, ce, n_rows, C, with_grad=True):
     """(bytes, f32 operations, special-function operations) that the fused
     value-and-gradient needs for C chains over n_rows data rows, counted
-    from the code. Bytes: theta read once, value and gradient written once,
-    the data and prior read once. Operations: a multiply-add is 2; an add,
+    from the code (``csrc/mlp_vg.cuh``; without the gradient, its value-only
+    entry). Bytes: theta read once, value and gradient written once, the
+    data and prior read once. Operations: a multiply-add is 2; an add,
     subtract, multiply or max is 1; exp, log, log1p and the sigmoid's
     reciprocal are one special-function operation each."""
     L = len(dims) - 1
     P = sum(dims[l] * dims[l + 1] + (dims[l + 1] if bias[l] else 0) for l in range(L))
     k = dims[-1]
     layer_macs = [dims[l] * dims[l + 1] for l in range(L)]
-    macs = 2 * sum(layer_macs) + sum(layer_macs[1:])  # forward, weight grads, deltas
     bias_units = sum(dims[l + 1] for l in range(L) if bias[l])
     sigmoid_units = sum(dims[1:-1]) + (0 if ce else k)
+    sfu = 2 * sigmoid_units                       # exp and reciprocal
+    if not with_grad:
+        ops = 2 * sum(layer_macs) + bias_units + 2 * sigmoid_units
+        if ce:
+            ops += (k - 1) + k + (k - 1) + 1 + 2 * k + 2  # max, shifts, sum, lse, picked, ll
+            sfu += k + 1                          # k exps, log
+        else:
+            ops += k * (3 + 4)                    # softplus, ll
+            sfu += 2 * k
+        n_bytes = 4 * (P * C + C + n_rows * (dims[0] + k + 1) + 2 * P)
+        return n_bytes, C * (n_rows * ops + 4 * P + 2), C * n_rows * sfu
+    macs = 2 * sum(layer_macs) + sum(layer_macs[1:])  # forward, weight grads, deltas
     ops = 2 * macs + 2 * bias_units               # bias add and bias gradient
     ops += 2 * sigmoid_units                      # 1 + exp(-z), negation
     ops += 3 * sum(dims[1:-1])                    # delta * a * (1 - a)
-    sfu = 2 * sigmoid_units                       # exp and reciprocal
     if ce:
         ops += (k - 1) + k + (k - 1) + 1 + 2 * k + 2 + 3 * k  # max, shifts, sum, lse, picked, ll, deltas
         sfu += k + 2                              # k exps shared by lse and softmax, log, reciprocal
@@ -186,25 +222,51 @@ THREEFRY_OPS = 20 * 3 + 5 * 3 + 2
 BOX_MULLER_OPS, BOX_MULLER_SFU = 2 * 4 + 40 + 3 + 2, 2
 
 
-def resident_work(dims, bias, ce, n_rows, C, evaluations, num_iters, kept, extras):
+def resident_work(dims, bias, ce, n_rows, C, evaluations, num_iters, kept, extras,
+                  eval_work=None):
     """(bytes, operations, special-function operations) that ``resident_hmc``
-    needs: ``evaluations`` single-chain value-and-gradient evaluations (the
-    initial one and one per leapfrog step, as this run's trajectories
-    needed), per leapfrog step the position and momentum updates (4P), per
-    iteration ceil(P/2) + 1 Threefry calls, ceil(P/2) Box-Muller pairs, the
-    energies (4P + 4) and the accept (exp: 1 special-function operation);
-    bytes: theta0 read, the data once, the samples (kept x (P or P+2) x C),
-    the final theta and the accept counts written once."""
+    (and ``resident_hmc_dense``) needs: ``evaluations`` single-chain
+    value-and-gradient evaluations (the initial one and one per leapfrog
+    step, as this run's trajectories needed: the kernel counts them), per
+    leapfrog step the position and momentum updates (4P), per iteration
+    ceil(P/2) + 1 Threefry calls, ceil(P/2) Box-Muller pairs, the energies
+    (4P + 4) and the accept (exp: 1 special-function operation); bytes:
+    theta0 read, the data once (none when it is part of the code), the
+    samples (kept x (P or P+2) x C), the final theta and the accept counts
+    written once. ``eval_work``: (operations, special-function operations)
+    of one evaluation, where the dense body's own count replaces
+    ``vg_work``'s."""
     P = sum(dims[l] * dims[l + 1] + (dims[l + 1] if bias[l] else 0)
             for l in range(len(dims) - 1))
-    _, vg_ops, vg_sfu = vg_work(dims, bias, ce, n_rows, 1)
+    vg_ops, vg_sfu = eval_work or vg_work(dims, bias, ce, n_rows, 1)[1:]
     pairs = (P + 1) // 2
     per_iter_ops = (pairs + 1) * THREEFRY_OPS + pairs * BOX_MULLER_OPS + 4 * P + 4
     ops = evaluations * (vg_ops + 4 * P) + C * num_iters * per_iter_ops
     sfu = evaluations * vg_sfu + C * num_iters * (pairs * BOX_MULLER_SFU + 1)
     rows = P + 2 if extras else P
-    n_bytes = 4 * (P * C + n_rows * (dims[0] + dims[-1] + 1) + 2 * P
-                   + kept * rows * C + P * C + C)
+    data = 0 if eval_work else n_rows * (dims[0] + dims[-1] + 1) + 2 * P
+    n_bytes = 4 * (P * C + data + kept * rows * C + P * C + C)
+    return n_bytes, ops, sfu
+
+
+def walk_work(P, C, num_iters, kept, extras, mala, eval_work, data_floats):
+    """(bytes, operations, special-function operations) that a walk kernel
+    needs: C * (1 + num_iters) evaluations (value only for MH, value and
+    gradient for MALA) of ``eval_work`` = (operations, special-function
+    operations) each, per iteration ceil(P/2) + 1 Threefry calls, ceil(P/2)
+    Box-Muller pairs, the proposal (MH: 2P; MALA: the drift, the reverse
+    distance and |z|^2, 11P + 5) and the accept (log: 1 special-function
+    operation); bytes: theta0 read, ``data_floats`` of data read once, the
+    samples, the final theta and the accept counts written once."""
+    ev_ops, ev_sfu = eval_work
+    pairs = (P + 1) // 2
+    move_ops = 11 * P + 5 if mala else 2 * P + 1
+    per_iter_ops = (pairs + 1) * THREEFRY_OPS + pairs * BOX_MULLER_OPS + move_ops + 1
+    evaluations = C * (1 + num_iters)
+    ops = evaluations * ev_ops + C * num_iters * per_iter_ops
+    sfu = evaluations * ev_sfu + C * num_iters * (pairs * BOX_MULLER_SFU + 1)
+    rows = P + 2 if extras else P
+    n_bytes = 4 * (P * C + data_floats + kept * rows * C + P * C + C)
     return n_bytes, ops, sfu
 
 
@@ -253,10 +315,18 @@ def main(argv=None):
     from eeyore_tpu_torch.chains import ChainLists
     from eeyore_tpu_torch.datasets import XYDataset
     from eeyore_tpu_torch.models import MLP, IIDNormalPrior, loss_functions, mlp
-    from eeyore_tpu_torch.ops import fused_mlp, resident_hmc
+    from eeyore_tpu_torch.ops import (
+        fused_mlp,
+        resident_hmc,
+        resident_hmc_dense,
+        resident_walk,
+        resident_walk_dense,
+    )
     from eeyore_tpu_torch.ops.fused_hmc import FusedHMC
+    from eeyore_tpu_torch.ops.mlp_dense import dense_work
     from eeyore_tpu_torch.ops.mlp_math import extract_arch, make_vg, prepare_data
-    from eeyore_tpu_torch.samplers import HMC, sample_chains
+    from eeyore_tpu_torch.samplers import HMC, MALA, MetropolisHastings, sample_chains
+    from eeyore_tpu_torch.samplers.dispatch import resolve_backend
     from eeyore_tpu_torch.tuners import HMCDATuner
 
     device = torch.device("cuda")
@@ -272,6 +342,7 @@ def main(argv=None):
     xor = XYDataset.from_eeyore("xor")
     iris_model = make_model([4, 3, 3], "multiclass_classification", [mlp.sigmoid, None])
     xor_model = make_model([2, 2, 1], "binary_classification")
+    xor2321_model = make_model([2, 3, 2, 1], "binary_classification")
     deep_model = make_model([3, 4, 2, 1], "binary_classification", bias=[False, True, False])
     deep_model.prior = IIDNormalPrior(np.full(deep_model.num_params, 0.5),
                                       np.full(deep_model.num_params, 2.0),
@@ -286,19 +357,60 @@ def main(argv=None):
 
     # 1. build, every library at once
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(cases) + len(resident_cases)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(cases) + 6) as pool:
         futures = [pool.submit(fused_mlp.load_kernel, model) for _, model, _, _, _ in cases]
         resident_futures = [pool.submit(resident_hmc.load_kernel, model)
                             for _, model in resident_cases]
+        dense_future = pool.submit(resident_hmc_dense.load_kernel, xor_model, xor.x, xor.y)
+        walk_future = pool.submit(resident_walk.load_kernel, iris_model)
+        walk_dense_futures = {name: pool.submit(resident_walk_dense.load_kernel, model, xor.x,
+                                                xor.y)
+                              for name, model in (("xor_mlp221_bce", xor_model),
+                                                  ("xor_mlp2321_bce", xor2321_model))}
         libs = [f.result() for f in futures]
         resident_libs = [f.result() for f in resident_futures]
-    emit({"phase": "build", "kernels": [fused_mlp.KERNEL, resident_hmc.KERNEL],
-          "sources": [FUSED_SOURCE, RESIDENT_SOURCE], "seconds": time.perf_counter() - start,
+        dense_lib = dense_future.result()
+        walk_lib = walk_future.result()
+        walk_dense_libs = {name: f.result() for name, f in walk_dense_futures.items()}
+    build_seconds = time.perf_counter() - start
+    dense_groups = {}
+    for cb in (8192, 4096, 2048, 1024):
+        try:
+            dense_groups[cb] = resident_hmc_dense.group_shape(dense_lib, cb)
+        except ValueError as err:
+            dense_groups[cb] = str(err)
+    walk_dense_resources, walk_dense_groups = {}, {}
+    for name, lib in walk_dense_libs.items():
+        for move in ("mh", "mala"):
+            res = resident_walk_dense.kernel_resources(lib, move)
+            walk_dense_resources[f"{name}_{move}"] = res
+            for cb in (8192, 4096):
+                try:
+                    shape = resident_hmc_dense.launch_shape(
+                        res, lambda t, b: resident_walk_dense.max_active_clusters(lib, move, t, b),
+                        cb, grouped=True)
+                except ValueError as err:
+                    shape = str(err)
+                walk_dense_groups[f"{name}_{move}_{cb}"] = shape
+    emit({"phase": "build",
+          "kernels": [fused_mlp.KERNEL, resident_hmc.KERNEL, resident_hmc_dense.KERNEL,
+                      resident_walk.KERNEL, resident_walk_dense.KERNEL],
+          "sources": [FUSED_SOURCE, RESIDENT_SOURCE, DENSE_SOURCE, WALK_SOURCE,
+                      WALK_DENSE_SOURCE], "seconds": build_seconds,
           "resources": {fused_mlp.KERNEL: {name: fused_mlp.kernel_resources(lib)
                                            for (name, *_), lib in zip(cases, libs)},
                         resident_hmc.KERNEL: {name: resident_hmc.kernel_resources(lib)
                                               for (name, _), lib in zip(resident_cases,
-                                                                        resident_libs)}},
+                                                                        resident_libs)},
+                        resident_hmc_dense.KERNEL: {
+                            "xor_mlp221_bce": resident_hmc_dense.kernel_resources(dense_lib)},
+                        resident_walk.KERNEL: {
+                            f"iris_mlp433_ce_{move}": resident_walk.kernel_resources(walk_lib, move)
+                            for move in ("mh", "mala")},
+                        resident_walk_dense.KERNEL: walk_dense_resources},
+          "tuned_group_threads_and_cluster_blocks": {
+              resident_hmc_dense.KERNEL: {str(cb): v for cb, v in dense_groups.items()},
+              resident_walk_dense.KERNEL: walk_dense_groups},
           "card": card})
 
     # 2. fused kernel vs plain, on the same inputs on the card, at the main
@@ -332,26 +444,94 @@ def main(argv=None):
                   "rtol": 2e-5, "atol": atol, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": b_ms, "bound_by": b_by, "card": card})
 
-    # 3. resident_hmc vs its plain version, same seed and inputs, on the card.
-    #    A tuned run's leapfrog is chaotic while early burn-in tries long
+    # 3. each whole-loop kernel vs its plain version, same seed and inputs, on
+    #    the card. A tuned run is chaotic while early burn-in tries long
     #    steps: there, one-ulp changes of theta0 part many of the plain
     #    version's own chains within 20 burn-in iterations (the share that
-    #    still agrees is reported). So the 5-iteration burn-in run, which takes
-    #    the tuner through its hand-off, is held to RESIDENT_MIN_AGREEING, and
-    #    the 20-iteration one statistically: pooled means within 5 pooled
-    #    standard errors, acceptance within 0.01.
+    #    still agrees is reported for iris). So the 5-iteration burn-ins, which
+    #    take the tuners through their hand-off, are held to
+    #    RESIDENT_MIN_AGREEING, and the 20-iteration ones statistically: pooled
+    #    means within 5 pooled standard errors, acceptance within 0.01.
     iris_tuner = HMCDATuner(l=0.15, e0=0.02)
     tuned_kw = dict(step=0.1, num_steps=10, tuner=iris_tuner, max_num_steps=64)
+    dims_of = {id(m): extract_arch(m)[:3] for m in (iris_model, xor_model, xor2321_model)}
+
+    def hmc_case(model, data, C, iters, burnin=0, extras=False, dense=False, **kw):
+        module = resident_hmc_dense if dense else resident_hmc
+        maker = (resident_hmc_dense.make_resident_hmc_dense if dense
+                 else resident_hmc.make_resident_hmc)
+        fn = maker(model, data.x, data.y, num_iters=iters, num_burnin_iters=burnin,
+                   record_extras=extras, device=device, **kw)
+        dims, bias, loss_kind = dims_of[id(model)]
+        eval_work = dense_work(model, data.x, data.y, True) if dense else None
+
+        def work(evaluations):
+            return resident_work(dims, bias, loss_kind == "ce", len(data.x), C, evaluations,
+                                 iters, iters - burnin, extras, eval_work)
+
+        return module, fn, C, model.num_params, iters, burnin, work
+
+    def walk_case(model, data, C, move, value, iters, burnin=0, extras=False, dense=False,
+                  **kw):
+        module = resident_walk_dense if dense else resident_walk
+        maker = {(False, "mh"): resident_walk.make_resident_mh,
+                 (False, "mala"): resident_walk.make_resident_mala,
+                 (True, "mh"): resident_walk_dense.make_resident_mh_dense,
+                 (True, "mala"): resident_walk_dense.make_resident_mala_dense}[(dense, move)]
+        fn = maker(model, data.x, data.y, value, iters, burnin, record_extras=extras,
+                   device=device, **kw)
+        dims, bias, loss_kind = dims_of[id(model)]
+        mala = move == "mala"
+        if dense:
+            eval_work, data_floats = dense_work(model, data.x, data.y, mala), 0
+        else:
+            eval_work = vg_work(dims, bias, loss_kind == "ce", len(data.x), 1, mala)[1:]
+            data_floats = len(data.x) * (dims[0] + dims[-1] + 1) + 2 * model.num_params
+
+        def work(_evaluations):
+            return walk_work(model.num_params, C, iters, iters - burnin, extras, mala,
+                             eval_work, data_floats)
+
+        return module, fn, C, model.num_params, iters, burnin, work
+
+    xor_tuner = dict(step=0.1, num_steps=10, tuner=HMCDATuner(l=0.5))
     resident_runs = [
-        ("iris_untuned_extras", iris_model, iris, 32768,
-         dict(step=0.02, num_steps=8, num_iters=20, record_extras=True)),
-        ("xor_untuned", xor_model, xor, 131072, dict(step=0.05, num_steps=10, num_iters=20)),
-        ("iris_tuned_burnin_5", iris_model, iris, 32768,
-         dict(num_iters=10, num_burnin_iters=5, **tuned_kw)),
-        ("iris_tuned_burnin_20", iris_model, iris, 32768,
-         dict(num_iters=40, num_burnin_iters=20, **tuned_kw)),
+        ("iris_untuned_extras", False, hmc_case(iris_model, iris, 32768, 20, extras=True,
+                                                 step=0.02, num_steps=8, chain_block=256)),
+        ("xor_untuned", False, hmc_case(xor_model, xor, 131072, 20, step=0.05, num_steps=10,
+                                        chain_block=256)),
+        ("iris_tuned_burnin_5", False, hmc_case(iris_model, iris, 32768, 10, 5,
+                                                chain_block=256, **tuned_kw)),
+        ("iris_tuned_burnin_20", True, hmc_case(iris_model, iris, 32768, 40, 20,
+                                                chain_block=256, **tuned_kw)),
+        ("xor_dense_untuned_extras", False, hmc_case(
+            xor_model, xor, 131072, 20, extras=True, dense=True, step=0.05, num_steps=10,
+            chain_block=8192)),
+        ("xor_dense_tuned_burnin_5", False, hmc_case(
+            xor_model, xor, 131072, 10, 5, dense=True, chain_block=8192, **xor_tuner)),
+        ("xor_dense_per_chain_burnin_5", False, hmc_case(
+            xor_model, xor, 131072, 10, 5, dense=True, chain_block=8192,
+            tuner_mode="per_chain", **xor_tuner)),
+        ("xor_dense_tuned_burnin_20", True, hmc_case(
+            xor_model, xor, 131072, 40, 20, dense=True, chain_block=8192, **xor_tuner)),
+        ("iris_mh_extras", False, walk_case(iris_model, iris, 32768, "mh", 0.1, 20,
+                                            extras=True, chain_block=256)),
+        ("iris_mala_extras", False, walk_case(iris_model, iris, 32768, "mala", 0.003, 20,
+                                              extras=True, chain_block=256)),
+        ("xor_mh_dense_extras", False, walk_case(xor_model, xor, 32768, "mh", 0.1, 20,
+                                                 extras=True, dense=True)),
+        ("xor_mlp2321_mala_dense_extras", False, walk_case(
+            xor2321_model, xor, 32768, "mala", 0.01, 20, extras=True, dense=True)),
+        ("xor_mh_dense_tuned_burnin_5", False, walk_case(
+            xor_model, xor, 32768, "mh", 0.1, 10, 5, dense=True, tuner=HMCDATuner(d=0.234))),
+        ("xor_mlp2321_mala_dense_tuned_burnin_5", False, walk_case(
+            xor2321_model, xor, 32768, "mala", 0.01, 10, 5, dense=True, chain_block=4096,
+            tuner=HMCDATuner(d=0.574))),
+        ("xor_mlp2321_mala_dense_tuned_burnin_20", True, walk_case(
+            xor2321_model, xor, 32768, "mala", 0.01, 40, 20, dense=True, chain_block=4096,
+            tuner=HMCDATuner(d=0.574))),
     ]
-    resident_err = 0.0
+    kernel_err = {}
     resident_timings = {}
 
     def agreement(a, b):
@@ -365,42 +545,40 @@ def main(argv=None):
             err = max(err, e)
         return agree, err
 
-    for name, model, data, C, kw in resident_runs:
-        fn = resident_hmc.make_resident_hmc(model, data.x, data.y, chain_block=256,
-                                            device=device, **kw)
-        theta0s = torch.as_tensor(0.1 * rng.normal(size=(C, model.num_params)),
-                                  dtype=torch.float32, device=device)
+    for name, chaotic, (module, fn, C, P, iters, burnin, work) in resident_runs:
+        theta0s = torch.as_tensor(0.1 * rng.normal(size=(C, P)), dtype=torch.float32,
+                                  device=device)
         out = fn(args.seed, theta0s)
+        counted = getattr(module, "last_info", {}).get(module.KERNEL)
+        counted = None if counted is None else int(counted["evaluations"])
+        torch.cuda.synchronize()
         start = time.perf_counter()
         plain_out, plain_info = fn.plain(args.seed, theta0s)
-        evaluations = plain_info["evaluations"]
+        evaluations = int(plain_info["evaluations"])
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - start)
         agree, err = agreement(out, plain_out)
         share = agree.float().mean().item()
-        kept = kw["num_iters"] - kw.get("num_burnin_iters", 0)
-        chaotic = name == "iris_tuned_burnin_20"
         limit = None if chaotic else RESIDENT_MIN_AGREEING
         z = max_z(pooled_summary(out[0].transpose(0, 1)),
                   pooled_summary(plain_out[0].transpose(0, 1)))
-        acc_diff = abs(out[2].mean().item() - plain_out[2].mean().item()) / kept
+        acc_diff = abs(out[2].mean().item() - plain_out[2].mean().item()) / (iters - burnin)
         plain_self_share = None
-        if chaotic:
+        if name == "iris_tuned_burnin_20":
             moved = torch.nextafter(theta0s, torch.full_like(theta0s, math.inf))
             plain_self_share = agreement(fn.plain(args.seed, moved)[0],
                                          plain_out)[0].float().mean().item()
         ms = event_ms(lambda: fn(args.seed, theta0s), 1, warmup=0)
-        dims, bias, loss_kind, _ = extract_arch(model)
-        work = resident_work(dims, bias, loss_kind == "ce", len(data.x), C, evaluations,
-                             kw["num_iters"], kept, kw.get("record_extras", False))
-        b_ms, b_by = bound_ms(work, sm_count)
+        b_ms, b_by = bound_ms(work(counted if counted is not None else evaluations), sm_count)
         resident_timings[name] = (ms, plain_ms, b_ms, b_by)
-        emit({"phase": "resident_vs_plain", "case": name, "chains": C,
-              "iterations": kw["num_iters"], "burnin": kw.get("num_burnin_iters", 0),
-              "evaluations_per_chain": evaluations / C, "share_agreeing": share,
-              "limit": limit, "atol": RESIDENT_ATOL, "rtol": RESIDENT_RTOL,
-              "max_abs_err_agreeing": err, "plain_self_share_one_ulp": plain_self_share,
-              "max_abs_z_pooled_mean": z,
+        emit({"phase": "resident_vs_plain", "kernel": module.KERNEL, "case": name,
+              "chains": C, "iterations": iters, "burnin": burnin,
+              "launch_shape": getattr(fn, "launch_shape", None),
+              "evaluations_per_chain": evaluations / C,
+              "kernel_evaluations_per_chain": None if counted is None else counted / C,
+              "share_agreeing": share, "limit": limit, "atol": RESIDENT_ATOL,
+              "rtol": RESIDENT_RTOL, "max_abs_err_agreeing": err,
+              "plain_self_share_one_ulp": plain_self_share, "max_abs_z_pooled_mean": z,
               "acceptance_difference": acc_diff, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": b_ms, "bound_by": b_by, "card": card})
         if chaotic:
@@ -409,7 +587,10 @@ def main(argv=None):
         else:
             check(share >= limit, f"{name}: only {share:.4f} of chains agree with the plain "
                   f"version (limit {limit})")
-            resident_err = max(resident_err, err)
+            kernel_err[module.KERNEL] = max(kernel_err.get(module.KERNEL, 0.0), err)
+        if counted is not None and "tuned" not in name and "per_chain" not in name:
+            check(counted == evaluations, f"{name}: the kernel counted {counted} evaluations, "
+                  f"the plain version {evaluations}")
         del out, plain_out
         torch.cuda.empty_cache()
 
@@ -504,23 +685,33 @@ def main(argv=None):
 
     # 7. main path, iris, through sample_chains(backend="auto")
     iris_data = (iris.x, iris.y)
+    xor_data = (xor.x, xor.y)
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    whole_loop = (resident_hmc, resident_hmc_dense, resident_walk, resident_walk_dense)
+
+    def reset_counts():
+        for module in whole_loop:
+            module.launch_counts[module.KERNEL] = 0
+        torch.cuda.synchronize()
+
+    def read_counts():
+        return {module.KERNEL: module.launch_counts[module.KERNEL] for module in whole_loop}
 
     def iris_chains(seed_gen):
         kernel = HMC(iris_model, tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64)
         return sample_chains(kernel, seed_gen, iris_theta0s, iris_data, iters, burnin,
                              backend="auto")
 
-    resident_launches = {}
-    resident_hmc.launch_counts[resident_hmc.KERNEL] = 0
-    torch.cuda.synchronize()
+    main_launches = {module.KERNEL: {} for module in whole_loop}
+    reset_counts()
     start = time.perf_counter()
     chains = iris_chains(gen)
     torch.cuda.synchronize()
     iris_wall = time.perf_counter() - start
-    resident_launches["iris"] = resident_hmc.launch_counts[resident_hmc.KERNEL]
-    check(resident_launches["iris"] == 1,
-          f"iris sample_chains made {resident_launches['iris']} resident_hmc launches, not 1")
+    counts = read_counts()
+    main_launches[resident_hmc.KERNEL]["iris_hmc"] = counts[resident_hmc.KERNEL]
+    check(counts == {**dict.fromkeys(counts, 0), resident_hmc.KERNEL: 1},
+          f"iris sample_chains made the launches {counts}, not one resident_hmc")
     samples = chains.get_samples()
     check(samples.shape == (iris_theta0s.shape[0], iters - burnin, iris_model.num_params),
           f"iris: samples of shape {tuple(samples.shape)}")
@@ -534,7 +725,7 @@ def main(argv=None):
     emit({"phase": "main_sample_chains_iris", "chains": samples.shape[0], "iterations": iters,
           "burnin": burnin, "seconds": iris_wall,
           "samples_per_s": samples.shape[0] * iters / iris_wall,
-          "acceptance_post_burnin": acc, "kernel_launches": resident_launches["iris"],
+          "acceptance_post_burnin": acc, "kernel_launches": counts,
           "max_abs_z_pooled_mean_vs_fused": z, "limit": 5.0,
           "multi_rhat_first_64": rhat, "multi_ess_mean_first_64": float(np.mean(ess)),
           "card": card})
@@ -545,39 +736,65 @@ def main(argv=None):
     del chains, samples, head
     torch.cuda.empty_cache()
 
-    # 8. main path, XOR (the bench.py problem), through sample_chains
-    resident_hmc.launch_counts[resident_hmc.KERNEL] = 0
-    torch.cuda.synchronize()
+    # 8. main path, XOR (the bench.py problem), through sample_chains: auto
+    #    takes the dense kernel, and the resident kernel is asked for
+    xor_summaries = {}
+    for backend, module in (("auto", resident_hmc_dense), ("resident", resident_hmc)):
+        xor_hmc = HMC(xor_model, step=0.05, num_steps=10)
+        plan, _ = resolve_backend(xor_hmc, xor_data, xor_theta0s.shape[0], xor_iters,
+                                  platform="cuda", backend=backend)
+        reset_counts()
+        start = time.perf_counter()
+        chains = sample_chains(xor_hmc, gen, xor_theta0s, xor_data, xor_iters, backend=backend)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = read_counts()
+        main_launches[module.KERNEL][f"xor_hmc_{backend}"] = counts[module.KERNEL]
+        check(counts == {**dict.fromkeys(counts, 0), module.KERNEL: 1},
+              f"XOR sample_chains(backend={backend!r}) made the launches {counts}, "
+              f"not one {module.KERNEL}")
+        check(bool(torch.isfinite(chains.get_samples()).all()), "XOR sample_chains: non-finite")
+        acc = chains.tensor("accepted").float().mean().item()
+        xor_summaries[backend] = pooled_summary(chains.get_samples())
+        emit({"phase": "main_sample_chains_xor", "backend": backend,
+              "plan": [plan.backend, plan.chain_block], "chains": xor_theta0s.shape[0],
+              "iterations": xor_iters, "seconds": wall,
+              "samples_per_s": xor_theta0s.shape[0] * xor_iters / wall, "acceptance": acc,
+              "kernel_launches": counts, "card": card})
+        check(0.2 < acc <= 1.0, f"XOR sample_chains: acceptance {acc} outside (0.2, 1]")
+        del chains
+        torch.cuda.empty_cache()
+    C_generic = 4096
+    reset_counts()
     start = time.perf_counter()
-    chains = sample_chains(HMC(xor_model, step=0.05, num_steps=10), gen, xor_theta0s,
-                           (xor.x, xor.y), xor_iters, backend="auto")
+    generic = sample_chains(HMC(xor_model, step=0.05, num_steps=10), gen,
+                            xor_theta0s[:C_generic], xor_data, xor_iters,
+                            record_keys=("sample", "accepted"), backend="scan")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - start
-    resident_launches["xor"] = resident_hmc.launch_counts[resident_hmc.KERNEL]
-    check(resident_launches["xor"] == 1,
-          f"XOR sample_chains made {resident_launches['xor']} resident_hmc launches, not 1")
-    check(bool(torch.isfinite(chains.get_samples()).all()), "XOR sample_chains: non-finite")
-    acc = chains.tensor("accepted").float().mean().item()
-    emit({"phase": "main_sample_chains_xor", "chains": xor_theta0s.shape[0],
-          "iterations": xor_iters, "seconds": wall,
-          "samples_per_s": xor_theta0s.shape[0] * xor_iters / wall, "acceptance": acc,
-          "kernel_launches": resident_launches["xor"], "card": card})
-    check(0.2 < acc <= 1.0, f"XOR sample_chains: acceptance {acc} outside (0.2, 1]")
-    del chains
+    generic_wall = time.perf_counter() - start
+    check(not any(read_counts().values()), "the XOR generic path launched a whole-loop kernel")
+    z = max_z(xor_summaries["auto"], xor_summaries["resident"])
+    z_generic = max_z(xor_summaries["auto"], pooled_summary(generic.get_samples()))
+    emit({"phase": "main_xor_dense_vs_resident_and_generic", "max_abs_z_pooled_mean": z,
+          "max_abs_z_pooled_mean_vs_generic": z_generic, "generic_chains": C_generic,
+          "generic_seconds": generic_wall,
+          "generic_samples_per_s": C_generic * xor_iters / generic_wall, "limit": 5.0,
+          "card": card})
+    check(z <= 5.0, f"XOR: dense and resident runs' pooled means differ by {z} SEs")
+    check(z_generic <= 5.0, f"XOR: dense and generic runs' pooled means differ by "
+          f"{z_generic} SEs")
+    del generic
     torch.cuda.empty_cache()
 
     # 9. the generic path (batched autograd) on the same problem, fewer chains
-    C_generic = 4096
-    resident_hmc.launch_counts[resident_hmc.KERNEL] = 0
-    torch.cuda.synchronize()
+    reset_counts()
     start = time.perf_counter()
     chains = sample_chains(HMC(iris_model, tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64),
                            gen, iris_theta0s[:C_generic], iris_data, iters, burnin,
                            record_keys=("sample", "accepted"), backend="scan")
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    check(resident_hmc.launch_counts[resident_hmc.KERNEL] == 0,
-          "the generic path launched resident_hmc")
+    check(not any(read_counts().values()), "the generic path launched a whole-loop kernel")
     samples = chains.get_samples()
     check(bool(torch.isfinite(samples).all()), "iris generic path: non-finite samples")
     acc = chains.tensor("accepted").float().mean().item()
@@ -591,51 +808,196 @@ def main(argv=None):
     del chains, samples
     torch.cuda.empty_cache()
 
-    # 10. where the time goes on the sample_chains iris path
+    # 10. where the time goes on the sample_chains iris path, and the bound
+    #     of that launch from the kernel's evaluation counter
     torch.cuda.synchronize()
     start = time.perf_counter()
     chains, by_kernel = profiled(lambda: iris_chains(gen))
     wall = time.perf_counter() - start
     busy = sum(by_kernel.values()) / 1e3
     kernel_ms = sum(ms for name, ms in by_kernel.items() if "resident_hmc" in name)
+    iris_evaluations = int(resident_hmc.last_info[resident_hmc.KERNEL]["evaluations"])
+    dims, bias, loss_kind = dims_of[id(iris_model)]
+    iris_b_ms, iris_b_by = bound_ms(resident_work(
+        dims, bias, loss_kind == "ce", len(iris.x), iris_theta0s.shape[0], iris_evaluations,
+        iters, iters - burnin, False), sm_count)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     # the share is taken of phase 7's unprofiled host-clock time of the same call
     emit({"phase": "profile_sample_chains_iris", "chains": chains.num_chains(),
           "iterations": iters, "seconds": iris_wall, "seconds_profiled": wall,
           "device_busy_seconds": busy, "device_busy_share": busy / iris_wall,
-          "resident_hmc_ms": kernel_ms, "device_kernels_seen": len(by_kernel),
+          "resident_hmc_ms": kernel_ms,
+          "evaluations_per_chain": iris_evaluations / iris_theta0s.shape[0],
+          "resident_hmc_bound_ms": iris_b_ms, "resident_hmc_bound_by": iris_b_by,
+          "device_kernels_seen": len(by_kernel),
           "device_ms_by_kernel": {name[:60]: ms for name, ms in top}, "card": card})
     del chains
 
-    # 11. kernels: fused_mlp_vg timed at the iris main path's shape;
-    #     resident_hmc at the XOR main path's, where the leapfrog count is fixed
+    # 11. the walk main paths through sample_chains(backend="auto"): BASELINE.md
+    #     configs 1 and 2 on XOR (dense), iris MALA and MH (resident), each
+    #     against the generic path of the same configuration at 4096 chains
+    C_walk, walk_iters, walk_burnin = 32768, 2048, 1024
+    walk_theta0s = {P: torch.as_tensor(0.1 * rng.normal(size=(C_walk, P)), dtype=torch.float32,
+                                       device=device)
+                    for P in (xor_model.num_params, xor2321_model.num_params,
+                              iris_model.num_params)}
+    walk_paths = [
+        ("config1_mh_xor", lambda: MetropolisHastings(xor_model, scale=0.1), xor_model,
+         xor_data, "dense", resident_walk_dense),
+        ("config2_mala_xor_mlp2321", lambda: MALA(xor2321_model, step=0.01), xor2321_model,
+         xor_data, "dense", resident_walk_dense),
+        ("iris_mala", lambda: MALA(iris_model, step=0.003), iris_model, iris_data, "resident",
+         resident_walk),
+        ("iris_mh", lambda: MetropolisHastings(iris_model, scale=0.1), iris_model, iris_data,
+         "resident", resident_walk),
+    ]
+    walk_walls = {}
+    for name, sampler, model, data, want, module in walk_paths:
+        theta0s = walk_theta0s[model.num_params]
+        plan, reason = resolve_backend(sampler(), data, C_walk, walk_iters, walk_burnin,
+                                       platform="cuda")
+        check(plan is not None and plan.backend == want,
+              f"{name}: dispatch chose {plan and plan.backend} ({reason}), not {want}")
+        reset_counts()
+        start = time.perf_counter()
+        chains = sample_chains(sampler(), gen, theta0s, data, walk_iters, walk_burnin,
+                               backend="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        walk_walls[name] = wall
+        counts = read_counts()
+        main_launches[module.KERNEL][name] = counts[module.KERNEL]
+        check(counts == {**dict.fromkeys(counts, 0), module.KERNEL: 1},
+              f"{name}: sample_chains made the launches {counts}, not one {module.KERNEL}")
+        samples = chains.get_samples()
+        check(samples.shape == (C_walk, walk_iters - walk_burnin, model.num_params),
+              f"{name}: samples of shape {tuple(samples.shape)}")
+        check(bool(torch.isfinite(samples).all()), f"{name}: non-finite samples")
+        acc = chains.tensor("accepted").float().mean().item()
+        walk_summary = pooled_summary(samples)
+        head = ChainLists.from_arrays({k: chains.tensor(k)[:64].cpu() for k in chains.keys()})
+        rhat = head.multi_rhat()[0]
+        ess = head.multi_ess()
+        del chains, samples, head
+        torch.cuda.empty_cache()
+        reset_counts()
+        start = time.perf_counter()
+        generic = sample_chains(sampler(), gen, theta0s[:C_generic], data, walk_iters,
+                                walk_burnin, record_keys=("sample", "accepted"), backend="scan")
+        torch.cuda.synchronize()
+        generic_wall = time.perf_counter() - start
+        check(not any(read_counts().values()), f"{name}: the generic path launched a kernel")
+        generic_acc = generic.tensor("accepted").float().mean().item()
+        z = max_z(walk_summary, pooled_summary(generic.get_samples()))
+        emit({"phase": "main_sample_chains_walk", "case": name, "plan": [plan.backend,
+                                                                          plan.chain_block],
+              "chains": C_walk, "iterations": walk_iters, "burnin": walk_burnin,
+              "seconds": wall, "samples_per_s": C_walk * walk_iters / wall,
+              "acceptance_post_burnin": acc, "kernel_launches": counts,
+              "generic_chains": C_generic, "generic_seconds": generic_wall,
+              "generic_samples_per_s": C_generic * walk_iters / generic_wall,
+              "generic_acceptance_post_burnin": generic_acc,
+              "max_abs_z_pooled_mean_vs_generic": z, "limit": 5.0,
+              "multi_rhat_first_64": rhat, "multi_ess_mean_first_64": float(np.mean(ess)),
+              "card": card})
+        check(z <= 5.0, f"{name}: pooled means differ from the generic path's by {z} SEs")
+        check(0.0 < acc <= 1.0, f"{name}: acceptance {acc}")
+        check(math.isfinite(rhat) and all(math.isfinite(e) for e in ess),
+              f"{name}: multi_rhat {rhat} or multi_ess {ess[:4]}... not finite")
+        del generic
+        torch.cuda.empty_cache()
+
+    # 12. kernels: fused_mlp_vg timed at the iris main path's shape; each
+    #     whole-loop kernel at a main path's shape (XOR HMC, untuned, for the
+    #     two HMC kernels: the leapfrog count is fixed; iris MALA for
+    #     resident_walk; config 1 for resident_walk_dense), against its plain
+    #     version on the same inputs
+
+    def timed_at_main(fn, theta0s, work):
+        start = time.perf_counter()
+        info = fn.plain(args.seed, theta0s)[1]
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        ms = event_ms(lambda: fn(args.seed, theta0s), 2)
+        return ms, plain_ms, *bound_ms(work(int(info["evaluations"])), sm_count)
+
     C = xor_theta0s.shape[0]
-    xor_fn = resident_hmc.make_resident_hmc(xor_model, xor.x, xor.y, 0.05, 10, xor_iters,
-                                            chain_block=1024, device=device)
-    start = time.perf_counter()
-    xor_evaluations = xor_fn.plain(args.seed, xor_theta0s)[1]["evaluations"]
-    torch.cuda.synchronize()
-    xor_plain_ms = 1e3 * (time.perf_counter() - start)
-    check(xor_evaluations == C * (1 + 10 * xor_iters), "XOR: unexpected evaluation count")
-    xor_ms = event_ms(lambda: xor_fn(args.seed, xor_theta0s), 3)
-    xor_b_ms, xor_b_by = bound_ms(resident_work([2, 2, 1], [True, True], False, len(xor.x), C,
-                                                xor_evaluations, xor_iters, xor_iters, False),
-                                  sm_count)
+    xor_dims = dims_of[id(xor_model)]
+
+    def xor_hmc_work(dense):
+        eval_work = dense_work(xor_model, xor.x, xor.y, True) if dense else None
+
+        def work(evaluations):
+            check(evaluations == C * (1 + 10 * xor_iters), "XOR: unexpected evaluation count")
+            return resident_work(xor_dims[0], xor_dims[1], False, len(xor.x), C, evaluations,
+                                 xor_iters, xor_iters, False, eval_work)
+        return work
+
+    main_timings = {
+        resident_hmc.KERNEL: timed_at_main(
+            resident_hmc.make_resident_hmc(xor_model, xor.x, xor.y, 0.05, 10, xor_iters,
+                                           chain_block=1024, device=device),
+            xor_theta0s, xor_hmc_work(False)),
+        resident_hmc_dense.KERNEL: timed_at_main(
+            resident_hmc_dense.make_resident_hmc_dense(xor_model, xor.x, xor.y, 0.05, 10,
+                                                       xor_iters, device=device),
+            xor_theta0s, xor_hmc_work(True)),
+    }
+    walk_timed = {resident_walk.KERNEL: ("iris MALA step 0.003", walk_case(
+                      iris_model, iris, C_walk, "mala", 0.003, walk_iters, walk_burnin,
+                      chain_block=4096)),
+                  resident_walk_dense.KERNEL: ("config 1, MH scale 0.1 on XOR", walk_case(
+                      xor_model, xor, C_walk, "mh", 0.1, walk_iters, walk_burnin))}
+    for kernel_name, (_, (_, fn, _, P, _, _, work)) in walk_timed.items():
+        main_timings[kernel_name] = timed_at_main(fn, walk_theta0s[P], work)
+        torch.cuda.empty_cache()
+    # the other walk main paths' kernels, timed alone (no plain version)
+    other_walks = {}
+    for kernel_name, label, (_, fn, _, P, _, _, work) in (
+            (resident_walk.KERNEL, "iris MH scale 0.1", walk_case(
+                iris_model, iris, C_walk, "mh", 0.1, walk_iters, walk_burnin,
+                chain_block=4096)),
+            (resident_walk_dense.KERNEL, "config 2, MALA step 0.01 on XOR MLP(2,3,2,1)",
+             walk_case(xor2321_model, xor, C_walk, "mala", 0.01, walk_iters, walk_burnin))):
+        ms_ = event_ms(lambda: fn(args.seed, walk_theta0s[P]), 2)
+        b_ms_, b_by_ = bound_ms(work(None), sm_count)
+        other_walks[kernel_name] = {"timed_at": label, "ms": ms_, "bound_ms": b_ms_,
+                                    "bound_by": b_by_}
+        torch.cuda.empty_cache()
+
+    def whole_loop_entry(module, source, replaces, timed_at):
+        ms_, plain_ms_, b_ms_, b_by_ = main_timings[module.KERNEL]
+        return {"name": module.KERNEL, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(main_launches[module.KERNEL].values()),
+                "launches_by_path": main_launches[module.KERNEL],
+                "max_abs_err": kernel_err[module.KERNEL], "ms": ms_, "plain_ms": plain_ms_,
+                "bound_ms": b_ms_, "bound_by": b_by_, "library_ms": None, "timed_at": timed_at}
+
+    xor_timed_at = "XOR MLP(2,2,1), step 0.05, 10 leapfrog steps, 131072 chains x 256"
     ms, plain_ms, b_ms, b_by = timings[("iris_mlp433_ce", 32768)]
+    resident_entry = whole_loop_entry(resident_hmc, RESIDENT_SOURCE, RESIDENT_REPLACES,
+                                      xor_timed_at)
+    resident_entry["tuned_iris"] = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                                            resident_timings["iris_tuned_burnin_20"]))
+    resident_entry["main_iris_run"] = {"ms": kernel_ms, "bound_ms": iris_b_ms,
+                                       "bound_by": iris_b_by,
+                                       "evaluations_per_chain":
+                                           iris_evaluations / iris_theta0s.shape[0]}
+    walk_at = f"{C_walk} chains x {walk_iters} iterations, {walk_burnin} burn-in"
     emit({"kernels": [
         {"name": fused_mlp.KERNEL, "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": sum(launches.values()),
          "launches_by_path": launches, "max_abs_err": max_abs_err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
          "timed_at": "iris MLP(4,3,3), 32768 chains"},
-        {"name": resident_hmc.KERNEL, "route": "cuda", "source": RESIDENT_SOURCE,
-         "replaces": RESIDENT_REPLACES, "launches": sum(resident_launches.values()),
-         "launches_by_path": resident_launches, "max_abs_err": resident_err, "ms": xor_ms,
-         "plain_ms": xor_plain_ms, "bound_ms": xor_b_ms, "bound_by": xor_b_by,
-         "library_ms": None,
-         "timed_at": "XOR MLP(2,2,1), step 0.05, 10 leapfrog steps, 131072 chains x 256",
-         "tuned_iris": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
-                                resident_timings["iris_tuned_burnin_20"]))}]})
+        resident_entry,
+        whole_loop_entry(resident_hmc_dense, DENSE_SOURCE, DENSE_REPLACES, xor_timed_at),
+        dict(whole_loop_entry(resident_walk, WALK_SOURCE, WALK_REPLACES,
+                              f"{walk_timed[resident_walk.KERNEL][0]}, {walk_at}"),
+             other_path=other_walks[resident_walk.KERNEL]),
+        dict(whole_loop_entry(resident_walk_dense, WALK_DENSE_SOURCE, WALK_DENSE_REPLACES,
+                              f"{walk_timed[resident_walk_dense.KERNEL][0]}, {walk_at}"),
+             other_path=other_walks[resident_walk_dense.KERNEL])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

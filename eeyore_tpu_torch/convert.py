@@ -12,6 +12,8 @@ import torch
 from eeyore_tpu_torch.models.priors import IIDNormalPrior
 from eeyore_tpu_torch.ops.fused_hmc import FusedHMCState
 from eeyore_tpu_torch.samplers.hmc import HMCState
+from eeyore_tpu_torch.samplers.mala import MALAState
+from eeyore_tpu_torch.samplers.mh import MHState
 from eeyore_tpu_torch.tuners.dual_averaging import DualAveragingState
 
 
@@ -69,6 +71,27 @@ def hmc_state_from_numpy(state, model, device="cuda", dtype=torch.float32):
         step=_tensor(state.step, device, dtype),
         num_steps=_tensor(state.num_steps, device, torch.int32),
         tuner=dual_averaging_state_from_numpy(state.tuner, device, dtype),
+    )
+
+
+def mh_state_from_numpy(state, model, device="cuda", dtype=torch.float32):
+    """An ``MHState`` of the JAX package with chains stacked first -> the
+    port's batched ``MHState``."""
+    return MHState(
+        sample=thetas_from_numpy(state.sample, model, device, dtype),
+        target_val=_tensor(state.target_val, device, dtype),
+        accepted=_tensor(state.accepted, device, torch.int32),
+    )
+
+
+def mala_state_from_numpy(state, model, device="cuda", dtype=torch.float32):
+    """A ``MALAState`` of the JAX package with chains stacked first -> the
+    port's batched ``MALAState``."""
+    return MALAState(
+        sample=thetas_from_numpy(state.sample, model, device, dtype),
+        target_val=_tensor(state.target_val, device, dtype),
+        grad_val=thetas_from_numpy(state.grad_val, model, device, dtype),
+        accepted=_tensor(state.accepted, device, torch.int32),
     )
 
 

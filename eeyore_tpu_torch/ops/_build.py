@@ -9,6 +9,11 @@ the library's name, and an edited header never loads a stale build. Code is
 generated for Hopper only (``sm_90a``) and without ``--use_fast_math``. The
 build goes to ``ops/_build/<name>/``, which git ignores. A failed build
 raises.
+
+A build may also take generated headers (the dense kernels' bodies, which
+hold one dataset as constants): they are written into the build directory,
+which is on the include path, and their hash goes into the name too, so two
+datasets loaded in one process never share a build.
 """
 
 import ctypes
@@ -31,18 +36,32 @@ def headers_hash():
     return digest.hexdigest()[:10]
 
 
-def load_library(name, source, defines=()):
+def load_library(name, source, defines=(), generated=None):
     """Compile ``csrc/<source>`` with the ``-D`` ``defines`` into a shared
     library called ``name`` plus the headers' hash (once per process and per
-    name), and return it as a ``ctypes.CDLL``."""
+    name), and return it as a ``ctypes.CDLL``. ``generated``: {file name:
+    text} of headers to write beside the build, for the source to include."""
+    generated = dict(generated or {})
     name = f"{name}_{headers_hash()}"
+    if generated:
+        digest = hashlib.sha256()
+        for file_name, text in sorted(generated.items()):
+            digest.update(file_name.encode())
+            digest.update(text.encode())
+        name = f"{name}_{digest.hexdigest()[:10]}"
     if name in _libraries:
         return _libraries[name]
     from torch.utils.cpp_extension import load
 
     build_dir = BUILD_ROOT / name
     build_dir.mkdir(parents=True, exist_ok=True)
+    for file_name, text in generated.items():
+        path = build_dir / file_name
+        if not path.exists() or path.read_text() != text:
+            path.write_text(text)
     flags = list(CUDA_FLAGS) + [f"-D{define}" for define in defines]
+    if generated:
+        flags.append(f"-I{build_dir}")
     path = load(name=name, sources=[str(CSRC / source)], extra_cuda_cflags=flags,
                 build_directory=str(build_dir), is_python_module=False)
     lib = ctypes.CDLL(path)

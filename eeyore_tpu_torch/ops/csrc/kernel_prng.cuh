@@ -5,7 +5,8 @@
 // rounds, (0, 1] uniforms by mantissa fill, the polynomial sincos of a
 // uniform angle and Box-Muller on both halves. Precise logf and sqrtf, no
 // fast-math intrinsics, so that a kernel and its plain version draw the same
-// numbers up to f32 rounding.
+// numbers up to f32 rounding. The HMC stream (hmc_draws) and the walk stream
+// (walk_draws) share their layout: key (seed, chain), counter (iteration, j).
 
 #pragma once
 
@@ -83,6 +84,25 @@ __device__ __forceinline__ void normal2(uint2 bits, float* z0, float* z1) {
   sincos_2pi(uniform(bits.y), &c, &s);
   *z0 = r * c;
   *z1 = r * s;
+}
+
+// The P normals of one chain at one iteration of the HMC and walk streams
+// (key (k0, k1), counter (ctr, j)): pair j gives z[2j] and z[2j+1], for
+// j < ceil(P/2); an odd P drops the last half.
+template <int P>
+__device__ __forceinline__ void normals(unsigned k0, unsigned k1, unsigned ctr, float (&z)[P]) {
+#pragma unroll
+  for (int j = 0; j < (P + 1) / 2; ++j) {
+    float z0, z1;
+    normal2(threefry2x32(k0, k1, ctr, static_cast<unsigned>(j)), &z0, &z1);
+    z[2 * j] = z0;
+    if (2 * j + 1 < P) z[2 * j + 1] = z1;
+  }
+}
+
+// The uniform of word j of the stream (the accept test: j = ceil(P/2)).
+__device__ __forceinline__ float uniform_at(unsigned k0, unsigned k1, unsigned ctr, unsigned j) {
+  return uniform(threefry2x32(k0, k1, ctr, j).x);
 }
 
 }  // namespace kernel_prng

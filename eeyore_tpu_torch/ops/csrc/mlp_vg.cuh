@@ -1,7 +1,8 @@
 // Per-chain log-posterior and gradient of a sigmoid MLP, as device code.
 //
 // The body of the fused value-and-gradient, shared by fused_mlp_vg.cu (one
-// evaluation per launch) and resident_hmc.cu (the whole HMC loop). One
+// evaluation per launch) and the whole-loop kernels on staged data
+// (resident_loop.cuh: resident_hmc.cu, resident_walk.cu). One
 // thread owns one chain: chain_vg takes the chain's theta in registers and
 // returns
 //   val  = T * (log_lik(theta) + log_prior(theta))
@@ -168,12 +169,17 @@ __device__ __forceinline__ Data stage_data(float* smem, const float* __restrict_
   return Data{xs, ys, ms, locs, ivs};
 }
 
-// Tempered log-posterior of one chain; its gradient goes to g.
-__device__ __forceinline__ float chain_vg(const float (&th)[kP], const Data& d,
-                                          float prior_const, float temperature, int n_rows,
-                                          float (&g)[kP]) {
+// Tempered log-posterior of one chain; with kGrad its gradient goes to g,
+// without it g is not touched and no backward pass runs (the value-only
+// body of the random-walk kernels).
+template <bool kGrad>
+__device__ __forceinline__ float chain_eval(const float (&th)[kP], const Data& d,
+                                            float prior_const, float temperature, int n_rows,
+                                            float (&g)[kP]) {
+  if constexpr (kGrad) {
 #pragma unroll
-  for (int p = 0; p < kP; ++p) g[p] = 0.0f;
+    for (int p = 0; p < kP; ++p) g[p] = 0.0f;
+  }
 
   float log_lik = 0.0f;
   float a[kActs];
@@ -199,13 +205,15 @@ __device__ __forceinline__ float chain_vg(const float (&th)[kP], const Data& d,
         sumexp += e[j];
       }
       const float lse = zmax + logf(sumexp);
-      const float inv_sumexp = 1.0f / sumexp;
       float picked = 0.0f;
 #pragma unroll
       for (int j = 0; j < kOut; ++j) picked += yr[j] * z_out[j];
       log_lik += (picked - lse) * m;
+      if constexpr (kGrad) {
+        const float inv_sumexp = 1.0f / sumexp;
 #pragma unroll
-      for (int j = 0; j < kOut; ++j) delta[j] = (yr[j] - e[j] * inv_sumexp) * m;
+        for (int j = 0; j < kOut; ++j) delta[j] = (yr[j] - e[j] * inv_sumexp) * m;
+      }
     } else {
       constexpr int out = act_off(kNumLayers);
 #pragma unroll
@@ -213,10 +221,10 @@ __device__ __forceinline__ float chain_vg(const float (&th)[kP], const Data& d,
         const float z = z_out[j];
         const float softplus = fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)));
         log_lik += (yr[j] * z - softplus) * m;
-        delta[j] = (yr[j] - a[out + j]) * m;
+        if constexpr (kGrad) delta[j] = (yr[j] - a[out + j]) * m;
       }
     }
-    backward<kNumLayers - 1>(th, a, delta, g);
+    if constexpr (kGrad) backward<kNumLayers - 1>(th, a, delta, g);
   }
 
   float log_prior = 0.0f;
@@ -224,9 +232,23 @@ __device__ __forceinline__ float chain_vg(const float (&th)[kP], const Data& d,
   for (int p = 0; p < kP; ++p) {
     const float diff = th[p] - d.loc[p];
     log_prior += -0.5f * diff * diff * d.ivar[p];
-    g[p] = temperature * (g[p] - diff * d.ivar[p]);
+    if constexpr (kGrad) g[p] = temperature * (g[p] - diff * d.ivar[p]);
   }
   return temperature * (log_lik + (log_prior + prior_const));
+}
+
+// Value and gradient (leapfrog, MALA, the fused kernel).
+__device__ __forceinline__ float chain_vg(const float (&th)[kP], const Data& d,
+                                          float prior_const, float temperature, int n_rows,
+                                          float (&g)[kP]) {
+  return chain_eval<true>(th, d, prior_const, temperature, n_rows, g);
+}
+
+// Value only (random-walk MH): the forward pass and the loss.
+__device__ __forceinline__ float chain_v(const float (&th)[kP], const Data& d,
+                                         float prior_const, float temperature, int n_rows) {
+  float unused[kP];
+  return chain_eval<false>(th, d, prior_const, temperature, n_rows, unused);
 }
 
 }  // namespace mlp_vg

@@ -1,0 +1,506 @@
+// The per-chain loops of the whole-loop kernels, written once for both data
+// strategies.
+//
+// hmc_chain is one chain's whole HMC run (resident_hmc.cu on staged data,
+// resident_hmc_dense.cu on data folded in as constants); walk_chain is one
+// chain's whole random-walk MH or MALA run (resident_walk.cu and
+// resident_walk_dense.cu). The data strategy is the Eval argument: an object
+// with vg(th, g) -> value (gradient into g) and v(th) -> value. StagedEval
+// reads the rows a block staged in shared memory (mlp_vg.cuh); the dense
+// kernels' evaluator calls the code generated for one dataset
+// (ops/mlp_dense.py::dense_source).
+//
+// Layout and state. One thread owns one chain. The accepted theta (and its
+// gradient, for HMC and MALA), touched once per iteration, live in shared
+// memory at [P][blockDim]; the proposal and its gradient live in registers.
+// Samples are written chain-minor, [kept, rows, C] with rows = P (+2 with
+// record_extras: the value and the moved flag), so a warp's stores are
+// coalesced. The [P*8, C/8] tiles of the TPU's dense layout are this same
+// [P, C] array, so the dense kernels write the same layout.
+//
+// Tuning groups. A tuned population run applies one dual-averaging update
+// to every chain of a group of chain_block chains, on the mean of their
+// acceptance rates. A group is one CUDA block, or a thread-block cluster of
+// cluster_blocks blocks when it is larger than a block can be: each block
+// reduces its rates (warp shuffles, then shared memory), writes its sum to
+// shared memory, and every block adds all blocks' sums through distributed
+// shared memory in rank order, so all blocks apply the same update bit for
+// bit. Staged kernels group consecutive chains; dense kernels (sublanes = 8)
+// group the TPU's sublane-strided sets s*(C/8) + i*lb + j (lb = chain_block /
+// 8), the chains of grid block i of the TPU kernel.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "kernel_prng.cuh"
+#include "mlp_vg.cuh"
+
+// Scalar arguments of the HMC kernels, in the order of ResidentHMCParams in
+// ops/resident_hmc.py.
+struct ResidentHMCParams {
+  int seed;
+  int num_chains;
+  int n_rows;
+  int num_iters;
+  int num_burnin_iters;
+  int record_thin;
+  int kept;
+  int num_steps;      // initial trajectory length
+  int tuned;          // 1: dual averaging during burn-in
+  int stochastic;     // 1: freeze per-chain num_steps by stochastic rounding
+  int max_num_steps;
+  int record_extras;  // 1: rows P and P+1 hold the value and the moved flag
+  int per_chain;      // 1: each chain tunes on its own rate (dense only)
+  int use_l;          // 1: the l-rule sets num_steps while tuning
+  int nan_guard;      // 1: a NaN rate statistic counts as 0 (dense only)
+  int sublanes;       // 1: consecutive chains per group; 8: sublane-strided
+  int chain_block;    // chains per tuning group
+  float step;         // initial step
+  float tuner_m;      // log(10 * step)
+  float d, g, t0, k, l;
+  float log_eub;      // +inf without an upper bound
+  float prior_const;
+  float temperature;
+};
+
+// Scalar arguments of the walk kernels, in the order of ResidentWalkParams
+// in ops/resident_walk.py.
+struct ResidentWalkParams {
+  int seed;
+  int num_chains;
+  int n_rows;
+  int num_iters;
+  int num_burnin_iters;
+  int record_thin;
+  int kept;
+  int record_extras;
+  int tuned;          // 1: dual-average the scale (MH) or step (MALA)
+  int sublanes;
+  int chain_block;
+  float value;        // MH proposal scale, or MALA step
+  float half_step;    // MALA, untuned: 0.5 * step
+  float sqrt_step;    // MALA, untuned: sqrt(step)
+  float half_inv_step;  // MALA, untuned: 0.5 / step
+  float tuner_m;      // log(10 * value)
+  float d, g, t0, k;
+  float log_eub;
+  float prior_const;
+  float temperature;
+};
+
+namespace resident_loop {
+
+namespace cg = cooperative_groups;
+using mlp_vg::kP;
+
+constexpr int kPairs = (kP + 1) / 2;  // Box-Muller pairs per iteration
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxCluster = 16;       // non-portable cluster size of Hopper
+
+// The data staged in shared memory by a block.
+struct StagedEval {
+  mlp_vg::Data d;
+  float prior_const;
+  float temperature;
+  int n_rows;
+  __device__ __forceinline__ float vg(const float (&th)[kP], float (&g)[kP]) const {
+    return mlp_vg::chain_vg(th, d, prior_const, temperature, n_rows, g);
+  }
+  __device__ __forceinline__ float v(const float (&th)[kP]) const {
+    return mlp_vg::chain_v(th, d, prior_const, temperature, n_rows);
+  }
+};
+
+// The chain of this thread. Staged (sublanes 1): consecutive, block by
+// block. Dense (sublanes 8): the blocks of a group (chain_block /
+// blockDim.x of them, in order) hold its chains s*(C/8) + i*lb + j in the
+// order (s, j), so a warp's chains are consecutive (lb is a multiple of 128).
+__device__ __forceinline__ int chain_index(int sublanes, int chain_block, int num_chains) {
+  if (sublanes == 1) return blockIdx.x * blockDim.x + threadIdx.x;
+  const int blocks_per_group = chain_block / blockDim.x;
+  const int group = blockIdx.x / blocks_per_group;
+  const int q = (blockIdx.x % blocks_per_group) * blockDim.x + threadIdx.x;
+  const int lb = chain_block / sublanes;
+  return (q / lb) * (num_chains / sublanes) + group * lb + q % lb;
+}
+
+// Mean of v over the tuning group (every thread of the block, or of the
+// cluster, calls it; blockDim.x a multiple of 32); every thread returns the
+// same value. red: 32 floats of shared memory; partial: 2 floats of shared
+// memory, written alternately by parity, so one cluster barrier per call
+// orders each block's write after every read of the call before last.
+__device__ __forceinline__ float group_mean(float v, float* red, float* partial, int parity,
+                                            int cluster_blocks) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warps = blockDim.x >> 5;
+  __syncthreads();  // the previous call's reads of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  for (int w = 0; w < warps; ++w) s += red[w];
+  if (cluster_blocks == 1) return s / static_cast<float>(blockDim.x);
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) partial[parity] = s;
+  cluster.sync();
+  float total = 0.0f;
+  for (int r = 0; r < cluster_blocks; ++r) {
+    total += *cluster.map_shared_rank(partial + parity, static_cast<unsigned>(r));
+  }
+  return total / static_cast<float>(blockDim.x * cluster_blocks);
+}
+
+// Adds this thread's evaluation count to the launch's total: one atomic per
+// warp.
+__device__ __forceinline__ void count_evaluations(unsigned evals,
+                                                  unsigned long long* __restrict__ total) {
+  const unsigned mask = __activemask();
+  const unsigned sum = __reduce_add_sync(mask, evals);
+  if ((threadIdx.x & 31) == __ffs(mask) - 1) atomicAdd(total, static_cast<unsigned long long>(sum));
+}
+
+// Writes the accepted state of recorded iteration t (and the value and moved
+// flag with extras).
+__device__ __forceinline__ void record(float* __restrict__ samples, int t, int num_burnin_iters,
+                                       int record_thin, int kept, int record_extras, int C, int c,
+                                       const float* acc_th, float val, bool moved) {
+  const int since = t - num_burnin_iters;
+  if (since < 0 || since % record_thin != 0 || since / record_thin >= kept) return;
+  const int rows = record_extras ? kP + 2 : kP;
+  const int bd = blockDim.x;
+  float* out = samples + static_cast<size_t>(since / record_thin) * rows * C;
+#pragma unroll
+  for (int p = 0; p < kP; ++p) out[static_cast<size_t>(p) * C + c] = acc_th[p * bd + threadIdx.x];
+  if (record_extras) {
+    out[static_cast<size_t>(kP) * C + c] = val;
+    out[static_cast<size_t>(kP + 1) * C + c] = moved ? 1.0f : 0.0f;
+  }
+}
+
+// One dual-averaging update at iteration t (Hoffman and Gelman, Alg. 5):
+// returns the new step (the averaged one at the last burn-in iteration).
+__device__ __forceinline__ float dual_average(float stat, int t, int num_burnin_iters,
+                                              float tuner_m, float d, float g, float t0,
+                                              float k, float log_eub, float& barh,
+                                              float& logbare) {
+  const float it = static_cast<float>(t + 1);
+  const float d_w = 1.0f / (it + t0);
+  const float e_w = expf(-k * logf(it));  // it ** -k
+  barh = (1.0f - d_w) * barh + d_w * (d - stat);
+  float loge = tuner_m - sqrtf(it) * barh / g;
+  loge = loge > log_eub ? log_eub : loge;  // NaN stays NaN
+  logbare = e_w * loge + (1.0f - e_w) * logbare;
+  return t == num_burnin_iters - 1 ? expf(logbare) : expf(loge);
+}
+
+// One chain's whole HMC run: per iteration t, the momenta (normals, key
+// (seed, chain), counter (t, j)), num_steps leapfrog steps from the
+// accepted state, the accept test u < min(1, exp(H_cur - H_prop)), the
+// post-burn-in accept count, the tuner and the record. Adds the chain's
+// value-and-gradient evaluations (1 + its leapfrog steps) to *evaluations.
+template <class Eval>
+__device__ __forceinline__ void hmc_chain(const Eval& ev, const ResidentHMCParams& pr, int c,
+                                          int cluster_blocks, const float* __restrict__ theta0,
+                                          float* __restrict__ samples,
+                                          float* __restrict__ final_theta,
+                                          float* __restrict__ accepts,
+                                          unsigned long long* __restrict__ evaluations,
+                                          float* acc_th, float* acc_g, float* red,
+                                          float* partial) {
+  const int bd = blockDim.x;
+  const int me = threadIdx.x;
+  const int C = pr.num_chains;
+  const unsigned key0 = static_cast<unsigned>(pr.seed);
+  const unsigned key1 = static_cast<unsigned>(c);
+
+  float th[kP], g[kP], mom[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) th[p] = theta0[static_cast<size_t>(p) * C + c];
+  float cur_val = ev.vg(th, g);
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    acc_th[p * bd + me] = th[p];
+    acc_g[p * bd + me] = g[p];
+  }
+
+  unsigned evals = 1;
+  float n_accepts = 0.0f;
+  float step = pr.step;
+  int n_steps = pr.num_steps;
+  float barh = 0.0f;
+  float logbare = 0.0f;
+
+  for (int t = 0; t < pr.num_iters; ++t) {
+    const unsigned ctr = static_cast<unsigned>(t);
+    kernel_prng::normals(key0, key1, ctr, mom);
+    float kin = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) kin += mom[p] * mom[p];
+    const float h_cur = -cur_val + 0.5f * kin;
+
+    // leapfrog from the accepted state; a chain stops after its own
+    // num_steps (the TPU kernel masks the lanes whose trajectory ended)
+    const float half_step = 0.5f * step;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      th[p] = acc_th[p * bd + me];
+      g[p] = acc_g[p * bd + me];
+      mom[p] = mom[p] + half_step * g[p];
+    }
+    float val = cur_val;
+    for (int s = 0; s < n_steps; ++s) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) th[p] = th[p] + step * mom[p];
+      val = ev.vg(th, g);
+      const float f = (s == n_steps - 1 ? 0.5f : 1.0f) * step;
+#pragma unroll
+      for (int p = 0; p < kP; ++p) mom[p] = mom[p] + f * g[p];
+    }
+    evals += static_cast<unsigned>(n_steps);
+    float kin_prop = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) kin_prop += mom[p] * mom[p];
+    const float h_prop = -val + 0.5f * kin_prop;
+    const float e = expf(h_cur - h_prop);
+    const float rate = e > 1.0f ? 1.0f : e;  // NaN stays NaN and rejects
+    const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
+    bool moved = false;
+    if (u < rate) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        moved |= th[p] != acc_th[p * bd + me];
+        acc_th[p * bd + me] = th[p];
+        acc_g[p * bd + me] = g[p];
+      }
+      cur_val = val;
+      if (t >= pr.num_burnin_iters) n_accepts += 1.0f;
+    }
+
+    if (pr.tuned && t < pr.num_burnin_iters) {  // uniform over a population group
+      float stat = pr.per_chain ? rate : group_mean(rate, red, partial, t & 1, cluster_blocks);
+      if (pr.nan_guard && stat != stat) stat = 0.0f;
+      step = dual_average(stat, t, pr.num_burnin_iters, pr.tuner_m, pr.d, pr.g, pr.t0, pr.k,
+                          pr.log_eub, barh, logbare);
+      if (pr.use_l) {
+        const float ratio = pr.l / step;
+        const float cap = static_cast<float>(pr.max_num_steps);
+        n_steps = static_cast<int>(fminf(fmaxf(rintf(ratio), 1.0f), cap));
+        if (pr.stochastic && t == pr.num_burnin_iters - 1) {
+          const float n_lo = floorf(ratio);
+          const float ur = kernel_prng::uniform_at(key0, key1, ctr, kPairs + 1);
+          const float n = n_lo + (ur < ratio - n_lo ? 1.0f : 0.0f);
+          n_steps = static_cast<int>(fminf(fmaxf(n, 1.0f), cap));
+        }
+      }
+    }
+
+    record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept, pr.record_extras, C, c,
+           acc_th, cur_val, moved);
+  }
+
+#pragma unroll
+  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = acc_th[p * bd + me];
+  accepts[c] = n_accepts;
+  count_evaluations(evals, evaluations);
+}
+
+// One chain's whole random-walk run. Per iteration t: P normals z (the walk
+// stream: key (seed, chain), counter (t, j)), the proposal, its value (MH)
+// or value and gradient (MALA), and the accept test log(u) < log_rate with
+// u from word ceil(P/2).
+//   MH:   prop = theta + scale * z; log_rate = v(prop) - v(theta).
+//   MALA: prop = theta + (step/2) grad + sqrt(step) z;
+//         log_rate = v(prop) - v(theta) - |theta - prop - (step/2) grad(prop)|^2 / (2 step)
+//                    + |z|^2 / 2
+//         (the two sqrt(step)-Normal densities' constants cancel).
+// With pr.tuned (dense kernels), the scale or step is dual-averaged on the
+// group mean of min(1, exp(min(log_rate, 0))) during burn-in, with no NaN
+// guard (as the TPU kernel has it: a NaN rate stops the group's tuning).
+template <class Eval, bool kMALA>
+__device__ __forceinline__ void walk_chain(const Eval& ev, const ResidentWalkParams& pr, int c,
+                                           int cluster_blocks, const float* __restrict__ theta0,
+                                           float* __restrict__ samples,
+                                           float* __restrict__ final_theta,
+                                           float* __restrict__ accepts, float* acc_th,
+                                           float* acc_g, float* red, float* partial) {
+  const int bd = blockDim.x;
+  const int me = threadIdx.x;
+  const int C = pr.num_chains;
+  const unsigned key0 = static_cast<unsigned>(pr.seed);
+  const unsigned key1 = static_cast<unsigned>(c);
+
+  float val;
+  {
+    float th[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) th[p] = theta0[static_cast<size_t>(p) * C + c];
+    if constexpr (kMALA) {
+      float g[kP];
+      val = ev.vg(th, g);
+#pragma unroll
+      for (int p = 0; p < kP; ++p) acc_g[p * bd + me] = g[p];
+    } else {
+      val = ev.v(th);
+    }
+#pragma unroll
+    for (int p = 0; p < kP; ++p) acc_th[p * bd + me] = th[p];
+  }
+
+  float n_accepts = 0.0f;
+  float cur = pr.value;
+  float barh = 0.0f;
+  float logbare = 0.0f;
+
+  for (int t = 0; t < pr.num_iters; ++t) {
+    const unsigned ctr = static_cast<unsigned>(t);
+    float prop[kP];
+    float log_rate;
+    bool moved = false;
+    {
+      float z[kP];
+      kernel_prng::normals(key0, key1, ctr, z);
+      if constexpr (kMALA) {
+        const float half = pr.tuned ? 0.5f * cur : pr.half_step;
+        const float sq = pr.tuned ? sqrtf(cur) : pr.sqrt_step;
+        float z_sq = z[0] * z[0];
+#pragma unroll
+        for (int p = 1; p < kP; ++p) z_sq = z_sq + z[p] * z[p];
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          prop[p] = (acc_th[p * bd + me] + half * acc_g[p * bd + me]) + sq * z[p];
+        }
+        float gp[kP];
+        const float v_p = ev.vg(prop, gp);
+        float rev_sq = 0.0f;
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          const float dp = acc_th[p * bd + me] - (prop[p] + half * gp[p]);
+          rev_sq = rev_sq + dp * dp;
+        }
+        const float half_inv = pr.tuned ? 0.5f / cur : pr.half_inv_step;
+        log_rate = ((v_p - val) - half_inv * rev_sq) + 0.5f * z_sq;
+        const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
+        if (logf(u) < log_rate) {
+#pragma unroll
+          for (int p = 0; p < kP; ++p) {
+            moved |= prop[p] != acc_th[p * bd + me];
+            acc_th[p * bd + me] = prop[p];
+            acc_g[p * bd + me] = gp[p];
+          }
+          val = v_p;
+          if (t >= pr.num_burnin_iters) n_accepts += 1.0f;
+        }
+      } else {
+#pragma unroll
+        for (int p = 0; p < kP; ++p) prop[p] = acc_th[p * bd + me] + cur * z[p];
+        const float v_p = ev.v(prop);
+        log_rate = v_p - val;
+        const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
+        if (logf(u) < log_rate) {
+#pragma unroll
+          for (int p = 0; p < kP; ++p) {
+            moved |= prop[p] != acc_th[p * bd + me];
+            acc_th[p * bd + me] = prop[p];
+          }
+          val = v_p;
+          if (t >= pr.num_burnin_iters) n_accepts += 1.0f;
+        }
+      }
+    }
+
+    if (pr.tuned && t < pr.num_burnin_iters) {  // uniform over the group
+      const float r = log_rate > 0.0f ? 0.0f : log_rate;  // min(log_rate, 0), NaN stays
+      const float e = expf(r);
+      const float rate = e > 1.0f ? 1.0f : e;
+      const float mean_rate = group_mean(rate, red, partial, t & 1, cluster_blocks);
+      cur = dual_average(mean_rate, t, pr.num_burnin_iters, pr.tuner_m, pr.d, pr.g, pr.t0, pr.k,
+                         pr.log_eub, barh, logbare);
+    }
+
+    record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept, pr.record_extras, C, c,
+           acc_th, val, moved);
+  }
+
+#pragma unroll
+  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = acc_th[p * bd + me];
+  accepts[c] = n_accepts;
+}
+
+// ---- host side ----
+
+// Launches kernel on blocks x threads with smem bytes of dynamic shared
+// memory, in clusters of cluster_blocks blocks when that is above 1.
+template <typename... Params, typename... Args>
+inline cudaError_t launch(void (*kernel)(Params...), int blocks, int threads, size_t smem,
+                          int cluster_blocks, void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  if (cluster_blocks > 1) {
+    if (cluster_blocks > 8) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+    }
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(cluster_blocks);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// How many clusters of cluster_blocks blocks of threads threads (with smem
+// bytes of dynamic shared memory) the card can hold at once, into *out; 0
+// when such a cluster cannot be scheduled.
+template <typename... Params>
+inline cudaError_t max_active_clusters(void (*kernel)(Params...), int threads,
+                                       int cluster_blocks, size_t smem, int* out) {
+  *out = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (cluster_blocks > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster_blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster_blocks);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
+// Registers per thread, local-memory (spill) bytes per thread and the most
+// threads a block of kernel can have with those registers, into out[0..2].
+template <typename... Params>
+inline cudaError_t resources(void (*kernel)(Params...), int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = attr.maxThreadsPerBlock;
+  return err;
+}
+
+}  // namespace resident_loop

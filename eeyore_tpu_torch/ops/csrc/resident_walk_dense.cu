@@ -1,0 +1,117 @@
+// The whole random-walk MH or MALA loop for C chains of a sigmoid MLP in one
+// kernel, on data of at most 32 rows folded into the code as constants.
+//
+// Replaces the MH and MALA moves of the Pallas TPU kernel
+// eeyore_tpu/ops/resident_walk_dense.py:125 (_make_resident_dense, behind
+// make_resident_mh_dense :196 and make_resident_mala_dense :309); the plain
+// PyTorch version is the CPU branch of eeyore_tpu_torch/ops/
+// resident_walk_dense.py. The loop is resident_loop.cuh::walk_chain (move
+// 0: MH, value only; move 1: MALA), on the generated body dense_body.cuh
+// (ops/mlp_dense.py), as in resident_hmc_dense.cu. With a tuner the scale
+// (MH) or step (MALA) is dual-averaged during burn-in on the mean rate of
+// each tuning group, the TPU kernel's sublane-strided grid block of
+// chain_block chains, one CUDA block or a thread-block cluster
+// (_population_dual_average, resident_walk_dense.py:175-193). As there, the
+// rates have no NaN guard.
+//
+// Bound. As resident_walk.cu: one evaluation per chain and iteration, the
+// PRNG and the samples' bytes; on XOR the PRNG work and the sample bytes
+// weigh as much as the evaluations.
+
+#include "resident_loop.cuh"
+#include "dense_body.cuh"
+
+using namespace mlp_vg;
+using resident_loop::kMaxThreads;
+
+static_assert(dense_body::kP == kP, "generated body and architecture disagree");
+
+namespace {
+
+struct DenseEval {
+  __device__ __forceinline__ float vg(const float (&th)[kP], float (&g)[kP]) const {
+    return dense_body::vg(th, g);
+  }
+  __device__ __forceinline__ float v(const float (&th)[kP]) const { return dense_body::v(th); }
+};
+
+template <bool kMALA>
+__global__ void resident_walk_dense_kernel(const float* __restrict__ theta0,  // [P, C]
+                                           const ResidentWalkParams pr,
+                                           float* __restrict__ samples,      // [kept, rows, C]
+                                           float* __restrict__ final_theta,  // [P, C]
+                                           float* __restrict__ accepts,      // [C]
+                                           int cluster_blocks) {
+  extern __shared__ float smem[];
+  __shared__ float red[kMaxThreads / 32];
+  __shared__ float partial[2];
+  float* acc_th = smem;                     // accepted theta, [P][bd]
+  float* acc_g = acc_th + kP * blockDim.x;  // its gradient (MALA), [P][bd]
+  const int c = resident_loop::chain_index(pr.sublanes, pr.chain_block, pr.num_chains);
+  resident_loop::walk_chain<DenseEval, kMALA>(DenseEval{}, pr, c, cluster_blocks, theta0,
+                                              samples, final_theta, accepts, acc_th, acc_g, red,
+                                              partial);
+  // no block of a cluster leaves while another may read its partial sum
+  if (cluster_blocks > 1) cooperative_groups::this_cluster().sync();
+}
+
+size_t smem_bytes(int move, int threads) {
+  return sizeof(float) * (move == 1 ? 2 : 1) * static_cast<size_t>(kP) * threads;
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes. Returns a cudaError_t code.
+
+extern "C" int resident_walk_dense_arch(int* out) {
+  out[0] = kP;
+  out[1] = kIn;
+  out[2] = kOut;
+  out[3] = kCrossEntropy ? 1 : 0;
+  out[4] = kMaxThreads;
+  return 0;
+}
+
+extern "C" int resident_walk_dense_resources(int move, int* out) {
+  return static_cast<int>(
+      move == 1 ? resident_loop::resources(resident_walk_dense_kernel<true>, out)
+                : resident_loop::resources(resident_walk_dense_kernel<false>, out));
+}
+
+extern "C" int resident_walk_dense_max_clusters(int move, int threads, int cluster_blocks,
+                                                int* out) {
+  const size_t smem = smem_bytes(move, threads);
+  return static_cast<int>(
+      move == 1 ? resident_loop::max_active_clusters(resident_walk_dense_kernel<true>, threads,
+                                                     cluster_blocks, smem, out)
+                : resident_loop::max_active_clusters(resident_walk_dense_kernel<false>, threads,
+                                                     cluster_blocks, smem, out));
+}
+
+extern "C" const char* resident_walk_dense_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" int resident_walk_dense_launch(int move, const float* theta0,
+                                          const ResidentWalkParams* params, int threads,
+                                          int cluster_blocks, float* samples,
+                                          float* final_theta, float* accepts, void* stream) {
+  const ResidentWalkParams pr = *params;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      pr.chain_block % threads != 0 || pr.num_chains % pr.chain_block != 0 ||
+      cluster_blocks < 1 || cluster_blocks > resident_loop::kMaxCluster ||
+      (cluster_blocks > 1 && cluster_blocks * threads != pr.chain_block) ||
+      (move != 0 && move != 1)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const size_t smem = smem_bytes(move, threads);
+  const int blocks = pr.num_chains / threads;
+  const cudaError_t err =
+      move == 1 ? resident_loop::launch(resident_walk_dense_kernel<true>, blocks, threads, smem,
+                                        cluster_blocks, stream, theta0, pr, samples,
+                                        final_theta, accepts, cluster_blocks)
+                : resident_loop::launch(resident_walk_dense_kernel<false>, blocks, threads, smem,
+                                        cluster_blocks, stream, theta0, pr, samples,
+                                        final_theta, accepts, cluster_blocks);
+  return static_cast<int>(err);
+}

@@ -14,6 +14,12 @@ The stream of the HMC kernel (``hmc_draws``): key = (seed, global chain
 index), counter = (iteration, j). For j < ceil(P/2) the two words are one
 Box-Muller pair, momenta 2j and 2j+1; j = ceil(P/2) gives the accept uniform
 and j = ceil(P/2) + 1 the stochastic-rounding uniform.
+
+The stream of the walk kernels (``walk_draws``) has the same layout: for j <
+ceil(P/2) the pairs of proposal normals, and j = ceil(P/2) the accept
+uniform. (The JAX package's dense kernels draw with ``normal_tiles`` from the
+TPU core's generator; its numbers cannot be reproduced, so that function has
+no counterpart here.)
 """
 
 import math
@@ -86,13 +92,23 @@ def normal(bits0, bits1):
     return r * cos, r * sin
 
 
+def _draws(seed, chains, iteration, num_params, num_uniforms):
+    pairs = (num_params + 1) // 2
+    j = torch.arange(pairs + num_uniforms, dtype=torch.int64, device=chains.device)[:, None]
+    y0, y1 = threefry2x32(seed, chains[None, :], iteration, j)
+    z0, z1 = normal(y0[:pairs], y1[:pairs])
+    normals = torch.stack([z0, z1], dim=1).reshape(2 * pairs, -1)[:num_params]
+    return (normals,) + tuple(uniform(y0[pairs + i]) for i in range(num_uniforms))
+
+
 def hmc_draws(seed, chains, iteration, num_params):
     """The HMC kernel's draws for one iteration: (momenta [P, C] float32,
     accept uniforms [C], stochastic-rounding uniforms [C]) for the global
     chain indices ``chains`` [C] (int64)."""
-    pairs = (num_params + 1) // 2
-    j = torch.arange(pairs + 2, dtype=torch.int64, device=chains.device)[:, None]
-    y0, y1 = threefry2x32(seed, chains[None, :], iteration, j)
-    z0, z1 = normal(y0[:pairs], y1[:pairs])
-    momenta = torch.stack([z0, z1], dim=1).reshape(2 * pairs, -1)[:num_params]
-    return momenta, uniform(y0[pairs]), uniform(y0[pairs + 1])
+    return _draws(seed, chains, iteration, num_params, 2)
+
+
+def walk_draws(seed, chains, iteration, num_params):
+    """The walk kernels' draws for one iteration: (proposal normals [P, C]
+    float32, accept uniforms [C]) for the global chain indices ``chains``."""
+    return _draws(seed, chains, iteration, num_params, 1)

@@ -22,6 +22,12 @@ tuned run takes ``chain_block <= MAX_BLOCK``.
 The TPU kernel's schedule knobs (``stream``, ``mxu_layer0``,
 ``matmul_precision``, ``vmem_limit_bytes``) have no counterpart: the CUDA
 body streams the data rows one at a time. Only their defaults are accepted.
+
+Every call counts the single-chain value-and-gradient evaluations it made
+(on the card, a device counter the kernel adds to; on the CPU, the plain
+version's count) and leaves them in ``last_info[KERNEL]["evaluations"]``, a
+0-d int64 tensor on the call's device: a run's bound follows from it.
+``_run_plain`` is shared with ``ops/resident_hmc_dense.py``.
 """
 
 import ctypes
@@ -41,17 +47,44 @@ UNTUNED_BLOCK = 256
 
 # Launches of each kernel of this module, counted where they happen.
 launch_counts = {KERNEL: 0}
+# What the last call of each kernel's function reported ({"evaluations": ...}).
+last_info = {KERNEL: None}
 
 
 class ResidentHMCParams(ctypes.Structure):
-    """The kernel's scalar arguments (``ResidentHMCParams`` in the source)."""
+    """The HMC kernels' scalar arguments (``ResidentHMCParams`` in
+    ``csrc/resident_loop.cuh``), shared with ``resident_hmc_dense``."""
 
     _fields_ = ([(name, ctypes.c_int) for name in (
         "seed", "num_chains", "n_rows", "num_iters", "num_burnin_iters", "record_thin",
-        "kept", "num_steps", "tuned", "stochastic", "max_num_steps", "record_extras")]
+        "kept", "num_steps", "tuned", "stochastic", "max_num_steps", "record_extras",
+        "per_chain", "use_l", "nan_guard", "sublanes", "chain_block")]
         + [(name, ctypes.c_float) for name in (
             "step", "tuner_m", "d", "g", "t0", "k", "l", "log_eub", "prior_const",
             "temperature")])
+
+
+def hmc_params(step, num_steps, num_iters, num_burnin_iters, record_thin, tuner,
+               max_num_steps, l_rounding, record_extras, chain_block, n_rows=0,
+               prior_const=0.0, temperature=1.0, per_chain=False):
+    """A filled ``ResidentHMCParams`` (without seed and chain count)."""
+    f32 = np.float32
+    use_l = tuner is not None and tuner.l is not None
+    params = ResidentHMCParams(
+        num_chains=0, n_rows=n_rows, num_iters=num_iters, num_burnin_iters=num_burnin_iters,
+        record_thin=record_thin, kept=(num_iters - num_burnin_iters) // record_thin,
+        num_steps=int(num_steps), tuned=int(tuner is not None),
+        stochastic=int(use_l and l_rounding == "stochastic"),
+        max_num_steps=int(max_num_steps), record_extras=int(record_extras),
+        per_chain=int(tuner is not None and per_chain), use_l=int(use_l), sublanes=1,
+        chain_block=chain_block, step=float(step),
+        tuner_m=float(np.log(f32(10.0) * f32(step))), prior_const=prior_const,
+        temperature=temperature)
+    if tuner is not None:
+        params.d, params.g, params.t0, params.k = tuner.d, tuner.g, tuner.t0, tuner.k
+        params.l = 0.0 if tuner.l is None else tuner.l
+        params.log_eub = np.inf if tuner.eub is None else float(f32(np.log(tuner.eub)))
+    return params
 
 
 def load_kernel(model):
@@ -61,40 +94,54 @@ def load_kernel(model):
     lib = _build.load_library(f"{KERNEL}_{tag}", "resident_hmc.cu", defines)
     lib.resident_hmc_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.POINTER(ResidentHMCParams), ctypes.c_int]
-        + [ctypes.c_void_p] * 4)
+        + [ctypes.c_void_p] * 5)
     lib.resident_hmc_launch.restype = ctypes.c_int
     lib.resident_hmc_error_string.argtypes = [ctypes.c_int]
     lib.resident_hmc_error_string.restype = ctypes.c_char_p
     for fn in (lib.resident_hmc_arch, lib.resident_hmc_resources):
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-
-    dims, _, loss_kind, _ = extract_arch(model)
-    arch = (ctypes.c_int * 5)()
-    lib.resident_hmc_arch(arch)
-    expected = [model.num_params, dims[0], dims[-1], int(loss_kind == "ce"), MAX_BLOCK]
-    if list(arch) != expected:
-        raise RuntimeError(f"{KERNEL}_{tag}: library built for {list(arch)}, "
-                           f"model needs {expected}")
+    check_arch(lib.resident_hmc_arch, model, f"{KERNEL}_{tag}")
     return lib
 
 
-def kernel_resources(lib):
-    """Registers and local-memory (spill) bytes per thread of the loaded
-    kernel, and the most threads its blocks can have with those registers,
-    as the CUDA runtime reports them."""
-    out = (ctypes.c_int * 3)()
-    err = lib.resident_hmc_resources(out)
+def check_arch(arch_fn, model, name):
+    """Raise unless the library's ``*_arch`` reports ``model``'s parameter
+    count, input and output widths and loss, and blocks of up to
+    ``MAX_BLOCK`` threads (every whole-loop kernel reports these five)."""
+    dims, _, loss_kind, _ = extract_arch(model)
+    arch = (ctypes.c_int * 5)()
+    arch_fn(arch)
+    expected = [model.num_params, dims[0], dims[-1], int(loss_kind == "ce"), MAX_BLOCK]
+    if list(arch) != expected:
+        raise RuntimeError(f"{name}: library built for {list(arch)}, model needs {expected}")
+
+
+def raise_on(err, error_string, what):
+    """Raise on a non-zero CUDA error code from a library call."""
     if err != 0:
-        raise RuntimeError(f"{KERNEL}: {lib.resident_hmc_error_string(err).decode()}")
+        raise RuntimeError(f"{what}: {error_string(err).decode()}")
+
+
+def read_resources(call, error_string, name):
+    """Registers and local-memory (spill) bytes per thread of a loaded
+    kernel, and the most threads its blocks can have with those registers,
+    from a ``*_resources`` call taking the int[3] to fill."""
+    out = (ctypes.c_int * 3)()
+    raise_on(call(out), error_string, name)
     return {"registers": out[0], "local_bytes": out[1], "max_threads_per_block": out[2]}
+
+
+def kernel_resources(lib):
+    """``read_resources`` of the loaded resident HMC kernel."""
+    return read_resources(lib.resident_hmc_resources, lib.resident_hmc_error_string, KERNEL)
 
 
 def resident_hmc(lib, theta0, x, y, mask, loc, ivar, params, threads):
     """Launch the kernel: theta0 [P, C] -> (samples [kept, rows, C], final
-    [P, C], accepts [C]), f32 on one CUDA device, on the current stream.
-    ``params`` is a filled ``ResidentHMCParams``; rows = P (+2 with
-    record_extras)."""
+    [P, C], accepts [C], {"evaluations": int64 0-d tensor}), f32 on one CUDA
+    device, on the current stream. ``params`` is a filled
+    ``ResidentHMCParams``; rows = P (+2 with record_extras)."""
     P, C = theta0.shape
     for t in (theta0, x, y, mask, loc, ivar):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
@@ -111,15 +158,15 @@ def resident_hmc(lib, theta0, x, y, mask, loc, ivar, params, threads):
     samples = torch.empty((params.kept, rows, C), dtype=torch.float32, device=theta0.device)
     final = torch.empty((P, C), dtype=torch.float32, device=theta0.device)
     accepts = torch.empty((C,), dtype=torch.float32, device=theta0.device)
+    evaluations = torch.zeros((), dtype=torch.int64, device=theta0.device)
     stream = torch.cuda.current_stream(theta0.device).cuda_stream
     err = lib.resident_hmc_launch(
         theta0.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(), loc.data_ptr(),
         ivar.data_ptr(), ctypes.byref(params), threads, samples.data_ptr(), final.data_ptr(),
-        accepts.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"resident_hmc launch failed: {lib.resident_hmc_error_string(err)}")
+        accepts.data_ptr(), evaluations.data_ptr(), stream)
+    raise_on(err, lib.resident_hmc_error_string, f"{KERNEL} launch failed")
     launch_counts[KERNEL] += 1
-    return samples, final, accepts
+    return samples, final, accepts, {"evaluations": evaluations}
 
 
 def _population_tune(pr, t, barh, logbare, mean_rate):
@@ -136,11 +183,29 @@ def _population_tune(pr, t, barh, logbare, mean_rate):
     return barh, logbare, torch.exp(logbare) if last else torch.exp(loge)
 
 
+def group_index(C, chain_block, sublanes):
+    """Each chain's tuning group, [C] int64: runs of ``chain_block``
+    consecutive chains (``sublanes`` 1), or the TPU dense layout's
+    sublane-strided sets (``sublanes`` 8: chain ``s*(C/8) + i*lb + j`` is in
+    group ``i``, ``lb = chain_block/8``)."""
+    c = torch.arange(C)
+    return (c % (C // sublanes)) // (chain_block // sublanes)
+
+
+def group_means(v, chain_block, sublanes):
+    """The mean of ``v`` [C] over each tuning group (see ``group_index``)."""
+    groups = v.shape[0] // chain_block
+    return v.reshape(sublanes, groups, -1).transpose(0, 1).reshape(groups, -1).mean(dim=1)
+
+
 def _run_plain(vg, arrays, pr, chain_block, theta):
-    """The kernel's computation in PyTorch, on [P, C] tensors: same inputs
-    and outputs as ``resident_hmc``, plus {"evaluations": the single-chain
-    value-and-gradient evaluations the run needed (a 0-d tensor), "step" and
-    "num_steps": each chain's final step and trajectory length, [C]}."""
+    """The HMC kernels' computation in PyTorch, on [P, C] tensors: same
+    inputs and outputs as ``resident_hmc``, plus {"evaluations": the
+    single-chain value-and-gradient evaluations the run needed (a 0-d
+    tensor), "step" and "num_steps": each chain's final step and trajectory
+    length, [C]}. ``pr`` picks the tuning: population groups of
+    ``chain_block`` chains (``pr.sublanes`` lays them out) or per chain,
+    with or without the l-rule and the NaN guard."""
     P, C = theta.shape
     f32 = dict(dtype=torch.float32, device=theta.device)
     chains = torch.arange(C, dtype=torch.int64, device=theta.device)
@@ -148,9 +213,11 @@ def _run_plain(vg, arrays, pr, chain_block, theta):
     val = val[0]
     step = torch.full((C,), pr.step, **f32)
     n_steps = torch.full((C,), pr.num_steps, dtype=torch.int32, device=theta.device)
-    groups = C // chain_block
-    barh = torch.zeros(groups, **f32)
-    logbare = torch.zeros(groups, **f32)
+    per_chain = bool(pr.per_chain)
+    tuned_shape = C if per_chain else C // chain_block
+    gid = group_index(C, chain_block, pr.sublanes).to(theta.device)
+    barh = torch.zeros(tuned_shape, **f32)
+    logbare = torch.zeros(tuned_shape, **f32)
     rows = P + 2 if pr.record_extras else P
     samples = torch.empty((pr.kept, rows, C), **f32)
     accepts = torch.zeros(C, **f32)
@@ -184,15 +251,18 @@ def _run_plain(vg, arrays, pr, chain_block, theta):
             accepts += accept.to(torch.float32)
 
         if pr.tuned and t < pr.num_burnin_iters:
-            mean_rate = rate.reshape(groups, chain_block).mean(dim=1)
-            barh, logbare, group_step = _population_tune(pr, t, barh, logbare, mean_rate)
-            step = group_step.repeat_interleave(chain_block)
-            ratio = pr.l / step
-            n = torch.round(ratio)
-            if pr.stochastic and t == pr.num_burnin_iters - 1:
-                n_lo = torch.floor(ratio)
-                n = n_lo + (u_round < ratio - n_lo).to(torch.float32)
-            n_steps = torch.clamp(n, 1, pr.max_num_steps).to(torch.int32)
+            stat = rate if per_chain else group_means(rate, chain_block, pr.sublanes)
+            if pr.nan_guard:
+                stat = torch.where(torch.isnan(stat), 0.0, stat)
+            barh, logbare, new_step = _population_tune(pr, t, barh, logbare, stat)
+            step = new_step if per_chain else new_step[gid]
+            if pr.use_l:
+                ratio = pr.l / step
+                n = torch.round(ratio)
+                if pr.stochastic and t == pr.num_burnin_iters - 1:
+                    n_lo = torch.floor(ratio)
+                    n = n_lo + (u_round < ratio - n_lo).to(torch.float32)
+                n_steps = torch.clamp(n, 1, pr.max_num_steps).to(torch.int32)
 
         since = t - pr.num_burnin_iters
         if since >= 0 and since % pr.record_thin == 0 and since // pr.record_thin < pr.kept:
@@ -229,23 +299,15 @@ def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=
     if tuner is not None and chain_block > MAX_BLOCK:
         raise ValueError(f"a tuned run's chain_block (its tuning group, one CUDA block) "
                          f"is at most {MAX_BLOCK}, got {chain_block}")
+    if tuner is not None and tuner.l is None:
+        raise ValueError("the in-loop tuner needs the trajectory length l (HMCDATuner(l=...))")
     device = torch.device(device)
     x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature = prepare_data(model, x, y)
     P = model.num_params
-    kept = (num_iters - num_burnin_iters) // record_thin
-    f32 = np.float32
-    params = ResidentHMCParams(
-        num_chains=0, n_rows=x_pad.shape[0], num_iters=num_iters,
-        num_burnin_iters=num_burnin_iters, record_thin=record_thin, kept=kept,
-        num_steps=int(num_steps), tuned=int(tuner is not None),
-        stochastic=int(tuner is not None and l_rounding == "stochastic"),
-        max_num_steps=int(max_num_steps), record_extras=int(record_extras),
-        step=float(step), tuner_m=float(np.log(f32(10.0) * f32(step))),
-        prior_const=prior_const, temperature=temperature)
-    if tuner is not None:
-        params.d, params.g, params.t0, params.k = tuner.d, tuner.g, tuner.t0, tuner.k
-        params.l = tuner.l
-        params.log_eub = np.inf if tuner.eub is None else float(f32(np.log(tuner.eub)))
+    params = hmc_params(step, num_steps, num_iters, num_burnin_iters, record_thin, tuner,
+                        max_num_steps, l_rounding, record_extras, chain_block,
+                        n_rows=x_pad.shape[0], prior_const=prior_const,
+                        temperature=temperature)
     arrays = [torch.as_tensor(a, device=device).contiguous()
               for a in (x_pad, y_pad, row_mask, loc, ivar)]
     lib = load_kernel(model) if device.type == "cuda" else None
@@ -259,25 +321,21 @@ def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=
         pr.seed, pr.num_chains = int(seed), C
         return pr, theta0s.to(torch.float32).T.contiguous()  # [P, C]
 
-    def unpack(samples, final, acc):
-        # [kept, rows, C] -> [kept, C, P], as views
-        out = (samples[:, :P, :].transpose(1, 2), final.T, acc)
-        if record_extras:
-            out = out + (samples[:, P, :], samples[:, P + 1, :].to(torch.int32))
-        return out
-
     def fn(seed, theta0s):
         if theta0s.device.type != device.type:
             raise ValueError(f"theta0s on {theta0s.device}, but the function was built for "
                              f"device={device}")
         pr, theta_t = setup(seed, theta0s)
         if lib is None:
-            return unpack(*_run_plain(vg, arrays, pr, chain_block, theta_t)[:3])
-        if chain_block % 32 != 0:
-            raise ValueError(f"on the card chain_block must be a multiple of 32, "
-                             f"got {chain_block}")
-        threads = chain_block if tuner is not None else min(chain_block, UNTUNED_BLOCK)
-        return unpack(*resident_hmc(lib, theta_t, *arrays, pr, threads))
+            samples, final, acc, info = _run_plain(vg, arrays, pr, chain_block, theta_t)
+        else:
+            if chain_block % 32 != 0:
+                raise ValueError(f"on the card chain_block must be a multiple of 32, "
+                                 f"got {chain_block}")
+            threads = chain_block if tuner is not None else min(chain_block, UNTUNED_BLOCK)
+            samples, final, acc, info = resident_hmc(lib, theta_t, *arrays, pr, threads)
+        last_info[KERNEL] = {"evaluations": info["evaluations"]}
+        return unpack_outputs(samples, final, acc, P, record_extras)
 
     def plain(seed, theta0s):
         """The plain version on ``device``'s tensors, whichever the device:
@@ -286,7 +344,18 @@ def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=
         "num_steps". For holding the kernel against it on the card."""
         pr, theta_t = setup(seed, theta0s)
         samples, final, acc, info = _run_plain(vg, arrays, pr, chain_block, theta_t)
-        return unpack(samples, final, acc), dict(info, evaluations=int(info["evaluations"]))
+        return (unpack_outputs(samples, final, acc, P, record_extras),
+                dict(info, evaluations=int(info["evaluations"])))
 
     fn.plain = plain
     return fn
+
+
+def unpack_outputs(samples, final, acc, P, record_extras):
+    """The kernels' [kept, rows, C] samples and [P, C] final state as
+    ``(samples [kept, C, P], final [C, P], acc [C](, target_val [kept, C],
+    accepted [kept, C] int32))``, views where they can be."""
+    out = (samples[:, :P, :].transpose(1, 2), final.T, acc)
+    if record_extras:
+        out = out + (samples[:, P, :], samples[:, P + 1, :].to(torch.int32))
+    return out

@@ -1,3 +1,5 @@
 from eeyore_tpu_torch.samplers.base import TransitionKernel
 from eeyore_tpu_torch.samplers.hmc import HMC, HMCState
+from eeyore_tpu_torch.samplers.mala import MALA, MALAState
+from eeyore_tpu_torch.samplers.mh import MetropolisHastings, MHState
 from eeyore_tpu_torch.samplers.runner import sample_chain, sample_chains

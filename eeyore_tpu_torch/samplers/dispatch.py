@@ -1,24 +1,28 @@
-"""Kernel-backend dispatch: route ``sample_chains`` onto the whole-loop HMC
-kernel when the configuration is eligible.
+"""Kernel-backend dispatch: route ``sample_chains`` onto the whole-loop
+kernels when the configuration is eligible.
 
-Counterpart of the HMC part of ``eeyore_tpu/samplers/dispatch.py``.
-``resolve_backend`` decides, per (transition kernel, model, data, chain
-count), which engine runs the request, and ``run_kernel_backend`` runs it
-and re-wraps the kernel's outputs in the stacked-tensor contract of the
-generic path.
+Counterpart of the HMC, MH and MALA parts of
+``eeyore_tpu/samplers/dispatch.py``. ``resolve_backend`` decides, per
+(transition kernel, model, data, chain count), which engine runs the
+request, and ``run_kernel_backend`` runs it and re-wraps the kernel's
+outputs in the stacked-tensor contract of the generic path.
 
 Backends:
-- ``"resident"``: ``ops/resident_hmc.py::make_resident_hmc``, the whole HMC
-  loop in one CUDA kernel. Needs the model and the data on a CUDA device, a
-  full-batch schedule, an ``extract_arch``-able MLP, at most
-  ``MAX_DISPATCH_PARAMS`` parameters and a chain count divisible by 128.
-- ``"dense"``: the dense kernel (``make_resident_hmc_dense``) is not ported
-  yet; asking for it raises.
+- ``"dense"``: the kernels with the data folded in as constants
+  (``ops/resident_hmc_dense.py``, ``ops/resident_walk_dense.py``). Needs at
+  most ``MAX_DENSE_ROWS`` data rows and a chain count divisible by 1024.
+- ``"resident"``: the kernels on staged data (``ops/resident_hmc.py``,
+  ``ops/resident_walk.py``), for any number of rows. Needs a chain count
+  divisible by 128.
 - ``"scan"``: the generic path; always eligible.
-- ``"auto"``: resident if eligible, for any number of data rows, else scan.
+- ``"auto"``: dense if eligible, else resident, else scan.
 
-Only HMC has a kernel backend in the port; every other sampler runs the
-generic path under ``"auto"``.
+Both kernel backends need the model and the data on a CUDA device, a
+full-batch schedule, an ``extract_arch``-able MLP and at most
+``MAX_DISPATCH_PARAMS`` parameters. HMC, random-walk MH (a symmetric
+``NormalKernel`` of scalar scale) and MALA have kernels; every other sampler
+(and an asymmetric or vector-scale MH) runs the generic path under
+``"auto"``.
 
 Statistical contract: the kernel draws its own numbers (``ops/
 kernel_prng.py``) from a seed taken from the caller's generator, so its runs
@@ -30,10 +34,13 @@ extras rows, which carry the value and an exact moved flag. Any other key
 forces the generic path.
 """
 
+import inspect
+
 import numpy as np
 import torch
 
 from eeyore_tpu_torch.datasets import as_schedule
+from eeyore_tpu_torch.ops.mlp_dense import MAX_DENSE_ROWS
 
 BACKENDS = ("auto", "scan", "resident", "dense")
 
@@ -41,6 +48,7 @@ BACKENDS = ("auto", "scan", "resident", "dense")
 # forces the generic path
 KERNEL_RECORD_KEYS = frozenset({"sample", "accepted", "target_val"})
 
+_DENSE_BLOCKS = (8192, 4096, 2048, 1024)
 _RESIDENT_BLOCKS = (4096, 2048, 1024, 512, 256, 128)
 MAX_DISPATCH_PARAMS = 256
 # Largest chain_block (a tuned run's tuning group, one CUDA block) that
@@ -95,19 +103,77 @@ def _pick_block(num_chains, candidates, cap=None):
     return None
 
 
+def _dense_group_cap(kernel, x, y):
+    """The largest dense block that a tuned population run's tuning group can
+    be on this card: a group is one thread-block cluster, and what the
+    build's registers and the card allow is asked of the CUDA runtime
+    (``resident_hmc_dense.group_shape``). No cap off the card, where the
+    plain version runs."""
+    if not x.is_cuda:
+        return None
+    from eeyore_tpu_torch.ops import resident_hmc_dense
+
+    lib = resident_hmc_dense.load_kernel(kernel.model, x.cpu().numpy(), y.cpu().numpy())
+    for cb in _DENSE_BLOCKS:
+        try:
+            resident_hmc_dense.group_shape(lib, cb)
+        except ValueError:
+            continue
+        return cb
+    return 0
+
+
 def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_thin,
                   want_dense, record_extras=False):
     """Return a _Plan for the transition kernel, or (None, reason)."""
+    from eeyore_tpu_torch.kernels import NormalKernel
     from eeyore_tpu_torch.samplers.hmc import HMC
+    from eeyore_tpu_torch.samplers.mala import MALA
+    from eeyore_tpu_torch.samplers.mh import MetropolisHastings
+
+    common = dict(num_iters=num_iters, num_burnin_iters=num_burnin_iters,
+                  record_thin=record_thin, record_extras=record_extras)
+
+    if type(kernel) is MetropolisHastings:
+        if not kernel.symmetric or not isinstance(kernel.kernel, NormalKernel):
+            return None, "kernel backends support symmetric Normal-proposal MH only"
+        if kernel.kernel.scale.dim() != 0:
+            return None, "kernel backends need a scalar MH proposal scale"
+        scale = float(kernel.kernel.scale)
+        if want_dense:
+            from eeyore_tpu_torch.ops.resident_walk_dense import make_resident_mh_dense
+            cb = _pick_block(num_chains, _DENSE_BLOCKS)
+            if cb is None:
+                return None, "dense MH needs chains divisible by 1024"
+            return _Plan("dense", make_resident_mh_dense,
+                         dict(scale=scale, chain_block=cb, **common), cb), None
+        from eeyore_tpu_torch.ops.resident_walk import make_resident_mh
+        cb = _pick_block(num_chains, _RESIDENT_BLOCKS)
+        if cb is None:
+            return None, "resident MH needs chains divisible by 128"
+        return _Plan("resident", make_resident_mh,
+                     dict(scale=scale, chain_block=cb, **common), cb), None
+
+    if type(kernel) is MALA:
+        step = float(kernel.step_size)
+        if want_dense:
+            from eeyore_tpu_torch.ops.resident_walk_dense import make_resident_mala_dense
+            cb = _pick_block(num_chains, _DENSE_BLOCKS)
+            if cb is None:
+                return None, "dense MALA needs chains divisible by 1024"
+            return _Plan("dense", make_resident_mala_dense,
+                         dict(step=step, chain_block=cb, **common), cb), None
+        from eeyore_tpu_torch.ops.resident_walk import make_resident_mala
+        cb = _pick_block(num_chains, _RESIDENT_BLOCKS, cap=4096)
+        if cb is None:
+            return None, "resident MALA needs chains divisible by 128"
+        return _Plan("resident", make_resident_mala,
+                     dict(step=step, chain_block=cb, **common), cb), None
 
     if type(kernel) is not HMC:
         return None, f"{type(kernel).__name__} has no kernel backend yet"
-    if want_dense:
-        return None, ("the dense kernel (make_resident_hmc_dense) is not yet ported; "
-                      "use backend='resident' or 'auto'")
     hmc_kw = dict(step=float(kernel.step0), num_steps=int(kernel.num_steps0),
-                  tuner=kernel.tuner, num_iters=num_iters, num_burnin_iters=num_burnin_iters,
-                  record_thin=record_thin, record_extras=record_extras)
+                  tuner=kernel.tuner, **common)
     if kernel.tuner is not None:
         # the kernel caps the trajectory: shortening a user-configured
         # ceiling would change the sampler, so an explicit one above the cap
@@ -121,6 +187,15 @@ def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_
         else:
             hmc_kw["max_num_steps"] = min(int(kernel.max_num_steps), KERNEL_MAX_NUM_STEPS)
         hmc_kw["l_rounding"] = kernel.l_rounding
+    if want_dense:
+        from eeyore_tpu_torch.ops.resident_hmc_dense import make_resident_hmc_dense
+        cap = _dense_group_cap(kernel, x, y) if kernel.tuner is not None else None
+        cb = _pick_block(num_chains, _DENSE_BLOCKS, cap=cap)
+        if cb is None:
+            return None, ("dense HMC needs chains divisible by 1024"
+                          + (f" (tuning groups of at most {cap} on this card)" if cap else ""))
+        return _Plan("dense", make_resident_hmc_dense, dict(chain_block=cb, **hmc_kw),
+                     cb), None
     from eeyore_tpu_torch.ops.resident_hmc import make_resident_hmc
 
     cap = HOPPER_BLOCK_CAP_WIDE if x.shape[0] >= SMALL_MODEL_ROWS else HOPPER_BLOCK_CAP_SMALL
@@ -184,11 +259,23 @@ def resolve_backend(kernel, data, num_chains, num_iters, num_burnin_iters=0, rec
     if model.num_params > MAX_DISPATCH_PARAMS:
         return fail(f"{model.num_params} params > MAX_DISPATCH_PARAMS={MAX_DISPATCH_PARAMS} "
                     "(one thread carries a chain's state in registers)")
-    plan, reason = _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters,
-                                 record_thin, backend == "dense",
-                                 record_extras=record_extras)
-    if plan is not None:
-        return plan, None
+
+    dense_ok = x.shape[0] <= MAX_DENSE_ROWS
+    if backend == "dense":
+        order = [True]
+    elif backend == "resident":
+        order = [False]
+    else:  # auto: dense first when the data fits, then resident
+        order = [True, False] if dense_ok else [False]
+    reason = None
+    for want_dense in order:
+        if want_dense and not dense_ok:
+            reason = f"{x.shape[0]} data rows > MAX_DENSE_ROWS={MAX_DENSE_ROWS}"
+            continue
+        plan, reason = _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters,
+                                     record_thin, want_dense, record_extras=record_extras)
+        if plan is not None:
+            return plan, None
     return fail(reason)
 
 
@@ -218,10 +305,14 @@ def run_kernel_backend(kernel, generator, theta0s, data, num_iters, num_burnin_i
                                       **plan.kwargs)
     fn = cache[cache_key]
     want_extras = bool(plan.kwargs.get("record_extras", False))
+    # dispatch hands over chain-major [C, P] inits: say so to the dense HMC
+    # function, which would otherwise read the layout from the shape
+    call_kw = ({"dense_input": False} if "dense_input" in inspect.signature(fn).parameters
+               else {})
 
     seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              device=generator.device if generator is not None else "cpu"))
-    out = fn(seed, theta0s)
+    out = fn(seed, theta0s, **call_kw)
     # [kept, C, P] view of the kernel's [kept, P, C] -> [C, kept, P], one copy
     samples = out[0].transpose(0, 1).contiguous()
     final, acc = out[1], out[2]
@@ -231,7 +322,8 @@ def run_kernel_backend(kernel, generator, theta0s, data, num_iters, num_burnin_i
         recorded["target_val"] = out[3].T.contiguous()
     elif needs_accepted:
         # derived accepted: moved against the previous kept row; the first
-        # kept row takes the remainder of the exact count (record_thin 1)
+        # kept row takes the remainder of the exact count (record_thin 1):
+        # every ported kernel returns accepted-transition counts
         moved = torch.any(samples[:, 1:, :] != samples[:, :-1, :], dim=-1)
         if record_thin == 1:
             first = torch.clamp(torch.round(acc - moved.sum(dim=1)), 0, 1)

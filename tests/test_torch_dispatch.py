@@ -1,5 +1,5 @@
-"""Port, kernel-backend dispatch: the HMC cases of tests/test_dispatch.py
-rewritten for the port. Plans are made for platform="cuda" on the CPU, as
+"""Port, kernel-backend dispatch: the HMC, MH and MALA cases of
+tests/test_dispatch.py rewritten for the port. Plans are made for platform="cuda" on the CPU, as
 the JAX tests plan for "tpu"; a plan run on CPU tensors goes through the
 kernel's plain version, so ``sample_chains(backend="resident")`` is tested
 here end to end into ``ChainLists`` (the CUDA kernel itself is held against
@@ -11,8 +11,17 @@ import torch
 
 from eeyore_tpu_torch.datasets import BatchSchedule, XYDataset
 from eeyore_tpu_torch.models import MLP, loss_functions, mlp
-from eeyore_tpu_torch.ops import resident_hmc
-from eeyore_tpu_torch.samplers import HMC, TransitionKernel, sample_chain, sample_chains
+from eeyore_tpu_torch.kernels import MultivariateNormalKernel, NormalKernel
+from eeyore_tpu_torch.ops import resident_hmc, resident_hmc_dense, resident_walk
+from eeyore_tpu_torch.ops import resident_walk_dense
+from eeyore_tpu_torch.samplers import (
+    HMC,
+    MALA,
+    MetropolisHastings,
+    TransitionKernel,
+    sample_chain,
+    sample_chains,
+)
 from eeyore_tpu_torch.samplers import dispatch
 from eeyore_tpu_torch.samplers.dispatch import resolve_backend
 from eeyore_tpu_torch.tuners import HMCDATuner
@@ -46,17 +55,30 @@ def test_iris_resolves_resident_with_block_256():
 
 @pytest.mark.parametrize("chains,block", [(131072, 512), (8192, 512), (384, 128)])
 def test_xor_resolves_resident_under_the_small_model_cap(chains, block):
+    """Asked for the resident kernel (``auto`` sends XOR to the dense one,
+    test_auto_sends_small_data_to_dense)."""
     plan, reason = resolve_backend(HMC(xor_model(), step=0.05, num_steps=10), XOR, chains, 256,
-                                   platform="cuda")
+                                   platform="cuda", backend="resident")
     assert plan is not None, reason
     assert plan.backend == "resident" and plan.chain_block == block
     assert plan.kwargs["step"] == 0.05 and plan.kwargs["num_steps"] == 10
 
 
 def test_dense_raises_not_yet_ported():
-    with pytest.raises(ValueError, match="not yet ported"):
-        resolve_backend(HMC(xor_model(), step=0.05), XOR, 8192, 256, platform="cuda",
+    """The dense kernels are ported: an explicit ``backend="dense"`` now
+    raises only where it is ineligible, as in the JAX package: iris has more
+    than MAX_DENSE_ROWS rows, and the dense kernels take chains in multiples
+    of 1024."""
+    for kernel in (HMC(iris_model(), step=0.05), MetropolisHastings(iris_model(), scale=0.1),
+                   MALA(iris_model(), step=0.003)):
+        with pytest.raises(ValueError, match="MAX_DENSE_ROWS"):
+            resolve_backend(kernel, iris_data(), 8192, 256, platform="cuda", backend="dense")
+    with pytest.raises(ValueError, match="divisible by 1024"):
+        resolve_backend(HMC(xor_model(), step=0.05), XOR, 1536, 256, platform="cuda",
                         backend="dense")
+    plan, _ = resolve_backend(HMC(xor_model(), step=0.05), XOR, 8192, 256, platform="cuda",
+                              backend="dense")
+    assert plan.backend == "dense" and plan.chain_block == 8192
 
 
 def test_tuner_and_rounding_are_forwarded():
@@ -243,3 +265,105 @@ def test_minibatch_schedule_runs_the_generic_path_with_recompute():
                            sched.to(dtype=torch.float32), 9, 3, backend="auto",
                            platform="cuda")
     assert kernel.recompute_current and chains.get_samples().shape == (4, 6, 27)
+
+
+@pytest.mark.parametrize("chains,block", [(131072, 8192), (8192, 8192), (2048, 2048),
+                                          (3072, 1024)])
+@pytest.mark.parametrize("sampler", ["hmc", "mh", "mala"])
+def test_auto_sends_small_data_to_dense(sampler, chains, block):
+    """XOR (4 rows) under ``auto``: the dense kernel of each sampler, with
+    the largest block of (8192, 4096, 2048, 1024) that divides the chains."""
+    kernel = {"hmc": HMC(xor_model(), step=0.05, num_steps=10),
+              "mh": MetropolisHastings(xor_model(), scale=0.1),
+              "mala": MALA(xor_model(), step=0.01)}[sampler]
+    plan, reason = resolve_backend(kernel, XOR, chains, 2048, 1024, platform="cuda")
+    assert plan is not None, reason
+    maker = {"hmc": "make_resident_hmc_dense", "mh": "make_resident_mh_dense",
+             "mala": "make_resident_mala_dense"}[sampler]
+    assert plan.backend == "dense" and plan.maker.__name__ == maker
+    assert plan.chain_block == block
+    assert plan.kwargs["num_burnin_iters"] == 1024
+    if sampler == "mh":
+        assert plan.kwargs["scale"] == 0.1
+    if sampler == "mala":
+        assert plan.kwargs["step"] == 0.01
+
+
+@pytest.mark.parametrize("sampler,maker,block", [
+    ("mh", "make_resident_mh", 4096), ("mala", "make_resident_mala", 4096)])
+def test_auto_sends_iris_walks_to_resident(sampler, maker, block):
+    kernel = (MetropolisHastings(iris_model(), scale=0.1) if sampler == "mh"
+              else MALA(iris_model(), step=0.003))
+    plan, reason = resolve_backend(kernel, iris_data(), 32768, 2048, 1024, platform="cuda")
+    assert plan is not None, reason
+    assert plan.backend == "resident" and plan.maker.__name__ == maker
+    assert plan.chain_block == block
+    plan, _ = resolve_backend(kernel, iris_data(), 384, 2048, platform="cuda")
+    assert plan.chain_block == 128
+
+
+def test_walks_with_chains_off_the_dense_blocks_go_resident():
+    plan, _ = resolve_backend(MALA(xor_model(), step=0.01), XOR, 1536, 256, platform="cuda")
+    assert plan.backend == "resident" and plan.chain_block == 512
+
+
+@pytest.mark.parametrize("kernel,reason", [
+    (lambda m: MetropolisHastings(m, symmetric=False), "symmetric"),
+    (lambda m: MetropolisHastings(m, kernel=MultivariateNormalKernel(np.eye(9))), "symmetric"),
+    (lambda m: MetropolisHastings(m, kernel=NormalKernel(np.full(9, 0.1))), "scalar")])
+def test_mh_outside_the_kernels_goes_generic(kernel, reason):
+    """Only a symmetric Normal walk of one scale has a kernel: anything else
+    runs the generic path under ``auto`` and raises when a kernel is asked."""
+    for data in (XOR, iris_data()):
+        model = xor_model() if data is XOR else iris_model()
+        plan, why = resolve_backend(kernel(model), data, 8192, 256, platform="cuda")
+        assert plan is None and reason in why
+    with pytest.raises(ValueError, match=reason):
+        resolve_backend(kernel(xor_model()), XOR, 8192, 256, platform="cuda",
+                        backend="resident")
+
+
+@pytest.mark.parametrize("keys,eligible,extras", [
+    (("sample", "grad_val"), False, None), (("sample",), True, False),
+    (("sample", "target_val", "accepted"), True, True)])
+@pytest.mark.parametrize("sampler", ["mh", "mala"])
+def test_walk_record_key_contract(sampler, keys, eligible, extras):
+    kernel = (MetropolisHastings(xor_model(), scale=0.1) if sampler == "mh"
+              else MALA(xor_model(), step=0.01))
+    plan, reason = resolve_backend(kernel, XOR, 8192, 256, platform="cuda", record_keys=keys)
+    if eligible:
+        assert plan is not None and plan.kwargs["record_extras"] is extras
+    else:
+        assert plan is None and "grad_val" in reason
+
+
+@pytest.mark.parametrize("sampler,module", [
+    ("hmc", resident_hmc_dense), ("mh", resident_walk_dense), ("mala", resident_walk_dense),
+    ("iris_mh", resident_walk), ("iris_mala", resident_walk)])
+def test_walk_and_dense_slices_run_the_plain_kernels_into_chainlists(sampler, module):
+    """``sample_chains(..., backend="auto", platform="cuda")`` on CPU tensors:
+    dispatch picks the dense kernels for XOR and the resident walks for
+    iris, runs their plain versions through ``run_kernel_backend`` and
+    returns ``ChainLists`` with the derived accepted flags; no launch."""
+    iris = sampler.startswith("iris")
+    model = iris_model() if iris else xor_model()
+    data = iris_data() if iris else XOR
+    kernel = {"hmc": HMC(model, step=0.3, num_steps=5),
+              "mh": MetropolisHastings(model, scale=0.3), "mala": MALA(model, step=0.2),
+              "iris_mh": MetropolisHastings(model, scale=0.05),
+              "iris_mala": MALA(model, step=0.003)}[sampler]
+    C, iters, burnin = (128, 30, 10) if iris else (1024, 30, 10)
+    theta0s = 0.1 * torch.randn(C, model.num_params, generator=torch.Generator().manual_seed(5))
+    before = module.launch_counts[module.KERNEL]
+    chains, state = sample_chains(kernel, torch.Generator().manual_seed(6), theta0s, data, iters,
+                                  burnin, return_state=True, backend="auto", platform="cuda")
+    assert module.launch_counts[module.KERNEL] == before
+    samples = chains.get_samples()
+    assert samples.shape == (C, iters - burnin, model.num_params)
+    flags = chains.tensor("accepted")
+    assert flags.dtype == torch.int32
+    assert torch.equal(flags[:, 1:].bool(), torch.any(samples[:, 1:] != samples[:, :-1], dim=-1))
+    assert 0.05 < chains.acceptance_summary() < 1.0
+    torch.testing.assert_close(state.sample, samples[:, -1])
+    assert type(state).__name__ == {"hmc": "HMCState", "mala": "MALAState"}.get(
+        sampler.replace("iris_", ""), "MHState")
