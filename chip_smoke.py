@@ -9,9 +9,11 @@ kernels are built for sm_90a). Phases, one JSON line each:
    log-posterior kernel ``fused_mlp_vg`` for the three architectures below;
    ``resident_hmc`` for iris MLP(4,3,3) CE and XOR MLP(2,2,1) BCE;
    ``resident_hmc_dense`` for XOR MLP(2,2,1); ``resident_walk`` (MH and MALA)
-   for iris; ``resident_walk_dense`` for XOR MLP(2,2,1) and MLP(2,3,2,1). It
-   reports each build's registers and local-memory (spill) bytes per thread,
-   and the thread-block cluster a population-tuned dense run takes.
+   for iris MLP(4,3,3) and (its Gibbs move) iris MLP(4,3,2,3);
+   ``resident_walk_dense`` for XOR MLP(2,2,1) and MLP(2,3,2,1), and for
+   MLP(2,3,2,1) with one-coordinate Gibbs sub-blocks. It reports each build's
+   registers and local-memory (spill) bytes per thread, the Gibbs moves'
+   too, and the thread-block cluster a population-tuned dense run takes.
 2. kernel vs plain: calls ``fused_mlp_vg``'s wrapper on the card at C =
    32768 and 131072 seeded random chains (the main paths' chain counts) and
    holds it against the plain PyTorch ``make_vg`` on the same inputs (rtol
@@ -28,9 +30,12 @@ kernels are built for sm_90a). Phases, one JSON line each:
    population groups of 8192 chains (a cluster) and per chain;
    ``resident_walk`` on iris MH (scale 0.1) and MALA (step 0.003), 32768
    chains, extras; ``resident_walk_dense`` on XOR MH MLP(2,2,1) (scale 0.1)
-   and MALA MLP(2,3,2,1) (step 0.01), untuned with extras and tuned. A chain
-   agrees when all its outputs are within atol 1e-3 + rtol 1e-3 of the plain
-   version's; at least 99% of chains must agree on the untuned runs and on
+   and MALA MLP(2,3,2,1) (step 0.01), untuned with extras and tuned; the
+   Gibbs moves on iris MLP(4,3,2,3) (scales 0.1, staged), XOR MLP(2,2,1)
+   (scales 0.5, dense) and XOR MLP(2,3,2,1) with ``node_subblock_size=[1]*6``
+   (dense), 32768 chains x 20 iterations, extras, per-sub-block counts. A
+   chain agrees when all its outputs are within atol 1e-3 + rtol 1e-3 of the
+   plain version's; at least 99% of chains must agree on the untuned runs and on
    the tuned runs with 5 burn-in iterations (an accept decision at u ~ rate
    may flip on f32 rounding and part a chain's path); a tuned run with 20
    burn-in iterations, where early long steps make the dynamics chaotic, is
@@ -71,7 +76,17 @@ kernels are built for sm_90a). Phases, one JSON line each:
     its kernel, finite samples, pooled means within 5 pooled standard errors
     of the generic path of the same configuration at 4096 chains, and finite
     ``multi_rhat`` / ``multi_ess`` on the first 64 chains.
-12. kernels: each kernel's launches on the main paths, its error against its
+12. main paths, Gibbs, sample_chains(backend="auto"): BASELINE.md config 4
+    (``Gibbs(scales=0.1)``, MLP(4,3,2,3), iris) on ``resident_walk``'s Gibbs
+    move and XOR MLP(2,2,1) with ``Gibbs(scales=0.5)`` on
+    ``resident_walk_dense``'s; 32768 chains x 2048 iterations, 1024 burn-in.
+    Each checks one launch of its kernel, finite samples, pooled means within
+    5 pooled standard errors of the generic path at 4096 chains, per-block
+    acceptance (the kernel's counts over the kept iterations) within 0.02 of
+    the generic path's ``block_acceptance_rate``, finite ``multi_rhat`` /
+    ``multi_ess`` on the first 64 chains, and reports the kernel's time
+    beside its bound.
+13. kernels: each kernel's launches on the main paths, its error against its
     plain version, its time, the plain version's time and its bound.
 
 Then the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -109,6 +124,10 @@ WALK_SOURCE = "eeyore_tpu_torch/ops/csrc/resident_walk.cu"
 WALK_REPLACES = "eeyore_tpu/ops/resident_walk.py:166"
 WALK_DENSE_SOURCE = "eeyore_tpu_torch/ops/csrc/resident_walk_dense.cu"
 WALK_DENSE_REPLACES = "eeyore_tpu/ops/resident_walk_dense.py:125"
+GIBBS_REPLACES = "eeyore_tpu/ops/resident_walk.py:281 (the Gibbs move of :166)"
+GIBBS_DENSE_REPLACES = "eeyore_tpu/ops/resident_walk_dense.py:240 (the Gibbs move of :125)"
+# per-block acceptance of a Gibbs kernel run against its generic path
+GIBBS_BLOCK_ACCEPTANCE_TOL = 0.02
 # resident vs plain: a chain agrees when every value it recorded is within
 # RESIDENT_ATOL + RESIDENT_RTOL * |plain value|; at least RESIDENT_MIN_AGREEING
 # of the chains must agree
@@ -270,6 +289,59 @@ def walk_work(P, C, num_iters, kept, extras, mala, eval_work, data_floats):
     return n_bytes, ops, sfu
 
 
+def gibbs_unit_work(dims, bias, ce, n_rows, l):
+    """(operations, special-function operations) per chain of one
+    incremental Gibbs update of a unit of layer l on staged data
+    (``mlp_math.make_incremental_gibbs``, the TPU kernel's work): the unit,
+    every layer strictly downstream of it (a hidden unit moves all output
+    units; an output unit only itself) and the loss, on each row, counted as
+    ``vg_work`` counts the value-only body, and the prior once."""
+    L = len(dims) - 1
+    k = dims[-1]
+    P = sum(dims[i] * dims[i + 1] + (dims[i + 1] if bias[i] else 0) for i in range(L))
+
+    def unit(i):
+        return 2 * dims[i] + (1 if bias[i] else 0)
+
+    ops = sfu = 0
+    outputs = 1
+    if l < L - 1:
+        ops, sfu, outputs = unit(l) + 2, 2, k         # the unit and its sigmoid
+        for i in range(l + 1, L - 1):
+            ops += dims[i + 1] * (unit(i) + 2)
+            sfu += 2 * dims[i + 1]
+    ops += outputs * unit(L - 1)
+    if ce:
+        ops += (k - 1) + k + (k - 1) + 1 + 2 * k + 2  # the whole head from the cached logits
+        sfu += k + 1
+    else:
+        ops += 7 * outputs                            # softplus and y z - softplus per moved unit
+        sfu += 2 * outputs
+    return n_rows * ops + 4 * P + 2 + (0 if ce else k), n_rows * sfu
+
+
+def gibbs_work(P, C, num_iters, kept, extras, sweep, init_work, data_floats):
+    """(bytes, operations, special-function operations) that a Gibbs kernel
+    needs: one value-only evaluation per chain (``init_work``), then per
+    iteration, for each sub-block of ``sweep`` = [(width, (operations,
+    special-function operations) of its incremental update)], the update,
+    ceil(w/2) + 1 Threefry calls, ceil(w/2) Box-Muller pairs, the proposal
+    (2w) and the accept (a subtraction, a compare; log: 1 special-function
+    operation); bytes: theta0 read, ``data_floats`` of data and the scales
+    read once, the samples, the final theta and the [B, C] accept counts
+    written once."""
+    ops = sfu = 0
+    for width, (u_ops, u_sfu) in sweep:
+        pairs = (width + 1) // 2
+        ops += u_ops + (pairs + 1) * THREEFRY_OPS + pairs * BOX_MULLER_OPS + 2 * width + 2
+        sfu += u_sfu + pairs * BOX_MULLER_SFU + 1
+    B = len(sweep)
+    rows = P + 2 if extras else P
+    n_bytes = 4 * (P * C + data_floats + B + kept * rows * C + P * C + B * C)
+    return (n_bytes, C * (init_work[0] + num_iters * ops),
+            C * (init_work[1] + num_iters * sfu))
+
+
 def bound_ms(work, sm_count):
     n_bytes, ops, sfu = work
     times = {"bytes": n_bytes / HBM_BYTES_PER_S, "ops": ops / F32_OPS_PER_S,
@@ -312,7 +384,7 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is false; no result", file=sys.stderr)
         return 1
 
-    from eeyore_tpu_torch.chains import ChainLists
+    from eeyore_tpu_torch.chains import ChainList, ChainLists
     from eeyore_tpu_torch.datasets import XYDataset
     from eeyore_tpu_torch.models import MLP, IIDNormalPrior, loss_functions, mlp
     from eeyore_tpu_torch.ops import (
@@ -323,9 +395,9 @@ def main(argv=None):
         resident_walk_dense,
     )
     from eeyore_tpu_torch.ops.fused_hmc import FusedHMC
-    from eeyore_tpu_torch.ops.mlp_dense import dense_work
+    from eeyore_tpu_torch.ops.mlp_dense import dense_work, gibbs_dense_work
     from eeyore_tpu_torch.ops.mlp_math import extract_arch, make_vg, prepare_data
-    from eeyore_tpu_torch.samplers import HMC, MALA, MetropolisHastings, sample_chains
+    from eeyore_tpu_torch.samplers import HMC, MALA, Gibbs, MetropolisHastings, sample_chains
     from eeyore_tpu_torch.samplers.dispatch import resolve_backend
     from eeyore_tpu_torch.tuners import HMCDATuner
 
@@ -343,6 +415,9 @@ def main(argv=None):
     iris_model = make_model([4, 3, 3], "multiclass_classification", [mlp.sigmoid, None])
     xor_model = make_model([2, 2, 1], "binary_classification")
     xor2321_model = make_model([2, 3, 2, 1], "binary_classification")
+    iris4323_model = make_model([4, 3, 2, 3], "multiclass_classification",
+                                [mlp.sigmoid, mlp.sigmoid, None])
+    xor2321_subblocks = [1] * xor2321_model.num_par_blocks()
     deep_model = make_model([3, 4, 2, 1], "binary_classification", bias=[False, True, False])
     deep_model.prior = IIDNormalPrior(np.full(deep_model.num_params, 0.5),
                                       np.full(deep_model.num_params, 2.0),
@@ -357,12 +432,15 @@ def main(argv=None):
 
     # 1. build, every library at once
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(cases) + 6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(cases) + 8) as pool:
         futures = [pool.submit(fused_mlp.load_kernel, model) for _, model, _, _, _ in cases]
         resident_futures = [pool.submit(resident_hmc.load_kernel, model)
                             for _, model in resident_cases]
         dense_future = pool.submit(resident_hmc_dense.load_kernel, xor_model, xor.x, xor.y)
         walk_future = pool.submit(resident_walk.load_kernel, iris_model)
+        gibbs_future = pool.submit(resident_walk.load_kernel, iris4323_model)
+        gibbs_sub_future = pool.submit(resident_walk_dense.load_kernel, xor2321_model, xor.x,
+                                       xor.y, xor2321_subblocks)
         walk_dense_futures = {name: pool.submit(resident_walk_dense.load_kernel, model, xor.x,
                                                 xor.y)
                               for name, model in (("xor_mlp221_bce", xor_model),
@@ -371,6 +449,8 @@ def main(argv=None):
         resident_libs = [f.result() for f in resident_futures]
         dense_lib = dense_future.result()
         walk_lib = walk_future.result()
+        gibbs_lib = gibbs_future.result()
+        gibbs_sub_lib = gibbs_sub_future.result()
         walk_dense_libs = {name: f.result() for name, f in walk_dense_futures.items()}
     build_seconds = time.perf_counter() - start
     dense_groups = {}
@@ -392,9 +472,16 @@ def main(argv=None):
                 except ValueError as err:
                     shape = str(err)
                 walk_dense_groups[f"{name}_{move}_{cb}"] = shape
+    gibbs_resources = {
+        "iris_mlp4323_ce": resident_walk.kernel_resources(gibbs_lib, "gibbs"),
+        "xor_mlp221_bce": resident_walk_dense.kernel_resources(walk_dense_libs["xor_mlp221_bce"],
+                                                               "gibbs"),
+        "xor_mlp2321_bce_one_coordinate_sub_blocks": resident_walk_dense.kernel_resources(
+            gibbs_sub_lib, "gibbs")}
     emit({"phase": "build",
           "kernels": [fused_mlp.KERNEL, resident_hmc.KERNEL, resident_hmc_dense.KERNEL,
-                      resident_walk.KERNEL, resident_walk_dense.KERNEL],
+                      resident_walk.KERNEL, resident_walk_dense.KERNEL, resident_walk.GIBBS_KERNEL,
+                      resident_walk_dense.GIBBS_KERNEL],
           "sources": [FUSED_SOURCE, RESIDENT_SOURCE, DENSE_SOURCE, WALK_SOURCE,
                       WALK_DENSE_SOURCE], "seconds": build_seconds,
           "resources": {fused_mlp.KERNEL: {name: fused_mlp.kernel_resources(lib)
@@ -407,7 +494,8 @@ def main(argv=None):
                         resident_walk.KERNEL: {
                             f"iris_mlp433_ce_{move}": resident_walk.kernel_resources(walk_lib, move)
                             for move in ("mh", "mala")},
-                        resident_walk_dense.KERNEL: walk_dense_resources},
+                        resident_walk_dense.KERNEL: walk_dense_resources,
+                        "gibbs_moves": gibbs_resources},
           "tuned_group_threads_and_cluster_blocks": {
               resident_hmc_dense.KERNEL: {str(cb): v for cb, v in dense_groups.items()},
               resident_walk_dense.KERNEL: walk_dense_groups},
@@ -469,7 +557,7 @@ def main(argv=None):
             return resident_work(dims, bias, loss_kind == "ce", len(data.x), C, evaluations,
                                  iters, iters - burnin, extras, eval_work)
 
-        return module, fn, C, model.num_params, iters, burnin, work
+        return module.KERNEL, module, fn, C, model.num_params, iters, burnin, work
 
     def walk_case(model, data, C, move, value, iters, burnin=0, extras=False, dense=False,
                   **kw):
@@ -492,7 +580,35 @@ def main(argv=None):
             return walk_work(model.num_params, C, iters, iters - burnin, extras, mala,
                              eval_work, data_floats)
 
-        return module, fn, C, model.num_params, iters, burnin, work
+        return module.KERNEL, module, fn, C, model.num_params, iters, burnin, work
+
+    def gibbs_case(model, data, C, scales, iters, burnin=0, extras=False, dense=False,
+                   node_subblock_size=None, **kw):
+        module = resident_walk_dense if dense else resident_walk
+        maker = (resident_walk_dense.make_resident_gibbs_dense if dense
+                 else resident_walk.make_resident_gibbs)
+        fn = maker(model, data.x, data.y, scales, node_subblock_size, num_iters=iters,
+                   num_burnin_iters=burnin, record_extras=extras, device=device, **kw)
+        dims, bias, loss_kind = extract_arch(model)[:3]
+        sweep_units = [unit for _, _, unit in resident_walk.gibbs_sub_blocks(
+            model, scales, node_subblock_size)]
+        widths = [len(idx) for idx, _, _ in resident_walk.gibbs_sub_blocks(
+            model, scales, node_subblock_size)]
+        if dense:
+            unit_work = gibbs_dense_work(model, data.x, data.y)
+            init_work, data_floats = dense_work(model, data.x, data.y, False), 0
+        else:
+            unit_work = {(l, j): gibbs_unit_work(dims, bias, loss_kind == "ce", len(data.x), l)
+                         for l in range(len(dims) - 1) for j in range(dims[l + 1])}
+            init_work = vg_work(dims, bias, loss_kind == "ce", len(data.x), 1, False)[1:]
+            data_floats = len(data.x) * (dims[0] + dims[-1] + 1) + 2 * model.num_params
+        sweep = [(w, unit_work[u]) for w, u in zip(widths, sweep_units)]
+
+        def work(_evaluations):
+            return gibbs_work(model.num_params, C, iters, iters - burnin, extras, sweep,
+                              init_work, data_floats)
+
+        return module.GIBBS_KERNEL, module, fn, C, model.num_params, iters, burnin, work
 
     xor_tuner = dict(step=0.1, num_steps=10, tuner=HMCDATuner(l=0.5))
     resident_runs = [
@@ -530,6 +646,13 @@ def main(argv=None):
         ("xor_mlp2321_mala_dense_tuned_burnin_20", True, walk_case(
             xor2321_model, xor, 32768, "mala", 0.01, 40, 20, dense=True, chain_block=4096,
             tuner=HMCDATuner(d=0.574))),
+        ("iris4323_gibbs_extras", False, gibbs_case(iris4323_model, iris, 32768, 0.1, 20,
+                                                    extras=True, chain_block=4096)),
+        ("xor_gibbs_dense_extras", False, gibbs_case(xor_model, xor, 32768, 0.5, 20,
+                                                     extras=True, dense=True)),
+        ("xor2321_gibbs_dense_subblocks", False, gibbs_case(
+            xor2321_model, xor, 32768, 0.5, 20, extras=True, dense=True,
+            node_subblock_size=xor2321_subblocks)),
     ]
     kernel_err = {}
     resident_timings = {}
@@ -545,11 +668,12 @@ def main(argv=None):
             err = max(err, e)
         return agree, err
 
-    for name, chaotic, (module, fn, C, P, iters, burnin, work) in resident_runs:
+    for name, chaotic, (kernel_name, module, fn, C, P, iters, burnin, work) in resident_runs:
         theta0s = torch.as_tensor(0.1 * rng.normal(size=(C, P)), dtype=torch.float32,
                                   device=device)
         out = fn(args.seed, theta0s)
-        counted = getattr(module, "last_info", {}).get(module.KERNEL)
+        counted = getattr(module, "last_info", {}).get(kernel_name)
+        counted = counted if counted and "evaluations" in counted else None
         counted = None if counted is None else int(counted["evaluations"])
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -571,7 +695,7 @@ def main(argv=None):
         ms = event_ms(lambda: fn(args.seed, theta0s), 1, warmup=0)
         b_ms, b_by = bound_ms(work(counted if counted is not None else evaluations), sm_count)
         resident_timings[name] = (ms, plain_ms, b_ms, b_by)
-        emit({"phase": "resident_vs_plain", "kernel": module.KERNEL, "case": name,
+        emit({"phase": "resident_vs_plain", "kernel": kernel_name, "case": name,
               "chains": C, "iterations": iters, "burnin": burnin,
               "launch_shape": getattr(fn, "launch_shape", None),
               "evaluations_per_chain": evaluations / C,
@@ -587,7 +711,7 @@ def main(argv=None):
         else:
             check(share >= limit, f"{name}: only {share:.4f} of chains agree with the plain "
                   f"version (limit {limit})")
-            kernel_err[module.KERNEL] = max(kernel_err.get(module.KERNEL, 0.0), err)
+            kernel_err[kernel_name] = max(kernel_err.get(kernel_name, 0.0), err)
         if counted is not None and "tuned" not in name and "per_chain" not in name:
             check(counted == evaluations, f"{name}: the kernel counted {counted} evaluations, "
                   f"the plain version {evaluations}")
@@ -691,18 +815,19 @@ def main(argv=None):
 
     def reset_counts():
         for module in whole_loop:
-            module.launch_counts[module.KERNEL] = 0
+            for name in module.launch_counts:
+                module.launch_counts[name] = 0
         torch.cuda.synchronize()
 
     def read_counts():
-        return {module.KERNEL: module.launch_counts[module.KERNEL] for module in whole_loop}
+        return {name: n for module in whole_loop for name, n in module.launch_counts.items()}
 
     def iris_chains(seed_gen):
         kernel = HMC(iris_model, tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64)
         return sample_chains(kernel, seed_gen, iris_theta0s, iris_data, iters, burnin,
                              backend="auto")
 
-    main_launches = {module.KERNEL: {} for module in whole_loop}
+    main_launches = {name: {} for name in read_counts()}
     reset_counts()
     start = time.perf_counter()
     chains = iris_chains(gen)
@@ -907,7 +1032,91 @@ def main(argv=None):
         del generic
         torch.cuda.empty_cache()
 
-    # 12. kernels: fused_mlp_vg timed at the iris main path's shape; each
+    # 12. the Gibbs main paths through sample_chains(backend="auto"): BASELINE.md
+    #     config 4 on iris (staged) and XOR MLP(2,2,1) (dense), each against the
+    #     generic path of the same configuration at C_generic chains, and the
+    #     kernel's time beside its bound (one more launch of the same function)
+    gibbs_paths = [
+        ("config4_gibbs_iris_mlp4323", 0.1, iris4323_model, iris, iris_data, "resident",
+         resident_walk),
+        ("xor_gibbs_mlp221", 0.5, xor_model, xor, xor_data, "dense", resident_walk_dense),
+    ]
+    gibbs_main = {}
+    for name, scales, model, dataset, data, want, module in gibbs_paths:
+        theta0s = torch.as_tensor(0.1 * rng.normal(size=(C_walk, model.num_params)),
+                                  dtype=torch.float32, device=device)
+        plan, reason = resolve_backend(Gibbs(model, scales=scales), data, C_walk, walk_iters,
+                                       walk_burnin, platform="cuda")
+        check(plan is not None and plan.backend == want,
+              f"{name}: dispatch chose {plan and plan.backend} ({reason}), not {want}")
+        reset_counts()
+        start = time.perf_counter()
+        chains = sample_chains(Gibbs(model, scales=scales), gen, theta0s, data, walk_iters,
+                               walk_burnin, backend="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = read_counts()
+        main_launches[module.GIBBS_KERNEL][name] = counts[module.GIBBS_KERNEL]
+        check(counts == {**dict.fromkeys(counts, 0), module.GIBBS_KERNEL: 1},
+              f"{name}: sample_chains made the launches {counts}, not one "
+              f"{module.GIBBS_KERNEL}")
+        samples = chains.get_samples()
+        kept = walk_iters - walk_burnin
+        check(samples.shape == (C_walk, kept, model.num_params),
+              f"{name}: samples of shape {tuple(samples.shape)}")
+        check(bool(torch.isfinite(samples).all()), f"{name}: non-finite samples")
+        kernel_rates = (module.last_info[module.GIBBS_KERNEL]["accept_counts"].double()
+                        / kept).mean(0).cpu()
+        gibbs_summary = pooled_summary(samples)
+        head = ChainLists.from_arrays({k: chains.tensor(k)[:64].cpu() for k in chains.keys()})
+        rhat = head.multi_rhat()[0]
+        ess = head.multi_ess()
+        del chains, samples, head
+        torch.cuda.empty_cache()
+        _, _, fn, _, _, _, _, work = gibbs_case(model, dataset, C_walk, scales, walk_iters,
+                                                walk_burnin, dense=want == "dense",
+                                                chain_block=plan.chain_block)
+        gibbs_ms = event_ms(lambda: fn(args.seed, theta0s), 1, warmup=0)
+        b_ms, b_by = bound_ms(work(None), sm_count)
+        gibbs_main[module.GIBBS_KERNEL] = {"case": name, "ms": gibbs_ms, "bound_ms": b_ms,
+                                           "bound_by": b_by}
+        torch.cuda.empty_cache()
+        reset_counts()
+        start = time.perf_counter()
+        generic = sample_chains(Gibbs(model, scales=scales), gen, theta0s[:C_generic], data,
+                                walk_iters, walk_burnin, record_keys=("sample", "accepted"),
+                                backend="scan")
+        torch.cuda.synchronize()
+        generic_wall = time.perf_counter() - start
+        check(not any(read_counts().values()), f"{name}: the generic path launched a kernel")
+        flags = generic.tensor("accepted")  # [C, kept, B]
+        generic_rates = ChainList.from_arrays(
+            {"accepted": flags.reshape(-1, flags.shape[-1]).cpu()}).block_acceptance_rate()
+        rate_diff = (kernel_rates - generic_rates).abs().max().item()
+        z = max_z(gibbs_summary, pooled_summary(generic.get_samples()))
+        emit({"phase": "main_sample_chains_gibbs", "case": name,
+              "plan": [plan.backend, plan.chain_block], "chains": C_walk,
+              "iterations": walk_iters, "burnin": walk_burnin, "seconds": wall,
+              "samples_per_s": C_walk * walk_iters / wall, "kernel_launches": counts,
+              "kernel_ms": gibbs_ms, "kernel_bound_ms": b_ms, "kernel_bound_by": b_by,
+              "block_acceptance": kernel_rates.tolist(),
+              "generic_block_acceptance": generic_rates.tolist(),
+              "max_abs_block_acceptance_difference": rate_diff,
+              "block_acceptance_limit": GIBBS_BLOCK_ACCEPTANCE_TOL,
+              "generic_chains": C_generic, "generic_seconds": generic_wall,
+              "generic_samples_per_s": C_generic * walk_iters / generic_wall,
+              "max_abs_z_pooled_mean_vs_generic": z, "limit": 5.0,
+              "multi_rhat_first_64": rhat, "multi_ess_mean_first_64": float(np.mean(ess)),
+              "card": card})
+        check(z <= 5.0, f"{name}: pooled means differ from the generic path's by {z} SEs")
+        check(rate_diff <= GIBBS_BLOCK_ACCEPTANCE_TOL,
+              f"{name}: per-block acceptance {rate_diff} from the generic path's")
+        check(math.isfinite(rhat) and all(math.isfinite(e) for e in ess),
+              f"{name}: multi_rhat {rhat} or multi_ess {ess[:4]}... not finite")
+        del generic, flags
+        torch.cuda.empty_cache()
+
+    # 13. kernels: fused_mlp_vg timed at the iris main path's shape; each
     #     whole-loop kernel at a main path's shape (XOR HMC, untuned, for the
     #     two HMC kernels: the leapfrog count is fixed; iris MALA for
     #     resident_walk; config 1 for resident_walk_dense), against its plain
@@ -948,12 +1157,12 @@ def main(argv=None):
                       chain_block=4096)),
                   resident_walk_dense.KERNEL: ("config 1, MH scale 0.1 on XOR", walk_case(
                       xor_model, xor, C_walk, "mh", 0.1, walk_iters, walk_burnin))}
-    for kernel_name, (_, (_, fn, _, P, _, _, work)) in walk_timed.items():
+    for kernel_name, (_, (_, _, fn, _, P, _, _, work)) in walk_timed.items():
         main_timings[kernel_name] = timed_at_main(fn, walk_theta0s[P], work)
         torch.cuda.empty_cache()
     # the other walk main paths' kernels, timed alone (no plain version)
     other_walks = {}
-    for kernel_name, label, (_, fn, _, P, _, _, work) in (
+    for kernel_name, label, (_, _, fn, _, P, _, _, work) in (
             (resident_walk.KERNEL, "iris MH scale 0.1", walk_case(
                 iris_model, iris, C_walk, "mh", 0.1, walk_iters, walk_burnin,
                 chain_block=4096)),
@@ -984,6 +1193,18 @@ def main(argv=None):
                                        "evaluations_per_chain":
                                            iris_evaluations / iris_theta0s.shape[0]}
     walk_at = f"{C_walk} chains x {walk_iters} iterations, {walk_burnin} burn-in"
+
+    def gibbs_entry(module, source, replaces, case):
+        ms_, plain_ms_, b_ms_, b_by_ = resident_timings[case]
+        return {"name": module.GIBBS_KERNEL, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(main_launches[module.GIBBS_KERNEL].values()),
+                "launches_by_path": main_launches[module.GIBBS_KERNEL],
+                "max_abs_err": kernel_err[module.GIBBS_KERNEL], "ms": ms_, "plain_ms": plain_ms_,
+                "bound_ms": b_ms_, "bound_by": b_by_, "library_ms": None,
+                "timed_at": f"{case}: 32768 chains x 20 iterations, extras",
+                "main_run": dict(gibbs_main[module.GIBBS_KERNEL], timed_at=walk_at)}
+
     emit({"kernels": [
         {"name": fused_mlp.KERNEL, "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": sum(launches.values()),
@@ -997,7 +1218,10 @@ def main(argv=None):
              other_path=other_walks[resident_walk.KERNEL]),
         dict(whole_loop_entry(resident_walk_dense, WALK_DENSE_SOURCE, WALK_DENSE_REPLACES,
                               f"{walk_timed[resident_walk_dense.KERNEL][0]}, {walk_at}"),
-             other_path=other_walks[resident_walk_dense.KERNEL])]})
+             other_path=other_walks[resident_walk_dense.KERNEL]),
+        gibbs_entry(resident_walk, WALK_SOURCE, GIBBS_REPLACES, "iris4323_gibbs_extras"),
+        gibbs_entry(resident_walk_dense, WALK_DENSE_SOURCE, GIBBS_DENSE_REPLACES,
+                    "xor_gibbs_dense_extras")]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -85,4 +85,11 @@ class ChainList(Chain):
                             adjust=adjust)
 
     def acceptance_rate(self):
+        """Accepted moves per recorded iteration; with per-sub-block flags
+        [n_iter, B] (Gibbs), the sum over blocks per iteration."""
         return float(torch.sum(self.column("accepted"))) / len(self)
+
+    def block_acceptance_rate(self):
+        """Per-sub-block acceptance [B] of a Gibbs chain (reference
+        chain_list.py:98-99)."""
+        return self.column("accepted").to(torch.float64).mean(dim=0)

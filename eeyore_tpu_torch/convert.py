@@ -11,6 +11,7 @@ import torch
 
 from eeyore_tpu_torch.models.priors import IIDNormalPrior
 from eeyore_tpu_torch.ops.fused_hmc import FusedHMCState
+from eeyore_tpu_torch.samplers.gibbs import GibbsState
 from eeyore_tpu_torch.samplers.hmc import HMCState
 from eeyore_tpu_torch.samplers.mala import MALAState
 from eeyore_tpu_torch.samplers.mh import MHState
@@ -91,6 +92,16 @@ def mala_state_from_numpy(state, model, device="cuda", dtype=torch.float32):
         sample=thetas_from_numpy(state.sample, model, device, dtype),
         target_val=_tensor(state.target_val, device, dtype),
         grad_val=thetas_from_numpy(state.grad_val, model, device, dtype),
+        accepted=_tensor(state.accepted, device, torch.int32),
+    )
+
+
+def gibbs_state_from_numpy(state, model, device="cuda", dtype=torch.float32):
+    """A ``GibbsState`` of the JAX package with chains stacked first -> the
+    port's batched ``GibbsState`` (``accepted`` [C, num_sub_blocks])."""
+    return GibbsState(
+        sample=thetas_from_numpy(state.sample, model, device, dtype),
+        target_val=_tensor(state.target_val, device, dtype),
         accepted=_tensor(state.accepted, device, torch.int32),
     )
 

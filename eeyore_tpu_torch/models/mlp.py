@@ -6,6 +6,7 @@ layer l, ``W_l`` of shape (dims[l+1], dims[l]) flattened row-major, then
 """
 
 import contextlib
+import itertools
 
 import torch
 
@@ -111,3 +112,45 @@ class MLP(BayesianModel):
                 if activation is not None:
                     h = activation(h)
         return h
+
+    # Gibbs node-blocking geometry (eeyore_tpu/models/mlp.py:109-151): a
+    # parameter block is all incoming weights and the bias of one hidden or
+    # output node.
+
+    def num_hidden_layers(self):
+        return len(self.hp.dims) - 2
+
+    def num_par_blocks(self):
+        return sum(self.hp.dims[1:])
+
+    def layer_and_node_from_par_block(self, b):
+        """Block id -> (layer index, node index within the layer)."""
+        cumulative = [0] + list(itertools.accumulate(self.hp.dims[1:]))
+        for l in range(len(cumulative) - 1):
+            if cumulative[l] <= b < cumulative[l + 1]:
+                return l, b - cumulative[l]
+        raise IndexError(f"block {b} out of range")
+
+    def starting_par_block_idx(self, l):
+        """Flat index where layer l's weights start."""
+        s = 0
+        for i in range(l):
+            s += (self.hp.dims[i] + 1 if self.hp.bias[i] else self.hp.dims[i]) * self.hp.dims[i + 1]
+        return s
+
+    def starting_par_block_indices(self):
+        return [self.starting_par_block_idx(l) for l in range(len(self.hp.dims) - 1)]
+
+    def annotated_par_block_indices(self, b):
+        """Flat theta indices of block b: node n's weight row and, with a
+        bias, its bias entry (which sits after all of the layer's weights);
+        with the layer and the node."""
+        l, n = self.layer_and_node_from_par_block(b)
+        s = self.starting_par_block_idx(l)
+        indices = list(range(s + n * self.hp.dims[l], s + (n + 1) * self.hp.dims[l]))
+        if self.hp.bias[l]:
+            indices.append(s + self.hp.dims[l] * self.hp.dims[l + 1] + n)
+        return indices, l, n
+
+    def par_block_indices(self, b):
+        return self.annotated_par_block_indices(b)[0]

@@ -7,6 +7,8 @@
 // fast-math intrinsics, so that a kernel and its plain version draw the same
 // numbers up to f32 rounding. The HMC stream (hmc_draws) and the walk stream
 // (walk_draws) share their layout: key (seed, chain), counter (iteration, j).
+// The Gibbs stream (gibbs_draws) offsets j by b * kGibbsStride for sub-block
+// b of the sweep.
 
 #pragma once
 
@@ -86,15 +88,19 @@ __device__ __forceinline__ void normal2(uint2 bits, float* z0, float* z1) {
   *z1 = r * s;
 }
 
+constexpr unsigned kGibbsStride = 1u << 16;
+
 // The P normals of one chain at one iteration of the HMC and walk streams
-// (key (k0, k1), counter (ctr, j)): pair j gives z[2j] and z[2j+1], for
-// j < ceil(P/2); an odd P drops the last half.
+// (key (k0, k1), counter (ctr, first + j)): pair j gives z[2j] and z[2j+1],
+// for j < ceil(P/2); an odd P drops the last half. first is 0 but for the
+// Gibbs stream.
 template <int P>
-__device__ __forceinline__ void normals(unsigned k0, unsigned k1, unsigned ctr, float (&z)[P]) {
+__device__ __forceinline__ void normals(unsigned k0, unsigned k1, unsigned ctr, float (&z)[P],
+                                        unsigned first = 0) {
 #pragma unroll
   for (int j = 0; j < (P + 1) / 2; ++j) {
     float z0, z1;
-    normal2(threefry2x32(k0, k1, ctr, static_cast<unsigned>(j)), &z0, &z1);
+    normal2(threefry2x32(k0, k1, ctr, first + static_cast<unsigned>(j)), &z0, &z1);
     z[2 * j] = z0;
     if (2 * j + 1 < P) z[2 * j + 1] = z1;
   }

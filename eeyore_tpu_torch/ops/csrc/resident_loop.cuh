@@ -3,16 +3,18 @@
 //
 // hmc_chain is one chain's whole HMC run (resident_hmc.cu on staged data,
 // resident_hmc_dense.cu on data folded in as constants); walk_chain is one
-// chain's whole random-walk MH or MALA run (resident_walk.cu and
-// resident_walk_dense.cu). The data strategy is the Eval argument: an object
-// with vg(th, g) -> value (gradient into g) and v(th) -> value. StagedEval
-// reads the rows a block staged in shared memory (mlp_vg.cuh); the dense
-// kernels' evaluator calls the code generated for one dataset
-// (ops/mlp_dense.py::dense_source).
+// chain's whole random-walk MH or MALA run and gibbs_chain its blocked-Gibbs
+// run (resident_walk.cu and resident_walk_dense.cu). The data strategy is the
+// Eval argument: an object with vg(th, g) -> value (gradient into g) and
+// v(th) -> value, and for Gibbs the cached value-only interface described
+// at gibbs_chain. StagedEval reads the rows a block staged in shared memory
+// (mlp_vg.cuh); the dense kernels' evaluator calls the code generated for
+// one dataset (ops/mlp_dense.py::dense_source, gibbs_dense_source).
 //
 // Layout and state. One thread owns one chain. The accepted theta (and its
 // gradient, for HMC and MALA), touched once per iteration, live in shared
-// memory at [P][blockDim]; the proposal and its gradient live in registers.
+// memory at [P][blockDim]; the proposal and its gradient live in registers
+// (Gibbs keeps theta in registers and saves only the sub-block it moves).
 // Samples are written chain-minor, [kept, rows, C] with rows = P (+2 with
 // record_extras: the value and the moved flag), so a warp's stores are
 // coalesced. The [P*8, C/8] tiles of the TPU's dense layout are this same
@@ -110,6 +112,20 @@ struct StagedEval {
   __device__ __forceinline__ float v(const float (&th)[kP]) const {
     return mlp_vg::chain_v(th, d, prior_const, temperature, n_rows);
   }
+  // Gibbs: no cache (a per-chain cache of the staged rows' activations does
+  // not fit on chip); every proposal is one whole value-only forward pass,
+  // the same function as the incremental body of the plain version.
+  static constexpr int kCache = 1;
+  __device__ __forceinline__ float init(const float (&th)[kP], float (&)[kCache]) const {
+    return v(th);
+  }
+  template <int U>
+  __device__ __forceinline__ float update(const float (&th)[kP], const float (&)[kCache],
+                                          float (&)[kCache]) const {
+    return v(th);
+  }
+  template <int U>
+  __device__ __forceinline__ void commit(float (&)[kCache], const float (&)[kCache]) const {}
 };
 
 // The chain of this thread. Staged (sublanes 1): consecutive, block by
@@ -425,6 +441,104 @@ __device__ __forceinline__ void walk_chain(const Eval& ev, const ResidentWalkPar
 #pragma unroll
   for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = acc_th[p * bd + me];
   accepts[c] = n_accepts;
+}
+
+// Sub-block b, and those after it, of one Gibbs sweep (see gibbs_chain).
+template <class Eval, class Blocks, int b>
+__device__ __forceinline__ void gibbs_sub_blocks(const Eval& ev, unsigned key0, unsigned key1,
+                                                 unsigned ctr, const float* __restrict__ scales,
+                                                 bool counting, float (&th)[kP],
+                                                 float (&cache)[Eval::kCache], float& val,
+                                                 float (&n_accepts)[Blocks::kB], bool& moved) {
+  if constexpr (b < Blocks::kB) {
+    constexpr int w = Blocks::width(b);
+    float z[w];
+    kernel_prng::normals(key0, key1, ctr, z, static_cast<unsigned>(b) * kernel_prng::kGibbsStride);
+    const float scale = scales[b];
+    float old[w];
+#pragma unroll
+    for (int k = 0; k < w; ++k) {
+      old[k] = th[Blocks::index(b, k)];
+      th[Blocks::index(b, k)] = old[k] + scale * z[k];
+    }
+    float next[Eval::kCache];
+    const float v_p = ev.template update<Blocks::unit(b)>(th, cache, next);
+    const float u = kernel_prng::uniform_at(
+        key0, key1, ctr, static_cast<unsigned>(b) * kernel_prng::kGibbsStride + (w + 1) / 2);
+    if (logf(u) < v_p - val) {
+#pragma unroll
+      for (int k = 0; k < w; ++k) moved |= th[Blocks::index(b, k)] != old[k];
+      ev.template commit<Blocks::unit(b)>(cache, next);
+      val = v_p;
+      if (counting) n_accepts[b] += 1.0f;
+    } else {
+#pragma unroll
+      for (int k = 0; k < w; ++k) th[Blocks::index(b, k)] = old[k];
+    }
+    gibbs_sub_blocks<Eval, Blocks, b + 1>(ev, key0, key1, ctr, scales, counting, th, cache, val,
+                                          n_accepts, moved);
+  }
+}
+
+// One chain's whole blocked-Gibbs run. Per iteration t, a systematic sweep
+// over the Blocks::kB sub-blocks (compile-time tables from the generated
+// gibbs_blocks.cuh: width(b), index(b, k), and unit(b), the node block
+// whose incoming weights and bias sub-block b holds). Sub-block b draws
+// width(b) normals z and one uniform u from the Gibbs stream (key (seed,
+// chain), counter (t, b * 2^16 + j)), proposes theta[index(b, k)] + scale_b
+// z[k] on its own coordinates only, and accepts when log(u) < v(prop) -
+// v(theta); a rejected proposal is restored before the next sub-block.
+// Eval is value only: ev.init(th, cache) -> value fills the evaluator's
+// cache, ev.update<U>(prop, cache, next) -> value evaluates a proposal that
+// moved unit U (writing the cache entries it changes into next) and
+// ev.commit<U>(cache, next) keeps them. The staged evaluator has no cache
+// and evaluates the whole forward pass; the dense one recomputes unit U and
+// everything downstream from a per-chain cache in registers.
+//
+// theta lives in registers (each coordinate is indexed at compile time once
+// the sweep unrolls), the counts of each sub-block too; accepts is [kB, C].
+// The moved flag is true when theta differs from theta at the start of the
+// sweep (each coordinate belongs to at most one sub-block of a sweep).
+template <class Eval, class Blocks>
+__device__ __forceinline__ void gibbs_chain(const Eval& ev, const ResidentWalkParams& pr, int c,
+                                            const float* __restrict__ theta0,
+                                            const float* __restrict__ scales,
+                                            float* __restrict__ samples,
+                                            float* __restrict__ final_theta,
+                                            float* __restrict__ accepts) {
+  const int C = pr.num_chains;
+  const unsigned key0 = static_cast<unsigned>(pr.seed);
+  const unsigned key1 = static_cast<unsigned>(c);
+  float th[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) th[p] = theta0[static_cast<size_t>(p) * C + c];
+  float cache[Eval::kCache];
+  float val = ev.init(th, cache);
+  float n_accepts[Blocks::kB];
+#pragma unroll
+  for (int b = 0; b < Blocks::kB; ++b) n_accepts[b] = 0.0f;
+
+  for (int t = 0; t < pr.num_iters; ++t) {
+    bool moved = false;
+    gibbs_sub_blocks<Eval, Blocks, 0>(ev, key0, key1, static_cast<unsigned>(t), scales,
+                                      t >= pr.num_burnin_iters, th, cache, val, n_accepts, moved);
+    const int since = t - pr.num_burnin_iters;
+    if (since >= 0 && since % pr.record_thin == 0 && since / pr.record_thin < pr.kept) {
+      const int rows = pr.record_extras ? kP + 2 : kP;
+      float* out = samples + static_cast<size_t>(since / pr.record_thin) * rows * C;
+#pragma unroll
+      for (int p = 0; p < kP; ++p) out[static_cast<size_t>(p) * C + c] = th[p];
+      if (pr.record_extras) {
+        out[static_cast<size_t>(kP) * C + c] = val;
+        out[static_cast<size_t>(kP + 1) * C + c] = moved ? 1.0f : 0.0f;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = th[p];
+#pragma unroll
+  for (int b = 0; b < Blocks::kB; ++b) accepts[static_cast<size_t>(b) * C + c] = n_accepts[b];
 }
 
 // ---- host side ----

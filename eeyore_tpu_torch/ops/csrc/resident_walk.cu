@@ -1,15 +1,26 @@
-// The whole random-walk MH or MALA loop for C chains of a sigmoid MLP in one
-// kernel, on data staged in shared memory.
+// The whole random-walk MH, MALA or blocked-Gibbs loop for C chains of a
+// sigmoid MLP in one kernel, on data staged in shared memory.
 //
-// Replaces the MH and MALA moves of the Pallas TPU kernel
+// Replaces the MH, MALA and Gibbs moves of the Pallas TPU kernel
 // eeyore_tpu/ops/resident_walk.py:166 (_make_resident, behind
-// make_resident_mh :251 and make_resident_mala :212); the plain PyTorch
-// version is the CPU branch of eeyore_tpu_torch/ops/resident_walk.py. The
-// loop is resident_loop.cuh::walk_chain, shared with resident_walk_dense.cu;
-// one library holds both moves for one architecture (move 0: MH, on the
-// value-only body, no backward pass; move 1: MALA, on the value and
-// gradient). These kernels have no tuner, as the TPU's have none: chains
-// share nothing, and a block is any 32-multiple of threads.
+// make_resident_mh :251, make_resident_mala :212 and make_resident_gibbs
+// :281); the plain PyTorch version is the CPU branch of
+// eeyore_tpu_torch/ops/resident_walk.py. The loops are resident_loop.cuh::
+// walk_chain and gibbs_chain, shared with resident_walk_dense.cu; one
+// library holds the three moves for one architecture and one Gibbs blocking
+// (move 0: MH, on the value-only body, no backward pass; move 1: MALA, on the
+// value and gradient; move 2: Gibbs, a sweep over the sub-blocks of the
+// generated gibbs_blocks.cuh, value only). These kernels have no tuner, as
+// the TPU's have none: chains share nothing, and a block is any 32-multiple
+// of threads.
+//
+// Gibbs. The TPU kernel keeps a per-chain cache of the activations of every
+// data row and recomputes only the moved unit and what lies downstream. On
+// iris that cache is 4.8 KB a chain, which no block of chains can keep in
+// shared memory or registers, so each sub-block proposal here is a whole
+// value-only forward pass: by the plain version's bit-identity contract the
+// same function, at more work than the incremental update (the bound counts
+// the incremental work, so the gap a cache could close stays visible).
 //
 // Design. One thread per chain; the accepted theta (and gradient, MALA) in
 // shared memory at [P][blockDim] beside the staged data rows; the proposal
@@ -18,9 +29,11 @@
 // Bound. One evaluation per chain and iteration (value only for MH), plus
 // ceil(P/2) + 1 Threefry calls and ceil(P/2) Box-Muller pairs, plus kept x
 // rows x C x 4 bytes of samples. On iris the evaluation dominates: bound by
-// operations (the special-function unit).
+// operations (the special-function unit). Gibbs: one evaluation per
+// sub-block, counted for the bound at the TPU kernel's incremental work.
 
 #include "resident_loop.cuh"
+#include "gibbs_blocks.cuh"
 
 using namespace mlp_vg;
 using resident_loop::kMaxThreads;
@@ -47,9 +60,31 @@ __global__ void resident_walk_kernel(const float* __restrict__ theta0,  // [P, C
       ev, pr, c, 1, theta0, samples, final_theta, accepts, acc_th, acc_g, nullptr, nullptr);
 }
 
+__global__ void resident_walk_gibbs_kernel(const float* __restrict__ theta0,  // [P, C]
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ y,
+                                           const float* __restrict__ mask,
+                                           const float* __restrict__ loc,
+                                           const float* __restrict__ ivar,
+                                           const float* __restrict__ scales,  // [kB]
+                                           const ResidentWalkParams pr,
+                                           float* __restrict__ samples,      // [kept, rows, C]
+                                           float* __restrict__ final_theta,  // [P, C]
+                                           float* __restrict__ accepts) {    // [kB, C]
+  extern __shared__ float smem[];
+  const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= pr.num_chains) return;
+  const resident_loop::StagedEval ev{d, pr.prior_const, pr.temperature, pr.n_rows};
+  resident_loop::gibbs_chain<resident_loop::StagedEval, GibbsBlocks>(ev, pr, c, theta0, scales,
+                                                                      samples, final_theta,
+                                                                      accepts);
+}
+
 size_t smem_bytes(int move, int n_rows, int threads) {
+  const int theta_copies = move == 2 ? 0 : move == 1 ? 2 : 1;  // Gibbs: theta in registers
   return sizeof(float) *
-         (data_floats(n_rows) + (move == 1 ? 2 : 1) * static_cast<size_t>(kP) * threads);
+         (data_floats(n_rows) + theta_copies * static_cast<size_t>(kP) * threads);
 }
 
 }  // namespace
@@ -65,7 +100,10 @@ extern "C" int resident_walk_arch(int* out) {
   return 0;
 }
 
+extern "C" int resident_walk_num_sub_blocks() { return GibbsBlocks::kB; }
+
 extern "C" int resident_walk_resources(int move, int* out) {
+  if (move == 2) return static_cast<int>(resident_loop::resources(resident_walk_gibbs_kernel, out));
   return static_cast<int>(move == 1 ? resident_loop::resources(resident_walk_kernel<true>, out)
                                     : resident_loop::resources(resident_walk_kernel<false>, out));
 }
@@ -94,4 +132,21 @@ extern "C" int resident_walk_launch(int move, const float* theta0, const float* 
                                         stream, theta0, x, y, mask, loc, ivar, pr, samples,
                                         final_theta, accepts);
   return static_cast<int>(err);
+}
+
+extern "C" int resident_walk_gibbs_launch(const float* theta0, const float* x, const float* y,
+                                          const float* mask, const float* loc,
+                                          const float* ivar, const float* scales,
+                                          const ResidentWalkParams* params, int threads,
+                                          float* samples, float* final_theta, float* accepts,
+                                          void* stream) {
+  const ResidentWalkParams pr = *params;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || pr.tuned) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const size_t smem = smem_bytes(2, pr.n_rows, threads);
+  const int blocks = (pr.num_chains + threads - 1) / threads;
+  return static_cast<int>(resident_loop::launch(resident_walk_gibbs_kernel, blocks, threads, smem,
+                                                1, stream, theta0, x, y, mask, loc, ivar, scales,
+                                                pr, samples, final_theta, accepts));
 }

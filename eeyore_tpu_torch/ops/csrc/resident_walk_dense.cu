@@ -1,25 +1,35 @@
-// The whole random-walk MH or MALA loop for C chains of a sigmoid MLP in one
-// kernel, on data of at most 32 rows folded into the code as constants.
+// The whole random-walk MH, MALA or blocked-Gibbs loop for C chains of a
+// sigmoid MLP in one kernel, on data of at most 32 rows folded into the code
+// as constants.
 //
-// Replaces the MH and MALA moves of the Pallas TPU kernel
+// Replaces the MH, MALA and Gibbs moves of the Pallas TPU kernel
 // eeyore_tpu/ops/resident_walk_dense.py:125 (_make_resident_dense, behind
-// make_resident_mh_dense :196 and make_resident_mala_dense :309); the plain
-// PyTorch version is the CPU branch of eeyore_tpu_torch/ops/
-// resident_walk_dense.py. The loop is resident_loop.cuh::walk_chain (move
-// 0: MH, value only; move 1: MALA), on the generated body dense_body.cuh
-// (ops/mlp_dense.py), as in resident_hmc_dense.cu. With a tuner the scale
+// make_resident_mh_dense :196, make_resident_mala_dense :309 and
+// make_resident_gibbs_dense :240); the plain PyTorch version is the CPU
+// branch of eeyore_tpu_torch/ops/resident_walk_dense.py. The loops are
+// resident_loop.cuh::walk_chain (move 0: MH, value only; move 1: MALA), on
+// the generated body dense_body.cuh (ops/mlp_dense.py), as in
+// resident_hmc_dense.cu, and gibbs_chain (move 2) on the generated
+// incremental body dense_gibbs.cuh and the blocking gibbs_blocks.cuh: the
+// per-chain cache of activations and output terms (one float per unit and
+// data row; 12 for MLP(2,2,1) on XOR) stays in registers, a sub-block
+// proposal recomputes only its unit and what lies downstream into a copy of
+// the entries they touch, and an accepted one commits those. With a tuner the scale
 // (MH) or step (MALA) is dual-averaged during burn-in on the mean rate of
 // each tuning group, the TPU kernel's sublane-strided grid block of
 // chain_block chains, one CUDA block or a thread-block cluster
 // (_population_dual_average, resident_walk_dense.py:175-193). As there, the
 // rates have no NaN guard.
 //
-// Bound. As resident_walk.cu: one evaluation per chain and iteration, the
-// PRNG and the samples' bytes; on XOR the PRNG work and the sample bytes
-// weigh as much as the evaluations.
+// Bound. As resident_walk.cu: one evaluation per chain and iteration (one
+// incremental update per sub-block for Gibbs), the PRNG and the samples'
+// bytes; on XOR the PRNG work and the sample bytes weigh as much as the
+// evaluations.
 
 #include "resident_loop.cuh"
 #include "dense_body.cuh"
+#include "dense_gibbs.cuh"
+#include "gibbs_blocks.cuh"
 
 using namespace mlp_vg;
 using resident_loop::kMaxThreads;
@@ -33,6 +43,19 @@ struct DenseEval {
     return dense_body::vg(th, g);
   }
   __device__ __forceinline__ float v(const float (&th)[kP]) const { return dense_body::v(th); }
+  static constexpr int kCache = dense_gibbs::kCache;
+  __device__ __forceinline__ float init(const float (&th)[kP], float (&c)[kCache]) const {
+    return dense_gibbs::init(th, c);
+  }
+  template <int U>
+  __device__ __forceinline__ float update(const float (&th)[kP], const float (&c)[kCache],
+                                          float (&n)[kCache]) const {
+    return dense_gibbs::update<U>(th, c, n);
+  }
+  template <int U>
+  __device__ __forceinline__ void commit(float (&c)[kCache], const float (&n)[kCache]) const {
+    dense_gibbs::commit<U>(c, n);
+  }
 };
 
 template <bool kMALA>
@@ -55,6 +78,17 @@ __global__ void resident_walk_dense_kernel(const float* __restrict__ theta0,  //
   if (cluster_blocks > 1) cooperative_groups::this_cluster().sync();
 }
 
+__global__ void resident_walk_dense_gibbs_kernel(const float* __restrict__ theta0,  // [P, C]
+                                                 const float* __restrict__ scales,  // [kB]
+                                                 const ResidentWalkParams pr,
+                                                 float* __restrict__ samples,  // [kept, rows, C]
+                                                 float* __restrict__ final_theta,  // [P, C]
+                                                 float* __restrict__ accepts) {    // [kB, C]
+  const int c = resident_loop::chain_index(pr.sublanes, pr.chain_block, pr.num_chains);
+  resident_loop::gibbs_chain<DenseEval, GibbsBlocks>(DenseEval{}, pr, c, theta0, scales, samples,
+                                                     final_theta, accepts);
+}
+
 size_t smem_bytes(int move, int threads) {
   return sizeof(float) * (move == 1 ? 2 : 1) * static_cast<size_t>(kP) * threads;
 }
@@ -72,7 +106,12 @@ extern "C" int resident_walk_dense_arch(int* out) {
   return 0;
 }
 
+extern "C" int resident_walk_dense_num_sub_blocks() { return GibbsBlocks::kB; }
+
 extern "C" int resident_walk_dense_resources(int move, int* out) {
+  if (move == 2) {
+    return static_cast<int>(resident_loop::resources(resident_walk_dense_gibbs_kernel, out));
+  }
   return static_cast<int>(
       move == 1 ? resident_loop::resources(resident_walk_dense_kernel<true>, out)
                 : resident_loop::resources(resident_walk_dense_kernel<false>, out));
@@ -114,4 +153,20 @@ extern "C" int resident_walk_dense_launch(int move, const float* theta0,
                                         cluster_blocks, stream, theta0, pr, samples,
                                         final_theta, accepts, cluster_blocks);
   return static_cast<int>(err);
+}
+
+extern "C" int resident_walk_dense_gibbs_launch(const float* theta0, const float* scales,
+                                                const ResidentWalkParams* params, int threads,
+                                                float* samples, float* final_theta,
+                                                float* accepts, void* stream) {
+  const ResidentWalkParams pr = *params;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      pr.chain_block % threads != 0 || pr.num_chains % pr.chain_block != 0 || pr.tuned) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  // no shared memory: theta and the cache live in registers
+  return static_cast<int>(resident_loop::launch(resident_walk_dense_gibbs_kernel,
+                                                pr.num_chains / threads, threads, 0, 1, stream,
+                                                theta0, scales, pr, samples, final_theta,
+                                                accepts));
 }

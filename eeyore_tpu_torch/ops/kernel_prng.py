@@ -20,6 +20,13 @@ ceil(P/2) the pairs of proposal normals, and j = ceil(P/2) the accept
 uniform. (The JAX package's dense kernels draw with ``normal_tiles`` from the
 TPU core's generator; its numbers cannot be reproduced, so that function has
 no counterpart here.)
+
+The stream of the blocked Gibbs moves (``gibbs_draws``), the same for the
+staged and the dense kernel: key = (seed, global chain index), counter =
+(iteration, b * 2**16 + j) for sub-block b of the sweep. For j < ceil(w/2),
+with w the sub-block's width, the two words are the Box-Muller pair of
+proposal normals 2j and 2j+1; j = ceil(w/2) gives the accept uniform. A sweep
+has fewer than 2**16 sub-blocks, each narrower than 2**17 coordinates.
 """
 
 import math
@@ -92,9 +99,13 @@ def normal(bits0, bits1):
     return r * cos, r * sin
 
 
-def _draws(seed, chains, iteration, num_params, num_uniforms):
+GIBBS_SUB_BLOCK_STRIDE = 1 << 16
+
+
+def _draws(seed, chains, iteration, num_params, num_uniforms, first_word=0):
     pairs = (num_params + 1) // 2
-    j = torch.arange(pairs + num_uniforms, dtype=torch.int64, device=chains.device)[:, None]
+    j = first_word + torch.arange(pairs + num_uniforms, dtype=torch.int64,
+                                  device=chains.device)[:, None]
     y0, y1 = threefry2x32(seed, chains[None, :], iteration, j)
     z0, z1 = normal(y0[:pairs], y1[:pairs])
     normals = torch.stack([z0, z1], dim=1).reshape(2 * pairs, -1)[:num_params]
@@ -112,3 +123,11 @@ def walk_draws(seed, chains, iteration, num_params):
     """The walk kernels' draws for one iteration: (proposal normals [P, C]
     float32, accept uniforms [C]) for the global chain indices ``chains``."""
     return _draws(seed, chains, iteration, num_params, 1)
+
+
+def gibbs_draws(seed, chains, iteration, sub_block, width):
+    """The Gibbs kernels' draws for sub-block ``sub_block`` of sweep
+    ``iteration``: (proposal normals [width, C] float32, accept uniforms
+    [C]) for the global chain indices ``chains``."""
+    return _draws(seed, chains, iteration, width, 1,
+                  first_word=sub_block * GIBBS_SUB_BLOCK_STRIDE)

@@ -56,98 +56,127 @@ def _f32(c):
     return float(np.float32(c))
 
 
+class _Body:
+    """The pieces of the dense body for one model and dataset, over values
+    that ``ops`` supplies (tensors or symbols; the arithmetic is Python's
+    operators), shared by the full body (``_program``) and the incremental
+    Gibbs body (``_gibbs_program``) so that both run the same operations in
+    the same order. That order follows ``eeyore_tpu/ops/mlp_dense.py:77-211``."""
+
+    def __init__(self, model, x, y, ops):
+        self.dims, self.bias, self.loss_kind, self.layer_offsets = extract_arch(model)
+        (self.x, self.y, self.loc, self.ivar, self.prior_const,
+         self.temperature) = prepare_dense(model, x, y)
+        self.n = self.x.shape[0]
+        self.num_layers = len(self.dims) - 1
+        self.k_out = self.dims[-1]
+        self.P = model.num_params
+        self.ops = ops
+        self.zeros = ops.zeros()
+
+    def w_idx(self, l, j, i):
+        return self.layer_offsets[l][0] + j * self.dims[l] + i
+
+    def b_idx(self, l, j):
+        return self.layer_offsets[l][1] + j
+
+    def unit_z(self, theta, prev, l, j, d):
+        """Pre-activation of unit j of layer l at point d; ``prev`` holds
+        layer l's input activations at d (the data's constants for l = 0)."""
+        acc = theta[self.b_idx(l, j)] if self.bias[l] else None
+        for i in range(self.dims[l]):
+            if l == 0:
+                c = float(self.x[d, i])
+                if c == 0.0:
+                    continue
+                term = theta[self.w_idx(0, j, i)]
+                if c != 1.0:
+                    term = _f32(c) * term
+            else:
+                term = prev[i] * theta[self.w_idx(l, j, i)]
+            acc = term if acc is None else acc + term
+        return self.zeros if acc is None else acc
+
+    def bce_point(self, z, j, d):
+        """(y z - softplus(z), exp(-|z|)) of output unit j at point d; the
+        sigmoid of the gradient reuses the exp."""
+        ll = fma_const(None, float(self.y[d, j]), z)
+        e = self.ops.exp(-self.ops.abs(z))
+        sp = self.ops.max0(z) + self.ops.log1p(e)
+        return (-sp if ll is None else ll - sp), e
+
+    def ce_point(self, zs, d):
+        """(log-likelihood, log-sum-exp) of the logits ``zs`` at point d."""
+        ops = self.ops
+        zmax = zs[0]
+        for j in range(1, self.k_out):
+            zmax = ops.maximum(zmax, zs[j])
+        sumexp = None
+        for j in range(self.k_out):
+            e = ops.exp(zs[j] - zmax)
+            sumexp = e if sumexp is None else sumexp + e
+        lse = zmax + ops.log(sumexp)
+        picked = None
+        for j in range(self.k_out):
+            picked = fma_const(picked, float(self.y[d, j]), zs[j])
+        return (picked if picked is not None else self.zeros) - lse, lse
+
+    def finish(self, theta, log_lik):
+        """The tempered log-posterior from the summed log-likelihood."""
+        val = log_lik if log_lik is not None else self.zeros
+        for p in range(self.P):
+            diff = theta[p] - _f32(self.loc[p]) if self.loc[p] != 0.0 else theta[p]
+            val = val - (_f32(0.5 * self.ivar[p]) * diff) * diff
+        lp = _f32(self.prior_const)
+        temp = float(self.temperature)
+        return (val + lp) if temp == 1.0 else _f32(temp) * (val + lp)
+
+
+def fma_const(acc, c, tile):
+    """acc + c * tile with the constant folded (None: nothing yet)."""
+    if c == 0.0:
+        return acc
+    if c == 1.0:
+        return tile if acc is None else acc + tile
+    scaled = _f32(c) * tile
+    return scaled if acc is None else acc + scaled
+
+
 def _program(model, x, y, with_grad, theta, ops):
     """The dense body over ``theta`` (P values): ``val``, or ``(val, grads)``
-    with ``with_grad``. ``ops`` supplies the functions and the zero value; the
-    arithmetic is Python's operators. The order of every operation follows
-    ``eeyore_tpu/ops/mlp_dense.py:77-211``."""
-    dims, bias, loss_kind, layer_offsets = extract_arch(model)
-    x, y, loc, ivar, prior_const, temperature = prepare_dense(model, x, y)
-    n = x.shape[0]
-    num_layers = len(dims) - 1
-    k_out = dims[-1]
-    P = model.num_params
-    temp = float(temperature)
-    zeros = ops.zeros()
-
-    def w_idx(l, j, i):
-        return layer_offsets[l][0] + j * dims[l] + i
-
-    def b_idx(l, j):
-        return layer_offsets[l][1] + j
-
-    def fma_const(acc, c, tile):
-        """acc + c * tile with the constant folded."""
-        if c == 0.0:
-            return acc
-        if c == 1.0:
-            return tile if acc is None else acc + tile
-        scaled = _f32(c) * tile
-        return scaled if acc is None else acc + scaled
-
+    with ``with_grad``."""
+    body = _Body(model, x, y, ops)
+    dims, bias, num_layers, k_out, P = body.dims, body.bias, body.num_layers, body.k_out, body.P
     log_lik = None
     g = [None] * P  # the data term's gradient; the prior's is added at the end
 
     def g_add(p, term):
         g[p] = term if g[p] is None else g[p] + term
 
-    for d in range(n):
+    for d in range(body.n):
         acts = []  # hidden activations per layer
-        prev_const = [float(v) for v in x[d]]
-        zs_out = []
+        prev = None
         for l in range(num_layers):
-            z_l = []
-            for j in range(dims[l + 1]):
-                acc = theta[b_idx(l, j)] if bias[l] else None
-                if l == 0:
-                    for i in range(dims[0]):
-                        c = prev_const[i]
-                        if c == 0.0:
-                            continue
-                        term = theta[w_idx(0, j, i)]
-                        if c != 1.0:
-                            term = _f32(c) * term
-                        acc = term if acc is None else acc + term
-                else:
-                    for i in range(dims[l]):
-                        term = acts[l - 1][i] * theta[w_idx(l, j, i)]
-                        acc = term if acc is None else acc + term
-                z_l.append(zeros if acc is None else acc)
+            z_l = [body.unit_z(theta, prev, l, j, d) for j in range(dims[l + 1])]
             if l < num_layers - 1:
-                acts.append([ops.sigmoid(z) for z in z_l])
-            zs_out = z_l
+                prev = [ops.sigmoid(z) for z in z_l]
+                acts.append(prev)
+        zs_out = z_l
 
-        if loss_kind == "bce":
+        if body.loss_kind == "bce":
             deltas = []
             for j in range(k_out):
-                z = zs_out[j]
-                yv = float(y[d, j])
-                ll_j = fma_const(None, yv, z)
-                # softplus and sigmoid share one exp(-|z|)
-                e = ops.exp(-ops.abs(z))
-                sp = ops.max0(z) + ops.log1p(e)
-                ll_j = -sp if ll_j is None else ll_j - sp
+                ll_j, e = body.bce_point(zs_out[j], j, d)
                 log_lik = ll_j if log_lik is None else log_lik + ll_j
                 if with_grad:
                     inv = 1.0 / (1.0 + e)
-                    sig = ops.where_nonneg(z, inv, e * inv)
-                    deltas.append(_f32(yv) - sig)
+                    sig = ops.where_nonneg(zs_out[j], inv, e * inv)
+                    deltas.append(_f32(float(body.y[d, j])) - sig)
         else:
-            zmax = zs_out[0]
-            for j in range(1, k_out):
-                zmax = ops.maximum(zmax, zs_out[j])
-            sumexp = None
-            for j in range(k_out):
-                e = ops.exp(zs_out[j] - zmax)
-                sumexp = e if sumexp is None else sumexp + e
-            lse = zmax + ops.log(sumexp)
-            picked = None
-            for j in range(k_out):
-                picked = fma_const(picked, float(y[d, j]), zs_out[j])
-            ll_d = (picked if picked is not None else zeros) - lse
+            ll_d, lse = body.ce_point(zs_out, d)
             log_lik = ll_d if log_lik is None else log_lik + ll_d
             if with_grad:
-                deltas = [_f32(float(y[d, j])) - ops.exp(zs_out[j] - lse)
+                deltas = [_f32(float(body.y[d, j])) - ops.exp(zs_out[j] - lse)
                           for j in range(k_out)]
 
         if not with_grad:
@@ -157,45 +186,104 @@ def _program(model, x, y, with_grad, theta, ops):
             for j in range(dims[l + 1]):
                 if l == 0:
                     for i in range(dims[0]):
-                        c = prev_const[i]
+                        c = float(body.x[d, i])
                         if c == 0.0:
                             continue
-                        g_add(w_idx(0, j, i), deltas[j] if c == 1.0 else _f32(c) * deltas[j])
+                        g_add(body.w_idx(0, j, i), deltas[j] if c == 1.0 else _f32(c) * deltas[j])
                 else:
                     for i in range(dims[l]):
-                        g_add(w_idx(l, j, i), deltas[j] * acts[l - 1][i])
+                        g_add(body.w_idx(l, j, i), deltas[j] * acts[l - 1][i])
                 if bias[l]:
-                    g_add(b_idx(l, j), deltas[j])
+                    g_add(body.b_idx(l, j), deltas[j])
             if l > 0:
                 new_deltas = []
                 for i in range(dims[l]):
                     s = None
                     for j in range(dims[l + 1]):
-                        term = deltas[j] * theta[w_idx(l, j, i)]
+                        term = deltas[j] * theta[body.w_idx(l, j, i)]
                         s = term if s is None else s + term
                     a = acts[l - 1][i]
                     new_deltas.append(s * (a * (1.0 - a)))
                 deltas = new_deltas
 
-    val = log_lik if log_lik is not None else zeros
-    for p in range(P):
-        diff = theta[p] - _f32(loc[p]) if loc[p] != 0.0 else theta[p]
-        val = val - (_f32(0.5 * ivar[p]) * diff) * diff
-    lp = _f32(prior_const)
-    val = (val + lp) if temp == 1.0 else _f32(temp) * (val + lp)
+    val = body.finish(theta, log_lik)
     if not with_grad:
         return val
 
+    temp = float(body.temperature)
     grads = []
     for p in range(P):
-        diff = theta[p] - _f32(loc[p]) if loc[p] != 0.0 else theta[p]
-        gp = -_f32(ivar[p]) * diff
+        diff = theta[p] - _f32(body.loc[p]) if body.loc[p] != 0.0 else theta[p]
+        gp = -_f32(body.ivar[p]) * diff
         if g[p] is not None:
             gp = g[p] + gp
         if temp != 1.0:
             gp = _f32(temp) * gp
         grads.append(gp)
     return val, tuple(grads)
+
+
+def gibbs_cache_keys(model, n):
+    """The incremental Gibbs cache of a model on n points: hidden activations
+    ``('a', l, j, d)``, then per output unit and point the BCE
+    log-likelihood ``('ll', j, d)`` or the CE logit ``('z', j, d)``."""
+    dims, _, loss_kind, _ = extract_arch(model)
+    keys = tuple(("a", l, j, d) for l in range(len(dims) - 2) for j in range(dims[l + 1])
+                 for d in range(n))
+    return keys + tuple(("ll" if loss_kind == "bce" else "z", j, d)
+                        for j in range(dims[-1]) for d in range(n))
+
+
+def _gibbs_program(model, x, y, ops):
+    """The incremental Gibbs body (``make_incremental_gibbs_dense``) over
+    values that are tensors or symbols: ``(cache_keys, init, updates)``."""
+    body = _Body(model, x, y, ops)
+    dims, num_layers, n = body.dims, body.num_layers, body.n
+    cache_keys = gibbs_cache_keys(model, n)
+    key_pos = {k: i for i, k in enumerate(cache_keys)}
+
+    def total_val(theta, cache):
+        # d outer, j inner: the order of the full body's sum
+        log_lik = None
+        for d in range(n):
+            if body.loss_kind == "bce":
+                for j in range(body.k_out):
+                    term = cache[key_pos[("ll", j, d)]]
+                    log_lik = term if log_lik is None else log_lik + term
+            else:
+                term = body.ce_point([cache[key_pos[("z", j, d)]] for j in range(body.k_out)],
+                                     d)[0]
+                log_lik = term if log_lik is None else log_lik + term
+        return body.finish(theta, log_lik)
+
+    def forward(theta, cache, first_layer, units):
+        cache = list(cache)
+        for l in range(first_layer, num_layers):
+            for j in (units if l == first_layer else range(dims[l + 1])):
+                for d in range(n):
+                    prev = (None if l == 0
+                            else [cache[key_pos[("a", l - 1, i, d)]] for i in range(dims[l])])
+                    z = body.unit_z(theta, prev, l, j, d)
+                    if l < num_layers - 1:
+                        cache[key_pos[("a", l, j, d)]] = ops.sigmoid(z)
+                    elif body.loss_kind == "bce":
+                        cache[key_pos[("ll", j, d)]] = body.bce_point(z, j, d)[0]
+                    else:
+                        cache[key_pos[("z", j, d)]] = z
+        return tuple(cache)
+
+    def init(theta):
+        cache = forward(theta, [None] * len(cache_keys), 0, range(dims[1]))
+        return total_val(theta, cache), cache
+
+    def make_update(l, j):
+        def update(theta, cache):
+            cache = forward(theta, cache, l, (j,))
+            return total_val(theta, cache), cache
+        return update
+
+    updates = {(l, j): make_update(l, j) for l in range(num_layers) for j in range(dims[l + 1])}
+    return cache_keys, init, updates
 
 
 class _TorchOps:
@@ -236,6 +324,41 @@ def make_vg_dense(model, x, y, with_grad=True):
         return _program(model, x, y, with_grad, tuple(theta), _TorchOps(theta[0]))
 
     return vg
+
+
+def make_incremental_gibbs_dense(model, x, y):
+    """Incremental value-only log-posterior for blocked Gibbs sweeps, on the
+    dense body. Counterpart of ``eeyore_tpu/ops/mlp_dense.py::
+    make_incremental_gibbs_dense`` (the contract of ``mlp_math.
+    make_incremental_gibbs``): the cache holds one tensor per unit and data
+    point (``gibbs_cache_keys``), ``init(theta) -> (val, cache)`` runs the
+    full forward pass, ``updates[(l, j)](theta, cache) -> (val, new_cache)``
+    recomputes unit (l, j) and everything downstream of it and returns the
+    unchanged entries as the very same objects. ``theta`` is a tuple of P
+    same-shape float32 tensors, as for ``make_vg_dense``, whose value-only
+    body this equals bit for bit after any sequence of updates (the two are
+    one program, ``_Body``). ``gibbs_dense_source`` emits the same operations
+    as CUDA."""
+    x, y = prepare_dense(model, x, y)[:2]
+    P = model.num_params
+
+    def program(theta):
+        if len(theta) != P:
+            raise ValueError(f"theta has {len(theta)} tiles, the model {P} parameters")
+        return _gibbs_program(model, x, y, _TorchOps(theta[0]))
+
+    def init(theta):
+        return program(theta)[1](tuple(theta))
+
+    def make_update(unit):
+        def update(theta, cache):
+            return program(theta)[2][unit](tuple(theta), cache)
+        return update
+
+    dims = extract_arch(model)[0]
+    updates = {(l, j): make_update((l, j)) for l in range(len(dims) - 1)
+               for j in range(dims[l + 1])}
+    return gibbs_cache_keys(model, x.shape[0]), init, updates
 
 
 # ---- the same program as CUDA C++ ----
@@ -375,6 +498,67 @@ def dense_work(model, x, y, with_grad):
     the emitted body, counted from the code."""
     em, _ = _emit(model, x, y, with_grad)
     return em.ops, em.sfu
+
+
+def _emit_gibbs(model, x, y):
+    """The incremental Gibbs program on symbols: (cache size, init's emitter
+    and value, {unit: (emitter, value, {cache entry: new value})})."""
+    P = model.num_params
+    n = prepare_dense(model, x, y)[0].shape[0]
+    size = len(gibbs_cache_keys(model, n))
+    em = _Emitter()
+    theta = tuple(_Sym(em, f"th[{p}]") for p in range(P))
+    _, init, _ = _gibbs_program(model, x, y, _SymOps(em))
+    val, cache = init(theta)
+    out = (size, (em, val, dict(enumerate(cache))), {})
+    dims = extract_arch(model)[0]
+    for unit in ((l, j) for l in range(len(dims) - 1) for j in range(dims[l + 1])):
+        em = _Emitter()
+        theta = tuple(_Sym(em, f"th[{p}]") for p in range(P))
+        old = tuple(_Sym(em, f"c[{i}]") for i in range(size))
+        val, new = _gibbs_program(model, x, y, _SymOps(em))[2][unit](theta, old)
+        out[2][unit] = (em, val, {i: v for i, (o, v) in enumerate(zip(old, new)) if v is not o})
+    return out
+
+
+def gibbs_dense_source(model, x, y):
+    """The text of ``dense_gibbs.cuh`` for ``model`` and the data ``(x, y)``:
+    the cache size ``kCache``, ``init(th, c)`` (the full forward pass into the
+    cache ``c``, returning the value) and, per unit U (its node block: layer
+    by layer, node by node), ``update<U>(th, c, n)`` (the unit and everything
+    downstream of it into ``n``, returning the value) and ``commit<U>(c, n)``
+    (the entries ``update<U>`` wrote, copied into ``c``): the operations of
+    ``make_incremental_gibbs_dense`` in its order."""
+    P = model.num_params
+    size, (em, val, cache), units = _emit_gibbs(model, x, y)
+    th = f"const float (&th)[{P}]"
+    parts = ["// Generated by eeyore_tpu_torch/ops/mlp_dense.py::gibbs_dense_source for one",
+             "// model and dataset; the data are constants of the code. Do not edit.",
+             "#pragma once", "", "namespace dense_gibbs {", "",
+             f"constexpr int kCache = {size};", "",
+             f"__device__ __forceinline__ float init({th}, float (&c)[{size}]) {{", *em.lines,
+             *(f"  c[{i}] = {_expr(v)};" for i, v in cache.items()),
+             f"  return {_expr(val)};", "}", "",
+             f"template <int U> __device__ __forceinline__ float update({th}, "
+             f"const float (&c)[{size}], float (&n)[{size}]);",
+             f"template <int U> __device__ __forceinline__ void commit(float (&c)[{size}], "
+             f"const float (&n)[{size}]);", ""]
+    for u, (em, val, written) in enumerate(units.values()):
+        parts += [f"template <> __device__ __forceinline__ float update<{u}>({th}, "
+                  f"const float (&c)[{size}], float (&n)[{size}]) {{", *em.lines,
+                  *(f"  n[{i}] = {_expr(v)};" for i, v in written.items()),
+                  f"  return {_expr(val)};", "}",
+                  f"template <> __device__ __forceinline__ void commit<{u}>(float (&c)[{size}], "
+                  f"const float (&n)[{size}]) {{",
+                  *(f"  c[{i}] = n[{i}];" for i in written), "}", ""]
+    parts += ["}  // namespace dense_gibbs", ""]
+    return "\n".join(parts)
+
+
+def gibbs_dense_work(model, x, y):
+    """{(l, j): (f32 operations, special-function operations)} of one
+    incremental update of each unit, counted from the emitted code."""
+    return {unit: (em.ops, em.sfu) for unit, (em, _, _) in _emit_gibbs(model, x, y)[2].items()}
 
 
 def stack_chains(theta0s):

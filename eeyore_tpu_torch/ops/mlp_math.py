@@ -188,3 +188,106 @@ def make_vg(model, x_pad, y_pad, row_mask, prior_loc, prior_inv_var, prior_const
         return val, grad
 
     return vg
+
+
+def make_incremental_gibbs(model, n_pad, temperature, prior_const):
+    """Incremental value-only log-posterior for blocked Gibbs sweeps.
+
+    Counterpart of ``eeyore_tpu/ops/mlp_math.py::make_incremental_gibbs``.
+    A node-block proposal perturbs only the incoming weights and bias of one
+    unit (layer l, node j), so only that unit's activation and everything
+    downstream changes. Returns ``(cache_keys, init, updates)``:
+
+    - ``cache_keys``: the cached arrays, hidden activations ``('a', l, j)``
+      [n_pad, C] and, per loss, the output units' log-likelihoods ``('ll',
+      j)`` [1, C] (BCE) or the output logits ``('z', j)`` [n_pad, C] (CE);
+    - ``init(theta, x, y, mask, loc, ivar) -> (val [1, C], cache)``: the full
+      forward pass;
+    - ``updates[(l, j)](theta, x, y, mask, loc, ivar, cache) -> (val,
+      new_cache)``: unit (l, j) from the cached upstream activations, then
+      every layer strictly downstream; unchanged cache entries come back as
+      the very same objects, so a caller selects only what moved.
+
+    The value is bit-identical to ``make_vg(..., with_grad=False)`` after any
+    sequence of updates: the cache holds the floats the full pass would
+    recompute, and every sum runs in ``make_vg``'s order.
+    """
+    dims, bias, loss_kind, layer_offsets = extract_arch(model)
+    num_layers = len(dims) - 1
+    k_out = dims[-1]
+    cache_keys = tuple(("a", l, j) for l in range(num_layers - 1) for j in range(dims[l + 1]))
+    cache_keys += tuple(("ll" if loss_kind == "bce" else "z", j) for j in range(k_out))
+    key_pos = {k: i for i, k in enumerate(cache_keys)}
+
+    def unit_z(theta, prev, l, j):
+        w_off, b_off = layer_offsets[l]
+        z = torch.zeros((n_pad, theta.shape[1]), dtype=theta.dtype, device=theta.device)
+        for i in range(dims[l]):
+            z = z + prev[i] * theta[w_off + j * dims[l] + i, :][None, :]
+        if bias[l]:
+            z = z + theta[b_off + j, :][None, :]
+        return z
+
+    def layer_inputs(x, cache, l):
+        if l == 0:
+            return [x[:, i][:, None] for i in range(dims[0])]
+        return [cache[key_pos[("a", l - 1, i)]] for i in range(dims[l])]
+
+    def bce_unit_ll(z, y, mask, j):
+        softplus = torch.clamp(z, min=0) + torch.log1p(torch.exp(-torch.abs(z)))
+        return torch.sum((y[:, j][:, None] * z - softplus) * mask, dim=0, keepdim=True)
+
+    def log_lik(cache, y, mask):
+        C = cache[0].shape[1]
+        like = dict(dtype=cache[0].dtype, device=cache[0].device)
+        if loss_kind == "bce":
+            ll = torch.zeros((1, C), **like)
+            for j in range(k_out):
+                ll = ll + cache[key_pos[("ll", j)]]
+            return ll
+        zs = [cache[key_pos[("z", j)]] for j in range(k_out)]
+        zmax = zs[0]
+        for j in range(1, k_out):
+            zmax = torch.maximum(zmax, zs[j])
+        sumexp = torch.zeros((n_pad, C), **like)
+        for j in range(k_out):
+            sumexp = sumexp + torch.exp(zs[j] - zmax)
+        lse = zmax + torch.log(sumexp)
+        picked = torch.zeros((n_pad, C), **like)
+        for j in range(k_out):
+            picked = picked + y[:, j][:, None] * zs[j]
+        return torch.sum((picked - lse) * mask, dim=0, keepdim=True)
+
+    def finish(theta, y, mask, loc, ivar, cache):
+        diff = theta - loc
+        log_prior = torch.sum(-0.5 * diff * diff * ivar, dim=0, keepdim=True) + prior_const
+        return temperature * (log_lik(cache, y, mask) + log_prior)
+
+    def forward(theta, x, y, mask, cache, first_layer, units):
+        """Recompute ``units`` of ``first_layer`` (all units of the later
+        layers) into a copy of ``cache``."""
+        cache = list(cache)
+        for l in range(first_layer, num_layers):
+            prev = layer_inputs(x, cache, l)
+            for j in (units if l == first_layer else range(dims[l + 1])):
+                z = unit_z(theta, prev, l, j)
+                if l < num_layers - 1:
+                    cache[key_pos[("a", l, j)]] = torch.sigmoid(z)
+                elif loss_kind == "bce":
+                    cache[key_pos[("ll", j)]] = bce_unit_ll(z, y, mask, j)
+                else:
+                    cache[key_pos[("z", j)]] = z
+        return tuple(cache)
+
+    def init(theta, x, y, mask, loc, ivar):
+        cache = forward(theta, x, y, mask, [None] * len(cache_keys), 0, range(dims[1]))
+        return finish(theta, y, mask, loc, ivar, cache), cache
+
+    def make_update(l, j):
+        def update(theta, x, y, mask, loc, ivar, cache):
+            cache = forward(theta, x, y, mask, cache, l, (j,))
+            return finish(theta, y, mask, loc, ivar, cache), cache
+        return update
+
+    updates = {(l, j): make_update(l, j) for l in range(num_layers) for j in range(dims[l + 1])}
+    return cache_keys, init, updates

@@ -1,12 +1,14 @@
-"""The whole random-walk MH or MALA loop of a population of MLP chains in one
-kernel, on data staged in shared memory.
+"""The whole random-walk MH, MALA or blocked-Gibbs loop of a population of
+MLP chains in one kernel, on data staged in shared memory.
 
-Counterpart of the MH and MALA parts of ``eeyore_tpu/ops/resident_walk.py``
-(``_make_resident``, ``make_resident_mh``, ``make_resident_mala``).
+Counterpart of the MH, MALA and Gibbs parts of
+``eeyore_tpu/ops/resident_walk.py`` (``_make_resident``,
+``make_resident_mh``, ``make_resident_mala``, ``make_resident_gibbs``).
 Each maker returns ``fn(seed, theta0s [C, P]) -> (samples [kept, C, P], final
-[C, P], accept_counts [C])``, plus ``target_val [kept, C]`` and ``accepted
-[kept, C]`` (int32, exact moved flags) with ``record_extras``; accept counts
-are post-burn-in and every ``record_thin``-th post-burn-in state is kept.
+[C, P], accept_counts [C])`` (Gibbs: ``[C, B]``, per sub-block), plus
+``target_val [kept, C]`` and ``accepted [kept, C]`` (int32, exact moved
+flags) with ``record_extras``; accept counts are post-burn-in and every
+``record_thin``-th post-burn-in state is kept.
 
 - MH: a symmetric Normal walk of fixed ``scale`` on the value-only body (no
   backward pass); ``log_rate = v(prop) - v(theta)``.
@@ -15,13 +17,25 @@ are post-burn-in and every ``record_thin``-th post-burn-in state is kept.
   constants cancel, so ``log_rate = v(prop) - v(theta) - |theta - prop -
   (step/2) grad(prop)|^2 / (2 step) + |z|^2 / 2``.
 
-Both accept when ``log(u) < log_rate``. On CUDA tensors every call is one
+- Gibbs: one systematic sweep per iteration over the sub-blocks of
+  ``samplers.gibbs.Gibbs`` (node blocks, optionally split by
+  ``chunk_evenly``); sub-block b proposes ``scale_b * z`` on its own
+  coordinates, ``log_rate = v(prop) - v(theta)``, and a rejected proposal is
+  restored before the next sub-block. ``moved`` is true when theta differs
+  from theta at the start of the sweep.
+
+All accept when ``log(u) < log_rate``. On CUDA tensors every call is one
 launch of ``ops/csrc/resident_walk.cu``; on CPU tensors it runs the plain
 version ``_run_walk_plain`` (shared with ``ops/resident_walk_dense.py``), on
 the same Threefry stream (``kernel_prng.walk_draws``: key (seed, chain),
-counter (iteration, j)). The blocked Gibbs move (``make_resident_gibbs``,
-with ``acc_rows > 1``) and the tempering kernels (``consts``) are not ported
-yet; the scaffold takes their arguments and raises.
+counter (iteration, j)), or for Gibbs ``_run_gibbs_plain`` on the
+incremental body ``mlp_math.make_incremental_gibbs`` and the Gibbs stream
+(``kernel_prng.gibbs_draws``). The kernel compiles the Gibbs blocking in
+(``gibbs_blocks_source``) and evaluates each proposal with the whole
+value-only forward pass, the same function as the incremental body (a
+per-chain cache of the 150 iris rows does not fit on chip). The tempering
+kernels (``consts``) are not ported yet; the scaffold takes their argument
+and raises.
 """
 
 import ctypes
@@ -32,7 +46,7 @@ import torch
 
 from eeyore_tpu_torch.ops import _build, kernel_prng
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
-from eeyore_tpu_torch.ops.mlp_math import make_vg, prepare_data
+from eeyore_tpu_torch.ops.mlp_math import make_incremental_gibbs, make_vg, prepare_data
 from eeyore_tpu_torch.ops.resident_hmc import (
     _population_tune,
     check_arch,
@@ -44,11 +58,15 @@ from eeyore_tpu_torch.ops.resident_hmc import (
 )
 
 KERNEL = "resident_walk"
-MOVES = {"mh": 0, "mala": 1}
+GIBBS_KERNEL = "resident_walk_gibbs"  # the Gibbs move of the same library, counted apart
+MOVES = {"mh": 0, "mala": 1, "gibbs": 2}
 # Threads per block: chains share nothing, so any multiple of 32 works.
 WALK_BLOCK = 256
 
-launch_counts = {KERNEL: 0}
+launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0}
+# What the last call of a Gibbs function returned as its per-sub-block accept
+# counts ({"accept_counts": [C, B]}), for callers that go through dispatch.
+last_info = {GIBBS_KERNEL: None}
 
 
 class ResidentWalkParams(ctypes.Structure):
@@ -67,7 +85,8 @@ def walk_params(move, value, num_iters, num_burnin_iters, record_thin, record_ex
                 chain_block, tuner=None, n_rows=0, prior_const=0.0, temperature=1.0,
                 sublanes=1):
     """A filled ``ResidentWalkParams`` (without seed and chain count).
-    ``value`` is the MH scale or the MALA step; MALA's derived constants are
+    ``value`` is the MH scale or the MALA step (unused by Gibbs, whose
+    scales go to the kernel as an array); MALA's derived constants are
     rounded as the TPU kernels round them (``0.5 / step`` in float64 on
     staged data, in float32 on dense data)."""
     if move not in MOVES:
@@ -92,11 +111,54 @@ def walk_params(move, value, num_iters, num_burnin_iters, record_thin, record_ex
     return params
 
 
-def load_kernel(model):
-    """Build (at first use) and load both walk kernels for ``model``'s
-    architecture, which they take as compile-time constants."""
+def gibbs_sub_blocks(model, scales=1.0, node_subblock_size=None):
+    """The sweep of ``Gibbs(model, scales, node_subblock_size)``: [(flat
+    indices, scale, (layer, node) of the unit the sub-block moves)]."""
+    from eeyore_tpu_torch.samplers.gibbs import Gibbs
+
+    blocking = Gibbs(model, scales=scales, node_subblock_size=node_subblock_size)
+    return [(indices, scale, model.layer_and_node_from_par_block(block))
+            for indices, scale, block in blocking.sub_blocks]
+
+
+def gibbs_blocks_source(model, node_subblock_size=None):
+    """The text of ``gibbs_blocks.cuh``: ``struct GibbsBlocks`` with the
+    sweep's sub-block count ``kB`` and, as compile-time functions, each
+    sub-block's ``width(b)``, flat indices ``index(b, k)`` and the node block
+    ``unit(b)`` it moves (layer by layer, node by node), for the Gibbs moves
+    of the walk kernels."""
+    from eeyore_tpu_torch.samplers.gibbs import Gibbs
+
+    subs = [(indices, block) for indices, _, block in
+            Gibbs(model, node_subblock_size=node_subblock_size).sub_blocks]
+    stride = max(len(indices) for indices, _ in subs)
+
+    def switch(cases):
+        return (["    switch (i) {"] + [f"      case {i}: return {v};" for i, v in cases]
+                + ["      default: return -1;", "    }"])
+
+    return "\n".join(
+        ["// Generated by eeyore_tpu_torch/ops/resident_walk.py::gibbs_blocks_source for one",
+         "// model and Gibbs blocking. Do not edit.", "#pragma once", "", "struct GibbsBlocks {",
+         f"  static constexpr int kB = {len(subs)};",
+         "  __host__ __device__ static constexpr int width(int i) {",
+         *switch((b, len(indices)) for b, (indices, _) in enumerate(subs)), "  }",
+         "  __host__ __device__ static constexpr int unit(int i) {",
+         *switch((b, unit) for b, (_, unit) in enumerate(subs)), "  }",
+         "  __host__ __device__ static constexpr int index(int b, int k) {",
+         f"    const int i = b * {stride} + k;",
+         *switch((b * stride + k, p) for b, (indices, _) in enumerate(subs)
+                 for k, p in enumerate(indices)), "  }", "};", ""])
+
+
+def load_kernel(model, node_subblock_size=None):
+    """Build (at first use) and load the walk kernels for ``model``'s
+    architecture and the Gibbs blocking of ``node_subblock_size``, which
+    they take as compile-time constants."""
     tag, defines = arch_defines(model)
-    lib = _build.load_library(f"{KERNEL}_{tag}", "resident_walk.cu", defines)
+    lib = _build.load_library(
+        f"{KERNEL}_{tag}", "resident_walk.cu", defines,
+        generated={"gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size)})
     lib.resident_walk_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 6
         + [ctypes.POINTER(ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
@@ -107,6 +169,12 @@ def load_kernel(model):
     lib.resident_walk_arch.restype = ctypes.c_int
     lib.resident_walk_resources.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.resident_walk_resources.restype = ctypes.c_int
+    lib.resident_walk_gibbs_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.POINTER(ResidentWalkParams), ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    lib.resident_walk_gibbs_launch.restype = ctypes.c_int
+    lib.resident_walk_num_sub_blocks.argtypes = []
+    lib.resident_walk_num_sub_blocks.restype = ctypes.c_int
     check_arch(lib.resident_walk_arch, model, f"{KERNEL}_{tag}")
     return lib
 
@@ -117,16 +185,23 @@ def kernel_resources(lib, move):
                           lib.resident_walk_error_string, KERNEL)
 
 
+def check_tensors(name, tensors):
+    """Raise unless ``tensors`` are contiguous float32 CUDA tensors on one
+    device."""
+    first = tensors[0]
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous float32 CUDA tensors")
+        if t.device != first.device:
+            raise ValueError(f"{name} takes its tensors on one device")
+
+
 def resident_walk(lib, move, theta0, x, y, mask, loc, ivar, params, threads):
     """Launch the ``move`` kernel: theta0 [P, C] -> (samples [kept, rows,
     C], final [P, C], accepts [C]), f32 on one CUDA device, on the current
     stream."""
     P, C = theta0.shape
-    for t in (theta0, x, y, mask, loc, ivar):
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("resident_walk takes contiguous float32 CUDA tensors")
-        if t.device != theta0.device:
-            raise ValueError("resident_walk takes its tensors on one device")
+    check_tensors("resident_walk", (theta0, x, y, mask, loc, ivar))
     if params.num_chains != C or params.n_rows != x.shape[0] or loc.numel() != P:
         raise ValueError("resident_walk: inconsistent shapes")
     rows = P + 2 if params.record_extras else P
@@ -140,6 +215,30 @@ def resident_walk(lib, move, theta0, x, y, mask, loc, ivar, params, threads):
         final.data_ptr(), accepts.data_ptr(), stream)
     raise_on(err, lib.resident_walk_error_string, f"{KERNEL} launch failed")
     launch_counts[KERNEL] += 1
+    return samples, final, accepts
+
+
+def resident_walk_gibbs(lib, theta0, x, y, mask, loc, ivar, scales, params, threads):
+    """Launch the Gibbs kernel: theta0 [P, C] -> (samples [kept, rows, C],
+    final [P, C], accepts [B, C]), f32 on one CUDA device, on the current
+    stream; ``scales`` [B] holds each sub-block's proposal scale."""
+    P, C = theta0.shape
+    check_tensors("resident_walk_gibbs", (theta0, x, y, mask, loc, ivar, scales))
+    B = lib.resident_walk_num_sub_blocks()
+    if params.num_chains != C or params.n_rows != x.shape[0] or loc.numel() != P or \
+            scales.numel() != B:
+        raise ValueError("resident_walk_gibbs: inconsistent shapes")
+    rows = P + 2 if params.record_extras else P
+    samples = torch.empty((params.kept, rows, C), dtype=torch.float32, device=theta0.device)
+    final = torch.empty((P, C), dtype=torch.float32, device=theta0.device)
+    accepts = torch.empty((B, C), dtype=torch.float32, device=theta0.device)
+    stream = torch.cuda.current_stream(theta0.device).cuda_stream
+    err = lib.resident_walk_gibbs_launch(
+        theta0.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(), loc.data_ptr(),
+        ivar.data_ptr(), scales.data_ptr(), ctypes.byref(params), threads, samples.data_ptr(),
+        final.data_ptr(), accepts.data_ptr(), stream)
+    raise_on(err, lib.resident_walk_error_string, f"{GIBBS_KERNEL} launch failed")
+    launch_counts[GIBBS_KERNEL] += 1
     return samples, final, accepts
 
 
@@ -229,19 +328,85 @@ def _run_walk_plain(vg, arrays, pr, move, chain_block, theta):
                                      "value": final_value}
 
 
-def _check_unported(acc_rows, consts):
-    if acc_rows != 1 or consts:
-        raise ValueError("acc_rows > 1 (blocked Gibbs) and consts (tempering) wait for "
-                         "their kernels; the walk scaffold runs MH and MALA")
+def _run_gibbs_plain(init, updates, sub_blocks, pr, theta):
+    """The Gibbs kernels' computation in PyTorch, on [P, C] tensors: ``init(theta)
+    -> (val [C], cache)`` and ``updates[(l, j)](theta, cache) -> (val,
+    cache)`` are an incremental value-only body; ``sub_blocks`` the sweep
+    (``gibbs_sub_blocks``). Returns (samples [kept, rows, C], final [P, C],
+    accepts [B, C], {"evaluations": C * (1 + num_iters * B)})."""
+    P, C = theta.shape
+    f32 = dict(dtype=torch.float32, device=theta.device)
+    chains = torch.arange(C, dtype=torch.int64, device=theta.device)
+    index = [torch.tensor(indices, dtype=torch.int64, device=theta.device)
+             for indices, _, _ in sub_blocks]
+    val, cache = init(theta)
+    rows = P + 2 if pr.record_extras else P
+    samples = torch.empty((pr.kept, rows, C), **f32)
+    accepts = torch.zeros((len(sub_blocks), C), **f32)
+
+    for t in range(pr.num_iters):
+        moved = torch.zeros(C, dtype=torch.bool, device=theta.device)
+        for b, (indices, scale, unit) in enumerate(sub_blocks):
+            z, u = kernel_prng.gibbs_draws(pr.seed, chains, t, b, len(indices))
+            prop = theta.clone()
+            prop[index[b]] = theta[index[b]] + float(np.float32(scale)) * z
+            v_p, cache_p = updates[unit](prop, cache)
+            accept = torch.log(u) < v_p - val
+            moved |= accept & torch.any(prop[index[b]] != theta[index[b]], dim=0)
+            theta = torch.where(accept, prop, theta)
+            val = torch.where(accept, v_p, val)
+            cache = tuple(old if new is old else torch.where(accept, new, old)
+                          for old, new in zip(cache, cache_p))
+            if t >= pr.num_burnin_iters:
+                accepts[b] += accept.to(torch.float32)
+
+        since = t - pr.num_burnin_iters
+        if since >= 0 and since % pr.record_thin == 0 and since // pr.record_thin < pr.kept:
+            out = samples[since // pr.record_thin]
+            out[:P] = theta
+            if pr.record_extras:
+                out[P] = val
+                out[P + 1] = moved.to(torch.float32)
+    return samples, theta, accepts, {"evaluations": C * (1 + pr.num_iters * len(sub_blocks))}
+
+
+def _check_unported(consts):
+    if consts:
+        raise ValueError("consts (tempering) wait for their kernels; the walk scaffold runs "
+                         "MH, MALA and Gibbs")
+
+
+def _setup(params, chain_block, device):
+    """``setup(seed, theta0s) -> (params with the seed and chain count,
+    theta [P, C])`` of a walk function built for ``device``."""
+
+    def setup(seed, theta0s):
+        if theta0s.device.type != device.type:
+            raise ValueError(f"theta0s on {theta0s.device}, but the function was built for "
+                             f"device={device}")
+        C = theta0s.shape[0]
+        if C % chain_block != 0:
+            raise ValueError(f"{C} chains not a multiple of chain_block {chain_block}")
+        pr = ResidentWalkParams.from_buffer_copy(params)
+        pr.seed, pr.num_chains = int(seed), C
+        return pr, theta0s.to(torch.float32).T.contiguous()  # [P, C]
+
+    return setup
+
+
+def _threads(lib, move):
+    """Threads per block of a staged walk launch: ``WALK_BLOCK``, or fewer
+    when the build's registers allow fewer."""
+    return min(WALK_BLOCK, kernel_resources(lib, move)["max_threads_per_block"] // 32 * 32)
 
 
 def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record_thin, move,
-                   value, acc_rows=1, consts=(), record_extras=False, device="cuda"):
-    """Shared scaffold of the staged walk makers: ``fn(seed, theta0s [C,
-    P])`` for ``move`` ("mh" with scale ``value``, "mala" with step
+                   value, consts=(), record_extras=False, device="cuda"):
+    """Shared scaffold of the staged MH and MALA makers: ``fn(seed, theta0s
+    [C, P])`` for ``move`` ("mh" with scale ``value``, "mala" with step
     ``value``); ``fn.plain(seed, theta0s)`` runs the plain version on the
     same tensors and also returns its info dict."""
-    _check_unported(acc_rows, consts)
+    _check_unported(consts)
     device = torch.device(device)
     x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature = prepare_data(model, x, y)
     P = model.num_params
@@ -255,19 +420,8 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
     lib, threads = None, None
     if device.type == "cuda":
         lib = load_kernel(model)
-        max_threads = kernel_resources(lib, move)["max_threads_per_block"]
-        threads = min(WALK_BLOCK, max_threads // 32 * 32)
-
-    def setup(seed, theta0s):
-        if theta0s.device.type != device.type:
-            raise ValueError(f"theta0s on {theta0s.device}, but the function was built for "
-                             f"device={device}")
-        C = theta0s.shape[0]
-        if C % chain_block != 0:
-            raise ValueError(f"{C} chains not a multiple of chain_block {chain_block}")
-        pr = ResidentWalkParams.from_buffer_copy(params)
-        pr.seed, pr.num_chains = int(seed), C
-        return pr, theta0s.to(torch.float32).T.contiguous()  # [P, C]
+        threads = _threads(lib, move)
+    setup = _setup(params, chain_block, device)
 
     def fn(seed, theta0s):
         pr, theta_t = setup(seed, theta0s)
@@ -281,6 +435,67 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
         pr, theta_t = setup(seed, theta0s)
         samples, final, acc, info = _run_walk_plain(vg, arrays, pr, move, chain_block, theta_t)
         return unpack_outputs(samples, final, acc, P, record_extras), info
+
+    fn.plain = plain
+    return fn
+
+
+def make_resident_gibbs(model, x, y, scales=1.0, node_subblock_size=None, num_iters=1000,
+                        num_burnin_iters=0, chain_block=512, record_thin=1, record_extras=False,
+                        device="cuda"):
+    """Whole-loop blocked Metropolis-within-Gibbs (``samplers/gibbs.py``
+    semantics): one systematic sweep per iteration over the model's node
+    (sub-)blocks, each proposed with its block's scale on its own coordinates
+    and accepted on the full log target, value only. Returns per-chain
+    per-sub-block accept counts [C, B]. The plain version runs the
+    incremental body (``mlp_math.make_incremental_gibbs``); the kernel
+    evaluates the same function by whole forward passes. C must be a
+    multiple of ``chain_block``."""
+    device = torch.device(device)
+    sub_blocks = gibbs_sub_blocks(model, scales, node_subblock_size)
+    x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature = prepare_data(model, x, y)
+    P = model.num_params
+    params = walk_params("gibbs", 0.0, num_iters, num_burnin_iters, record_thin, record_extras,
+                         chain_block, n_rows=x_pad.shape[0], prior_const=prior_const,
+                         temperature=temperature)
+    arrays = [torch.as_tensor(a, device=device).contiguous()
+              for a in (x_pad, y_pad, row_mask, loc, ivar)]
+    scale_t = torch.tensor([scale for _, scale, _ in sub_blocks], dtype=torch.float32,
+                           device=device)
+    _, inc_init, inc_updates = make_incremental_gibbs(model, x_pad.shape[0], temperature,
+                                                      prior_const)
+
+    def init(theta):
+        val, cache = inc_init(theta, *arrays)
+        return val[0], cache
+
+    def make_update(update):
+        def update_val(theta, cache):
+            val, cache = update(theta, *arrays, cache)
+            return val[0], cache
+        return update_val
+
+    updates = {unit: make_update(f) for unit, f in inc_updates.items()}
+    lib, threads = None, None
+    if device.type == "cuda":
+        lib = load_kernel(model, node_subblock_size)
+        threads = _threads(lib, "gibbs")
+    setup = _setup(params, chain_block, device)
+
+    def fn(seed, theta0s):
+        pr, theta_t = setup(seed, theta0s)
+        if lib is None:
+            samples, final, acc, _ = _run_gibbs_plain(init, updates, sub_blocks, pr, theta_t)
+        else:
+            samples, final, acc = resident_walk_gibbs(lib, theta_t, *arrays, scale_t, pr,
+                                                      threads)
+        last_info[GIBBS_KERNEL] = {"accept_counts": acc.T}
+        return unpack_outputs(samples, final, acc.T, P, record_extras)
+
+    def plain(seed, theta0s):
+        pr, theta_t = setup(seed, theta0s)
+        samples, final, acc, info = _run_gibbs_plain(init, updates, sub_blocks, pr, theta_t)
+        return unpack_outputs(samples, final, acc.T, P, record_extras), info
 
     fn.plain = plain
     return fn

@@ -1,9 +1,11 @@
-"""The whole random-walk MH or MALA loop of a population of MLP chains in one
-kernel, on data of at most 32 rows folded into the code as constants.
+"""The whole random-walk MH, MALA or blocked-Gibbs loop of a population of
+MLP chains in one kernel, on data of at most 32 rows folded into the code as
+constants.
 
-Counterpart of the MH and MALA parts of
+Counterpart of the MH, MALA and Gibbs parts of
 ``eeyore_tpu/ops/resident_walk_dense.py`` (``_make_resident_dense``,
-``make_resident_mh_dense``, ``make_resident_mala_dense``). The makers return
+``make_resident_mh_dense``, ``make_resident_mala_dense``,
+``make_resident_gibbs_dense``). The makers return
 ``fn(seed, theta0s [C, P])`` with the outputs of ``ops/resident_walk.py``;
 C must be a multiple of ``chain_block``, itself a multiple of 1024. The
 moves and their algebra are those of ``resident_walk`` (with ``0.5 / step``
@@ -13,6 +15,13 @@ rounded in float32, as the TPU's dense kernel has it), on the dense body
 CPU tensors it runs the plain version ``resident_walk._run_walk_plain`` on
 ``make_vg_dense``.
 
+The Gibbs move sweeps the sub-blocks of ``resident_walk.gibbs_sub_blocks``
+on the incremental body ``mlp_dense.make_incremental_gibbs_dense``: a
+proposal recomputes its unit and what lies downstream from a per-chain cache
+(in registers on the card, from ``gibbs_dense_source``), on the Gibbs
+stream, so a dense and a staged Gibbs run of one seed draw the same numbers.
+Its plain version is ``resident_walk._run_gibbs_plain``.
+
 With a ``tuner`` (an ``HMCDATuner``; ``d`` is the target acceptance, 0.234
 for MH and 0.574 for MALA are the classic optima), the proposal scale or
 the Langevin step is dual-averaged during burn-in on the mean acceptance
@@ -21,7 +30,7 @@ rate of each tuning group, the TPU kernel's sublane-strided grid block of
 (``resident_walk._population_dual_average``). As in the JAX package, the
 rates have no NaN guard: one chain's NaN rate stops its group's tuning. On
 the card a group larger than a block is a thread-block cluster, as in
-``resident_hmc_dense``. The blocked Gibbs move waits for its kernel.
+``resident_hmc_dense``.
 """
 
 import ctypes
@@ -30,28 +39,45 @@ import torch
 
 from eeyore_tpu_torch.ops import _build
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
-from eeyore_tpu_torch.ops.mlp_dense import dense_source
+from eeyore_tpu_torch.ops.mlp_dense import (
+    dense_source,
+    gibbs_dense_source,
+    make_incremental_gibbs_dense,
+)
 from eeyore_tpu_torch.ops.resident_hmc import check_arch, raise_on, read_resources, unpack_outputs
 from eeyore_tpu_torch.ops.resident_hmc_dense import SUBLANES, dense_plain_vg, launch_shape
 from eeyore_tpu_torch.ops.resident_walk import (
     MOVES,
     ResidentWalkParams,
     _check_unported,
+    _run_gibbs_plain,
     _run_walk_plain,
+    _setup,
+    check_tensors,
+    gibbs_blocks_source,
+    gibbs_sub_blocks,
     walk_params,
 )
 
 KERNEL = "resident_walk_dense"
+GIBBS_KERNEL = "resident_walk_dense_gibbs"  # the Gibbs move of the same library, counted apart
 
-launch_counts = {KERNEL: 0}
+launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0}
+# What the last call of a Gibbs function returned as its per-sub-block accept
+# counts ({"accept_counts": [C, B]}), for callers that go through dispatch.
+last_info = {GIBBS_KERNEL: None}
 
 
-def load_kernel(model, x, y):
-    """Build (at first use) and load both dense walk kernels for ``model``
-    and the data ``(x, y)``, which they take as constants."""
+def load_kernel(model, x, y, node_subblock_size=None):
+    """Build (at first use) and load the dense walk kernels for ``model``,
+    the data ``(x, y)`` and the Gibbs blocking of ``node_subblock_size``,
+    which they take as constants."""
     tag, defines = arch_defines(model)
-    lib = _build.load_library(f"{KERNEL}_{tag}", "resident_walk_dense.cu", defines,
-                              generated={"dense_body.cuh": dense_source(model, x, y)})
+    lib = _build.load_library(
+        f"{KERNEL}_{tag}", "resident_walk_dense.cu", defines,
+        generated={"dense_body.cuh": dense_source(model, x, y),
+                   "dense_gibbs.cuh": gibbs_dense_source(model, x, y),
+                   "gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size)})
     lib.resident_walk_dense_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ResidentWalkParams), ctypes.c_int,
          ctypes.c_int] + [ctypes.c_void_p] * 4)
@@ -65,6 +91,12 @@ def load_kernel(model, x, y):
     lib.resident_walk_dense_max_clusters.argtypes = [ctypes.c_int] * 3 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.resident_walk_dense_max_clusters.restype = ctypes.c_int
+    lib.resident_walk_dense_gibbs_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.POINTER(ResidentWalkParams), ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    lib.resident_walk_dense_gibbs_launch.restype = ctypes.c_int
+    lib.resident_walk_dense_num_sub_blocks.argtypes = []
+    lib.resident_walk_dense_num_sub_blocks.restype = ctypes.c_int
     check_arch(lib.resident_walk_dense_arch, model, f"{KERNEL}_{tag}")
     return lib
 
@@ -105,16 +137,41 @@ def resident_walk_dense(lib, move, theta0, params, threads, cluster_blocks):
     return samples, final, accepts
 
 
-def _make_resident_dense(model, x, y, num_iters, num_burnin_iters, chain_block, record_thin,
-                         move, value, tuner=None, acc_tiles=1, consts=(), record_extras=False,
-                         device="cuda"):
-    """Shared scaffold of the dense walk makers: ``fn(seed, theta0s [C,
-    P])`` for ``move`` ("mh" with scale ``value``, "mala" with step
-    ``value``); ``fn.plain(seed, theta0s)`` runs the plain version on the
-    same tensors and also returns its info dict."""
-    _check_unported(acc_tiles, consts)
+def resident_walk_dense_gibbs(lib, theta0, scales, params, threads):
+    """Launch the Gibbs kernel: theta0 [P, C] -> (samples [kept, rows, C],
+    final [P, C], accepts [B, C]), f32 on one CUDA device, on the current
+    stream; ``scales`` [B] holds each sub-block's proposal scale."""
+    P, C = theta0.shape
+    check_tensors("resident_walk_dense_gibbs", (theta0, scales))
+    B = lib.resident_walk_dense_num_sub_blocks()
+    if params.num_chains != C or scales.numel() != B:
+        raise ValueError("resident_walk_dense_gibbs: inconsistent shapes")
+    rows = P + 2 if params.record_extras else P
+    samples = torch.empty((params.kept, rows, C), dtype=torch.float32, device=theta0.device)
+    final = torch.empty((P, C), dtype=torch.float32, device=theta0.device)
+    accepts = torch.empty((B, C), dtype=torch.float32, device=theta0.device)
+    stream = torch.cuda.current_stream(theta0.device).cuda_stream
+    err = lib.resident_walk_dense_gibbs_launch(
+        theta0.data_ptr(), scales.data_ptr(), ctypes.byref(params), threads,
+        samples.data_ptr(), final.data_ptr(), accepts.data_ptr(), stream)
+    raise_on(err, lib.resident_walk_dense_error_string, f"{GIBBS_KERNEL} launch failed")
+    launch_counts[GIBBS_KERNEL] += 1
+    return samples, final, accepts
+
+
+def _check_chain_block(chain_block):
     if chain_block % 1024:
         raise ValueError(f"chain_block must be a multiple of 1024, got {chain_block}")
+
+
+def _make_resident_dense(model, x, y, num_iters, num_burnin_iters, chain_block, record_thin,
+                         move, value, tuner=None, consts=(), record_extras=False, device="cuda"):
+    """Shared scaffold of the dense MH and MALA makers: ``fn(seed, theta0s
+    [C, P])`` for ``move`` ("mh" with scale ``value``, "mala" with step
+    ``value``); ``fn.plain(seed, theta0s)`` runs the plain version on the
+    same tensors and also returns its info dict."""
+    _check_unported(consts)
+    _check_chain_block(chain_block)
     device = torch.device(device)
     P = model.num_params
     vg = dense_plain_vg(model, x, y, with_grad=move == "mala")
@@ -126,17 +183,7 @@ def _make_resident_dense(model, x, y, num_iters, num_burnin_iters, chain_block, 
         shape = launch_shape(kernel_resources(lib, move),
                              lambda t, b: max_active_clusters(lib, move, t, b), chain_block,
                              grouped=tuner is not None)
-
-    def setup(seed, theta0s):
-        if theta0s.device.type != device.type:
-            raise ValueError(f"theta0s on {theta0s.device}, but the function was built for "
-                             f"device={device}")
-        C = theta0s.shape[0]
-        if C % chain_block != 0:
-            raise ValueError(f"{C} chains not a multiple of chain_block {chain_block}")
-        pr = ResidentWalkParams.from_buffer_copy(params)
-        pr.seed, pr.num_chains = int(seed), C
-        return pr, theta0s.to(torch.float32).T.contiguous()  # [P, C]
+    setup = _setup(params, chain_block, device)
 
     def fn(seed, theta0s):
         pr, theta_t = setup(seed, theta0s)
@@ -175,3 +222,45 @@ def make_resident_mala_dense(model, x, y, step, num_iters, num_burnin_iters=0,
     return _make_resident_dense(model, x, y, num_iters, num_burnin_iters, chain_block,
                                 record_thin, "mala", step, tuner=tuner,
                                 record_extras=record_extras, device=device)
+
+
+def make_resident_gibbs_dense(model, x, y, scales=1.0, node_subblock_size=None, num_iters=1000,
+                              num_burnin_iters=0, chain_block=8192, record_thin=1,
+                              record_extras=False, device="cuda"):
+    """Whole-loop blocked Metropolis-within-Gibbs on the dense incremental
+    body (``resident_walk.make_resident_gibbs`` semantics): a sub-block
+    proposal perturbs only its coordinates and recomputes only its unit and
+    what lies downstream. Returns per-chain per-sub-block accept counts [C,
+    B]. C must be a multiple of ``chain_block``, itself a multiple of 1024."""
+    _check_chain_block(chain_block)
+    device = torch.device(device)
+    P = model.num_params
+    sub_blocks = gibbs_sub_blocks(model, scales, node_subblock_size)
+    params = walk_params("gibbs", 0.0, num_iters, num_burnin_iters, record_thin, record_extras,
+                         chain_block, sublanes=SUBLANES)
+    scale_t = torch.tensor([scale for _, scale, _ in sub_blocks], dtype=torch.float32,
+                           device=device)
+    _, init, updates = make_incremental_gibbs_dense(model, x, y)
+    lib, shape = None, None
+    if device.type == "cuda":
+        lib = load_kernel(model, x, y, node_subblock_size)
+        shape = launch_shape(kernel_resources(lib, "gibbs"), None, chain_block, grouped=False)
+    setup = _setup(params, chain_block, device)
+
+    def fn(seed, theta0s):
+        pr, theta_t = setup(seed, theta0s)
+        if lib is None:
+            samples, final, acc, _ = _run_gibbs_plain(init, updates, sub_blocks, pr, theta_t)
+        else:
+            samples, final, acc = resident_walk_dense_gibbs(lib, theta_t, scale_t, pr, shape[0])
+        last_info[GIBBS_KERNEL] = {"accept_counts": acc.T}
+        return unpack_outputs(samples, final, acc.T, P, record_extras)
+
+    def plain(seed, theta0s):
+        pr, theta_t = setup(seed, theta0s)
+        samples, final, acc, info = _run_gibbs_plain(init, updates, sub_blocks, pr, theta_t)
+        return unpack_outputs(samples, final, acc.T, P, record_extras), info
+
+    fn.plain = plain
+    fn.launch_shape = shape
+    return fn

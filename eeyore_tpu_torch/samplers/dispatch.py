@@ -1,7 +1,7 @@
 """Kernel-backend dispatch: route ``sample_chains`` onto the whole-loop
 kernels when the configuration is eligible.
 
-Counterpart of the HMC, MH and MALA parts of
+Counterpart of the HMC, MH, MALA and Gibbs parts of
 ``eeyore_tpu/samplers/dispatch.py``. ``resolve_backend`` decides, per
 (transition kernel, model, data, chain count), which engine runs the
 request, and ``run_kernel_backend`` runs it and re-wraps the kernel's
@@ -20,15 +20,17 @@ Backends:
 Both kernel backends need the model and the data on a CUDA device, a
 full-batch schedule, an ``extract_arch``-able MLP and at most
 ``MAX_DISPATCH_PARAMS`` parameters. HMC, random-walk MH (a symmetric
-``NormalKernel`` of scalar scale) and MALA have kernels; every other sampler
-(and an asymmetric or vector-scale MH) runs the generic path under
-``"auto"``.
+``NormalKernel`` of scalar scale), MALA and blocked Gibbs have kernels;
+every other sampler (and an asymmetric or vector-scale MH) runs the generic
+path under ``"auto"``.
 
 Statistical contract: the kernel draws its own numbers (``ops/
 kernel_prng.py``) from a seed taken from the caller's generator, so its runs
 are statistically equivalent to, not equal to, the generic path's. Recorded
 keys by default are ``sample`` plus a derived ``accepted`` flag (sample[t]
-!= sample[t-1], with the first kept row set from the kernel's accept count);
+!= sample[t-1], with the first kept row set from the kernel's accept count,
+or to 1 where the count is per Gibbs sub-block, ``info["accept_counts"]``
+[C, B]);
 an explicit ``record_keys`` containing ``target_val`` turns on the kernel's
 extras rows, which carry the value and an exact moved flag. Any other key
 forces the generic path.
@@ -87,11 +89,15 @@ def _data_fingerprint(x, y):
 
 
 class _Plan:
-    def __init__(self, backend, maker, kwargs, chain_block):
+    """``acc_kind``: "counts" when the kernel returns accepted-transition
+    counts [C], "per_block" when it returns them per Gibbs sub-block [C, B]."""
+
+    def __init__(self, backend, maker, kwargs, chain_block, acc_kind="counts"):
         self.backend = backend
         self.maker = maker
         self.kwargs = kwargs
         self.chain_block = chain_block
+        self.acc_kind = acc_kind
 
 
 def _pick_block(num_chains, candidates, cap=None):
@@ -127,6 +133,7 @@ def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_
                   want_dense, record_extras=False):
     """Return a _Plan for the transition kernel, or (None, reason)."""
     from eeyore_tpu_torch.kernels import NormalKernel
+    from eeyore_tpu_torch.samplers.gibbs import Gibbs
     from eeyore_tpu_torch.samplers.hmc import HMC
     from eeyore_tpu_torch.samplers.mala import MALA
     from eeyore_tpu_torch.samplers.mh import MetropolisHastings
@@ -169,6 +176,28 @@ def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_
             return None, "resident MALA needs chains divisible by 128"
         return _Plan("resident", make_resident_mala,
                      dict(step=step, chain_block=cb, **common), cb), None
+
+    if type(kernel) is Gibbs:
+        gibbs_kw = dict(scales=list(kernel.scales),
+                        node_subblock_size=list(kernel.node_subblock_size), **common)
+        if want_dense:
+            from eeyore_tpu_torch.ops.resident_walk_dense import make_resident_gibbs_dense
+            cb = _pick_block(num_chains, _DENSE_BLOCKS)
+            if cb is None:
+                return None, "dense Gibbs needs chains divisible by 1024"
+            return _Plan("dense", make_resident_gibbs_dense, dict(chain_block=cb, **gibbs_kw),
+                         cb, acc_kind="per_block"), None
+        from eeyore_tpu_torch.ops.resident_walk import make_resident_gibbs
+        # No cap of 512 as JAX's (its VMEM activation cache of 8 [n_pad,
+        # chain_block] tiles): the Gibbs moves share nothing between chains
+        # and have no tuner, so chain_block only has to divide the chains,
+        # and the block is capped by the move's registers (WALK_BLOCK, or
+        # fewer threads when the build allows fewer), as for MH and MALA.
+        cb = _pick_block(num_chains, _RESIDENT_BLOCKS)
+        if cb is None:
+            return None, "resident Gibbs needs chains divisible by 128"
+        return _Plan("resident", make_resident_gibbs, dict(chain_block=cb, **gibbs_kw), cb,
+                     acc_kind="per_block"), None
 
     if type(kernel) is not HMC:
         return None, f"{type(kernel).__name__} has no kernel backend yet"
@@ -321,11 +350,12 @@ def run_kernel_backend(kernel, generator, theta0s, data, num_iters, num_burnin_i
         recorded["accepted"] = out[4].T.contiguous()
         recorded["target_val"] = out[3].T.contiguous()
     elif needs_accepted:
-        # derived accepted: moved against the previous kept row; the first
-        # kept row takes the remainder of the exact count (record_thin 1):
-        # every ported kernel returns accepted-transition counts
+        # derived accepted: moved against the previous kept row; where the
+        # kernel returns accepted-transition counts (record_thin 1) the first
+        # kept row takes the count's remainder, else (per-sub-block Gibbs
+        # counts) it is 1, as in the JAX package
         moved = torch.any(samples[:, 1:, :] != samples[:, :-1, :], dim=-1)
-        if record_thin == 1:
+        if plan.acc_kind == "counts" and record_thin == 1:
             first = torch.clamp(torch.round(acc - moved.sum(dim=1)), 0, 1)
         else:
             first = torch.ones(moved.shape[0], dtype=acc.dtype, device=acc.device)

@@ -63,14 +63,21 @@ def sample_chains(kernel, generator, theta0s, data, num_iters, num_burnin_iters=
     the final state with ``return_state=True``.
 
     ``backend``: "auto" (default) sends eligible configurations whose model
-    and data live on a CUDA device to the whole-loop kernel
-    (``samplers/dispatch.py``); "scan" forces the generic path; "resident"
-    demands the kernel and raises when ineligible; "dense" raises (that
-    kernel is not ported yet). Kernel runs record sample/accepted (and
-    target_val when asked) and draw their own numbers from a seed taken from
-    ``generator``. ``platform`` overrides the device type that dispatch sees
-    ("cuda" or "cpu"); a CUDA plan on CPU tensors runs the kernel's plain
-    version.
+    and data live on a CUDA device to a whole-loop kernel
+    (``samplers/dispatch.py``: the dense kernel for at most 32 data rows, else
+    the resident one); "scan" forces the generic path; "resident" and
+    "dense" demand that kernel and raise when ineligible. Kernel runs record
+    sample/accepted (and target_val when asked) and draw their own numbers
+    from a seed taken from ``generator``. ``platform`` overrides the device
+    type that dispatch sees ("cuda" or "cpu"); a CUDA plan on CPU tensors
+    runs the kernel's plain version.
+
+    ``accepted`` is per chain and iteration, [C, kept], except on the generic
+    path of ``Gibbs``, which records one flag per sub-block, [C, kept, B];
+    a Gibbs kernel run records whether the sweep moved, [C, kept], as in the
+    JAX package, and leaves its per-sub-block accept counts [C, B] in the
+    kernel module's ``last_info`` (``ops/resident_walk.py``,
+    ``ops/resident_walk_dense.py``).
     """
     theta0s, schedule = _prepare(kernel, theta0s, data, num_iters, num_burnin_iters,
                                  record_thin)

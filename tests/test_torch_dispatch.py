@@ -1,4 +1,4 @@
-"""Port, kernel-backend dispatch: the HMC, MH and MALA cases of
+"""Port, kernel-backend dispatch: the HMC, MH, MALA and Gibbs cases of
 tests/test_dispatch.py rewritten for the port. Plans are made for platform="cuda" on the CPU, as
 the JAX tests plan for "tpu"; a plan run on CPU tensors goes through the
 kernel's plain version, so ``sample_chains(backend="resident")`` is tested
@@ -17,6 +17,7 @@ from eeyore_tpu_torch.ops import resident_walk_dense
 from eeyore_tpu_torch.samplers import (
     HMC,
     MALA,
+    Gibbs,
     MetropolisHastings,
     TransitionKernel,
     sample_chain,
@@ -367,3 +368,94 @@ def test_walk_and_dense_slices_run_the_plain_kernels_into_chainlists(sampler, mo
     torch.testing.assert_close(state.sample, samples[:, -1])
     assert type(state).__name__ == {"hmc": "HMCState", "mala": "MALAState"}.get(
         sampler.replace("iris_", ""), "MHState")
+
+
+def iris4323_model():
+    return MLP(loss=loss_functions["multiclass_classification"], dtype=torch.float32,
+               device="cpu", hparams=mlp.Hyperparameters(
+                   dims=[4, 3, 2, 3], activations=[mlp.sigmoid, mlp.sigmoid, None]))
+
+
+@pytest.mark.parametrize("chains,block", [(32768, 8192), (3072, 1024)])
+def test_gibbs_auto_sends_xor_to_dense(chains, block):
+    kernel = Gibbs(xor_model(), scales=0.5, node_subblock_size=[1, None, 2])
+    plan, reason = resolve_backend(kernel, XOR, chains, 2048, 1024, platform="cuda")
+    assert plan is not None, reason
+    assert plan.backend == "dense" and plan.maker.__name__ == "make_resident_gibbs_dense"
+    assert plan.chain_block == block and plan.acc_kind == "per_block"
+    assert plan.kwargs["scales"] == [0.5] * 3
+    assert plan.kwargs["node_subblock_size"] == [1, None, 2]
+
+
+@pytest.mark.parametrize("chains,block", [(32768, 4096), (384, 128)])
+def test_gibbs_auto_sends_iris_to_resident_without_the_tpu_cap(chains, block):
+    """No cap of 512 chains as the JAX package's VMEM cache has: the block
+    only has to divide the chains."""
+    plan, reason = resolve_backend(Gibbs(iris4323_model(), scales=0.1), iris_data(), chains,
+                                   2048, 1024, platform="cuda")
+    assert plan is not None, reason
+    assert plan.backend == "resident" and plan.maker.__name__ == "make_resident_gibbs"
+    assert plan.chain_block == block and plan.acc_kind == "per_block"
+
+
+def test_gibbs_indivisible_chains_go_generic_and_dense_on_iris_raises():
+    plan, reason = resolve_backend(Gibbs(xor_model(), scales=0.5), XOR, 1000, 256,
+                                   platform="cuda")
+    assert plan is None and "Gibbs needs chains divisible by 128" in reason
+    plan, _ = resolve_backend(Gibbs(xor_model(), scales=0.5), XOR, 1536, 256, platform="cuda")
+    assert plan.backend == "resident" and plan.chain_block == 512
+    with pytest.raises(ValueError, match="MAX_DENSE_ROWS"):
+        resolve_backend(Gibbs(iris4323_model()), iris_data(), 8192, 256, platform="cuda",
+                        backend="dense")
+    with pytest.raises(ValueError, match="divisible by 1024"):
+        resolve_backend(Gibbs(xor_model()), XOR, 1536, 256, platform="cuda", backend="dense")
+
+
+@pytest.mark.parametrize("data,module,C", [("xor", resident_walk_dense, 1024),
+                                           ("iris", resident_walk, 128)])
+def test_gibbs_slices_run_the_plain_kernels_into_chainlists(data, module, C):
+    """``sample_chains(Gibbs, backend="auto", platform="cuda")`` on CPU
+    tensors: the dense plan for XOR, the resident one for iris, their plain
+    versions, moved flags [C, kept] whose first row is 1 (the counts are per
+    sub-block, as in the JAX package), the per-sub-block counts in the
+    module's ``last_info``, a ``GibbsState``; no launch."""
+    model = xor_model() if data == "xor" else iris4323_model()
+    xy = XOR if data == "xor" else iris_data()
+    kernel = Gibbs(model, scales=0.5 if data == "xor" else 0.1)
+    iters, burnin = 30, 10
+    theta0s = 0.1 * torch.randn(C, model.num_params, generator=torch.Generator().manual_seed(5))
+    before = dict(module.launch_counts)
+    chains, state = sample_chains(kernel, torch.Generator().manual_seed(6), theta0s, xy, iters,
+                                  burnin, return_state=True, backend="auto", platform="cuda")
+    assert module.launch_counts == before
+    samples, flags = chains.get_samples(), chains.tensor("accepted")
+    assert samples.shape == (C, iters - burnin, model.num_params)
+    assert flags.shape == (C, iters - burnin) and flags.dtype == torch.int32
+    assert bool((flags[:, 0] == 1).all())
+    assert torch.equal(flags[:, 1:].bool(), torch.any(samples[:, 1:] != samples[:, :-1], dim=-1))
+    counts = module.last_info[module.GIBBS_KERNEL]["accept_counts"]
+    assert counts.shape == (C, kernel.num_sub_blocks)
+    assert bool(((counts > 0) & (counts <= iters - burnin)).any())
+    assert type(state).__name__ == "GibbsState" and state.accepted.shape == counts.shape
+    torch.testing.assert_close(state.sample, samples[:, -1])
+    chain = sample_chain(kernel, torch.Generator().manual_seed(7), theta0s[0], xy, iters, burnin,
+                         backend="auto", platform="cuda")
+    assert chain.get_samples().shape == (iters - burnin, model.num_params)
+
+
+def test_gibbs_record_key_contract():
+    kernel = Gibbs(xor_model(), scales=0.5)
+    plan, reason = resolve_backend(kernel, XOR, 8192, 256, platform="cuda",
+                                   record_keys=("sample", "target_val", "accepted"))
+    assert plan is not None and plan.kwargs["record_extras"] is True
+    chains = sample_chains(kernel, torch.Generator().manual_seed(1),
+                           0.1 * torch.randn(1024, 9, generator=torch.Generator().manual_seed(2)),
+                           XOR, 20, 5, record_keys=("sample", "target_val", "accepted"),
+                           backend="dense", platform="cuda")
+    samples = chains.get_samples()
+    assert torch.equal(chains.tensor("accepted")[:, 1:].bool(),
+                       torch.any(samples[:, 1:] != samples[:, :-1], dim=-1))
+    vals = xor_model().log_target(samples.reshape(-1, 9), *(torch.as_tensor(a, dtype=torch.float32)
+                                                            for a in XOR))
+    torch.testing.assert_close(chains.tensor("target_val").reshape(-1), vals, rtol=1e-5,
+                               atol=1e-5)

@@ -169,8 +169,9 @@ def test_record_thin_and_extras():
 
 def test_makers_and_unported_arguments():
     """Mirrors the dense walk cases of tests/test_ops.py:173-188 for MH and
-    MALA; the blocked Gibbs move and tempering constants wait for their
-    kernels; TPU schedule settings raise."""
+    MALA; tempering constants wait for their kernels (the blocked Gibbs move
+    has its own makers, tests/test_torch_resident_gibbs.py); TPU schedule
+    settings raise."""
     model, x, y = problem("xor")
     make_resident_mh_dense(model, x, y, scale=0.5, num_iters=64, tuner=HMCDATuner(d=0.234),
                            device="cpu")
@@ -178,16 +179,16 @@ def test_makers_and_unported_arguments():
                              device="cpu")
     with pytest.raises(ValueError, match="1024"):
         make_resident_mh_dense(model, x, y, 0.5, 64, chain_block=512, device="cpu")
-    with pytest.raises(ValueError, match="Gibbs"):
-        resident_walk._make_resident(model, x, y, 10, 0, 128, 1, "mh", 0.1, acc_rows=3,
-                                     device="cpu")
+    with pytest.raises(ValueError, match="tempering"):
+        resident_walk._make_resident(model, x, y, 10, 0, 128, 1, "mh", 0.1,
+                                     consts=(np.zeros(128),), device="cpu")
     with pytest.raises(ValueError, match="tempering"):
         resident_walk_dense._make_resident_dense(model, x, y, 10, 0, 1024, 1, "mala", 0.1,
                                                  consts=(np.zeros(128),), device="cpu")
     with pytest.raises(ValueError, match="TPU schedule"):
         make_resident_mh(model, x, y, 0.1, 10, stream=True, device="cpu")
     with pytest.raises(ValueError, match="move"):
-        resident_walk.walk_params("gibbs", 0.1, 10, 0, 1, False, 128)
+        resident_walk.walk_params("nuts", 0.1, 10, 0, 1, False, 128)
     fn = make_resident_mh(model, x, y, 0.1, 10, chain_block=128, device="cpu")
     with pytest.raises(ValueError, match="multiple of chain_block"):
         fn(0, torch.zeros(100, 9))
