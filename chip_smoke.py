@@ -12,8 +12,10 @@ kernels are built for sm_90a). Phases, one JSON line each:
    for iris MLP(4,3,3) and (its Gibbs move) iris MLP(4,3,2,3);
    ``resident_walk_dense`` for XOR MLP(2,2,1) and MLP(2,3,2,1), and for
    MLP(2,3,2,1) with one-coordinate Gibbs sub-blocks. It reports each build's
-   registers and local-memory (spill) bytes per thread, the Gibbs moves'
-   too, and the thread-block cluster a population-tuned dense run takes.
+   registers and local-memory (spill) bytes per thread, the Gibbs and
+   tempering moves' too (iris MLP(4,3,3) MH and MALA on ``resident_walk``,
+   XOR MLP(2,2,1) MH and MALA on ``resident_walk_dense``), and the
+   thread-block cluster a population-tuned dense run takes.
 2. kernel vs plain: calls ``fused_mlp_vg``'s wrapper on the card at C =
    32768 and 131072 seeded random chains (the main paths' chain counts) and
    holds it against the plain PyTorch ``make_vg`` on the same inputs (rtol
@@ -33,15 +35,22 @@ kernels are built for sm_90a). Phases, one JSON line each:
    and MALA MLP(2,3,2,1) (step 0.01), untuned with extras and tuned; the
    Gibbs moves on iris MLP(4,3,2,3) (scales 0.1, staged), XOR MLP(2,2,1)
    (scales 0.5, dense) and XOR MLP(2,3,2,1) with ``node_subblock_size=[1]*6``
-   (dense), 32768 chains x 20 iterations, extras, per-sub-block counts. A
-   chain agrees when all its outputs are within atol 1e-3 + rtol 1e-3 of the
+   (dense), 32768 chains x 20 iterations, extras, per-sub-block counts; the
+   tempering moves (ladders of 8 rungs at (i/8)^4, swaps every 5 iterations)
+   on iris MALA (step 0.003) and MH (scale 0.1), staged, and XOR MLP(2,2,1)
+   MALA (step 0.05), dense, 32768 chains x 20 iterations, extras, both count
+   columns, each at the chain block that dispatch gives phase 13's main path
+   (128 staged, 1024 dense), so at its launch layout; then the
+   equal-temperature pin on the dense XOR ladder: with one temperature on
+   every rung every eligible swap is accepted. A chain agrees when all its outputs are within atol 1e-3 + rtol 1e-3 of the
    plain version's; at least 99% of chains must agree on the untuned runs and on
    the tuned runs with 5 burn-in iterations (an accept decision at u ~ rate
    may flip on f32 rounding and part a chain's path); a tuned run with 20
    burn-in iterations, where early long steps make the dynamics chaotic, is
    held statistically instead (pooled means within 5 pooled standard
    errors, acceptance within 0.01). The HMC kernels' evaluation counters
-   must equal the plain versions' counts.
+   must equal the plain versions' counts. Each kernel's time is the median
+   of three launches after a warm-up (all three reported).
 4. main path, iris, FusedHMC: tuned ``FusedHMC`` on config 3 (32768 chains,
    1500 iterations, 500 burn-in). Checks finite samples, post-burn-in
    acceptance in 0.65 +- 0.15, and pooled posterior means within 5 pooled
@@ -86,7 +95,20 @@ kernels are built for sm_90a). Phases, one JSON line each:
     the generic path's ``block_acceptance_rate``, finite ``multi_rhat`` /
     ``multi_ess`` on the first 64 chains, and reports the kernel's time
     beside its bound.
-13. kernels: each kernel's launches on the main paths, its error against its
+13. main paths, tempering, PowerPosteriorSampler.run(backend="auto",
+    all_ladders=True): ladders of 8 rungs, MALA within the rungs, even/odd
+    swaps every 10 iterations, 2048 iterations with 1024 burn-in, on XOR
+    MLP(2,2,1) (step 0.05; the dense kernel's smallest block, 1024 chains)
+    and iris MLP(4,3,3) (step 0.003; the staged kernel's, 128 chains). Each
+    checks one launch of its tempering kernel, finite samples, the cold
+    rung's pooled means and acceptance within 5 pooled standard errors of the
+    generic ladder's (``sample_population`` over 64 independent ladders), and
+    reports the within-rung acceptance per rung (and its distance from the
+    generic ladder's) and the swap acceptance per pair;
+    then each maker is called directly at 32768 chains (4096 ladders) x 2048
+    iterations and its kernel timed beside its bound (the median of three
+    launches after a warm-up, as phase 12's Gibbs kernels).
+14. kernels: each kernel's launches on the main paths, its error against its
     plain version, its time, the plain version's time and its bound.
 
 Then the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -126,6 +148,13 @@ WALK_DENSE_SOURCE = "eeyore_tpu_torch/ops/csrc/resident_walk_dense.cu"
 WALK_DENSE_REPLACES = "eeyore_tpu/ops/resident_walk_dense.py:125"
 GIBBS_REPLACES = "eeyore_tpu/ops/resident_walk.py:281 (the Gibbs move of :166)"
 GIBBS_DENSE_REPLACES = "eeyore_tpu/ops/resident_walk_dense.py:240 (the Gibbs move of :125)"
+TEMPERING_REPLACES = ("eeyore_tpu/ops/resident_tempering.py:178 (the tempering move of "
+                      "resident_walk.py:166)")
+TEMPERING_DENSE_REPLACES = ("eeyore_tpu/ops/resident_tempering_dense.py:150 (the tempering "
+                            "move of resident_walk_dense.py:125)")
+# the ladders of the tempering phases: rungs, swap period of the kernel checks
+# and of the main paths
+LADDER_RUNGS, CHECK_BETWEEN, MAIN_BETWEEN = 8, 5, 10
 # per-block acceptance of a Gibbs kernel run against its generic path
 GIBBS_BLOCK_ACCEPTANCE_TOL = 0.02
 # resident vs plain: a chain agrees when every value it recorded is within
@@ -176,19 +205,20 @@ def device_ms(fn, reps, warmup=2):
     return sum(by_kernel.values()) / reps
 
 
-def event_ms(fn, reps, warmup=1):
-    """Time per call of ``fn()`` by CUDA events around ``reps`` calls after
-    ``warmup`` calls: for a call that is one long kernel launch, its
-    duration (the launch itself costs microseconds)."""
+def event_times(fn, reps=3, warmup=1):
+    """``reps`` calls of ``fn()`` after ``warmup`` calls, each timed by CUDA
+    events around it: (the median ms, [ms of each call])."""
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    times = []
     for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2], times
 
 
 def vg_work(dims, bias, ce, n_rows, C, with_grad=True):
@@ -342,6 +372,28 @@ def gibbs_work(P, C, num_iters, kept, extras, sweep, init_work, data_floats):
             C * (init_work[1] + num_iters * sfu))
 
 
+def swap_rounds(num_rungs, num_iters, between_step, first=0):
+    """Lower members of a ladder over the swap rounds of iterations [first,
+    num_iters): {rung: rounds in which it is the lower member of a pair}."""
+    rounds = [t for t in range(first, num_iters) if t % between_step == 0]
+    return {r: sum((t // between_step) % 2 == r % 2 for t in rounds)
+            for r in range(num_rungs - 1)}
+
+
+def tempering_work(P, C, num_iters, kept, extras, mala, eval_work, data_floats, num_rungs,
+                   between_step):
+    """(bytes, operations, special-function operations) that a tempering
+    kernel needs: ``walk_work`` of its within-rung moves, plus the
+    temperature at each accept test (MALA: the tempered drift and reverse
+    drift, 2P + 1; MH: 1), and per lower member of a swap round one Threefry
+    call, the swap log-rate and test (4 operations and a log); bytes: the
+    rung temperatures and the second count row."""
+    n_bytes, ops, sfu = walk_work(P, C, num_iters, kept, extras, mala, eval_work, data_floats)
+    lower = C // num_rungs * sum(swap_rounds(num_rungs, num_iters, between_step).values())
+    ops += C * num_iters * (2 * P + 1 if mala else 1) + lower * (THREEFRY_OPS + 4)
+    return n_bytes + 4 * (num_rungs + C), ops, sfu + lower
+
+
 def bound_ms(work, sm_count):
     n_bytes, ops, sfu = work
     times = {"bytes": n_bytes / HBM_BYTES_PER_S, "ops": ops / F32_OPS_PER_S,
@@ -394,11 +446,22 @@ def main(argv=None):
         resident_walk,
         resident_walk_dense,
     )
+    from eeyore_tpu_torch.ops import kernel_prng
     from eeyore_tpu_torch.ops.fused_hmc import FusedHMC
+    from eeyore_tpu_torch.ops.resident_tempering import make_resident_tempering
+    from eeyore_tpu_torch.ops.resident_tempering_dense import make_resident_tempering_dense
     from eeyore_tpu_torch.ops.mlp_dense import dense_work, gibbs_dense_work
     from eeyore_tpu_torch.ops.mlp_math import extract_arch, make_vg, prepare_data
-    from eeyore_tpu_torch.samplers import HMC, MALA, Gibbs, MetropolisHastings, sample_chains
-    from eeyore_tpu_torch.samplers.dispatch import resolve_backend
+    from eeyore_tpu_torch.samplers import (
+        HMC,
+        MALA,
+        Gibbs,
+        MetropolisHastings,
+        PowerPosteriorSampler,
+        sample_chains,
+        sample_population,
+    )
+    from eeyore_tpu_torch.samplers.dispatch import resolve_backend, resolve_tempering
     from eeyore_tpu_torch.tuners import HMCDATuner
 
     device = torch.device("cuda")
@@ -478,10 +541,17 @@ def main(argv=None):
                                                                "gibbs"),
         "xor_mlp2321_bce_one_coordinate_sub_blocks": resident_walk_dense.kernel_resources(
             gibbs_sub_lib, "gibbs")}
+    tempering_resources = {
+        f"iris_mlp433_ce_{move}": resident_walk.kernel_resources(walk_lib, f"tempering_{move}")
+        for move in ("mh", "mala")}
+    tempering_resources.update({
+        f"xor_mlp221_bce_{move}": resident_walk_dense.kernel_resources(
+            walk_dense_libs["xor_mlp221_bce"], f"tempering_{move}") for move in ("mh", "mala")})
     emit({"phase": "build",
           "kernels": [fused_mlp.KERNEL, resident_hmc.KERNEL, resident_hmc_dense.KERNEL,
                       resident_walk.KERNEL, resident_walk_dense.KERNEL, resident_walk.GIBBS_KERNEL,
-                      resident_walk_dense.GIBBS_KERNEL],
+                      resident_walk_dense.GIBBS_KERNEL, resident_walk.TEMPERING_KERNEL,
+                      resident_walk_dense.TEMPERING_KERNEL],
           "sources": [FUSED_SOURCE, RESIDENT_SOURCE, DENSE_SOURCE, WALK_SOURCE,
                       WALK_DENSE_SOURCE], "seconds": build_seconds,
           "resources": {fused_mlp.KERNEL: {name: fused_mlp.kernel_resources(lib)
@@ -495,7 +565,8 @@ def main(argv=None):
                             f"iris_mlp433_ce_{move}": resident_walk.kernel_resources(walk_lib, move)
                             for move in ("mh", "mala")},
                         resident_walk_dense.KERNEL: walk_dense_resources,
-                        "gibbs_moves": gibbs_resources},
+                        "gibbs_moves": gibbs_resources,
+                        "tempering_moves": tempering_resources},
           "tuned_group_threads_and_cluster_blocks": {
               resident_hmc_dense.KERNEL: {str(cb): v for cb, v in dense_groups.items()},
               resident_walk_dense.KERNEL: walk_dense_groups},
@@ -610,6 +681,44 @@ def main(argv=None):
 
         return module.GIBBS_KERNEL, module, fn, C, model.num_params, iters, burnin, work
 
+    def tempering_case(model, data, C, sampler, step, iters, burnin=0, extras=False,
+                       dense=False, between_step=CHECK_BETWEEN, **kw):
+        module = resident_walk_dense if dense else resident_walk
+        maker = make_resident_tempering_dense if dense else make_resident_tempering
+        fn = maker(model, data.x, data.y, LADDER_RUNGS, step, sampler, between_step=between_step,
+                   num_iters=iters, num_burnin_iters=burnin, record_extras=extras, device=device,
+                   **kw)
+        dims, bias, loss_kind = dims_of[id(model)]
+        mala = sampler == "MALA"
+        if dense:
+            eval_work, data_floats = dense_work(model, data.x, data.y, mala), 0
+        else:
+            eval_work = vg_work(dims, bias, loss_kind == "ce", len(data.x), 1, mala)[1:]
+            data_floats = len(data.x) * (dims[0] + dims[-1] + 1) + 2 * model.num_params
+
+        def work(_evaluations):
+            return tempering_work(model.num_params, C, iters, iters - burnin, extras, mala,
+                                  eval_work, data_floats, LADDER_RUNGS, between_step)
+
+        return module.TEMPERING_KERNEL, module, fn, C, model.num_params, iters, burnin, work
+
+    ladder_iters, ladder_burnin, G_ladders = 2048, 1024, 64
+
+    def ladder(model, step):
+        return PowerPosteriorSampler(model, num_chains=LADDER_RUNGS, sampler="MALA",
+                                     sampler_kwargs={"step": step}, between_step=MAIN_BETWEEN,
+                                     swap_scheme="even_odd")
+
+    def ladder_plan(model, dataset, step):
+        """The plan that dispatch gives a main tempering path; the kernel
+        checks launch at its chain block, so at its launch layout."""
+        plan, reason = resolve_tempering(ladder(model, step), (dataset.x, dataset.y),
+                                         ladder_iters, ladder_burnin, platform="cuda")
+        check(plan is not None, f"no tempering plan: {reason}")
+        return plan
+
+    iris_ladder_block = ladder_plan(iris_model, iris, 0.003).chain_block
+    xor_ladder_block = ladder_plan(xor_model, xor, 0.05).chain_block
     xor_tuner = dict(step=0.1, num_steps=10, tuner=HMCDATuner(l=0.5))
     resident_runs = [
         ("iris_untuned_extras", False, hmc_case(iris_model, iris, 32768, 20, extras=True,
@@ -653,6 +762,15 @@ def main(argv=None):
         ("xor2321_gibbs_dense_subblocks", False, gibbs_case(
             xor2321_model, xor, 32768, 0.5, 20, extras=True, dense=True,
             node_subblock_size=xor2321_subblocks)),
+        ("iris_tempering_mala_extras", False, tempering_case(
+            iris_model, iris, 32768, "MALA", 0.003, 20, extras=True,
+            chain_block=iris_ladder_block)),
+        ("iris_tempering_mh_extras", False, tempering_case(
+            iris_model, iris, 32768, "MetropolisHastings", 0.1, 20, extras=True,
+            chain_block=iris_ladder_block)),
+        ("xor_tempering_mala_dense_extras", False, tempering_case(
+            xor_model, xor, 32768, "MALA", 0.05, 20, extras=True, dense=True,
+            chain_block=xor_ladder_block)),
     ]
     kernel_err = {}
     resident_timings = {}
@@ -692,7 +810,7 @@ def main(argv=None):
             moved = torch.nextafter(theta0s, torch.full_like(theta0s, math.inf))
             plain_self_share = agreement(fn.plain(args.seed, moved)[0],
                                          plain_out)[0].float().mean().item()
-        ms = event_ms(lambda: fn(args.seed, theta0s), 1, warmup=0)
+        ms, ms_runs = event_times(lambda: fn(args.seed, theta0s))
         b_ms, b_by = bound_ms(work(counted if counted is not None else evaluations), sm_count)
         resident_timings[name] = (ms, plain_ms, b_ms, b_by)
         emit({"phase": "resident_vs_plain", "kernel": kernel_name, "case": name,
@@ -703,8 +821,8 @@ def main(argv=None):
               "share_agreeing": share, "limit": limit, "atol": RESIDENT_ATOL,
               "rtol": RESIDENT_RTOL, "max_abs_err_agreeing": err,
               "plain_self_share_one_ulp": plain_self_share, "max_abs_z_pooled_mean": z,
-              "acceptance_difference": acc_diff, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": b_ms, "bound_by": b_by, "card": card})
+              "acceptance_difference": acc_diff, "ms": ms, "ms_runs": ms_runs,
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "card": card})
         if chaotic:
             check(z <= 5.0 and acc_diff <= 0.01, f"{name}: pooled means {z} SEs apart, "
                   f"acceptance {acc_diff} apart")
@@ -717,6 +835,34 @@ def main(argv=None):
                   f"the plain version {evaluations}")
         del out, plain_out
         torch.cuda.empty_cache()
+
+    # the equal-temperature pin on the card: one temperature on every rung
+    # makes the swap log-rate exactly 0, so every post-burn-in round in which
+    # a chain is the lower member of a pair is an accepted swap (but where its
+    # swap uniform is exactly 1, a 2^-23 chance a draw, which no log-rate
+    # below 0 accepts)
+    C, iters, burnin = 32768, 20, 4
+    fn = make_resident_tempering_dense(xor_model, xor.x, xor.y, LADDER_RUNGS, 0.05, "MALA",
+                                       temperatures=np.ones(LADDER_RUNGS),
+                                       between_step=CHECK_BETWEEN, num_iters=iters,
+                                       num_burnin_iters=burnin, device=device)
+    theta0s = torch.as_tensor(0.1 * rng.normal(size=(C, xor_model.num_params)),
+                              dtype=torch.float32, device=device)
+    swaps = fn(args.seed, theta0s)[2][:, 1].cpu()
+    chains = torch.arange(C)
+    rung = chains % LADDER_RUNGS
+    eligible = torch.zeros(C)
+    for t in (t for t in range(burnin, iters) if t % CHECK_BETWEEN == 0):
+        lower = (rung % 2 == (t // CHECK_BETWEEN) % 2) & (rung < LADDER_RUNGS - 1)
+        u_swap = kernel_prng.tempering_draws(args.seed, chains, t, xor_model.num_params)[2]
+        eligible += (lower & (u_swap < 1.0)).float()
+    mismatched = int((swaps != eligible).sum())
+    emit({"phase": "tempering_equal_temperature_pin", "kernel": resident_walk_dense.TEMPERING_KERNEL,
+          "chains": C, "iterations": iters, "burnin": burnin, "between_step": CHECK_BETWEEN,
+          "swaps_accepted": float(swaps.sum()), "swaps_eligible": float(eligible.sum()),
+          "chains_mismatched": mismatched, "card": card})
+    check(mismatched == 0, f"equal-temperature pin: {mismatched} chains accepted other than "
+          "every eligible swap")
 
     # 4. main path, iris, FusedHMC (BASELINE.md config 3)
     C, iters, burnin = 32768, 1500, 500
@@ -1076,10 +1222,10 @@ def main(argv=None):
         _, _, fn, _, _, _, _, work = gibbs_case(model, dataset, C_walk, scales, walk_iters,
                                                 walk_burnin, dense=want == "dense",
                                                 chain_block=plan.chain_block)
-        gibbs_ms = event_ms(lambda: fn(args.seed, theta0s), 1, warmup=0)
+        gibbs_ms, gibbs_runs = event_times(lambda: fn(args.seed, theta0s))
         b_ms, b_by = bound_ms(work(None), sm_count)
-        gibbs_main[module.GIBBS_KERNEL] = {"case": name, "ms": gibbs_ms, "bound_ms": b_ms,
-                                           "bound_by": b_by}
+        gibbs_main[module.GIBBS_KERNEL] = {"case": name, "ms": gibbs_ms, "ms_runs": gibbs_runs,
+                                           "bound_ms": b_ms, "bound_by": b_by}
         torch.cuda.empty_cache()
         reset_counts()
         start = time.perf_counter()
@@ -1116,7 +1262,110 @@ def main(argv=None):
         del generic, flags
         torch.cuda.empty_cache()
 
-    # 13. kernels: fused_mlp_vg timed at the iris main path's shape; each
+    # 13. the tempering main paths through PowerPosteriorSampler.run(backend=
+    #     "auto", all_ladders=True): XOR (dense) and iris (staged), each
+    #     against the generic ladder (sample_population over G_ladders
+    #     independent ladders in one state); then each maker at C_walk chains,
+    #     its kernel timed beside its bound
+    L = LADDER_RUNGS
+    ladder_kept = ladder_iters - ladder_burnin
+    ladder_paths = [
+        ("tempering_mala_xor_mlp221", 0.05, xor_model, xor, xor_data, "dense",
+         resident_walk_dense, 8192),
+        ("tempering_mala_iris_mlp433", 0.003, iris_model, iris, iris_data, "resident",
+         resident_walk, 4096),
+    ]
+    tempering_main = {}
+
+    def per_ladder_z(a, b):
+        """|mean a - mean b| over the pooled standard error, per rung, of
+        per-ladder statistics a [G_a, L] and b [G_b, L]."""
+        se = torch.sqrt(a.var(0) / a.shape[0] + b.var(0) / b.shape[0])
+        diff = (a.mean(0) - b.mean(0)).abs()
+        # a rung that accepts every proposal in every ladder of both runs has
+        # no spread and no difference
+        return torch.where(diff == 0, 0.0, diff / se)
+
+    for name, step, model, dataset, data, want, module, at_size_block in ladder_paths:
+        P = model.num_params
+        theta0 = torch.as_tensor(0.1 * rng.normal(size=(L, P)), dtype=torch.float32,
+                                 device=device)
+        plan = ladder_plan(model, dataset, step)
+        check(plan.backend == want, f"{name}: dispatch chose {plan.backend}, not {want}")
+        reset_counts()
+        start = time.perf_counter()
+        chains = ladder(model, step).run(gen, theta0, data, ladder_iters, ladder_burnin,
+                                         backend="auto", all_ladders=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = read_counts()
+        main_launches[module.TEMPERING_KERNEL][name] = counts[module.TEMPERING_KERNEL]
+        check(counts == {**dict.fromkeys(counts, 0), module.TEMPERING_KERNEL: 1},
+              f"{name}: run made the launches {counts}, not one {module.TEMPERING_KERNEL}")
+        samples = chains.get_samples()
+        C = plan.chain_block
+        check(samples.shape == (C, ladder_kept, P),
+              f"{name}: samples of shape {tuple(samples.shape)}")
+        check(bool(torch.isfinite(samples).all()), f"{name}: non-finite samples")
+        acc = module.last_info[module.TEMPERING_KERNEL]["accept_counts"].double().cpu()
+        within = acc[:, 0].reshape(-1, L) / ladder_kept  # [ladders, L]
+        rounds = swap_rounds(L, ladder_iters, MAIN_BETWEEN, first=ladder_burnin)
+        swap_rates = [(acc[:, 1].reshape(-1, L)[:, r].mean() / rounds[r]).item()
+                      for r in range(L - 1)]
+        kernel_cold = pooled_summary(samples[L - 1::L])
+        del chains, samples
+        torch.cuda.empty_cache()
+        reset_counts()
+        start = time.perf_counter()
+        generic = sample_population(ladder(model, step), gen, theta0.repeat(G_ladders, 1),
+                                    data, ladder_iters, ladder_burnin,
+                                    record_keys=("sample", "accepted"))
+        torch.cuda.synchronize()
+        generic_wall = time.perf_counter() - start
+        check(not any(read_counts().values()), f"{name}: the generic ladder launched a kernel")
+        generic_samples = generic.get_samples()
+        check(bool(torch.isfinite(generic_samples).all()), f"{name}: generic non-finite")
+        generic_within = generic.tensor("accepted").double().cpu().reshape(
+            G_ladders, L, -1).mean(2)
+        z = max_z(kernel_cold, pooled_summary(generic_samples[L - 1::L]))
+        # the cold rung is held to the generic ladder; the hot ones are
+        # reported: on XOR the generic model's BCE on probabilities is -inf
+        # where a point saturates on the wrong side (models/losses.py), the
+        # kernel's on logits finite, and at temperatures near 0 that rejects
+        # proposals that the kernel accepts
+        z_within = per_ladder_z(within, generic_within)
+        del generic, generic_samples
+        torch.cuda.empty_cache()
+        _, _, fn, C_size, _, _, _, work = tempering_case(
+            model, dataset, C_walk, "MALA", step, ladder_iters, ladder_burnin,
+            dense=want == "dense", between_step=MAIN_BETWEEN, chain_block=at_size_block)
+        size_theta0s = theta0.repeat(C_size // L, 1)
+        ms, ms_runs = event_times(lambda: fn(args.seed, size_theta0s))
+        b_ms, b_by = bound_ms(work(None), sm_count)
+        tempering_main[module.TEMPERING_KERNEL] = {
+            "case": name, "chains": C_size, "ladders": C_size // L, "ms": ms,
+            "ms_runs": ms_runs, "bound_ms": b_ms, "bound_by": b_by,
+            "samples_per_s": C_size * ladder_iters / (ms / 1e3),
+            "launch_threads": getattr(fn, "launch_shape", None)}
+        emit({"phase": "main_tempering", "case": name,
+              "plan": [plan.backend, plan.chain_block], "rungs": L,
+              "temperatures": plan.kwargs["temperatures"].tolist(), "between_step": MAIN_BETWEEN,
+              "chains": C, "ladders": C // L, "iterations": ladder_iters,
+              "burnin": ladder_burnin, "seconds": wall, "samples_per_s": C * ladder_iters / wall,
+              "kernel_launches": counts, "within_acceptance_per_rung": within.mean(0).tolist(),
+              "swap_acceptance_per_pair": swap_rates,
+              "generic_ladders": G_ladders, "generic_seconds": generic_wall,
+              "generic_within_acceptance_per_rung": generic_within.mean(0).tolist(),
+              "max_abs_z_cold_rung_pooled_mean_vs_generic": z,
+              "z_within_acceptance_vs_generic_per_rung": z_within.tolist(), "limit": 5.0,
+              "at_size": tempering_main[module.TEMPERING_KERNEL], "card": card})
+        check(z <= 5.0, f"{name}: the cold rung's pooled means differ from the generic "
+              f"ladder's by {z} SEs")
+        check(z_within[-1] <= 5.0, f"{name}: the cold rung's acceptance differs from the "
+              f"generic ladder's by {z_within[-1]} SEs")
+        torch.cuda.empty_cache()
+
+    # 14. kernels: fused_mlp_vg timed at the iris main path's shape; each
     #     whole-loop kernel at a main path's shape (XOR HMC, untuned, for the
     #     two HMC kernels: the leapfrog count is fixed; iris MALA for
     #     resident_walk; config 1 for resident_walk_dense), against its plain
@@ -1127,7 +1376,7 @@ def main(argv=None):
         info = fn.plain(args.seed, theta0s)[1]
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - start)
-        ms = event_ms(lambda: fn(args.seed, theta0s), 2)
+        ms = event_times(lambda: fn(args.seed, theta0s))[0]
         return ms, plain_ms, *bound_ms(work(int(info["evaluations"])), sm_count)
 
     C = xor_theta0s.shape[0]
@@ -1168,7 +1417,7 @@ def main(argv=None):
                 chain_block=4096)),
             (resident_walk_dense.KERNEL, "config 2, MALA step 0.01 on XOR MLP(2,3,2,1)",
              walk_case(xor2321_model, xor, C_walk, "mala", 0.01, walk_iters, walk_burnin))):
-        ms_ = event_ms(lambda: fn(args.seed, walk_theta0s[P]), 2)
+        ms_ = event_times(lambda: fn(args.seed, walk_theta0s[P]))[0]
         b_ms_, b_by_ = bound_ms(work(None), sm_count)
         other_walks[kernel_name] = {"timed_at": label, "ms": ms_, "bound_ms": b_ms_,
                                     "bound_by": b_by_}
@@ -1205,6 +1454,19 @@ def main(argv=None):
                 "timed_at": f"{case}: 32768 chains x 20 iterations, extras",
                 "main_run": dict(gibbs_main[module.GIBBS_KERNEL], timed_at=walk_at)}
 
+    def tempering_entry(module, source, replaces, case):
+        ms_, plain_ms_, b_ms_, b_by_ = resident_timings[case]
+        return {"name": module.TEMPERING_KERNEL, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(main_launches[module.TEMPERING_KERNEL].values()),
+                "launches_by_path": main_launches[module.TEMPERING_KERNEL],
+                "max_abs_err": kernel_err[module.TEMPERING_KERNEL], "ms": ms_,
+                "plain_ms": plain_ms_, "bound_ms": b_ms_, "bound_by": b_by_, "library_ms": None,
+                "timed_at": f"{case}: 32768 chains x 20 iterations, ladders of {L}, extras",
+                "main_run": dict(tempering_main[module.TEMPERING_KERNEL],
+                                 timed_at=f"{ladder_iters} iterations, {ladder_burnin} "
+                                          "burn-in")}
+
     emit({"kernels": [
         {"name": fused_mlp.KERNEL, "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": sum(launches.values()),
@@ -1221,7 +1483,11 @@ def main(argv=None):
              other_path=other_walks[resident_walk_dense.KERNEL]),
         gibbs_entry(resident_walk, WALK_SOURCE, GIBBS_REPLACES, "iris4323_gibbs_extras"),
         gibbs_entry(resident_walk_dense, WALK_DENSE_SOURCE, GIBBS_DENSE_REPLACES,
-                    "xor_gibbs_dense_extras")]})
+                    "xor_gibbs_dense_extras"),
+        tempering_entry(resident_walk, WALK_SOURCE, TEMPERING_REPLACES,
+                        "iris_tempering_mala_extras"),
+        tempering_entry(resident_walk_dense, WALK_DENSE_SOURCE, TEMPERING_DENSE_REPLACES,
+                        "xor_tempering_mala_dense_extras")]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

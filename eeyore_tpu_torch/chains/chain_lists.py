@@ -61,6 +61,11 @@ class ChainLists:
     def num_params(self):
         return self.tensor("sample").shape[2]
 
+    def get_chain(self, idx, key="sample"):
+        """Chain ``idx`` of one key, [num_iters, ...] (a ladder's coldest
+        chain: ``get_chain(sampler.default_indicator())``)."""
+        return self.tensor(key)[idx]
+
     def get_samples(self):
         return self.tensor("sample")
 

@@ -30,6 +30,12 @@
 // bit. Staged kernels group consecutive chains; dense kernels (sublanes = 8)
 // group the TPU's sublane-strided sets s*(C/8) + i*lb + j (lb = chain_block /
 // 8), the chains of grid block i of the TPU kernel.
+//
+// Ladders. tempering_chain runs L consecutive chains as one power-posterior
+// ladder (rung = chain % L, the coldest last). A block holds whole ladders
+// (blockDim.x a multiple of L; on the dense kernels also chain_block / 8),
+// so the partner one rung up of a chain is the next thread of its block, and
+// an accepted swap exchanges the pair's entries in shared memory.
 
 #pragma once
 
@@ -89,6 +95,8 @@ struct ResidentWalkParams {
   float log_eub;
   float prior_const;
   float temperature;
+  int num_rungs;      // tempering: rungs of a ladder (L)
+  int between_step;   // tempering: iterations between swap rounds
 };
 
 namespace resident_loop {
@@ -441,6 +449,184 @@ __device__ __forceinline__ void walk_chain(const Eval& ev, const ResidentWalkPar
 #pragma unroll
   for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = acc_th[p * bd + me];
   accepts[c] = n_accepts;
+}
+
+// Floats of shared memory that tempering_chain takes for a block of bd
+// threads: theta [P][bd], its gradient [P][bd] (MALA), the values [bd], and
+// with extras theta at the start of a recorded swap iteration [P][bd].
+__host__ __device__ constexpr size_t tempering_floats(bool mala, bool extras, int bd) {
+  return ((1 + (mala ? 1 : 0) + (extras ? 1 : 0)) * static_cast<size_t>(kP) + 1) * bd;
+}
+
+// A barrier of a swap round, reached by every thread of the block: a warp's
+// when whole ladders fit a warp, else the block's.
+__device__ __forceinline__ void ladder_sync(bool warp_local) {
+  if (warp_local) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// One chain's whole power-posterior run, the chain being rung c % L of its
+// ladder. The stored value is the untempered log-target v; the rung's
+// temperature T (temps[rung], float32) enters at the accept tests only. Per
+// iteration t:
+//   the within-rung move on the walk stream (normals from words j <
+//   ceil(P/2), the accept uniform from word ceil(P/2)):
+//     MH:   prop = theta + scale * z; log_rate = T (v(prop) - v(theta)).
+//     MALA: prop = theta + (step/2)(T grad) + sqrt(step) z;
+//           log_rate = T (v(prop) - v(theta))
+//                      - |theta - prop - (step/2)(T grad(prop))|^2 / (2 step) + |z|^2 / 2;
+//   then, when t % between_step == 0, a swap round of parity (t /
+//   between_step) % 2: a chain with rung % 2 == parity and rung < L - 1 is
+//   the lower member of the pair (rung, rung + 1); it draws the uniform of
+//   word ceil(P/2) + 1 and accepts when log(u) < (T_rung - T_rung+1)(v_upper
+//   - v), which needs no new evaluation, and exchanges theta, the value and
+//   (MALA) the gradient with the next thread. Pairs are disjoint, so the
+//   lower members write between two barriers without a race; the trip count
+//   is the same for every thread, so every thread reaches every barrier.
+// accepts is [2, C]: post-burn-in within-rung accepts, and swap accepts on
+// the lower member. With extras the moved flag compares theta after the
+// swap round with theta at the start of the iteration (a swapped upper
+// member has moved too).
+template <class Eval, bool kMALA>
+__device__ __forceinline__ void tempering_chain(const Eval& ev, const ResidentWalkParams& pr,
+                                                int c, const float* __restrict__ theta0,
+                                                const float* __restrict__ temps,
+                                                float* __restrict__ samples,
+                                                float* __restrict__ final_theta,
+                                                float* __restrict__ accepts, float* ladder) {
+  const int bd = blockDim.x;
+  const int me = threadIdx.x;
+  const int C = pr.num_chains;
+  const int L = pr.num_rungs;
+  float* acc_th = ladder;                              // [P][bd]
+  float* acc_g = acc_th + kP * bd;                     // [P][bd], MALA
+  float* acc_v = acc_g + (kMALA ? kP * bd : 0);        // [bd]
+  float* start_th = acc_v + bd;                        // [P][bd], extras
+  const unsigned key0 = static_cast<unsigned>(pr.seed);
+  const unsigned key1 = static_cast<unsigned>(c);
+  const int rung = c % L;
+  const float temp = temps[rung];
+  const float temp_upper = rung < L - 1 ? temps[rung + 1] : 0.0f;
+  const bool warp_local = 32 % L == 0;
+
+  float val;
+  {
+    float th[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) th[p] = theta0[static_cast<size_t>(p) * C + c];
+    if constexpr (kMALA) {
+      float g[kP];
+      val = ev.vg(th, g);
+#pragma unroll
+      for (int p = 0; p < kP; ++p) acc_g[p * bd + me] = g[p];
+    } else {
+      val = ev.v(th);
+    }
+#pragma unroll
+    for (int p = 0; p < kP; ++p) acc_th[p * bd + me] = th[p];
+  }
+
+  float n_within = 0.0f;
+  float n_swaps = 0.0f;
+  for (int t = 0; t < pr.num_iters; ++t) {
+    const unsigned ctr = static_cast<unsigned>(t);
+    const bool counting = t >= pr.num_burnin_iters;
+    const bool swap_round = t % pr.between_step == 0;
+    const int since = t - pr.num_burnin_iters;
+    const bool track_start = pr.record_extras && swap_round && since >= 0 &&
+                             since % pr.record_thin == 0 && since / pr.record_thin < pr.kept;
+    if (track_start) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) start_th[p * bd + me] = acc_th[p * bd + me];
+    }
+    bool moved = false;
+    {
+      float z[kP];
+      kernel_prng::normals(key0, key1, ctr, z);
+      float prop[kP];
+      float v_p;
+      float log_rate;
+      float gp[kMALA ? kP : 1];
+      if constexpr (kMALA) {
+        float z_sq = z[0] * z[0];
+#pragma unroll
+        for (int p = 1; p < kP; ++p) z_sq = z_sq + z[p] * z[p];
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          prop[p] = (acc_th[p * bd + me] + pr.half_step * (temp * acc_g[p * bd + me])) +
+                    pr.sqrt_step * z[p];
+        }
+        v_p = ev.vg(prop, gp);
+        float rev_sq = 0.0f;
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          const float dp = acc_th[p * bd + me] - (prop[p] + pr.half_step * (temp * gp[p]));
+          rev_sq = rev_sq + dp * dp;
+        }
+        log_rate = (temp * (v_p - val) - pr.half_inv_step * rev_sq) + 0.5f * z_sq;
+      } else {
+#pragma unroll
+        for (int p = 0; p < kP; ++p) prop[p] = acc_th[p * bd + me] + pr.value * z[p];
+        v_p = ev.v(prop);
+        log_rate = temp * (v_p - val);
+      }
+      const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
+      if (logf(u) < log_rate) {
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          moved |= prop[p] != acc_th[p * bd + me];
+          acc_th[p * bd + me] = prop[p];
+          if constexpr (kMALA) acc_g[p * bd + me] = gp[p];
+        }
+        val = v_p;
+        if (counting) n_within += 1.0f;
+      }
+    }
+
+    if (swap_round) {
+      acc_v[me] = val;
+      ladder_sync(warp_local);  // every within move and value is written
+      const int parity = (t / pr.between_step) % 2;
+      if (rung % 2 == parity && rung < L - 1) {
+        const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs + 1);
+        const float log_rate = (temp - temp_upper) * (acc_v[me + 1] - val);
+        if (logf(u) < log_rate) {
+#pragma unroll
+          for (int p = 0; p < kP; ++p) {
+            const float th = acc_th[p * bd + me];
+            acc_th[p * bd + me] = acc_th[p * bd + me + 1];
+            acc_th[p * bd + me + 1] = th;
+            if constexpr (kMALA) {
+              const float g = acc_g[p * bd + me];
+              acc_g[p * bd + me] = acc_g[p * bd + me + 1];
+              acc_g[p * bd + me + 1] = g;
+            }
+          }
+          acc_v[me] = acc_v[me + 1];
+          acc_v[me + 1] = val;
+          if (counting) n_swaps += 1.0f;
+        }
+      }
+      ladder_sync(warp_local);  // every exchange is done
+      val = acc_v[me];
+      if (track_start) {
+        moved = false;
+#pragma unroll
+        for (int p = 0; p < kP; ++p) moved |= acc_th[p * bd + me] != start_th[p * bd + me];
+      }
+    }
+
+    record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept, pr.record_extras, C, c,
+           acc_th, val, moved);
+  }
+
+#pragma unroll
+  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = acc_th[p * bd + me];
+  accepts[c] = n_within;
+  accepts[static_cast<size_t>(C) + c] = n_swaps;
 }
 
 // Sub-block b, and those after it, of one Gibbs sweep (see gibbs_chain).

@@ -1,18 +1,21 @@
 // The whole random-walk MH, MALA or blocked-Gibbs loop for C chains of a
 // sigmoid MLP in one kernel, on data staged in shared memory.
 //
-// Replaces the MH, MALA and Gibbs moves of the Pallas TPU kernel
+// Replaces the MH, MALA, Gibbs and tempering moves of the Pallas TPU kernel
 // eeyore_tpu/ops/resident_walk.py:166 (_make_resident, behind
-// make_resident_mh :251, make_resident_mala :212 and make_resident_gibbs
-// :281); the plain PyTorch version is the CPU branch of
-// eeyore_tpu_torch/ops/resident_walk.py. The loops are resident_loop.cuh::
-// walk_chain and gibbs_chain, shared with resident_walk_dense.cu; one
-// library holds the three moves for one architecture and one Gibbs blocking
-// (move 0: MH, on the value-only body, no backward pass; move 1: MALA, on the
-// value and gradient; move 2: Gibbs, a sweep over the sub-blocks of the
-// generated gibbs_blocks.cuh, value only). These kernels have no tuner, as
-// the TPU's have none: chains share nothing, and a block is any 32-multiple
-// of threads.
+// make_resident_mh :251, make_resident_mala :212, make_resident_gibbs :281
+// and eeyore_tpu/ops/resident_tempering.py:178); the plain PyTorch versions
+// are the CPU branches of eeyore_tpu_torch/ops/resident_walk.py. The loops
+// are resident_loop.cuh::walk_chain, gibbs_chain and tempering_chain, shared
+// with resident_walk_dense.cu; one library holds the four moves for one
+// architecture and one Gibbs blocking (move 0: MH, on the value-only body,
+// no backward pass; move 1: MALA, on the value and gradient; move 2: Gibbs,
+// a sweep over the sub-blocks of the generated gibbs_blocks.cuh, value only;
+// move 3: power-posterior tempering, MH or MALA within each rung by the
+// template flag kMALA, with even/odd swaps of adjacent rungs). These kernels
+// have no tuner, as the TPU's have none: chains share nothing but a
+// tempering ladder, and a block is any 32-multiple of threads (for
+// tempering, one that holds whole ladders and divides the chains).
 //
 // Gibbs. The TPU kernel keeps a per-chain cache of the activations of every
 // data row and recomputes only the moved unit and what lies downstream. On
@@ -81,6 +84,32 @@ __global__ void resident_walk_gibbs_kernel(const float* __restrict__ theta0,  //
                                                                       accepts);
 }
 
+template <bool kMALA>
+__global__ void resident_walk_tempering_kernel(const float* __restrict__ theta0,  // [P, C]
+                                               const float* __restrict__ x,
+                                               const float* __restrict__ y,
+                                               const float* __restrict__ mask,
+                                               const float* __restrict__ loc,
+                                               const float* __restrict__ ivar,
+                                               const float* __restrict__ temps,  // [L]
+                                               const ResidentWalkParams pr,
+                                               float* __restrict__ samples,  // [kept, rows, C]
+                                               float* __restrict__ final_theta,  // [P, C]
+                                               float* __restrict__ accepts) {    // [2, C]
+  extern __shared__ float smem[];
+  const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
+  // the blocks divide the chains: every thread owns one and reaches every barrier
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const resident_loop::StagedEval ev{d, pr.prior_const, pr.temperature, pr.n_rows};
+  resident_loop::tempering_chain<resident_loop::StagedEval, kMALA>(
+      ev, pr, c, theta0, temps, samples, final_theta, accepts, smem + data_floats(pr.n_rows));
+}
+
+size_t tempering_smem_bytes(bool mala, int n_rows, int threads, bool extras) {
+  return sizeof(float) *
+         (data_floats(n_rows) + resident_loop::tempering_floats(mala, extras, threads));
+}
+
 size_t smem_bytes(int move, int n_rows, int threads) {
   const int theta_copies = move == 2 ? 0 : move == 1 ? 2 : 1;  // Gibbs: theta in registers
   return sizeof(float) *
@@ -102,8 +131,15 @@ extern "C" int resident_walk_arch(int* out) {
 
 extern "C" int resident_walk_num_sub_blocks() { return GibbsBlocks::kB; }
 
+// move: 0 MH, 1 MALA, 2 Gibbs, 3 tempering with MH, 4 tempering with MALA.
 extern "C" int resident_walk_resources(int move, int* out) {
   if (move == 2) return static_cast<int>(resident_loop::resources(resident_walk_gibbs_kernel, out));
+  if (move == 3) {
+    return static_cast<int>(resident_loop::resources(resident_walk_tempering_kernel<false>, out));
+  }
+  if (move == 4) {
+    return static_cast<int>(resident_loop::resources(resident_walk_tempering_kernel<true>, out));
+  }
   return static_cast<int>(move == 1 ? resident_loop::resources(resident_walk_kernel<true>, out)
                                     : resident_loop::resources(resident_walk_kernel<false>, out));
 }
@@ -149,4 +185,29 @@ extern "C" int resident_walk_gibbs_launch(const float* theta0, const float* x, c
   return static_cast<int>(resident_loop::launch(resident_walk_gibbs_kernel, blocks, threads, smem,
                                                 1, stream, theta0, x, y, mask, loc, ivar, scales,
                                                 pr, samples, final_theta, accepts));
+}
+
+extern "C" int resident_walk_tempering_launch(int mala, const float* theta0, const float* x,
+                                              const float* y, const float* mask,
+                                              const float* loc, const float* ivar,
+                                              const float* temps,
+                                              const ResidentWalkParams* params, int threads,
+                                              float* samples, float* final_theta,
+                                              float* accepts, void* stream) {
+  const ResidentWalkParams pr = *params;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || pr.tuned ||
+      pr.num_rungs < 1 || threads % pr.num_rungs != 0 || pr.num_chains % threads != 0 ||
+      pr.between_step < 1) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const size_t smem = tempering_smem_bytes(mala != 0, pr.n_rows, threads, pr.record_extras != 0);
+  const int blocks = pr.num_chains / threads;
+  const cudaError_t err =
+      mala ? resident_loop::launch(resident_walk_tempering_kernel<true>, blocks, threads, smem, 1,
+                                   stream, theta0, x, y, mask, loc, ivar, temps, pr, samples,
+                                   final_theta, accepts)
+           : resident_loop::launch(resident_walk_tempering_kernel<false>, blocks, threads, smem, 1,
+                                   stream, theta0, x, y, mask, loc, ivar, temps, pr, samples,
+                                   final_theta, accepts);
+  return static_cast<int>(err);
 }

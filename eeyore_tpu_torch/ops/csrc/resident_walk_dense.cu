@@ -2,12 +2,17 @@
 // sigmoid MLP in one kernel, on data of at most 32 rows folded into the code
 // as constants.
 //
-// Replaces the MH, MALA and Gibbs moves of the Pallas TPU kernel
+// Replaces the MH, MALA, Gibbs and tempering moves of the Pallas TPU kernel
 // eeyore_tpu/ops/resident_walk_dense.py:125 (_make_resident_dense, behind
-// make_resident_mh_dense :196, make_resident_mala_dense :309 and
-// make_resident_gibbs_dense :240); the plain PyTorch version is the CPU
-// branch of eeyore_tpu_torch/ops/resident_walk_dense.py. The loops are
-// resident_loop.cuh::walk_chain (move 0: MH, value only; move 1: MALA), on
+// make_resident_mh_dense :196, make_resident_mala_dense :309,
+// make_resident_gibbs_dense :240 and
+// eeyore_tpu/ops/resident_tempering_dense.py:150); the plain PyTorch
+// versions are the CPU branches of eeyore_tpu_torch/ops/resident_walk_dense.py.
+// The loops are resident_loop.cuh::walk_chain (move 0: MH, value only; move
+// 1: MALA) and tempering_chain (move 3: a power-posterior ladder, MH or MALA
+// within each rung by the template flag kMALA; a block holds whole ladders of
+// the sublane-strided chain layout, which needs chain_block / 8 and the block
+// to be multiples of the ladder size), on
 // the generated body dense_body.cuh (ops/mlp_dense.py), as in
 // resident_hmc_dense.cu, and gibbs_chain (move 2) on the generated
 // incremental body dense_gibbs.cuh and the blocking gibbs_blocks.cuh: the
@@ -89,6 +94,19 @@ __global__ void resident_walk_dense_gibbs_kernel(const float* __restrict__ theta
                                                      final_theta, accepts);
 }
 
+template <bool kMALA>
+__global__ void resident_walk_dense_tempering_kernel(const float* __restrict__ theta0,  // [P, C]
+                                                     const float* __restrict__ temps,   // [L]
+                                                     const ResidentWalkParams pr,
+                                                     float* __restrict__ samples,
+                                                     float* __restrict__ final_theta,  // [P, C]
+                                                     float* __restrict__ accepts) {    // [2, C]
+  extern __shared__ float smem[];
+  const int c = resident_loop::chain_index(pr.sublanes, pr.chain_block, pr.num_chains);
+  resident_loop::tempering_chain<DenseEval, kMALA>(DenseEval{}, pr, c, theta0, temps, samples,
+                                                   final_theta, accepts, smem);
+}
+
 size_t smem_bytes(int move, int threads) {
   return sizeof(float) * (move == 1 ? 2 : 1) * static_cast<size_t>(kP) * threads;
 }
@@ -108,9 +126,15 @@ extern "C" int resident_walk_dense_arch(int* out) {
 
 extern "C" int resident_walk_dense_num_sub_blocks() { return GibbsBlocks::kB; }
 
+// move: 0 MH, 1 MALA, 2 Gibbs, 3 tempering with MH, 4 tempering with MALA.
 extern "C" int resident_walk_dense_resources(int move, int* out) {
   if (move == 2) {
     return static_cast<int>(resident_loop::resources(resident_walk_dense_gibbs_kernel, out));
+  }
+  if (move == 3 || move == 4) {
+    return static_cast<int>(
+        move == 4 ? resident_loop::resources(resident_walk_dense_tempering_kernel<true>, out)
+                  : resident_loop::resources(resident_walk_dense_tempering_kernel<false>, out));
   }
   return static_cast<int>(
       move == 1 ? resident_loop::resources(resident_walk_dense_kernel<true>, out)
@@ -169,4 +193,30 @@ extern "C" int resident_walk_dense_gibbs_launch(const float* theta0, const float
                                                 pr.num_chains / threads, threads, 0, 1, stream,
                                                 theta0, scales, pr, samples, final_theta,
                                                 accepts));
+}
+
+extern "C" int resident_walk_dense_tempering_launch(int mala, const float* theta0,
+                                                    const float* temps,
+                                                    const ResidentWalkParams* params,
+                                                    int threads, float* samples,
+                                                    float* final_theta, float* accepts,
+                                                    void* stream) {
+  const ResidentWalkParams pr = *params;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      pr.chain_block % threads != 0 || pr.num_chains % pr.chain_block != 0 || pr.tuned ||
+      pr.num_rungs < 1 || threads % pr.num_rungs != 0 ||
+      (pr.chain_block / pr.sublanes) % pr.num_rungs != 0 || pr.between_step < 1) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const size_t smem =
+      sizeof(float) * resident_loop::tempering_floats(mala != 0, pr.record_extras != 0, threads);
+  const int blocks = pr.num_chains / threads;
+  const cudaError_t err =
+      mala ? resident_loop::launch(resident_walk_dense_tempering_kernel<true>, blocks, threads,
+                                   smem, 1, stream, theta0, temps, pr, samples, final_theta,
+                                   accepts)
+           : resident_loop::launch(resident_walk_dense_tempering_kernel<false>, blocks, threads,
+                                   smem, 1, stream, theta0, temps, pr, samples, final_theta,
+                                   accepts);
+  return static_cast<int>(err);
 }

@@ -21,6 +21,11 @@ uniform. (The JAX package's dense kernels draw with ``normal_tiles`` from the
 TPU core's generator; its numbers cannot be reproduced, so that function has
 no counterpart here.)
 
+The stream of the tempering moves (``tempering_draws``) is the walk stream
+and one word more: j = ceil(P/2) + 1 gives the swap uniform, which only the
+lower member of a swap pair tests. ``walk_draws`` is its prefix, so a walk
+run draws what it drew before.
+
 The stream of the blocked Gibbs moves (``gibbs_draws``), the same for the
 staged and the dense kernel: key = (seed, global chain index), counter =
 (iteration, b * 2**16 + j) for sub-block b of the sweep. For j < ceil(w/2),
@@ -123,6 +128,13 @@ def walk_draws(seed, chains, iteration, num_params):
     """The walk kernels' draws for one iteration: (proposal normals [P, C]
     float32, accept uniforms [C]) for the global chain indices ``chains``."""
     return _draws(seed, chains, iteration, num_params, 1)
+
+
+def tempering_draws(seed, chains, iteration, num_params):
+    """The tempering moves' draws for one iteration: (proposal normals [P,
+    C] float32, accept uniforms [C], swap uniforms [C]) for the global chain
+    indices ``chains``."""
+    return _draws(seed, chains, iteration, num_params, 2)
 
 
 def gibbs_draws(seed, chains, iteration, sub_block, width):

@@ -13,15 +13,24 @@ import math
 import numpy as np
 import torch
 
+from eeyore_tpu_torch.models import mlp
 from eeyore_tpu_torch.models.losses import (
     binary_classification_loss,
     multiclass_classification_loss,
 )
+from eeyore_tpu_torch.models.priors import IIDNormalPrior
+
+
+def _is_sigmoid(activation):
+    return activation is mlp.sigmoid or activation is torch.sigmoid
 
 
 def extract_arch(model):
     """Static architecture of an MLP: (dims, bias, loss_kind, layer_offsets),
-    with ``layer_offsets[l] = (w_off, b_off or None)`` into the flat theta."""
+    with ``layer_offsets[l] = (w_off, b_off or None)`` into the flat theta.
+    Raises ValueError for anything the kernels do not compute: they
+    hard-code sigmoid hidden units (and a sigmoid BCE output) and an IID
+    Normal prior."""
     hp = model.hp
     dims = list(hp.dims)
     bias = list(hp.bias)
@@ -29,7 +38,7 @@ def extract_arch(model):
 
     if model.loss is binary_classification_loss:
         loss_kind = "bce"
-        if activations[-1] is None:
+        if not _is_sigmoid(activations[-1]):
             raise ValueError("BCE path expects a sigmoid output layer")
     elif model.loss is multiclass_classification_loss:
         loss_kind = "ce"
@@ -38,8 +47,11 @@ def extract_arch(model):
     else:
         raise ValueError("fused kernels support the registered BCE/CE losses only")
     for act in activations[:-1]:
-        if act is None:
-            raise ValueError("hidden activations must be sigmoid")
+        if not _is_sigmoid(act):
+            raise ValueError("hidden activations must be sigmoid (models.mlp.sigmoid or "
+                             f"torch.sigmoid), got {act!r}")
+    if not isinstance(model.prior, IIDNormalPrior):
+        raise ValueError(f"the kernels take an IIDNormalPrior, got {type(model.prior).__name__}")
 
     layer_offsets = []
     off = 0
@@ -59,7 +71,8 @@ def prepare_data(model, x, y, dtype=np.float32):
     """Pad the rows to a multiple of 8 (with a row mask) and pack the prior
     constants, as numpy arrays of ``dtype``:
     (x_pad, y_pad, row_mask, prior_loc [P,1], prior_inv_var [P,1],
-    prior_const, temperature)."""
+    prior_const, temperature). Raises where ``extract_arch`` does."""
+    extract_arch(model)
     x = np.asarray(x)
     y = np.asarray(y)
     n = x.shape[0]

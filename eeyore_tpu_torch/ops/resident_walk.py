@@ -33,9 +33,22 @@ incremental body ``mlp_math.make_incremental_gibbs`` and the Gibbs stream
 (``kernel_prng.gibbs_draws``). The kernel compiles the Gibbs blocking in
 (``gibbs_blocks_source``) and evaluates each proposal with the whole
 value-only forward pass, the same function as the incremental body (a
-per-chain cache of the 150 iris rows does not fit on chip). The tempering
-kernels (``consts``) are not ported yet; the scaffold takes their argument
-and raises.
+per-chain cache of the 150 iris rows does not fit on chip).
+
+- Tempering (``temperatures``, the ladder of ``ops/resident_tempering.py``):
+  L consecutive chains form a ladder, rung c % L at temperature T_rung, the
+  coldest last. Each iteration is an MH or
+  MALA move within each rung on the stored untempered value, with T at the
+  accept test (MH: ``log_rate = T (v(prop) - v(theta))``; MALA: the drift
+  ``theta + (step/2) T grad`` and ``log_rate = T (v(prop) - v(theta)) -
+  |theta - prop - (step/2) T grad(prop)|^2 / (2 step) + |z|^2 / 2``), then,
+  every ``between_step`` iterations, an even/odd round of adjacent swaps
+  accepted when ``log(u) < (T_i - T_j)(v_j - v_i)``. It returns counts [C,
+  2] (within-rung accepts, swap accepts on the lower member of a pair);
+  with extras the values are untempered and ``moved`` compares theta after
+  the swaps with theta at the start of the iteration. Its plain version is
+  ``_run_tempering_plain``, on ``kernel_prng.tempering_draws``; on the card
+  it is move 3 of the same library, in blocks that hold whole ladders.
 """
 
 import ctypes
@@ -59,14 +72,20 @@ from eeyore_tpu_torch.ops.resident_hmc import (
 
 KERNEL = "resident_walk"
 GIBBS_KERNEL = "resident_walk_gibbs"  # the Gibbs move of the same library, counted apart
+TEMPERING_KERNEL = "resident_walk_tempering"  # the tempering move, counted apart
 MOVES = {"mh": 0, "mala": 1, "gibbs": 2}
-# Threads per block: chains share nothing, so any multiple of 32 works.
+# The libraries' codes of each move's kernel, for their *_resources calls.
+RESOURCE_CODES = {**MOVES, "tempering_mh": 3, "tempering_mala": 4}
+# Threads per block: chains share nothing, so any multiple of 32 works. Every
+# build can hold this many (at most 255 registers a thread), so a tempering
+# ladder of up to WALK_BLOCK rungs always fits one block.
 WALK_BLOCK = 256
 
-launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0}
-# What the last call of a Gibbs function returned as its per-sub-block accept
-# counts ({"accept_counts": [C, B]}), for callers that go through dispatch.
-last_info = {GIBBS_KERNEL: None}
+launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0, TEMPERING_KERNEL: 0}
+# What the last call of a Gibbs or tempering function returned as its accept
+# counts ({"accept_counts": [C, B]} per sub-block, or [C, 2]: within-rung and
+# swap accepts), for callers that go through dispatch.
+last_info = {GIBBS_KERNEL: None, TEMPERING_KERNEL: None}
 
 
 class ResidentWalkParams(ctypes.Structure):
@@ -78,7 +97,8 @@ class ResidentWalkParams(ctypes.Structure):
         "kept", "record_extras", "tuned", "sublanes", "chain_block")]
         + [(name, ctypes.c_float) for name in (
             "value", "half_step", "sqrt_step", "half_inv_step", "tuner_m", "d", "g", "t0",
-            "k", "log_eub", "prior_const", "temperature")])
+            "k", "log_eub", "prior_const", "temperature")]
+        + [(name, ctypes.c_int) for name in ("num_rungs", "between_step")])
 
 
 def walk_params(move, value, num_iters, num_burnin_iters, record_thin, record_extras,
@@ -175,13 +195,18 @@ def load_kernel(model, node_subblock_size=None):
     lib.resident_walk_gibbs_launch.restype = ctypes.c_int
     lib.resident_walk_num_sub_blocks.argtypes = []
     lib.resident_walk_num_sub_blocks.restype = ctypes.c_int
+    lib.resident_walk_tempering_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7
+        + [ctypes.POINTER(ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
+    lib.resident_walk_tempering_launch.restype = ctypes.c_int
     check_arch(lib.resident_walk_arch, model, f"{KERNEL}_{tag}")
     return lib
 
 
 def kernel_resources(lib, move):
-    """``read_resources`` of the loaded ``move`` kernel."""
-    return read_resources(lambda out: lib.resident_walk_resources(MOVES[move], out),
+    """``read_resources`` of the loaded ``move`` kernel (a key of
+    ``RESOURCE_CODES``)."""
+    return read_resources(lambda out: lib.resident_walk_resources(RESOURCE_CODES[move], out),
                           lib.resident_walk_error_string, KERNEL)
 
 
@@ -239,6 +264,30 @@ def resident_walk_gibbs(lib, theta0, x, y, mask, loc, ivar, scales, params, thre
         final.data_ptr(), accepts.data_ptr(), stream)
     raise_on(err, lib.resident_walk_error_string, f"{GIBBS_KERNEL} launch failed")
     launch_counts[GIBBS_KERNEL] += 1
+    return samples, final, accepts
+
+
+def resident_walk_tempering(lib, move, theta0, x, y, mask, loc, ivar, temps, params, threads):
+    """Launch the tempering kernel with ``move`` ("mh" or "mala") within
+    each rung: theta0 [P, C] -> (samples [kept, rows, C], final [P, C],
+    accepts [2, C]), f32 on one CUDA device, on the current stream;
+    ``temps`` [L] holds each rung's temperature."""
+    P, C = theta0.shape
+    check_tensors("resident_walk_tempering", (theta0, x, y, mask, loc, ivar, temps))
+    if params.num_chains != C or params.n_rows != x.shape[0] or loc.numel() != P or \
+            temps.numel() != params.num_rungs:
+        raise ValueError("resident_walk_tempering: inconsistent shapes")
+    rows = P + 2 if params.record_extras else P
+    samples = torch.empty((params.kept, rows, C), dtype=torch.float32, device=theta0.device)
+    final = torch.empty((P, C), dtype=torch.float32, device=theta0.device)
+    accepts = torch.empty((2, C), dtype=torch.float32, device=theta0.device)
+    stream = torch.cuda.current_stream(theta0.device).cuda_stream
+    err = lib.resident_walk_tempering_launch(
+        int(move == "mala"), theta0.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+        loc.data_ptr(), ivar.data_ptr(), temps.data_ptr(), ctypes.byref(params), threads,
+        samples.data_ptr(), final.data_ptr(), accepts.data_ptr(), stream)
+    raise_on(err, lib.resident_walk_error_string, f"{TEMPERING_KERNEL} launch failed")
+    launch_counts[TEMPERING_KERNEL] += 1
     return samples, final, accepts
 
 
@@ -370,10 +419,118 @@ def _run_gibbs_plain(init, updates, sub_blocks, pr, theta):
     return samples, theta, accepts, {"evaluations": C * (1 + pr.num_iters * len(sub_blocks))}
 
 
-def _check_unported(consts):
-    if consts:
-        raise ValueError("consts (tempering) wait for their kernels; the walk scaffold runs "
-                         "MH, MALA and Gibbs")
+def _run_tempering_plain(vg, arrays, pr, move, rungs, theta):
+    """The tempering kernels' computation in PyTorch, on [P, C] tensors:
+    ``rungs`` [L] float32 holds each rung's temperature, chain c is rung c %
+    L of its ladder. Same inputs as ``resident_walk_tempering``; returns
+    (samples [kept, rows, C], final [P, C], accepts [2, C], {"evaluations": C
+    * (1 + num_iters)}). A lower member's partner is chain c + 1, which the
+    ladder-major layout keeps in the same ladder, so the swaps are rolls of
+    the chain axis by one."""
+    P, C = theta.shape
+    f32 = dict(dtype=torch.float32, device=theta.device)
+    chains = torch.arange(C, dtype=torch.int64, device=theta.device)
+    L = pr.num_rungs
+    rung = chains % L
+    temps = rungs[rung]
+    temps_upper = rungs[torch.clamp(rung + 1, max=L - 1)]
+    top = rung == L - 1
+    mala = move == "mala"
+    if mala:
+        val, grad = vg(theta, *arrays)
+    else:
+        val = vg(theta, *arrays)
+    val = val[0]
+    rows = P + 2 if pr.record_extras else P
+    samples = torch.empty((pr.kept, rows, C), **f32)
+    accepts = torch.zeros((2, C), **f32)
+
+    for t in range(pr.num_iters):
+        z, u, u_swap = kernel_prng.tempering_draws(pr.seed, chains, t, P)
+        start = theta
+        if mala:
+            prop = (theta + pr.half_step * (temps * grad)) + pr.sqrt_step * z
+            v_p, g_p = vg(prop, *arrays)
+            v_p = v_p[0]
+            d_rev = theta - (prop + pr.half_step * (temps * g_p))
+            log_rate = ((temps * (v_p - val)) - pr.half_inv_step * torch.sum(d_rev * d_rev, dim=0)
+                        + 0.5 * torch.sum(z * z, dim=0))
+        else:
+            prop = theta + pr.value * z
+            v_p = vg(prop, *arrays)[0]
+            log_rate = temps * (v_p - val)
+        accept = torch.log(u) < log_rate
+        theta = torch.where(accept, prop, theta)
+        val = torch.where(accept, v_p, val)
+        if mala:
+            grad = torch.where(accept, g_p, grad)
+        counting = t >= pr.num_burnin_iters
+        if counting:
+            accepts[0] += accept.to(torch.float32)
+        if t % pr.between_step == 0:
+            parity = (t // pr.between_step) % 2
+            lower = (rung % 2 == parity) & ~top
+            swap_rate = (temps - temps_upper) * (torch.roll(val, -1) - val)
+            take_upper = lower & (torch.log(u_swap) < swap_rate)  # the lower member's view
+            take_lower = torch.roll(take_upper, 1)                # the upper member's view
+
+            def exchange(a):
+                return torch.where(take_upper, torch.roll(a, -1, dims=-1),
+                                   torch.where(take_lower, torch.roll(a, 1, dims=-1), a))
+
+            theta, val = exchange(theta), exchange(val)
+            if mala:
+                grad = exchange(grad)
+            if counting:
+                accepts[1] += take_upper.to(torch.float32)
+
+        since = t - pr.num_burnin_iters
+        if since >= 0 and since % pr.record_thin == 0 and since // pr.record_thin < pr.kept:
+            out = samples[since // pr.record_thin]
+            out[:P] = theta
+            if pr.record_extras:
+                out[P] = val
+                out[P + 1] = torch.any(theta != start, dim=0).to(torch.float32)
+    return samples, theta, accepts, {"evaluations": C * (1 + pr.num_iters)}
+
+
+def ladder_rungs(temperatures, lanes):
+    """The ladder's temperatures as float32 [L], coldest last. The ladders
+    lie end to end along ``lanes`` chains (the chain block on staged data, a
+    sublane row of it on dense data), so L must divide ``lanes``."""
+    rungs = np.asarray(temperatures, dtype=np.float32)
+    if rungs.ndim != 1 or not rungs.size:
+        raise ValueError(f"temperatures must be a non-empty 1-D array, got shape {rungs.shape}")
+    if lanes % rungs.size:
+        raise ValueError(f"{lanes} lanes of the chain block not a multiple of the ladder "
+                         f"size {rungs.size}")
+    return rungs
+
+
+def set_ladder(params, rungs, between_step, move, value):
+    """Fill the tempering fields of ``params``: the ladder size, the swap
+    period, and for MALA ``0.5 / step`` rounded from float64 to float32, as
+    both TPU tempering kernels take it (resident_tempering.py:122,
+    resident_tempering_dense.py:92)."""
+    if int(between_step) < 1:
+        raise ValueError(f"between_step must be a positive integer, got {between_step}")
+    params.num_rungs, params.between_step = len(rungs), int(between_step)
+    if move == "mala":
+        params.half_inv_step = float(np.float32(0.5 / float(value)))
+
+
+def ladder_threads(max_threads, chain_block, num_rungs):
+    """Threads per block of a tempering launch: a multiple of 32 that the
+    build's registers allow (``max_threads``), that divides ``chain_block``
+    and holds whole ladders; the largest up to ``WALK_BLOCK``, else the
+    smallest above it."""
+    sizes = [t for t in range(min(max_threads, 1024) // 32 * 32, 31, -32)
+             if chain_block % t == 0 and t % num_rungs == 0]
+    small = [t for t in sizes if t <= WALK_BLOCK]
+    if small or sizes:
+        return small[0] if small else sizes[-1]
+    raise ValueError(f"a ladder of {num_rungs} rungs does not fit a block of at most "
+                     f"{max_threads} threads that divides chain_block {chain_block}")
 
 
 def _setup(params, chain_block, device):
@@ -401,18 +558,24 @@ def _threads(lib, move):
 
 
 def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record_thin, move,
-                   value, consts=(), record_extras=False, device="cuda"):
-    """Shared scaffold of the staged MH and MALA makers: ``fn(seed, theta0s
-    [C, P])`` for ``move`` ("mh" with scale ``value``, "mala" with step
-    ``value``); ``fn.plain(seed, theta0s)`` runs the plain version on the
-    same tensors and also returns its info dict."""
-    _check_unported(consts)
+                   value, temperatures=None, between_step=None, record_extras=False,
+                   device="cuda"):
+    """Shared scaffold of the staged MH, MALA and tempering makers:
+    ``fn(seed, theta0s [C, P])`` for ``move`` ("mh" with scale ``value``,
+    "mala" with step ``value``); with a ladder's ``temperatures`` [L] and
+    ``between_step``, the tempering move with ``move`` within each rung,
+    returning counts [C, 2]. ``fn.plain(seed, theta0s)`` runs the plain
+    version on the same tensors and also returns its info dict."""
     device = torch.device(device)
+    rungs = None if temperatures is None else ladder_rungs(temperatures, chain_block)
     x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature = prepare_data(model, x, y)
     P = model.num_params
     params = walk_params(move, value, num_iters, num_burnin_iters, record_thin, record_extras,
                          chain_block, n_rows=x_pad.shape[0], prior_const=prior_const,
                          temperature=temperature)
+    if rungs is not None:
+        set_ladder(params, rungs, between_step, move, value)
+        rungs = torch.as_tensor(rungs, device=device)
     arrays = [torch.as_tensor(a, device=device).contiguous()
               for a in (x_pad, y_pad, row_mask, loc, ivar)]
     vg = make_vg(model, x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature,
@@ -420,20 +583,36 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
     lib, threads = None, None
     if device.type == "cuda":
         lib = load_kernel(model)
-        threads = _threads(lib, move)
+        if rungs is None:
+            threads = _threads(lib, move)
+        else:
+            max_threads = kernel_resources(lib, f"tempering_{move}")["max_threads_per_block"]
+            threads = ladder_threads(max_threads, chain_block, len(rungs))
     setup = _setup(params, chain_block, device)
+
+    def run_plain(pr, theta_t):
+        if rungs is None:
+            return _run_walk_plain(vg, arrays, pr, move, chain_block, theta_t)
+        samples, final, acc, info = _run_tempering_plain(vg, arrays, pr, move, rungs, theta_t)
+        return samples, final, acc.T, info
 
     def fn(seed, theta0s):
         pr, theta_t = setup(seed, theta0s)
         if lib is None:
-            samples, final, acc, _ = _run_walk_plain(vg, arrays, pr, move, chain_block, theta_t)
-        else:
+            samples, final, acc, _ = run_plain(pr, theta_t)
+        elif rungs is None:
             samples, final, acc = resident_walk(lib, move, theta_t, *arrays, pr, threads)
+        else:
+            samples, final, acc = resident_walk_tempering(lib, move, theta_t, *arrays, rungs, pr,
+                                                          threads)
+            acc = acc.T
+        if rungs is not None:
+            last_info[TEMPERING_KERNEL] = {"accept_counts": acc}
         return unpack_outputs(samples, final, acc, P, record_extras)
 
     def plain(seed, theta0s):
         pr, theta_t = setup(seed, theta0s)
-        samples, final, acc, info = _run_walk_plain(vg, arrays, pr, move, chain_block, theta_t)
+        samples, final, acc, info = run_plain(pr, theta_t)
         return unpack_outputs(samples, final, acc, P, record_extras), info
 
     fn.plain = plain

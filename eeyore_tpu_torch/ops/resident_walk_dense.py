@@ -22,6 +22,13 @@ proposal recomputes its unit and what lies downstream from a per-chain cache
 stream, so a dense and a staged Gibbs run of one seed draw the same numbers.
 Its plain version is ``resident_walk._run_gibbs_plain``.
 
+The tempering move (``temperatures``: whole ladders along the ``chain_block
+/ 8`` lanes of a sublane row, as the TPU's dense kernel lays its ladders
+out) is ``resident_walk``'s, on the dense body; its
+plain version is ``resident_walk._run_tempering_plain``. Chain c is rung c %
+L, in the sublane-strided chain order too, since C / 8 and the lanes are
+multiples of L; on the card a block holds whole ladders.
+
 With a ``tuner`` (an ``HMCDATuner``; ``d`` is the target acceptance, 0.234
 for MH and 0.574 for MALA are the classic optima), the proposal scale or
 the Langevin step is dual-averaged during burn-in on the mean acceptance
@@ -48,24 +55,30 @@ from eeyore_tpu_torch.ops.resident_hmc import check_arch, raise_on, read_resourc
 from eeyore_tpu_torch.ops.resident_hmc_dense import SUBLANES, dense_plain_vg, launch_shape
 from eeyore_tpu_torch.ops.resident_walk import (
     MOVES,
+    RESOURCE_CODES,
     ResidentWalkParams,
-    _check_unported,
     _run_gibbs_plain,
+    _run_tempering_plain,
     _run_walk_plain,
     _setup,
     check_tensors,
     gibbs_blocks_source,
     gibbs_sub_blocks,
+    ladder_rungs,
+    ladder_threads,
+    set_ladder,
     walk_params,
 )
 
 KERNEL = "resident_walk_dense"
 GIBBS_KERNEL = "resident_walk_dense_gibbs"  # the Gibbs move of the same library, counted apart
+TEMPERING_KERNEL = "resident_walk_dense_tempering"  # the tempering move, counted apart
 
-launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0}
-# What the last call of a Gibbs function returned as its per-sub-block accept
-# counts ({"accept_counts": [C, B]}), for callers that go through dispatch.
-last_info = {GIBBS_KERNEL: None}
+launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0, TEMPERING_KERNEL: 0}
+# What the last call of a Gibbs or tempering function returned as its accept
+# counts ({"accept_counts": [C, B]} per sub-block, or [C, 2]: within-rung and
+# swap accepts), for callers that go through dispatch.
+last_info = {GIBBS_KERNEL: None, TEMPERING_KERNEL: None}
 
 
 def load_kernel(model, x, y, node_subblock_size=None):
@@ -97,14 +110,20 @@ def load_kernel(model, x, y, node_subblock_size=None):
     lib.resident_walk_dense_gibbs_launch.restype = ctypes.c_int
     lib.resident_walk_dense_num_sub_blocks.argtypes = []
     lib.resident_walk_dense_num_sub_blocks.restype = ctypes.c_int
+    lib.resident_walk_dense_tempering_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ResidentWalkParams),
+                                                   ctypes.c_int] + [ctypes.c_void_p] * 4)
+    lib.resident_walk_dense_tempering_launch.restype = ctypes.c_int
     check_arch(lib.resident_walk_dense_arch, model, f"{KERNEL}_{tag}")
     return lib
 
 
 def kernel_resources(lib, move):
-    """``read_resources`` of the loaded ``move`` kernel."""
-    return read_resources(lambda out: lib.resident_walk_dense_resources(MOVES[move], out),
-                          lib.resident_walk_dense_error_string, KERNEL)
+    """``read_resources`` of the loaded ``move`` kernel (a key of
+    ``resident_walk.RESOURCE_CODES``)."""
+    return read_resources(
+        lambda out: lib.resident_walk_dense_resources(RESOURCE_CODES[move], out),
+        lib.resident_walk_dense_error_string, KERNEL)
 
 
 def max_active_clusters(lib, move, threads, blocks):
@@ -159,43 +178,91 @@ def resident_walk_dense_gibbs(lib, theta0, scales, params, threads):
     return samples, final, accepts
 
 
+def resident_walk_dense_tempering(lib, move, theta0, temps, params, threads):
+    """Launch the tempering kernel with ``move`` ("mh" or "mala") within
+    each rung: theta0 [P, C] -> (samples [kept, rows, C], final [P, C],
+    accepts [2, C]), f32 on one CUDA device, on the current stream;
+    ``temps`` [L] holds each rung's temperature."""
+    P, C = theta0.shape
+    check_tensors("resident_walk_dense_tempering", (theta0, temps))
+    if params.num_chains != C or temps.numel() != params.num_rungs:
+        raise ValueError("resident_walk_dense_tempering: inconsistent shapes")
+    rows = P + 2 if params.record_extras else P
+    samples = torch.empty((params.kept, rows, C), dtype=torch.float32, device=theta0.device)
+    final = torch.empty((P, C), dtype=torch.float32, device=theta0.device)
+    accepts = torch.empty((2, C), dtype=torch.float32, device=theta0.device)
+    stream = torch.cuda.current_stream(theta0.device).cuda_stream
+    err = lib.resident_walk_dense_tempering_launch(
+        int(move == "mala"), theta0.data_ptr(), temps.data_ptr(), ctypes.byref(params), threads,
+        samples.data_ptr(), final.data_ptr(), accepts.data_ptr(), stream)
+    raise_on(err, lib.resident_walk_dense_error_string, f"{TEMPERING_KERNEL} launch failed")
+    launch_counts[TEMPERING_KERNEL] += 1
+    return samples, final, accepts
+
+
 def _check_chain_block(chain_block):
     if chain_block % 1024:
         raise ValueError(f"chain_block must be a multiple of 1024, got {chain_block}")
 
 
 def _make_resident_dense(model, x, y, num_iters, num_burnin_iters, chain_block, record_thin,
-                         move, value, tuner=None, consts=(), record_extras=False, device="cuda"):
-    """Shared scaffold of the dense MH and MALA makers: ``fn(seed, theta0s
-    [C, P])`` for ``move`` ("mh" with scale ``value``, "mala" with step
-    ``value``); ``fn.plain(seed, theta0s)`` runs the plain version on the
-    same tensors and also returns its info dict."""
-    _check_unported(consts)
+                         move, value, tuner=None, temperatures=None, between_step=None,
+                         record_extras=False, device="cuda"):
+    """Shared scaffold of the dense MH, MALA and tempering makers:
+    ``fn(seed, theta0s [C, P])`` for ``move`` ("mh" with scale ``value``,
+    "mala" with step ``value``); with a ladder's ``temperatures`` [L] (whole
+    ladders along the ``chain_block / 8`` lanes of a sublane row) and
+    ``between_step``, the tempering move with ``move`` within each rung,
+    returning counts [C, 2]. ``fn.plain(seed, theta0s)`` runs the plain
+    version on the same tensors and also returns its info dict."""
     _check_chain_block(chain_block)
     device = torch.device(device)
+    rungs = (None if temperatures is None
+             else ladder_rungs(temperatures, chain_block // SUBLANES))
+    if rungs is not None and tuner is not None:
+        raise ValueError("the tempering move has no tuner")
     P = model.num_params
     vg = dense_plain_vg(model, x, y, with_grad=move == "mala")
     params = walk_params(move, value, num_iters, num_burnin_iters, record_thin, record_extras,
                          chain_block, tuner=tuner, sublanes=SUBLANES)
+    if rungs is not None:
+        set_ladder(params, rungs, between_step, move, value)
+        rungs = torch.as_tensor(rungs, device=device)
     lib, shape = None, None
     if device.type == "cuda":
         lib = load_kernel(model, x, y)
-        shape = launch_shape(kernel_resources(lib, move),
-                             lambda t, b: max_active_clusters(lib, move, t, b), chain_block,
-                             grouped=tuner is not None)
+        if rungs is None:
+            shape = launch_shape(kernel_resources(lib, move),
+                                 lambda t, b: max_active_clusters(lib, move, t, b), chain_block,
+                                 grouped=tuner is not None)
+        else:
+            max_threads = kernel_resources(lib, f"tempering_{move}")["max_threads_per_block"]
+            shape = ladder_threads(max_threads, chain_block, len(rungs)), 1
     setup = _setup(params, chain_block, device)
+
+    def run_plain(pr, theta_t):
+        if rungs is None:
+            return _run_walk_plain(vg, (), pr, move, chain_block, theta_t)
+        samples, final, acc, info = _run_tempering_plain(vg, (), pr, move, rungs, theta_t)
+        return samples, final, acc.T, info
 
     def fn(seed, theta0s):
         pr, theta_t = setup(seed, theta0s)
         if lib is None:
-            samples, final, acc, _ = _run_walk_plain(vg, (), pr, move, chain_block, theta_t)
-        else:
+            samples, final, acc, _ = run_plain(pr, theta_t)
+        elif rungs is None:
             samples, final, acc = resident_walk_dense(lib, move, theta_t, pr, *shape)
+        else:
+            samples, final, acc = resident_walk_dense_tempering(lib, move, theta_t, rungs, pr,
+                                                                shape[0])
+            acc = acc.T
+        if rungs is not None:
+            last_info[TEMPERING_KERNEL] = {"accept_counts": acc}
         return unpack_outputs(samples, final, acc, P, record_extras)
 
     def plain(seed, theta0s):
         pr, theta_t = setup(seed, theta0s)
-        samples, final, acc, info = _run_walk_plain(vg, (), pr, move, chain_block, theta_t)
+        samples, final, acc, info = run_plain(pr, theta_t)
         return unpack_outputs(samples, final, acc, P, record_extras), info
 
     fn.plain = plain

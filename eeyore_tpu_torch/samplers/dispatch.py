@@ -34,6 +34,11 @@ or to 1 where the count is per Gibbs sub-block, ``info["accept_counts"]``
 an explicit ``record_keys`` containing ``target_val`` turns on the kernel's
 extras rows, which carry the value and an exact moved flag. Any other key
 forces the generic path.
+
+``resolve_tempering`` and ``run_tempering_backend`` do the same for
+``PowerPosteriorSampler.run``: an even/odd ladder with MALA or MH within
+the rungs runs on the tempering move of the walk kernels, a block of
+whole ladders in one launch.
 """
 
 import inspect
@@ -88,9 +93,16 @@ def _data_fingerprint(x, y):
             y.shape, str(y.dtype), hash(y.tobytes()))
 
 
+def _model_fingerprint(model):
+    """What a maker bakes in from the model besides its architecture: the
+    temperature and the prior's loc and scale, by value."""
+    return (_freeze(model.temperature), _freeze(model.prior.loc), _freeze(model.prior.scale))
+
+
 class _Plan:
     """``acc_kind``: "counts" when the kernel returns accepted-transition
-    counts [C], "per_block" when it returns them per Gibbs sub-block [C, B]."""
+    counts [C], "per_block" when it returns them per Gibbs sub-block [C, B]
+    (a tempering plan's counts [C, 2] go to the walk module's ``last_info``)."""
 
     def __init__(self, backend, maker, kwargs, chain_block, acc_kind="counts"):
         self.backend = backend
@@ -326,9 +338,11 @@ def run_kernel_backend(kernel, generator, theta0s, data, num_iters, num_burnin_i
     cache = getattr(kernel, "_backend_cache", None)
     if cache is None:
         cache = kernel._backend_cache = {}
-    # the maker copies the data and constants to the device: key on values
+    # the maker copies the data, the prior and the temperature to the device:
+    # key on their values
     cache_key = (plan.maker.__name__, str(theta0s.device), plan.chain_block,
-                 _data_fingerprint(x, y), _freeze(plan.kwargs))
+                 _data_fingerprint(x, y), _model_fingerprint(kernel.model),
+                 _freeze(plan.kwargs))
     if cache_key not in cache:
         cache[cache_key] = plan.maker(kernel.model, x, y, device=theta0s.device,
                                       **plan.kwargs)
@@ -365,3 +379,163 @@ def run_kernel_backend(kernel, generator, theta0s, data, num_iters, num_burnin_i
     kept = (num_iters - num_burnin_iters) // record_thin
     info = {"accept_counts": acc, "final": final, "kept": kept, "backend": plan.backend}
     return recorded, info
+
+
+# ----------------------------------------------------------------------
+# Tempering-ladder dispatch (PowerPosteriorSampler.run -> tempering kernels)
+# ----------------------------------------------------------------------
+
+def resolve_tempering(pp, data, num_iters, num_burnin_iters=0, record_thin=1, backend="auto",
+                      platform=None, record_keys=None):
+    """Dispatch decision for a power-posterior ladder run: the tempering
+    kernels (``ops/resident_tempering{,_dense}.py``) run even/odd-swap
+    parallel tempering with MALA or MH within the rungs, the reference's
+    ladder sampler pair (power_posterior_sampler.py:68-82). Categorical
+    swaps (the reference's default scheme) stay on the generic path: their
+    serial single-pair draws do not vectorize into adjacent exchanges.
+
+    Returns ``(plan_or_None, reason)``; explicit "resident" and "dense"
+    raise when ineligible. The plan runs the smallest dense block, else
+    resident block, that holds whole ladders."""
+    from eeyore_tpu_torch.ops.resident_walk import WALK_BLOCK
+    from eeyore_tpu_torch.ops.resident_walk_dense import SUBLANES
+
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "scan":
+        return None, "explicit backend='scan'"
+
+    def fail(reason):
+        if backend in ("resident", "dense"):
+            raise ValueError(f"backend={backend!r} requested but ineligible: {reason}")
+        return None, reason
+
+    record_extras = False
+    if record_keys is not None:
+        extra = set(record_keys) - KERNEL_RECORD_KEYS
+        if extra:
+            return fail(f"record_keys {sorted(extra)} not recordable by the tempering kernels")
+        record_extras = "target_val" in record_keys
+
+    schedule = as_schedule(data)
+    platform = platform or _platform(pp, schedule)
+    if platform != "cuda":
+        return fail(f"the kernel backend needs the model and data on a CUDA device "
+                    f"(they are on {platform})")
+    if schedule.num_batches != 1:
+        return fail("the kernel backend runs full-batch only")
+    if pp.swap_scheme != "even_odd":
+        return fail("the tempering kernels implement even/odd swaps; categorical stays generic")
+    if pp.sampler not in ("MALA", "MetropolisHastings"):
+        return fail(f"ladder sampler {pp.sampler!r} has no kernel")
+    extra = set(pp.sampler_kwargs) - {"step", "scale"}
+    if extra:
+        return fail(f"sampler_kwargs {sorted(extra)} not kernel-mappable")
+    x = schedule.x[0]
+    model = pp.model
+    try:
+        from eeyore_tpu_torch.ops.mlp_math import extract_arch
+        extract_arch(model)
+    except (ValueError, AttributeError) as err:
+        return fail(f"model not kernel-compatible: {err}")
+    if model.num_params > MAX_DISPATCH_PARAMS:
+        return fail(f"{model.num_params} params > MAX_DISPATCH_PARAMS={MAX_DISPATCH_PARAMS}")
+
+    L = int(pp.num_chains)
+    # a ladder swaps through the shared memory of one CUDA block, and every
+    # build of the walk kernels holds a block of WALK_BLOCK threads (the JAX
+    # package takes ladders as long as its blocks, up to 8192 chains)
+    if L > WALK_BLOCK:
+        return fail(f"a ladder of {L} rungs does not fit one CUDA block "
+                    f"(at most resident_walk.WALK_BLOCK={WALK_BLOCK} rungs)")
+    # the defaults of the generic path's inner samplers: MALA(step=0.1),
+    # MetropolisHastings -> NormalKernel(scale=1.0)
+    if pp.sampler == "MALA":
+        step = float(pp.sampler_kwargs.get("step", 0.1))
+    else:
+        step = float(pp.sampler_kwargs.get("scale", 1.0))
+    kw = dict(num_rungs=L, step=step, sampler=pp.sampler,
+              temperatures=pp.temperatures.cpu().numpy(), between_step=pp.between_step,
+              num_iters=num_iters, num_burnin_iters=num_burnin_iters, record_thin=record_thin,
+              record_extras=record_extras)
+
+    if backend == "dense" and x.shape[0] > MAX_DENSE_ROWS:
+        return fail(f"{x.shape[0]} data rows > MAX_DENSE_ROWS={MAX_DENSE_ROWS}")
+    if x.shape[0] <= MAX_DENSE_ROWS and backend in ("auto", "dense"):
+        # the dense layout lays ladders along the chain_block / 8 lanes
+        for cb in sorted(_DENSE_BLOCKS):
+            if (cb // SUBLANES) % L == 0:
+                from eeyore_tpu_torch.ops.resident_tempering_dense import (
+                    make_resident_tempering_dense,
+                )
+                return _Plan("dense", make_resident_tempering_dense, dict(chain_block=cb, **kw),
+                             cb), None
+    if backend in ("auto", "resident"):
+        for cb in sorted(_RESIDENT_BLOCKS):
+            if cb % L == 0:
+                from eeyore_tpu_torch.ops.resident_tempering import make_resident_tempering
+                return _Plan("resident", make_resident_tempering, dict(chain_block=cb, **kw),
+                             cb), None
+    return fail(f"no kernel block divisible by the {L}-rung ladder")
+
+
+def run_tempering_backend(pp, generator, theta0, data, num_iters, num_burnin_iters, plan,
+                          record_thin=1, all_ladders=False):
+    """Execute a resolved tempering plan for one ladder: the kernel runs
+    ``chain_block`` chains (chain_block / L ladders, which part through
+    their draws) and ladder 0's rungs come back, the coldest last, as
+    ``PowerPosteriorSampler.run`` lays them out. The kernel's seed is drawn
+    from ``generator``; ``theta0`` is [P] (every chain) or [L, P] (each
+    rung, tiled over the ladders).
+
+    ``all_ladders=True`` keeps every ladder the block computed: the
+    ``ChainLists`` holds ``chain_block`` chains ladder-major (ladder g's
+    rungs at chains [g L, (g + 1) L)), so cross-ladder diagnostics need no
+    extra runs.
+
+    Recorded keys: ``sample``, ``accepted`` (the kernel's moved flags with
+    extras; else derived, sample[t] != sample[t-1], with the first row 1)
+    and, with extras, ``target_val``, the tempered value (the kernel's
+    untempered value times the rung's temperature). The kernel's counts [C,
+    2] (within-rung and swap accepts) stay in the walk module's
+    ``last_info``."""
+    from eeyore_tpu_torch.chains import ChainLists
+
+    schedule = as_schedule(data)
+    x, y = schedule.x[0].cpu().numpy(), schedule.y[0].cpu().numpy()
+    theta0 = torch.as_tensor(theta0)
+    L = int(pp.num_chains)
+    cb = plan.chain_block
+    keep = cb if all_ladders else L
+
+    cache = getattr(pp, "_backend_cache", None)
+    if cache is None:
+        cache = pp._backend_cache = {}
+    cache_key = (plan.maker.__name__, str(theta0.device), cb, _data_fingerprint(x, y),
+                 _model_fingerprint(pp.model), _freeze(plan.kwargs))
+    if cache_key not in cache:
+        cache[cache_key] = plan.maker(pp.model, x, y, device=theta0.device, **plan.kwargs)
+    fn = cache[cache_key]
+
+    theta0 = theta0.to(torch.float32)
+    if theta0.dim() != 1 and theta0.shape[0] != L:
+        raise ValueError(f"theta0 must be [P] or [{L}, P] (one per rung), got "
+                         f"{tuple(theta0.shape)}")
+    if theta0.dim() == 1:
+        theta0s = theta0.expand(cb, -1).contiguous()
+    else:  # [L, P] per-rung inits, tiled across the block's ladders
+        theta0s = theta0.repeat(cb // L, 1)
+    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device if generator is not None else "cpu"))
+    out = fn(seed, theta0s)
+    ladders = out[0][:, :keep].transpose(0, 1).contiguous()  # [keep, kept, P]
+    arrays = {"sample": ladders}
+    if plan.kwargs.get("record_extras", False):
+        temps = pp.temperatures.to(dtype=torch.float32, device=ladders.device).repeat(keep // L)
+        arrays["accepted"] = out[4][:, :keep].T.contiguous()
+        arrays["target_val"] = out[3][:, :keep].T * temps[:, None]
+    else:
+        moved = torch.any(ladders[:, 1:] != ladders[:, :-1], dim=-1)
+        first = torch.ones((keep, 1), dtype=moved.dtype, device=moved.device)
+        arrays["accepted"] = torch.cat([first, moved], dim=1).to(torch.int32)
+    return ChainLists.from_arrays(arrays)

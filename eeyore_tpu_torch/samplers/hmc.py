@@ -107,7 +107,8 @@ class HMC(TransitionKernel):
     def init(self, thetas, x, y, generator=None):
         """State of every chain at ``thetas [C, P]``. A tuner without ``e0``
         starts each chain at its ``find_initial_step``, with momenta from
-        ``generator``."""
+        ``generator``, when one is given, and at ``step`` otherwise (as the
+        JAX package's init without a key)."""
         thetas = torch.as_tensor(thetas)
         target, grad = self.upto_grad_log_target(thetas, x, y)
         like = thetas[:, 0]
@@ -117,7 +118,7 @@ class HMC(TransitionKernel):
         if self.tuner is not None:
             if self.tuner.e0 is not None:
                 step = _per_chain(self.tuner.e0, like)
-            else:
+            elif generator is not None:
                 sched = getattr(self, "init_schedule", None)
                 if sched is not None and sched.num_batches == 1:
                     sched = None

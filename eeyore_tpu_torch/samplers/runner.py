@@ -24,12 +24,27 @@ def _check_thin(num_iters, num_burnin_iters, record_thin):
             "post-burn-in iterations")
 
 
+def _generator_or_default(generator, device):
+    """``generator``, or when it is None the global generator of ``device``,
+    the one that ``torch.randn(..., generator=None)`` draws from."""
+    if generator is not None:
+        return generator
+    device = torch.device(device)
+    if device.type == "cuda":
+        index = torch.cuda.current_device() if device.index is None else device.index
+        return torch.cuda.default_generators[index]
+    return torch.default_generator
+
+
 def _run_generic(kernel, generator, theta0s, schedule, num_iters, num_burnin_iters,
                  record_keys, record_thin):
     """Python loop over iterations; returns (final_state, {key: [C, kept, ...]})."""
     kernel.init_schedule = schedule
     xb, yb = schedule.batch(0)
-    state = kernel.init(theta0s, xb, yb, generator=generator)
+    # the generic path always hands init a generator, as the JAX runner hands
+    # it a key; only the kernel path's final state is made without one
+    state = kernel.init(theta0s, xb, yb,
+                        generator=_generator_or_default(generator, theta0s.device))
     rows = {k: [] for k in record_keys}
     for i in range(num_iters):
         xb, yb = schedule.batch(i)

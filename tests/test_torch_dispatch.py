@@ -1,5 +1,7 @@
-"""Port, kernel-backend dispatch: the HMC, MH, MALA and Gibbs cases of
-tests/test_dispatch.py rewritten for the port. Plans are made for platform="cuda" on the CPU, as
+"""Port, kernel-backend dispatch: the HMC, MH, MALA, Gibbs and tempering
+cases of tests/test_dispatch.py rewritten for the port, and the port's
+faults of kernel eligibility, the step heuristic and the kernel cache, each
+with its test. Plans are made for platform="cuda" on the CPU, as
 the JAX tests plan for "tpu"; a plan run on CPU tensors goes through the
 kernel's plain version, so ``sample_chains(backend="resident")`` is tested
 here end to end into ``ChainLists`` (the CUDA kernel itself is held against
@@ -10,7 +12,7 @@ import pytest
 import torch
 
 from eeyore_tpu_torch.datasets import BatchSchedule, XYDataset
-from eeyore_tpu_torch.models import MLP, loss_functions, mlp
+from eeyore_tpu_torch.models import MLP, IIDNormalPrior, loss_functions, mlp
 from eeyore_tpu_torch.kernels import MultivariateNormalKernel, NormalKernel
 from eeyore_tpu_torch.ops import resident_hmc, resident_hmc_dense, resident_walk
 from eeyore_tpu_torch.ops import resident_walk_dense
@@ -19,12 +21,13 @@ from eeyore_tpu_torch.samplers import (
     MALA,
     Gibbs,
     MetropolisHastings,
+    PowerPosteriorSampler,
     TransitionKernel,
     sample_chain,
     sample_chains,
 )
 from eeyore_tpu_torch.samplers import dispatch
-from eeyore_tpu_torch.samplers.dispatch import resolve_backend
+from eeyore_tpu_torch.samplers.dispatch import resolve_backend, resolve_tempering
 from eeyore_tpu_torch.tuners import HMCDATuner
 
 XOR = (np.array([[0., 0.], [0., 1.], [1., 0.], [1., 1.]]), np.array([[0.], [1.], [1.], [0.]]))
@@ -459,3 +462,216 @@ def test_gibbs_record_key_contract():
                                                             for a in XOR))
     torch.testing.assert_close(chains.tensor("target_val").reshape(-1), vals, rtol=1e-5,
                                atol=1e-5)
+
+
+# ---- faults of the kernel path, each fixed with its test ----
+
+
+def tanh_mlp():
+    return MLP(loss=loss_functions["binary_classification"], dtype=torch.float32, device="cpu",
+               hparams=mlp.Hyperparameters(dims=[2, 2, 1], activations=[torch.tanh, mlp.sigmoid]))
+
+
+def test_non_sigmoid_hidden_units_and_other_priors_are_not_kernel_compatible():
+    """The kernels compute the sigmoid network under an IID Normal prior: a
+    tanh MLP (or another prior) goes generic under ``auto`` and raises when a
+    kernel is asked for, on every entry point."""
+    from eeyore_tpu_torch.ops import make_fused_log_target_vg
+    from eeyore_tpu_torch.samplers.dispatch import resolve_tempering
+
+    plan, reason = resolve_backend(HMC(tanh_mlp(), step=0.05), XOR, 8192, 256, platform="cuda")
+    assert plan is None and "sigmoid" in reason
+    with pytest.raises(ValueError, match="sigmoid"):
+        resolve_backend(MALA(tanh_mlp(), step=0.05), XOR, 8192, 256, platform="cuda",
+                        backend="resident")
+    with pytest.raises(ValueError, match="sigmoid"):
+        make_fused_log_target_vg(tanh_mlp(), *XOR, device="cpu")
+    pp = PowerPosteriorSampler(tanh_mlp(), num_chains=4, swap_scheme="even_odd")
+    plan, reason = resolve_tempering(pp, XOR, 64, 16, platform="cuda")
+    assert plan is None and "sigmoid" in reason
+    with pytest.raises(ValueError, match="sigmoid"):
+        resolve_tempering(pp, XOR, 64, 16, platform="cuda", backend="dense")
+
+    class StudentPrior:
+        loc, scale = torch.zeros(9), torch.ones(9)
+
+        def log_prob(self, theta):
+            return -torch.log1p(theta * theta)
+
+    model = xor_model()
+    model.prior = StudentPrior()
+    plan, reason = resolve_backend(HMC(model, step=0.05), XOR, 8192, 256, platform="cuda")
+    assert plan is None and "IIDNormalPrior" in reason
+    torch_sigmoid = MLP(loss=loss_functions["binary_classification"], dtype=torch.float32,
+                        device="cpu", hparams=mlp.Hyperparameters(
+                            dims=[2, 2, 1], activations=[torch.sigmoid, torch.sigmoid]))
+    plan, _ = resolve_backend(HMC(torch_sigmoid, step=0.05), XOR, 8192, 256, platform="cuda")
+    assert plan is not None
+
+
+def test_kernel_path_state_of_a_tuner_without_e0_starts_at_step0():
+    """As JAX's init without a key: the final state that ``return_state``
+    builds after a kernel run runs no step heuristic, so it starts at
+    ``step`` and leaves the global generator alone."""
+    kernel = HMC(xor_model(), step=0.07, num_steps=4, tuner=HMCDATuner(l=0.3))
+    theta0s = 0.1 * torch.randn(1024, 9, generator=torch.Generator().manual_seed(1))
+    before = torch.get_rng_state()
+    _, state = sample_chains(kernel, torch.Generator().manual_seed(2), theta0s, XOR, 12, 6,
+                             return_state=True, backend="auto", platform="cuda")
+    assert torch.equal(torch.get_rng_state(), before)
+    assert bool((state.step == 0.07).all())
+    assert bool((state.num_steps == kernel.tuner.num_steps(state.step)).all())
+    # the generic path hands init a generator (the global one when None), as
+    # the JAX runner hands it a key, and runs the heuristic
+    generic = HMC(xor_model(), step=0.07, num_steps=4, tuner=HMCDATuner(l=0.3))
+    torch.manual_seed(5)
+    _, state = sample_chains(generic, None, theta0s[:4], XOR, 4, 3, return_state=True,
+                             backend="scan")
+    assert not torch.equal(torch.get_rng_state(), before)
+
+
+def test_kernel_cache_keys_on_the_prior_and_the_temperature():
+    """A maker bakes in the prior and the temperature, so a change of either
+    between two calls builds a new function, whose values differ."""
+    kernel = MALA(xor_model(), step=0.1)
+    theta0s = 0.1 * torch.randn(1024, 9, generator=torch.Generator().manual_seed(1))
+    keys = ("sample", "target_val", "accepted")
+
+    def run():
+        return sample_chains(kernel, torch.Generator().manual_seed(3), theta0s, XOR, 8, 2,
+                             record_keys=keys, backend="auto", platform="cuda")
+
+    first = run().tensor("target_val")
+    assert torch.equal(run().tensor("target_val"), first) and len(kernel._backend_cache) == 1
+    kernel.model.prior = IIDNormalPrior.isotropic(9, 3.0, dtype=torch.float32, device="cpu")
+    second = run().tensor("target_val")
+    assert len(kernel._backend_cache) == 2 and not torch.equal(second, first)
+    kernel.model.temperature = 0.5
+    third = run().tensor("target_val")
+    assert len(kernel._backend_cache) == 3 and not torch.equal(third, second)
+
+
+# ---- tempering ladders (tests/test_dispatch.py:275-330) ----
+
+
+def test_even_odd_ladder_resolves_dense_on_xor():
+    pp = PowerPosteriorSampler(xor_model(), num_chains=8, sampler="MALA",
+                               sampler_kwargs={"step": 0.05}, between_step=5,
+                               swap_scheme="even_odd")
+    plan, reason = resolve_tempering(pp, XOR, 256, 64, platform="cuda")
+    assert plan is not None, reason
+    assert plan.backend == "dense" and plan.maker.__name__ == "make_resident_tempering_dense"
+    assert plan.chain_block == 1024
+    assert plan.kwargs["num_rungs"] == 8 and plan.kwargs["between_step"] == 5
+    assert plan.kwargs["step"] == 0.05 and plan.kwargs["num_burnin_iters"] == 64
+    plan, _ = resolve_tempering(pp, XOR, 256, 64, platform="cuda", backend="resident")
+    assert plan.backend == "resident" and plan.chain_block == 128
+    iris_pp = PowerPosteriorSampler(iris_model(), num_chains=8, swap_scheme="even_odd")
+    plan, _ = resolve_tempering(iris_pp, iris_data(), 256, 64, platform="cuda")
+    assert plan.backend == "resident" and plan.maker.__name__ == "make_resident_tempering"
+    with pytest.raises(ValueError, match="MAX_DENSE_ROWS"):
+        resolve_tempering(iris_pp, iris_data(), 256, 64, platform="cuda", backend="dense")
+
+
+def test_categorical_and_cpu_ladders_stay_generic():
+    cat = PowerPosteriorSampler(xor_model(), num_chains=8, sampler="MALA",
+                                swap_scheme="categorical")
+    plan, reason = resolve_tempering(cat, XOR, 256, 64, platform="cuda")
+    assert plan is None and "categorical" in reason
+    eo = PowerPosteriorSampler(xor_model(), num_chains=8, sampler="MALA", swap_scheme="even_odd")
+    plan, reason = resolve_tempering(eo, XOR, 256, 64)
+    assert plan is None and "CUDA" in reason
+    plan, reason = resolve_tempering(eo, XOR, 256, 64, backend="scan")
+    assert plan is None and "scan" in reason
+    plan, reason = resolve_tempering(eo, XOR, 256, 64, platform="cuda",
+                                     record_keys=("sample", "grad_val"))
+    assert plan is None and "grad_val" in reason
+    kw = PowerPosteriorSampler(xor_model(), num_chains=8, sampler="MetropolisHastings",
+                               sampler_kwargs={"kernel": None}, swap_scheme="even_odd")
+    plan, reason = resolve_tempering(kw, XOR, 256, 64, platform="cuda")
+    assert plan is None and "kernel-mappable" in reason
+
+
+def test_default_step_and_scale_match_the_inner_samplers():
+    mala = PowerPosteriorSampler(xor_model(), num_chains=8, sampler="MALA",
+                                 swap_scheme="even_odd")
+    plan, _ = resolve_tempering(mala, XOR, 256, 64, platform="cuda")
+    assert plan.kwargs["step"] == 0.1 and plan.kwargs["sampler"] == "MALA"
+    mh = PowerPosteriorSampler(xor_model(), num_chains=8, sampler="MetropolisHastings",
+                               swap_scheme="even_odd")
+    plan, _ = resolve_tempering(mh, XOR, 256, 64, platform="cuda")
+    assert plan.kwargs["step"] == 1.0
+    np.testing.assert_array_equal(plan.kwargs["temperatures"], mh.temperatures.numpy())
+
+
+@pytest.mark.parametrize("L,block,reason", [(4, 1024, None), (256, 2048, None),
+                                            (3, None, "divisible"),
+                                            (512, None, "WALK_BLOCK")])
+def test_ladders_that_no_block_holds_get_a_reason(L, block, reason):
+    pp = PowerPosteriorSampler(xor_model(), num_chains=L, swap_scheme="even_odd")
+    plan, why = resolve_tempering(pp, XOR, 256, 64, platform="cuda")
+    if reason is None:
+        assert plan.chain_block == block and (block // 8) % L == 0
+    else:
+        assert plan is None and reason in why
+        with pytest.raises(ValueError, match=reason):
+            resolve_tempering(pp, XOR, 256, 64, platform="cuda", backend="resident")
+
+
+def test_run_auto_equals_scan_off_the_card():
+    pp = PowerPosteriorSampler(xor_model(), num_chains=4, sampler="MALA",
+                               sampler_kwargs={"step": 0.05}, swap_scheme="even_odd")
+    a = pp.run(torch.Generator().manual_seed(0), 0.1 * torch.ones(9), XOR, 60, 20)
+    b = pp.run(torch.Generator().manual_seed(0), 0.1 * torch.ones(9), XOR, 60, 20,
+               backend="scan")
+    assert torch.equal(a.get_chain(3, key="sample"), b.get_chain(3, key="sample"))
+    assert a.num_chains() == 4
+
+
+@pytest.mark.parametrize("data,module,sampler,backend", [
+    ("xor", resident_walk_dense, "MALA", "auto"),
+    ("iris", resident_walk, "MetropolisHastings", "resident")])
+def test_ladder_slice_runs_the_plain_kernels_into_chainlists(data, module, sampler, backend):
+    """``run(backend=..., platform="cuda")`` on CPU tensors: the dense plan
+    for XOR under ``auto``, the resident one for iris, their plain versions, tempered
+    ``target_val`` (the kernel's value times the rung's temperature), exact
+    moved flags, the counts [C, 2] in the module's ``last_info``, and with
+    ``all_ladders`` every ladder of the block, ladder-major; no launch."""
+    model = xor_model() if data == "xor" else iris_model()
+    xy = XOR if data == "xor" else iris_data()
+    kw = {"step": 0.05} if sampler == "MALA" else {"scale": 0.05}
+    pp = PowerPosteriorSampler(model, num_chains=8, sampler=sampler, sampler_kwargs=kw,
+                               between_step=4, swap_scheme="even_odd")
+    iters, burnin = 24, 8
+    keys = ("sample", "target_val", "accepted")
+    theta0 = 0.1 * torch.randn(8, model.num_params, generator=torch.Generator().manual_seed(5))
+    before = dict(module.launch_counts)
+    one = pp.run(torch.Generator().manual_seed(6), theta0, xy, iters, burnin, record_keys=keys,
+                 backend=backend, platform="cuda")
+    every = pp.run(torch.Generator().manual_seed(6), theta0, xy, iters, burnin, record_keys=keys,
+                   backend=backend, platform="cuda", all_ladders=True)
+    assert module.launch_counts == before
+    cb = 1024 if data == "xor" else 128
+    assert one.num_chains() == 8 and every.num_chains() == cb
+    samples = every.get_samples()
+    assert samples.shape == (cb, iters - burnin, model.num_params)
+    assert torch.equal(one.get_samples(), samples[:8])
+    tx, ty = (torch.as_tensor(a, dtype=torch.float32) for a in xy)
+    base = model.log_target(samples.reshape(-1, model.num_params), tx, ty).reshape(cb, -1)
+    temps = pp.temperatures.float().repeat(cb // 8)
+    torch.testing.assert_close(every.tensor("target_val"), base * temps[:, None], rtol=1e-4,
+                               atol=1e-3)
+    flags = every.tensor("accepted")
+    assert flags.dtype == torch.int32
+    assert torch.equal(flags[:, 1:].bool(), torch.any(samples[:, 1:] != samples[:, :-1], dim=-1))
+    counts = module.last_info[module.TEMPERING_KERNEL]["accept_counts"]
+    assert counts.shape == (cb, 2) and 0 < counts[:, 1].sum()
+    assert every.get_chain(pp.default_indicator()).shape == (iters - burnin, model.num_params)
+    # the derived flags without extras: moved against the previous row, the first row 1
+    derived = pp.run(torch.Generator().manual_seed(6), theta0, xy, iters, burnin,
+                     platform="cuda")
+    assert set(derived.keys()) == {"sample", "accepted"}
+    assert bool((derived.tensor("accepted")[:, 0] == 1).all())
+    with pytest.raises(ValueError, match="theta0"):
+        pp.run(torch.Generator().manual_seed(6), theta0[:6], xy, iters, burnin,
+               platform="cuda")

@@ -6,8 +6,8 @@ and what the CUDA kernels are held against on the card by
 draws (``kernel_prng.walk_draws``), with exact extras (float32: 1e-5
 relative, 2e-4 absolute on iris values of about 1e2, as the HMC tests); the
 dense walk tuner equals ``HMCDATuner`` fed the mean rate of each
-sublane-strided group; thinning, the makers with tuners and the scaffold's
-unported arguments are checked."""
+sublane-strided group; thinning, the makers with tuners and the scaffolds'
+argument checks are tested."""
 
 import numpy as np
 import pytest
@@ -21,7 +21,7 @@ from eeyore_tpu_torch.ops.resident_walk_dense import (
     make_resident_mala_dense,
     make_resident_mh_dense,
 )
-from eeyore_tpu_torch.samplers import MALA, MetropolisHastings
+from eeyore_tpu_torch.samplers import MALA, MetropolisHastings, default_temperatures
 from eeyore_tpu_torch.tuners import HMCDATuner
 
 XOR_X = np.array([[0., 0.], [0., 1.], [1., 0.], [1., 1.]])
@@ -169,9 +169,10 @@ def test_record_thin_and_extras():
 
 def test_makers_and_unported_arguments():
     """Mirrors the dense walk cases of tests/test_ops.py:173-188 for MH and
-    MALA; tempering constants wait for their kernels (the blocked Gibbs move
-    has its own makers, tests/test_torch_resident_gibbs.py); TPU schedule
-    settings raise."""
+    MALA; the scaffolds take a ladder's temperatures only as a 1-D array
+    whose size divides the lanes that hold the ladders (the makers are in
+    tests/test_torch_resident_tempering.py, the blocked Gibbs move's in
+    tests/test_torch_resident_gibbs.py); TPU schedule settings raise."""
     model, x, y = problem("xor")
     make_resident_mh_dense(model, x, y, scale=0.5, num_iters=64, tuner=HMCDATuner(d=0.234),
                            device="cpu")
@@ -179,12 +180,14 @@ def test_makers_and_unported_arguments():
                              device="cpu")
     with pytest.raises(ValueError, match="1024"):
         make_resident_mh_dense(model, x, y, 0.5, 64, chain_block=512, device="cpu")
-    with pytest.raises(ValueError, match="tempering"):
+    with pytest.raises(ValueError, match="1-D"):
         resident_walk._make_resident(model, x, y, 10, 0, 128, 1, "mh", 0.1,
-                                     consts=(np.zeros(128),), device="cpu")
-    with pytest.raises(ValueError, match="tempering"):
+                                     temperatures=np.ones((2, 4)), between_step=2, device="cpu")
+    # 1024 / 8 = 128 lanes of a sublane row do not hold whole ladders of 3 rungs
+    with pytest.raises(ValueError, match="multiple of the ladder size 3"):
         resident_walk_dense._make_resident_dense(model, x, y, 10, 0, 1024, 1, "mala", 0.1,
-                                                 consts=(np.zeros(128),), device="cpu")
+                                                 temperatures=default_temperatures(3),
+                                                 between_step=2, device="cpu")
     with pytest.raises(ValueError, match="TPU schedule"):
         make_resident_mh(model, x, y, 0.1, 10, stream=True, device="cpu")
     with pytest.raises(ValueError, match="move"):
