@@ -11,11 +11,15 @@ kernels are built for sm_90a). Phases, one JSON line each:
    ``resident_hmc_dense`` for XOR MLP(2,2,1); ``resident_walk`` (MH and MALA)
    for iris MLP(4,3,3) and (its Gibbs move) iris MLP(4,3,2,3);
    ``resident_walk_dense`` for XOR MLP(2,2,1) and MLP(2,3,2,1), and for
-   MLP(2,3,2,1) with one-coordinate Gibbs sub-blocks. It reports each build's
+   MLP(2,3,2,1) with one-coordinate Gibbs sub-blocks; ``resident_smc`` for
+   XOR MLP(2,2,1) BCE and iris MLP(4,3,3) CE; ``resident_smc_closure`` for
+   the 2-d mixture of benchmarks/validate_smc_hard.py, its body generated
+   from the closure (``ops/closure_trace.py``). It reports each build's
    registers and local-memory (spill) bytes per thread, the Gibbs and
    tempering moves' too (iris MLP(4,3,3) MH and MALA on ``resident_walk``,
-   XOR MLP(2,2,1) MH and MALA on ``resident_walk_dense``), and the
-   thread-block cluster a population-tuned dense run takes.
+   XOR MLP(2,2,1) MH and MALA on ``resident_walk_dense``), the SMC mutation
+   kernels' MH and MALA, and the thread-block cluster a population-tuned
+   dense run takes.
 2. kernel vs plain: calls ``fused_mlp_vg``'s wrapper on the card at C =
    32768 and 131072 seeded random chains (the main paths' chain counts) and
    holds it against the plain PyTorch ``make_vg`` on the same inputs (rtol
@@ -50,7 +54,15 @@ kernels are built for sm_90a). Phases, one JSON line each:
    held statistically instead (pooled means within 5 pooled standard
    errors, acceptance within 0.01). The HMC kernels' evaluation counters
    must equal the plain versions' counts. Each kernel's time is the median
-   of three launches after a warm-up (all three reported).
+   of three launches after a warm-up (all three reported). Then
+   ``resident_smc``, the SMC mutation pass, on 16384 particles drawn from
+   the prior, 5 steps at beta 0.3 and 1.0: XOR MALA step 0.05, iris MALA
+   step 0.003, iris MH step 0.01, at the chain blocks dispatch gives them;
+   and ``resident_smc_closure`` on 16384 draws from the mixture's base, MALA
+   and MH step 0.05, against its plain version (the closure by batched
+   autograd); a particle agrees when its final theta, pot and accept count
+   do, at least 99% must, and the kernel's pot must be the split
+   log-likelihood of its own final particles (rtol 1e-4, atol 1e-3).
 4. main path, iris, FusedHMC: tuned ``FusedHMC`` on config 3 (32768 chains,
    1500 iterations, 500 burn-in). Checks finite samples, post-burn-in
    acceptance in 0.65 +- 0.15, and pooled posterior means within 5 pooled
@@ -108,7 +120,28 @@ kernels are built for sm_90a). Phases, one JSON line each:
     then each maker is called directly at 32768 chains (4096 ladders) x 2048
     iterations and its kernel timed beside its bound (the median of three
     launches after a warm-up, as phase 12's Gibbs kernels).
-14. kernels: each kernel's launches on the main paths, its error against its
+14. main paths, SMC, SMCSampler.run(backend="auto"), each over SMC_SEEDS
+    seeds beside the generic path (``backend="scan"``) over as many:
+    BASELINE.md config 5, the SMC half (XOR MLP(2,2,1), 16384 particles,
+    betas (i/20)^4, MALA step 0.05, 5 steps; exactly 20 launches of
+    ``resident_smc`` a run); XOR adaptive (MALA step 0.1; the last beta 1,
+    the betas rising, log-evidence within 0.1 of config 5's); iris
+    MLP(4,3,3) with config 5's ladder and sizes, MALA step 0.003 and MH step
+    0.01 (its generic runs on 4096 particles); the 2-d mixture of
+    benchmarks/validate_smc_hard.py, a DistributionModel with a base (16384
+    particles, adaptive, MALA 0.05, 5 steps, 60 stages at most; exactly one
+    launch of ``resident_smc_closure`` a stage, log-evidence within 0.1 of
+    0, the weighted share of theta_0 > 0 within 0.05 of 0.5). Config 5 and
+    the two iris paths run beside the generic path: weighted posterior means
+    agree within 5 standard errors of the difference of the two paths' seed
+    means (from the spread over seeds: the weights' ESS does not count what
+    resampling shares between particles, and two generic iris runs part by
+    hundreds of such ESS errors), log-evidence within 0.1 nats or, where the
+    generic path's spread over seeds is larger, 5 times that spread while
+    that is at most 0.5 nats; above that the difference is a reading, not a
+    check. Each reports its wall time, particle-stage-mutations/s, mutation
+    acceptance, resamples and the device's busy share of the wall.
+15. kernels: each kernel's launches on the main paths, its error against its
     plain version, its time, the plain version's time and its bound.
 
 Then the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -152,6 +185,12 @@ TEMPERING_REPLACES = ("eeyore_tpu/ops/resident_tempering.py:178 (the tempering m
                       "resident_walk.py:166)")
 TEMPERING_DENSE_REPLACES = ("eeyore_tpu/ops/resident_tempering_dense.py:150 (the tempering "
                             "move of resident_walk_dense.py:125)")
+SMC_SOURCE = "eeyore_tpu_torch/ops/csrc/resident_smc.cu"
+SMC_REPLACES = "eeyore_tpu/ops/resident_smc.py:329"
+SMC_CLOSURE_SOURCE = "eeyore_tpu_torch/ops/csrc/resident_smc_closure.cu"
+SMC_CLOSURE_REPLACES = "eeyore_tpu/ops/resident_smc.py:315"
+# the SMC main paths: particles, mutation steps, seeds a path
+SMC_PARTICLES, SMC_STEPS, SMC_SEEDS = 16384, 5, 16
 # the ladders of the tempering phases: rungs, swap period of the kernel checks
 # and of the main paths
 LADDER_RUNGS, CHECK_BETWEEN, MAIN_BETWEEN = 8, 5, 10
@@ -394,6 +433,25 @@ def tempering_work(P, C, num_iters, kept, extras, mala, eval_work, data_floats, 
     return n_bytes + 4 * (num_rungs + C), ops, sfu + lower
 
 
+def smc_work(P, N, num_steps, mala, eval_work, data_floats):
+    """(bytes, operations, special-function operations) that the SMC
+    mutation kernel needs: N * (1 + num_steps) split evaluations of
+    ``eval_work`` each (value and combined gradient for MALA, value only for
+    MH) and the target lp + beta ll (2 operations), per step ceil(P/2) + 1
+    Threefry calls, ceil(P/2) Box-Muller pairs, the proposal and the accept
+    as ``walk_work`` counts them; bytes: theta read once, ``data_floats`` of
+    data read once, the final theta, pot and accept counts written once."""
+    ev_ops, ev_sfu = eval_work
+    pairs = (P + 1) // 2
+    move_ops = 11 * P + 5 if mala else 2 * P + 1
+    per_step_ops = (pairs + 1) * THREEFRY_OPS + pairs * BOX_MULLER_OPS + move_ops + 1
+    evaluations = N * (1 + num_steps)
+    ops = evaluations * (ev_ops + 2) + N * num_steps * per_step_ops
+    sfu = evaluations * ev_sfu + N * num_steps * (pairs * BOX_MULLER_SFU + 1)
+    n_bytes = 4 * (P * N + data_floats + P * N + 2 * N)
+    return n_bytes, ops, sfu
+
+
 def bound_ms(work, sm_count):
     n_bytes, ops, sfu = work
     times = {"bytes": n_bytes / HBM_BYTES_PER_S, "ops": ops / F32_OPS_PER_S,
@@ -438,11 +496,12 @@ def main(argv=None):
 
     from eeyore_tpu_torch.chains import ChainList, ChainLists
     from eeyore_tpu_torch.datasets import XYDataset
-    from eeyore_tpu_torch.models import MLP, IIDNormalPrior, loss_functions, mlp
+    from eeyore_tpu_torch.models import MLP, DistributionModel, IIDNormalPrior, loss_functions, mlp
     from eeyore_tpu_torch.ops import (
         fused_mlp,
         resident_hmc,
         resident_hmc_dense,
+        resident_smc,
         resident_walk,
         resident_walk_dense,
     )
@@ -458,10 +517,11 @@ def main(argv=None):
         Gibbs,
         MetropolisHastings,
         PowerPosteriorSampler,
+        SMCSampler,
         sample_chains,
         sample_population,
     )
-    from eeyore_tpu_torch.samplers.dispatch import resolve_backend, resolve_tempering
+    from eeyore_tpu_torch.samplers.dispatch import resolve_backend, resolve_smc, resolve_tempering
     from eeyore_tpu_torch.tuners import HMCDATuner
 
     device = torch.device("cuda")
@@ -492,10 +552,27 @@ def main(argv=None):
              ("xor_mlp221_bce", xor_model, xor.x, xor.y, 1e-4),
              ("mlp3421_nobias_prior_temp", deep_model, deep_x, deep_y, 1e-4)]
     resident_cases = [("iris_mlp433_ce", iris_model), ("xor_mlp221_bce", xor_model)]
+    empty = (np.zeros((1, 0)), np.zeros((1, 0)))
+    mix_mu, mix_s, mix_base = 3.0, 0.25, 3.0  # benchmarks/validate_smc_hard.py:177-201
+
+    def mixture_log_pdf(t, x, y):
+        """Equal-weight normalized 2-d mixture of N((+-mu, 0), s^2 I)."""
+        c = -math.log(2 * math.pi * mix_s ** 2) - math.log(2.0)
+        centre = torch.tensor([mix_mu, 0.0], dtype=t.dtype, device=t.device)
+        d1, d2 = ((t - centre) ** 2).sum(-1), ((t + centre) ** 2).sum(-1)
+        return torch.logaddexp(c - 0.5 * d1 / mix_s ** 2, c - 0.5 * d2 / mix_s ** 2)
+
+    def mixture_base(t):
+        return -math.log(2 * math.pi * mix_base ** 2) - 0.5 * (t * t).sum(-1) / mix_base ** 2
+
+    def mixture_init(g, n):
+        return mix_base * torch.randn((n, 2), generator=g, device=g.device)
+
+    mixture = DistributionModel(mixture_log_pdf, 2, dtype=torch.float32, device=device)
 
     # 1. build, every library at once
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(cases) + 8) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(cases) + 11) as pool:
         futures = [pool.submit(fused_mlp.load_kernel, model) for _, model, _, _, _ in cases]
         resident_futures = [pool.submit(resident_hmc.load_kernel, model)
                             for _, model in resident_cases]
@@ -508,6 +585,12 @@ def main(argv=None):
                                                 xor.y)
                               for name, model in (("xor_mlp221_bce", xor_model),
                                                   ("xor_mlp2321_bce", xor2321_model))}
+        smc_futures = {name: pool.submit(resident_smc.load_kernel, model)
+                       for name, model in (("xor_mlp221_bce", xor_model),
+                                           ("iris_mlp433_ce", iris_model))}
+        smc_futures["mixture_2d"] = pool.submit(
+            lambda: resident_smc.load_closure_kernel(resident_smc.closure_programs(
+                mixture, *empty, mixture_base, device)))
         libs = [f.result() for f in futures]
         resident_libs = [f.result() for f in resident_futures]
         dense_lib = dense_future.result()
@@ -515,6 +598,7 @@ def main(argv=None):
         gibbs_lib = gibbs_future.result()
         gibbs_sub_lib = gibbs_sub_future.result()
         walk_dense_libs = {name: f.result() for name, f in walk_dense_futures.items()}
+        smc_libs = {name: f.result() for name, f in smc_futures.items()}
     build_seconds = time.perf_counter() - start
     dense_groups = {}
     for cb in (8192, 4096, 2048, 1024):
@@ -551,9 +635,11 @@ def main(argv=None):
           "kernels": [fused_mlp.KERNEL, resident_hmc.KERNEL, resident_hmc_dense.KERNEL,
                       resident_walk.KERNEL, resident_walk_dense.KERNEL, resident_walk.GIBBS_KERNEL,
                       resident_walk_dense.GIBBS_KERNEL, resident_walk.TEMPERING_KERNEL,
-                      resident_walk_dense.TEMPERING_KERNEL],
+                      resident_walk_dense.TEMPERING_KERNEL, resident_smc.KERNEL,
+                      resident_smc.CLOSURE_KERNEL],
           "sources": [FUSED_SOURCE, RESIDENT_SOURCE, DENSE_SOURCE, WALK_SOURCE,
-                      WALK_DENSE_SOURCE], "seconds": build_seconds,
+                      WALK_DENSE_SOURCE, SMC_SOURCE, SMC_CLOSURE_SOURCE],
+          "seconds": build_seconds,
           "resources": {fused_mlp.KERNEL: {name: fused_mlp.kernel_resources(lib)
                                            for (name, *_), lib in zip(cases, libs)},
                         resident_hmc.KERNEL: {name: resident_hmc.kernel_resources(lib)
@@ -566,7 +652,15 @@ def main(argv=None):
                             for move in ("mh", "mala")},
                         resident_walk_dense.KERNEL: walk_dense_resources,
                         "gibbs_moves": gibbs_resources,
-                        "tempering_moves": tempering_resources},
+                        "tempering_moves": tempering_resources,
+                        resident_smc.KERNEL: {
+                            f"{name}_{mutation}": resident_smc.kernel_resources(lib, mutation)
+                            for name, lib in smc_libs.items() if name != "mixture_2d"
+                            for mutation in ("MH", "MALA")},
+                        resident_smc.CLOSURE_KERNEL: {
+                            f"mixture_2d_{mutation}": resident_smc.kernel_resources(
+                                smc_libs["mixture_2d"], mutation, resident_smc.CLOSURE_KERNEL)
+                            for mutation in ("MH", "MALA")}},
           "tuned_group_threads_and_cluster_blocks": {
               resident_hmc_dense.KERNEL: {str(cb): v for cb, v in dense_groups.items()},
               resident_walk_dense.KERNEL: walk_dense_groups},
@@ -864,6 +958,91 @@ def main(argv=None):
     check(mismatched == 0, f"equal-temperature pin: {mismatched} chains accepted other than "
           "every eligible swap")
 
+    # the SMC mutation kernels against their plain versions: one pass of
+    # SMC_STEPS moves of SMC_PARTICLES prior (or base) draws, at the chain
+    # block that dispatch gives each main path (the kernel's launch does not
+    # depend on it), at two temperatures
+    smc_timings = {}
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+
+    def smc_vs_plain(kernel, name, step, fn, theta0s, own_ll, work, chain_block):
+        """Hold ``fn`` (a mutation maker's function) against ``fn.plain`` at
+        beta 0.3 and 1.0; ``own_ll(final [N, P]) -> [N]`` is the untempered
+        log-likelihood the kernel's pot must equal."""
+        for beta in (0.3, 1.0):
+            out = fn(args.seed, beta, theta0s)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            plain_out, info = fn.plain(args.seed, beta, theta0s)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - start)
+            agree, err = None, 0.0
+            for got, want in zip(out, plain_out):
+                ok, e = chain_agreement(got, want, 0)
+                agree = ok if agree is None else agree & ok
+                err = max(err, e)
+            share = agree.float().mean().item()
+            ll = own_ll(out[0])
+            pot_err = (out[1] - ll).abs().max().item()
+            pot_ok = bool(((out[1] - ll).abs() <= 1e-3 + 1e-4 * ll.abs()).all())
+            ms, ms_runs = event_times(lambda: fn(args.seed, beta, theta0s))
+            b_ms, b_by = bound_ms(work, sm_count)
+            smc_timings[(name, beta)] = (ms, plain_ms, b_ms, b_by)
+            emit({"phase": "resident_vs_plain", "kernel": kernel,
+                  "case": f"{name}_step_{step}_beta_{beta}", "particles": SMC_PARTICLES,
+                  "steps": SMC_STEPS, "chain_block": chain_block,
+                  "launch_threads": fn.launch_threads,
+                  "evaluations_per_particle": info["evaluations"] / SMC_PARTICLES,
+                  "share_agreeing": share, "limit": RESIDENT_MIN_AGREEING,
+                  "atol": RESIDENT_ATOL, "rtol": RESIDENT_RTOL, "max_abs_err_agreeing": err,
+                  "acceptance": out[2].mean().item() / SMC_STEPS,
+                  "plain_acceptance": plain_out[2].mean().item() / SMC_STEPS,
+                  "max_abs_pot_vs_own_split_ll": pot_err, "ms": ms, "ms_runs": ms_runs,
+                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "card": card})
+            check(share >= RESIDENT_MIN_AGREEING, f"SMC {name}, beta {beta}: only {share:.4f} of "
+                  f"particles agree with the plain version")
+            check(pot_ok, f"SMC {name}, beta {beta}: pot is not the split log-likelihood of the "
+                  f"final particles (max abs diff {pot_err})")
+            kernel_err[kernel] = max(kernel_err.get(kernel, 0.0), err)
+            del out, plain_out
+        torch.cuda.empty_cache()
+
+    smc_cases = [("xor_mala", xor_model, xor, "MALA", 0.05),
+                 ("iris_mala", iris_model, iris, "MALA", 0.003),
+                 ("iris_mh", iris_model, iris, "MH", 0.01)]
+    for name, model, data, mutation, step in smc_cases:
+        plan, reason = resolve_smc(SMCSampler(model, SMC_PARTICLES, mutation=mutation,
+                                              mutation_step=step),
+                                   (data.x, data.y), platform="cuda")
+        check(plan is not None and plan.backend == "resident", f"{name}: no SMC plan: {reason}")
+        fn = resident_smc.make_resident_smc_mutation(model, data.x, data.y, step, SMC_STEPS,
+                                                      chain_block=plan.chain_block,
+                                                      mutation=mutation, device=device)
+        arrays = prepare_data(model, data.x, data.y)
+        split = make_vg(model, *arrays[:6], 1.0, with_grad=False, split=True)
+        tensors = [torch.as_tensor(a, device=device) for a in arrays[:5]]
+        dims, bias, loss_kind = extract_arch(model)[:3]
+        eval_work = vg_work(dims, bias, loss_kind == "ce", len(data.x), 1, mutation == "MALA")[1:]
+        data_floats = len(data.x) * (dims[0] + dims[-1] + 1) + 2 * model.num_params
+        smc_vs_plain(resident_smc.KERNEL, name, step, fn,
+                     model.prior.sample(gen, (SMC_PARTICLES,)),
+                     lambda final: split(final.T.contiguous(), *tensors)[0][0],
+                     smc_work(model.num_params, SMC_PARTICLES, SMC_STEPS, mutation == "MALA",
+                              eval_work, data_floats), plan.chain_block)
+    mixture_sampler = SMCSampler(mixture, SMC_PARTICLES, init_sampler=mixture_init,
+                                 base_log_pdf=mixture_base)
+    plan, reason = resolve_smc(mixture_sampler, empty, platform="cuda")
+    check(plan is not None and plan.backend == "resident", f"mixture: no SMC plan: {reason}")
+    for mutation in ("MALA", "MH"):
+        fn = resident_smc.make_resident_smc_mutation(
+            mixture, *empty, 0.05, SMC_STEPS, chain_block=plan.chain_block, mutation=mutation,
+            base_log_pdf=mixture_base, device=device)
+        smc_vs_plain(resident_smc.CLOSURE_KERNEL, f"mixture_{mutation.lower()}", 0.05, fn,
+                     mixture_init(gen, SMC_PARTICLES),
+                     lambda final: mixture_log_pdf(final, None, None) - mixture_base(final),
+                     smc_work(2, SMC_PARTICLES, SMC_STEPS, mutation == "MALA", fn.eval_work, 0),
+                     plan.chain_block)
+
     # 4. main path, iris, FusedHMC (BASELINE.md config 3)
     C, iters, burnin = 32768, 1500, 500
     iris_theta0s = torch.as_tensor(0.1 * rng.normal(size=(C, iris_model.num_params)),
@@ -957,7 +1136,8 @@ def main(argv=None):
     iris_data = (iris.x, iris.y)
     xor_data = (xor.x, xor.y)
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
-    whole_loop = (resident_hmc, resident_hmc_dense, resident_walk, resident_walk_dense)
+    whole_loop = (resident_hmc, resident_hmc_dense, resident_walk, resident_walk_dense,
+                  resident_smc)
 
     def reset_counts():
         for module in whole_loop:
@@ -1365,7 +1545,153 @@ def main(argv=None):
               f"generic ladder's by {z_within[-1]} SEs")
         torch.cuda.empty_cache()
 
-    # 14. kernels: fused_mlp_vg timed at the iris main path's shape; each
+    # 14. the SMC main paths through SMCSampler.run(backend="auto"), each run
+    #     over SMC_SEEDS seeds, config 5 and iris beside the generic path
+    #     (backend="scan") over as many; the standard error of a path's
+    #     estimate is the spread of its seeds' estimates
+    betas5 = [(i / 20) ** 4 for i in range(21)]
+
+    def smc_sampler(model, betas, mutation, step, N=SMC_PARTICLES, **kw):
+        return SMCSampler(model, N, betas=betas, mutation=mutation, mutation_step=step,
+                          num_mutation_steps=SMC_STEPS, **kw)
+
+    def weighted(state):
+        """(weighted mean [P], its ESS standard error [P]) of a final cloud."""
+        w = torch.softmax(state.log_weights.double(), 0)
+        p = state.particles.double()
+        mean = w @ p
+        return mean, torch.sqrt((w @ (p - mean) ** 2) * (w * w).sum())
+
+    def smc_seeds(sampler, data, backend, first_seed):
+        """SMC_SEEDS runs of ``sampler``: per run (state summary, diagnostics,
+        wall, launch counts)."""
+        runs = []
+        for s in range(SMC_SEEDS):
+            g = torch.Generator(device=device).manual_seed(first_seed + s)
+            reset_counts()
+            start = time.perf_counter()
+            state, diags = sampler.run(g, data, backend=backend)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            check(state.particles.shape == (sampler.num_particles, sampler.model.num_params)
+                  and bool(torch.isfinite(state.particles).all()),
+                  f"SMC {backend}: particles of shape {tuple(state.particles.shape)} or not "
+                  "finite")
+            check(not state.log_lik.any(), "SMC: log_lik is not zeros")
+            share = float(torch.softmax(state.log_weights.double(), 0)[
+                state.particles[:, 0] > 0].sum())
+            runs.append({"summary": weighted(state), "diags": diags, "wall": wall,
+                         "counts": read_counts(), "share_theta0_positive": share})
+        return runs
+
+    def seed_stats(runs):
+        means = torch.stack([r["summary"][0] for r in runs])
+        evidence = np.array([r["diags"]["log_evidence"] for r in runs])
+        return means, evidence
+
+    smc_paths = [
+        ("config5_xor_mala", smc_sampler(xor_model, betas5, "MALA", 0.05),
+         smc_sampler(xor_model, betas5, "MALA", 0.05), xor_data, resident_smc.KERNEL),
+        ("xor_adaptive_mala", smc_sampler(xor_model, "adaptive", "MALA", 0.1), None, xor_data,
+         resident_smc.KERNEL),
+        ("iris_mala", smc_sampler(iris_model, betas5, "MALA", 0.003),
+         smc_sampler(iris_model, betas5, "MALA", 0.003), iris_data, resident_smc.KERNEL),
+        ("iris_mh", smc_sampler(iris_model, betas5, "MH", 0.01),
+         smc_sampler(iris_model, betas5, "MH", 0.01, N=4096), iris_data, resident_smc.KERNEL),
+        ("mixture_closure", smc_sampler(
+            mixture, "adaptive", "MALA", 0.05, init_sampler=mixture_init,
+            base_log_pdf=mixture_base, max_stages=60), None, empty,
+         resident_smc.CLOSURE_KERNEL),
+    ]
+    smc_main, smc_evidence = {}, {}
+    for index, (name, sampler, generic_sampler, data, kernel) in enumerate(smc_paths):
+        plan, reason = resolve_smc(sampler, data, platform="cuda")
+        check(plan is not None and plan.backend == "resident",
+              f"{name}: dispatch chose {plan and plan.backend} ({reason}), not resident")
+        runs = smc_seeds(sampler, data, "auto", 1000 * index)
+        for r in runs:
+            stages = len(r["diags"]["beta"])
+            expected = {**dict.fromkeys(r["counts"], 0), kernel: stages}
+            check(r["counts"] == expected,
+                  f"{name}: a run of {stages} stages made the launches {r['counts']}")
+        main_launches[kernel][name] = sum(r["counts"][kernel] for r in runs)
+        means, evidence = seed_stats(runs)
+        smc_evidence[name] = evidence
+        walls = sorted(r["wall"] for r in runs)
+        wall = walls[len(walls) // 2]
+        stages = [len(r["diags"]["beta"]) for r in runs]
+        g = torch.Generator(device=device).manual_seed(1000 * index + SMC_SEEDS)
+        (_, profile_diags), by_kernel = profiled(lambda: sampler.run(g, data, backend="auto"))
+        busy = sum(by_kernel.values()) / 1e3
+        kernel_device_ms = sum(ms for k, ms in by_kernel.items() if kernel in k)
+        record = {
+            "phase": "main_smc", "case": name, "plan": [plan.backend, plan.chain_block],
+            "particles": sampler.num_particles, "mutation": sampler.mutation,
+            "mutation_step": sampler.mutation_step, "steps": SMC_STEPS, "seeds": SMC_SEEDS,
+            "stages": stages, "seconds": wall, "seconds_min_max": [walls[0], walls[-1]],
+            "particle_stage_mutations_per_s":
+                sampler.num_particles * float(np.median(stages)) * SMC_STEPS / wall,
+            "mutation_acceptance": float(np.mean([float(r["diags"]["mutation_acceptance"].mean())
+                                                  for r in runs])),
+            "resamples": float(np.mean([int(r["diags"]["resampled"].sum()) for r in runs])),
+            "log_evidence_mean": float(evidence.mean()),
+            "log_evidence_spread": float(evidence.std(ddof=1)),
+            "kernel_launches_first_run": runs[0]["counts"],
+            "device_busy_share": busy / wall,
+            "kernel_device_ms_per_run": kernel_device_ms,
+            "kernel_device_ms_per_launch": kernel_device_ms / max(1, len(profile_diags["beta"])),
+            "card": card}
+        if name == "xor_adaptive_mala":
+            for r in runs:
+                betas = r["diags"]["beta"].numpy()
+                check(betas[-1] == 1.0 and bool(np.all(np.diff(betas) > 0)),
+                      f"{name}: betas {betas} do not rise to 1")
+            diff = abs(evidence.mean() - smc_evidence["config5_xor_mala"].mean())
+            record.update(betas_first_run=runs[0]["diags"]["beta"].tolist(),
+                          log_evidence_vs_config5=diff, limit=0.1)
+            check(diff <= 0.1, f"{name}: log-evidence {diff} from config 5's")
+        if name == "mixture_closure":
+            shares = np.array([r["share_theta0_positive"] for r in runs])
+            record.update(share_theta0_positive=float(shares.mean()),
+                          share_theta0_positive_runs=shares.tolist(), share_limit=0.05,
+                          log_evidence_limit=0.1, true_log_evidence=0.0)
+            check(abs(evidence.mean()) <= 0.1, f"{name}: log-evidence {evidence.mean()} not 0")
+            check(abs(shares.mean() - 0.5) <= 0.05, f"{name}: share {shares.mean()} not 0.5")
+        if generic_sampler is not None:
+            generic_runs = smc_seeds(generic_sampler, data, "scan", 1000 * index + 500)
+            check(not any(v for r in generic_runs for v in r["counts"].values()),
+                  f"{name}: the generic path launched a kernel")
+            gmeans, gevidence = seed_stats(generic_runs)
+            se = torch.sqrt(means.var(0) / SMC_SEEDS + gmeans.var(0) / SMC_SEEDS)
+            z = ((means.mean(0) - gmeans.mean(0)).abs() / se).max().item()
+            (m1, s1), (m2, s2) = runs[0]["summary"], generic_runs[0]["summary"]
+            z_ess = ((m1 - m2).abs() / torch.sqrt(s1 ** 2 + s2 ** 2)).max().item()
+            spread = float(gevidence.std(ddof=1))
+            tol = max(0.1, 5.0 * spread)
+            # past 0.5 nats the tolerance would pass almost any evidence: the
+            # difference is then a reading only
+            evidence_checked = tol <= 0.5
+            diff = abs(evidence.mean() - gevidence.mean())
+            gwalls = sorted(r["wall"] for r in generic_runs)
+            record.update(
+                generic_particles=generic_sampler.num_particles,
+                generic_seconds=gwalls[len(gwalls) // 2],
+                generic_mutation_acceptance=float(np.mean(
+                    [float(r["diags"]["mutation_acceptance"].mean()) for r in generic_runs])),
+                generic_log_evidence_mean=float(gevidence.mean()),
+                generic_log_evidence_spread=spread,
+                max_abs_z_weighted_mean_vs_generic=z, limit=5.0,
+                z_ess_standard_errors_first_seeds=z_ess,
+                log_evidence_difference=diff,
+                log_evidence_tolerance=tol if evidence_checked else None)
+            check(z <= 5.0, f"{name}: weighted means {z} standard errors from the generic path")
+            check(not evidence_checked or diff <= tol, f"{name}: log-evidence {diff} from the "
+                  f"generic path's (tolerance {tol})")
+        smc_main[name] = record
+        emit(record)
+        torch.cuda.empty_cache()
+
+    # 15. kernels: fused_mlp_vg timed at the iris main path's shape; each
     #     whole-loop kernel at a main path's shape (XOR HMC, untuned, for the
     #     two HMC kernels: the leapfrog count is fixed; iris MALA for
     #     resident_walk; config 1 for resident_walk_dense), against its plain
@@ -1467,6 +1793,29 @@ def main(argv=None):
                                  timed_at=f"{ladder_iters} iterations, {ladder_burnin} "
                                           "burn-in")}
 
+    # the SMC mutation kernels at their main paths' shapes (config 5's; the
+    # mixture's, MALA), the other cases as measured against the plain version
+    def smc_entry(kernel, source, replaces, case, timed_at):
+        ms_, plain_ms_, b_ms_, b_by_ = smc_timings[(case, 0.3)]
+        return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(main_launches[kernel].values()),
+                "launches_by_path": main_launches[kernel], "max_abs_err": kernel_err[kernel],
+                "ms": ms_, "plain_ms": plain_ms_, "bound_ms": b_ms_, "bound_by": b_by_,
+                "library_ms": None,
+                "timed_at": f"{timed_at}, {SMC_PARTICLES} particles x {SMC_STEPS} steps, beta 0.3",
+                "cases": {f"{n}_beta_{b}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), v))
+                          for (n, b), v in smc_timings.items()
+                          if n.startswith("mixture") == (kernel == resident_smc.CLOSURE_KERNEL)},
+                "main_run_device_ms_per_launch": {
+                    n: r["kernel_device_ms_per_launch"] for n, r in smc_main.items()
+                    if n in main_launches[kernel]}}
+
+    smc_entries = [
+        smc_entry(resident_smc.KERNEL, SMC_SOURCE, SMC_REPLACES, "xor_mala",
+                  "config 5's shape: XOR MLP(2,2,1), MALA step 0.05"),
+        smc_entry(resident_smc.CLOSURE_KERNEL, SMC_CLOSURE_SOURCE, SMC_CLOSURE_REPLACES,
+                  "mixture_mala", "the 2-d mixture's main path: MALA step 0.05")]
+
     emit({"kernels": [
         {"name": fused_mlp.KERNEL, "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": sum(launches.values()),
@@ -1487,7 +1836,7 @@ def main(argv=None):
         tempering_entry(resident_walk, WALK_SOURCE, TEMPERING_REPLACES,
                         "iris_tempering_mala_extras"),
         tempering_entry(resident_walk_dense, WALK_DENSE_SOURCE, TEMPERING_DENSE_REPLACES,
-                        "xor_tempering_mala_dense_extras")]})
+                        "xor_tempering_mala_dense_extras")] + smc_entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

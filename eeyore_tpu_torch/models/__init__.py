@@ -7,5 +7,5 @@ from eeyore_tpu_torch.models.losses import (
     multiclass_classification_loss,
 )
 from eeyore_tpu_torch.models.mlp import MLP
-from eeyore_tpu_torch.models.model import BayesianModel, LogTargetModel
+from eeyore_tpu_torch.models.model import BayesianModel, DistributionModel, LogTargetModel
 from eeyore_tpu_torch.models.priors import IIDNormalPrior

@@ -74,3 +74,19 @@ class BayesianModel(LogTargetModel):
 
     def sample_prior(self, generator=None):
         return self.prior.sample(generator)
+
+
+class DistributionModel(LogTargetModel):
+    """Wraps an arbitrary ``log_pdf(theta, x, y)`` closure as a sampleable
+    model; ``log_pdf`` takes ``theta [..., P]`` and returns ``[...]``, as the
+    port's models do. The temperature multiplies the log-pdf."""
+
+    def __init__(self, log_pdf, num_params, temperature=None, dtype=None, device="cuda"):
+        self.log_pdf = log_pdf
+        self.num_params = num_params
+        self.temperature = temperature
+        self.dtype = dtype or torch.get_default_dtype()
+        self.device = torch.device(device)
+
+    def log_target(self, theta, x, y):
+        return self._temper(self.log_pdf(theta, x, y))

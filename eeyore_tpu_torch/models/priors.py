@@ -40,7 +40,8 @@ class IIDNormalPrior:
         z = (theta - self.loc) / self.scale
         return -0.5 * z * z - torch.log(self.scale) - 0.5 * math.log(2.0 * math.pi)
 
-    def sample(self, generator=None):
-        noise = torch.randn(self.loc.shape, generator=generator, dtype=self.loc.dtype,
-                            device=self.loc.device)
+    def sample(self, generator=None, sample_shape=()):
+        """One draw [P], or ``sample_shape + (P,)`` independent draws."""
+        noise = torch.randn(tuple(sample_shape) + tuple(self.loc.shape), generator=generator,
+                            dtype=self.loc.dtype, device=self.loc.device)
         return self.loc + self.scale * noise

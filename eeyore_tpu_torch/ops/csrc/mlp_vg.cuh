@@ -10,7 +10,10 @@
 // with BCE (sigmoid output) or softmax CE (logit output) and an IID Normal
 // prior, by a forward pass, the output deltas and a hand-derived backward
 // pass over the data rows. The plain PyTorch version is
-// eeyore_tpu_torch/ops/mlp_math.py::make_vg.
+// eeyore_tpu_torch/ops/mlp_math.py::make_vg. chain_eval_split returns the
+// untempered log-likelihood and log-prior apart (make_vg(split=True)), for
+// the SMC mutation kernel (resident_smc.cu), whose target tempers the
+// likelihood only.
 //
 // The architecture is fixed at compile time (FMV_* macros below), so every
 // loop over units unrolls and theta, the gradient accumulators and the
@@ -169,18 +172,12 @@ __device__ __forceinline__ Data stage_data(float* smem, const float* __restrict_
   return Data{xs, ys, ms, locs, ivs};
 }
 
-// Tempered log-posterior of one chain; with kGrad its gradient goes to g,
-// without it g is not touched and no backward pass runs (the value-only
-// body of the random-walk kernels).
+// Untempered log-likelihood of one chain over the staged rows; with kGrad
+// its gradient is added to g (which the caller zeroes), without it g is not
+// touched and no backward pass runs.
 template <bool kGrad>
-__device__ __forceinline__ float chain_eval(const float (&th)[kP], const Data& d,
-                                            float prior_const, float temperature, int n_rows,
-                                            float (&g)[kP]) {
-  if constexpr (kGrad) {
-#pragma unroll
-    for (int p = 0; p < kP; ++p) g[p] = 0.0f;
-  }
-
+__device__ __forceinline__ float chain_log_lik(const float (&th)[kP], const Data& d, int n_rows,
+                                               float (&g)[kP]) {
   float log_lik = 0.0f;
   float a[kActs];
   float z_out[kOut];
@@ -226,6 +223,22 @@ __device__ __forceinline__ float chain_eval(const float (&th)[kP], const Data& d
     }
     if constexpr (kGrad) backward<kNumLayers - 1>(th, a, delta, g);
   }
+  return log_lik;
+}
+
+// Tempered log-posterior of one chain; with kGrad its gradient goes to g,
+// without it g is not touched and no backward pass runs (the value-only
+// body of the random-walk kernels).
+template <bool kGrad>
+__device__ __forceinline__ float chain_eval(const float (&th)[kP], const Data& d,
+                                            float prior_const, float temperature, int n_rows,
+                                            float (&g)[kP]) {
+  if constexpr (kGrad) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) g[p] = 0.0f;
+  }
+
+  const float log_lik = chain_log_lik<kGrad>(th, d, n_rows, g);
 
   float log_prior = 0.0f;
 #pragma unroll
@@ -235,6 +248,31 @@ __device__ __forceinline__ float chain_eval(const float (&th)[kP], const Data& d
     if constexpr (kGrad) g[p] = temperature * (g[p] - diff * d.ivar[p]);
   }
   return temperature * (log_lik + (log_prior + prior_const));
+}
+
+// The split evaluation of the SMC mutation kernel, whose target lp + beta *
+// ll tempers the likelihood only: returns (ll, lp), both untempered, the
+// counterpart of make_vg(split=True); with kGrad, g = beta * d ll / d theta
+// + d lp / d theta, the combined gradient of the target.
+template <bool kGrad>
+__device__ __forceinline__ float2 chain_eval_split(const float (&th)[kP], const Data& d,
+                                                  float prior_const, float beta, int n_rows,
+                                                  float (&g)[kP]) {
+  if constexpr (kGrad) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) g[p] = 0.0f;
+  }
+
+  const float log_lik = chain_log_lik<kGrad>(th, d, n_rows, g);
+
+  float log_prior = 0.0f;
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const float diff = th[p] - d.loc[p];
+    log_prior += -0.5f * diff * diff * d.ivar[p];
+    if constexpr (kGrad) g[p] = -diff * d.ivar[p] + beta * g[p];
+  }
+  return make_float2(log_lik, log_prior + prior_const);
 }
 
 // Value and gradient (leapfrog, MALA, the fused kernel).

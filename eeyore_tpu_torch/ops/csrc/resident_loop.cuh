@@ -10,6 +10,8 @@
 // at gibbs_chain. StagedEval reads the rows a block staged in shared memory
 // (mlp_vg.cuh); the dense kernels' evaluator calls the code generated for
 // one dataset (ops/mlp_dense.py::dense_source, gibbs_dense_source).
+// smc_mutation_chain is one particle's SMC mutation pass (resident_smc.cu),
+// on SplitEval, the staged rows with the likelihood-tempered target.
 //
 // Layout and state. One thread owns one chain. The accepted theta (and its
 // gradient, for HMC and MALA), touched once per iteration, live in shared
@@ -99,6 +101,20 @@ struct ResidentWalkParams {
   int between_step;   // tempering: iterations between swap rounds
 };
 
+// Scalar arguments of the SMC mutation kernel, in the order of
+// ResidentSMCParams in ops/resident_smc.py.
+struct ResidentSMCParams {
+  int seed;             // the stage's seed
+  int num_particles;
+  int n_rows;
+  int num_steps;        // mutation steps per particle
+  float beta;           // the stage's temperature on the likelihood
+  float sqrt_step;      // sqrt(step): the MALA noise scale and the MH proposal scale
+  float half_step;      // MALA: 0.5 * step
+  float half_inv_step;  // MALA: 0.5 / step
+  float prior_const;
+};
+
 namespace resident_loop {
 
 namespace cg = cooperative_groups;
@@ -134,6 +150,27 @@ struct StagedEval {
   }
   template <int U>
   __device__ __forceinline__ void commit(float (&)[kCache], const float (&)[kCache]) const {}
+};
+
+// The staged rows with the SMC target lp + beta * ll, beta taken at run
+// time: each call returns the target's value and writes the untempered
+// log-likelihood to ll (vg: the combined gradient to g).
+struct SplitEval {
+  mlp_vg::Data d;
+  float prior_const;
+  float beta;
+  int n_rows;
+  __device__ __forceinline__ float vg(const float (&th)[kP], float (&g)[kP], float& ll) const {
+    const float2 s = mlp_vg::chain_eval_split<true>(th, d, prior_const, beta, n_rows, g);
+    ll = s.x;
+    return s.y + beta * s.x;
+  }
+  __device__ __forceinline__ float v(const float (&th)[kP], float& ll) const {
+    float unused[kP];
+    const float2 s = mlp_vg::chain_eval_split<false>(th, d, prior_const, beta, n_rows, unused);
+    ll = s.x;
+    return s.y + beta * s.x;
+  }
 };
 
 // The chain of this thread. Staged (sublanes 1): consecutive, block by
@@ -448,6 +485,99 @@ __device__ __forceinline__ void walk_chain(const Eval& ev, const ResidentWalkPar
 
 #pragma unroll
   for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = acc_th[p * bd + me];
+  accepts[c] = n_accepts;
+}
+
+// One particle's SMC mutation pass: num_steps MH or MALA moves at the
+// target v = lp + beta * ll (ev, a SplitEval), from theta0, with the draws
+// of the walk stream (key (stage seed, particle), counter (step, j)). With s
+// = pr.sqrt_step:
+//   MH:   prop = theta + s z; log_rate = v(prop) - v(theta).
+//   MALA: prop = theta + (step/2) grad + s z;
+//         log_rate = v(prop) - v(theta) - |theta - prop - (step/2) grad(prop)|^2 / (2 step)
+//                    + |z|^2 / 2,
+// grad the target's combined gradient. Records nothing: writes the final
+// theta, pot (the accepted state's untempered log-likelihood, the next
+// stage's reweighting potential) and the accept count.
+template <class Eval, bool kMALA>
+__device__ __forceinline__ void smc_mutation_chain(const Eval& ev, const ResidentSMCParams& pr,
+                                                   int c, const float* __restrict__ theta0,
+                                                   float* __restrict__ final_theta,
+                                                   float* __restrict__ pot,
+                                                   float* __restrict__ accepts, float* acc_th,
+                                                   float* acc_g) {
+  const int bd = blockDim.x;
+  const int me = threadIdx.x;
+  const int N = pr.num_particles;
+  const unsigned key0 = static_cast<unsigned>(pr.seed);
+  const unsigned key1 = static_cast<unsigned>(c);
+
+  float val;
+  float ll;
+  {
+    float th[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) th[p] = theta0[static_cast<size_t>(p) * N + c];
+    if constexpr (kMALA) {
+      float g[kP];
+      val = ev.vg(th, g, ll);
+#pragma unroll
+      for (int p = 0; p < kP; ++p) acc_g[p * bd + me] = g[p];
+    } else {
+      val = ev.v(th, ll);
+    }
+#pragma unroll
+    for (int p = 0; p < kP; ++p) acc_th[p * bd + me] = th[p];
+  }
+
+  float n_accepts = 0.0f;
+  for (int s = 0; s < pr.num_steps; ++s) {
+    const unsigned ctr = static_cast<unsigned>(s);
+    float z[kP];
+    kernel_prng::normals(key0, key1, ctr, z);
+    float prop[kP];
+    float v_p;
+    float ll_p;
+    float log_rate;
+    float gp[kMALA ? kP : 1];
+    if constexpr (kMALA) {
+      float z_sq = z[0] * z[0];
+#pragma unroll
+      for (int p = 1; p < kP; ++p) z_sq = z_sq + z[p] * z[p];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        prop[p] = (acc_th[p * bd + me] + pr.half_step * acc_g[p * bd + me]) + pr.sqrt_step * z[p];
+      }
+      v_p = ev.vg(prop, gp, ll_p);
+      float rev_sq = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const float dp = acc_th[p * bd + me] - (prop[p] + pr.half_step * gp[p]);
+        rev_sq = rev_sq + dp * dp;
+      }
+      log_rate = ((v_p - val) - pr.half_inv_step * rev_sq) + 0.5f * z_sq;
+    } else {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) prop[p] = acc_th[p * bd + me] + pr.sqrt_step * z[p];
+      v_p = ev.v(prop, ll_p);
+      log_rate = v_p - val;
+    }
+    const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
+    if (logf(u) < log_rate) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        acc_th[p * bd + me] = prop[p];
+        if constexpr (kMALA) acc_g[p * bd + me] = gp[p];
+      }
+      val = v_p;
+      ll = ll_p;
+      n_accepts += 1.0f;
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * N + c] = acc_th[p * bd + me];
+  pot[c] = ll;
   accepts[c] = n_accepts;
 }
 

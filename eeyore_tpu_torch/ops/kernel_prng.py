@@ -21,6 +21,12 @@ uniform. (The JAX package's dense kernels draw with ``normal_tiles`` from the
 TPU core's generator; its numbers cannot be reproduced, so that function has
 no counterpart here.)
 
+The SMC mutation pass (``ops/resident_smc.py``, ``csrc/resident_smc.cu``)
+draws from the walk stream too: key = (stage seed, particle index), counter =
+(mutation step, j), for j < ceil(P/2) the Box-Muller pairs of the proposal
+normals and j = ceil(P/2) the accept uniform, so its plain version calls
+``walk_draws``.
+
 The stream of the tempering moves (``tempering_draws``) is the walk stream
 and one word more: j = ceil(P/2) + 1 gives the swap uniform, which only the
 lower member of a swap pair tests. ``walk_draws`` is its prefix, so a walk

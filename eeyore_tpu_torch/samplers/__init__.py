@@ -10,3 +10,4 @@ from eeyore_tpu_torch.samplers.power_posterior import (
     default_temperatures,
 )
 from eeyore_tpu_torch.samplers.runner import sample_chain, sample_chains
+from eeyore_tpu_torch.samplers.smc import SMCSampler, SMCState, systematic_resample_indices

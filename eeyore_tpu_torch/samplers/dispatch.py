@@ -38,7 +38,10 @@ forces the generic path.
 ``resolve_tempering`` and ``run_tempering_backend`` do the same for
 ``PowerPosteriorSampler.run``: an even/odd ladder with MALA or MH within
 the rungs runs on the tempering move of the walk kernels, a block of
-whole ladders in one launch.
+whole ladders in one launch. ``resolve_smc`` and ``run_smc_backend`` send
+``SMCSampler.run`` to the SMC runner of ``ops/resident_smc.py``: one launch
+of the mutation kernel per stage, its closure kernel for a
+``DistributionModel`` target.
 """
 
 import inspect
@@ -95,8 +98,12 @@ def _data_fingerprint(x, y):
 
 def _model_fingerprint(model):
     """What a maker bakes in from the model besides its architecture: the
-    temperature and the prior's loc and scale, by value."""
-    return (_freeze(model.temperature), _freeze(model.prior.loc), _freeze(model.prior.scale))
+    temperature and the prior's loc and scale, by value; for a model
+    without a prior (a ``DistributionModel``), its log-pdf closure."""
+    prior = getattr(model, "prior", None)
+    if prior is None:
+        return (_freeze(model.temperature), id(model.log_pdf))
+    return (_freeze(model.temperature), _freeze(prior.loc), _freeze(prior.scale))
 
 
 class _Plan:
@@ -539,3 +546,107 @@ def run_tempering_backend(pp, generator, theta0, data, num_iters, num_burnin_ite
         first = torch.ones((keep, 1), dtype=moved.dtype, device=moved.device)
         arrays["accepted"] = torch.cat([first, moved], dim=1).to(torch.int32)
     return ChainLists.from_arrays(arrays)
+
+
+# ----------------------------------------------------------------------
+# SMC dispatch (SMCSampler.run -> the SMC runner on the mutation kernel)
+# ----------------------------------------------------------------------
+
+def resolve_smc(smc, data, backend="auto", platform=None):
+    """Dispatch decision for a tempered-SMC run: the runner of
+    ``ops/resident_smc.py::make_resident_smc`` reweights, resamples and
+    mutates on the device, each stage's mutation pass one launch of
+    ``csrc/resident_smc.cu`` for an architecture model (``extract_arch``),
+    or of ``csrc/resident_smc_closure.cu``, generated from the closure, for
+    a ``DistributionModel`` target with a base (``init_sampler`` and
+    ``base_log_pdf``), as the JAX package traces the closure into its kernel.
+
+    Returns ``(plan_or_None, reason)``; ``plan.chain_block`` is JAX's at
+    ``platform="tpu"``: at most 4096 for up to 32 data rows, else (and for a
+    closure) 1024. Explicit "resident" raises when ineligible, and "dense"
+    always (SMC has one mutation kernel)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "scan":
+        return None, "explicit backend='scan'"
+
+    def fail(reason):
+        if backend in ("resident", "dense"):
+            raise ValueError(f"backend={backend!r} requested but ineligible: {reason}")
+        return None, reason
+
+    if backend == "dense":
+        return fail("SMC has a resident mutation kernel only (particle clouds are iris-class "
+                    "state); use backend='resident'")
+    schedule = as_schedule(data)
+    platform = platform or _platform(smc, schedule)
+    if platform != "cuda":
+        return fail(f"the kernel backend needs the model and data on a CUDA device "
+                    f"(they are on {platform})")
+    if smc.mutation not in ("MALA", "MH"):
+        return fail(f"mutation {smc.mutation!r} has no kernel")
+    model = smc.model
+    if model.num_params > MAX_DISPATCH_PARAMS:
+        return fail(f"{model.num_params} params > MAX_DISPATCH_PARAMS={MAX_DISPATCH_PARAMS}")
+    if smc._is_bayesian:
+        try:
+            from eeyore_tpu_torch.ops.mlp_math import extract_arch
+            extract_arch(model)
+        except (ValueError, AttributeError) as err:
+            return fail(f"model not kernel-compatible: {err}")
+        cap = 4096 if schedule.x.shape[1] <= SMALL_MODEL_ROWS else 1024
+    elif smc.base_log_pdf is None or smc.init_sampler is None:
+        return fail("non-Bayesian targets need init_sampler + base_log_pdf for the geometric "
+                    "path")
+    else:
+        cap = 1024
+    cb = _pick_block(smc.num_particles, _RESIDENT_BLOCKS, cap=cap)
+    if cb is None:
+        return fail("resident SMC needs particles divisible by 128")
+    from eeyore_tpu_torch.ops.resident_smc import make_resident_smc
+
+    return _Plan("resident", make_resident_smc, dict(chain_block=cb), cb), None
+
+
+def run_smc_backend(smc, generator, data, plan):
+    """Execute a resolved SMC plan: build (and cache on the sampler) the
+    runner, run it from a seed drawn from ``generator``, and re-wrap its
+    outputs in ``SMCSampler.run``'s (state, diagnostics) contract, as the
+    JAX package does: ``log_lik`` zeros, the final weight ESS in
+    ``state.ess``, ``num_stages`` for adaptive runs only."""
+    from eeyore_tpu_torch.samplers.smc import SMCState
+
+    schedule = as_schedule(data)
+    x, y = schedule.x[0], schedule.y[0]
+    device = x.device
+    xn, yn = x.cpu().numpy(), y.cpu().numpy()
+    cache = getattr(smc, "_backend_cache", None)
+    if cache is None:
+        cache = smc._backend_cache = {}
+    betas = "adaptive" if smc.adaptive else smc.betas.numpy()
+    cache_key = (plan.maker.__name__, str(device), plan.chain_block, _freeze(betas),
+                 smc.num_mutation_steps, smc.mutation, float(smc.mutation_step),
+                 float(smc.ess_threshold), float(smc.adaptive_target_ess), int(smc.max_stages),
+                 _data_fingerprint(xn, yn), _model_fingerprint(smc.model), id(smc.base_log_pdf),
+                 id(smc.init_sampler))
+    if cache_key not in cache:
+        cache[cache_key] = plan.maker(
+            smc.model, xn, yn, num_particles=smc.num_particles, betas=betas,
+            num_mutation_steps=smc.num_mutation_steps, mutation=smc.mutation,
+            mutation_step=smc.mutation_step, ess_threshold=smc.ess_threshold,
+            adaptive_target_ess=smc.adaptive_target_ess, max_stages=smc.max_stages,
+            init_sampler=smc.init_sampler, base_log_pdf=smc.base_log_pdf, device=device,
+            **plan.kwargs)
+    runner = cache[cache_key]
+
+    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device if generator is not None else "cpu"))
+    particles, log_w, diags = runner(seed)
+    num_stages = int(diags.get("num_stages", len(diags["beta"])))
+    final_beta = float(diags.pop("final_beta", 1.0))
+    ess = float(diags.pop("final_weight_ess"))
+    state = SMCState(particles=particles, log_weights=log_w,
+                     log_lik=torch.zeros(smc.num_particles, dtype=torch.float32, device=device),
+                     beta=torch.tensor(final_beta, dtype=torch.float32),
+                     ess=torch.tensor(ess), unique_frac=diags["unique_frac"][num_stages - 1])
+    return state, diags

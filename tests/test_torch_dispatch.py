@@ -1,5 +1,6 @@
-"""Port, kernel-backend dispatch: the HMC, MH, MALA, Gibbs and tempering
-cases of tests/test_dispatch.py rewritten for the port, and the port's
+"""Port, kernel-backend dispatch: the HMC, MH, MALA, Gibbs, tempering and
+SMC cases of tests/test_dispatch.py rewritten for the port (``resolve_smc``
+decides as the JAX package's, which the SMC cases call as their oracle), and the port's
 faults of kernel eligibility, the step heuristic and the kernel cache, each
 with its test. Plans are made for platform="cuda" on the CPU, as
 the JAX tests plan for "tpu"; a plan run on CPU tensors goes through the
@@ -7,12 +8,14 @@ kernel's plain version, so ``sample_chains(backend="resident")`` is tested
 here end to end into ``ChainLists`` (the CUDA kernel itself is held against
 the plain version on the card by ``chip_smoke.py``)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from eeyore_tpu_torch.datasets import BatchSchedule, XYDataset
-from eeyore_tpu_torch.models import MLP, IIDNormalPrior, loss_functions, mlp
+from eeyore_tpu_torch.models import MLP, DistributionModel, IIDNormalPrior, loss_functions, mlp
 from eeyore_tpu_torch.kernels import MultivariateNormalKernel, NormalKernel
 from eeyore_tpu_torch.ops import resident_hmc, resident_hmc_dense, resident_walk
 from eeyore_tpu_torch.ops import resident_walk_dense
@@ -22,6 +25,7 @@ from eeyore_tpu_torch.samplers import (
     Gibbs,
     MetropolisHastings,
     PowerPosteriorSampler,
+    SMCSampler,
     TransitionKernel,
     sample_chain,
     sample_chains,
@@ -675,3 +679,143 @@ def test_ladder_slice_runs_the_plain_kernels_into_chainlists(data, module, sampl
     with pytest.raises(ValueError, match="theta0"):
         pp.run(torch.Generator().manual_seed(6), theta0[:6], xy, iters, burnin,
                platform="cuda")
+
+
+# ---- SMC (tests/test_dispatch.py::TestSMCDispatch) ----
+
+def smc_problem(rows):
+    """(port model, JAX model, x, y): XOR (4 rows) or iris (150 rows)."""
+    from eeyore_tpu.models import MLP as JMLP
+    from eeyore_tpu.models import loss_functions as jloss_functions
+    from eeyore_tpu.models import mlp as jmlp
+
+    if rows == 4:
+        return (xor_model(), JMLP(loss=jloss_functions["binary_classification"],
+                                  hparams=jmlp.Hyperparameters(dims=[2, 2, 1])), *XOR)
+    return (iris_model(),
+            JMLP(loss=jloss_functions["multiclass_classification"],
+                 hparams=jmlp.Hyperparameters(dims=[4, 3, 3], activations=[jmlp.sigmoid, None])),
+            *iris_data())
+
+
+def smc_mixture(num_particles=2048, **kw):
+    """A DistributionModel with a base: (port sampler, JAX sampler)."""
+    import jax
+    from eeyore_tpu.models import DistributionModel as JDistributionModel
+    from eeyore_tpu.samplers import SMCSampler as JSMCSampler
+
+    port = SMCSampler(DistributionModel(lambda t, x, y: -0.5 * (t * t).sum(-1), 2, device="cpu"),
+                      num_particles, init_sampler=lambda gen, n: torch.randn(n, 2, generator=gen),
+                      base_log_pdf=lambda t: -0.5 * (t * t).sum(-1) / 4.0, **kw)
+    ref = JSMCSampler(JDistributionModel(lambda t, x, y: -0.5 * t @ t, num_params=2),
+                      num_particles, init_sampler=lambda k, n: jax.random.normal(k, (n, 2)),
+                      base_log_pdf=lambda t: -0.5 * t @ t / 4.0, **kw)
+    return port, ref
+
+
+SMC_PARTICLES = (128, 384, 1000, 1024, 2048, 3072, 4096, 8192, 16384, 24576)
+
+
+@pytest.mark.parametrize("rows", [4, 150])
+@pytest.mark.parametrize("mutation", ["MALA", "MH", "HMC"])
+def test_resolve_smc_decides_as_jax(rows, mutation):
+    """The same decision and chain_block as JAX's resolve_smc at
+    platform="tpu", over particle counts: 4096 at most for up to 32 rows,
+    1024 above; no kernel for HMC mutations or indivisible counts."""
+    from eeyore_tpu.samplers import SMCSampler as JSMCSampler
+    from eeyore_tpu.samplers.dispatch import resolve_smc as jresolve_smc
+
+    model, jmodel, x, y = smc_problem(rows)
+    for N in SMC_PARTICLES:
+        cb, jreason = jresolve_smc(JSMCSampler(jmodel, N, mutation=mutation), (x, y),
+                                   platform="tpu")
+        plan, reason = dispatch.resolve_smc(SMCSampler(model, N, mutation=mutation), (x, y),
+                                            platform="cuda")
+        assert (None if plan is None else plan.chain_block) == cb, (N, reason, jreason)
+        assert (plan is None) == (reason is not None)
+        if plan is not None:
+            assert plan.backend == "resident" and plan.maker.__name__ == "make_resident_smc"
+
+
+def test_resolve_smc_closure_target_decides_as_jax():
+    """A DistributionModel with a base: JAX's chain_block (1024 at most), on
+    the resident plan (its closure kernel)."""
+    from eeyore_tpu.samplers.dispatch import resolve_smc as jresolve_smc
+
+    for N in SMC_PARTICLES:
+        port, ref = smc_mixture(N, mutation="MH")
+        cb, _ = jresolve_smc(ref, (np.zeros((1, 0)), np.zeros((1, 0))), platform="tpu")
+        plan, _ = dispatch.resolve_smc(port, (np.zeros((1, 0)), np.zeros((1, 0))),
+                                       platform="cuda")
+        assert (None if plan is None else plan.chain_block) == cb
+        if plan is not None:
+            assert plan.backend == "resident"
+
+
+def test_resolve_smc_refusals():
+    smc = SMCSampler(xor_model(), 4096)
+    plan, reason = dispatch.resolve_smc(smc, XOR)  # CPU tensors: the generic path
+    assert plan is None and "CUDA" in reason
+    plan, reason = dispatch.resolve_smc(smc, XOR, platform="cpu")
+    assert plan is None and "CUDA" in reason
+    assert dispatch.resolve_smc(smc, XOR, backend="scan") == (None, "explicit backend='scan'")
+    with pytest.raises(ValueError, match="resident"):
+        dispatch.resolve_smc(smc, XOR, platform="cuda", backend="dense")
+    with pytest.raises(ValueError, match="divisible by 128"):
+        dispatch.resolve_smc(SMCSampler(xor_model(), 1000), XOR, platform="cuda",
+                             backend="resident")
+    with pytest.raises(ValueError, match="HMC"):
+        dispatch.resolve_smc(SMCSampler(xor_model(), 4096, mutation="HMC"), XOR,
+                             platform="cuda", backend="resident")
+    with pytest.raises(ValueError, match="backend must be"):
+        dispatch.resolve_smc(smc, XOR, backend="gpu")
+    with pytest.raises(ValueError, match="model not kernel-compatible"):
+        dispatch.resolve_smc(SMCSampler(tanh_mlp(), 4096), XOR, platform="cuda",
+                             backend="resident")
+
+
+def test_distribution_model_without_a_base_is_refused():
+    dm = DistributionModel(lambda t, x, y: -0.5 * (t * t).sum(-1), 2, device="cpu")
+    with pytest.raises(ValueError, match="init_sampler"):
+        SMCSampler(dm, 2048)
+    port, _ = smc_mixture()
+    port.base_log_pdf = None
+    plan, reason = dispatch.resolve_smc(port, (np.zeros((1, 0)), np.zeros((1, 0))),
+                                        platform="cuda")
+    assert plan is None and "base_log_pdf" in reason
+
+
+def test_tempered_model_raises_in_the_smc_maker():
+    model = xor_model()
+    model.temperature = 0.5
+    smc = SMCSampler(model, 128, num_mutation_steps=1)
+    with pytest.raises(ValueError, match="untempered"):
+        smc.run(torch.Generator().manual_seed(0), XOR, platform="cuda")
+
+
+@pytest.mark.parametrize("target", ["mlp", "distribution"])
+def test_smc_reuses_the_runner_and_fills_log_lik_with_zeros(target):
+    """Two runs over the same data share one cached runner (the counterpart
+    of test_smc_reuses_compiled_anneal); both paths return zero log_lik, as
+    both JAX paths do; on CPU tensors neither kernel launches (the plain
+    mutation pass runs)."""
+    from eeyore_tpu_torch.ops import resident_smc
+
+    if target == "mlp":
+        smc, data = SMCSampler(xor_model(), 256, betas=[0.0, 0.5, 1.0],
+                               num_mutation_steps=1), XOR
+    else:
+        smc, _ = smc_mixture(256, betas=[0.0, 0.5, 1.0], num_mutation_steps=1)
+        data = (np.zeros((1, 0)), np.zeros((1, 0)))
+    launched = dict(resident_smc.launch_counts)
+    gen = torch.Generator().manual_seed(0)
+    state, diags = smc.run(gen, data, platform="cuda")
+    runners = list(smc._backend_cache.values())
+    smc.run(gen, data, platform="cuda")
+    assert list(smc._backend_cache.values()) == runners and len(runners) == 1
+    assert state.particles.shape == (256, 2 if target == "distribution" else 9)
+    assert not state.log_lik.any() and float(state.beta) == 1.0
+    assert diags["beta"].shape == (2,) and math.isfinite(diags["log_evidence"])
+    assert resident_smc.launch_counts == launched  # no card here
+    generic_state, _ = smc.run(gen, data, backend="scan")
+    assert not generic_state.log_lik.any()
