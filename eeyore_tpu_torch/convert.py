@@ -15,6 +15,7 @@ from eeyore_tpu_torch.samplers.gibbs import GibbsState
 from eeyore_tpu_torch.samplers.hmc import HMCState
 from eeyore_tpu_torch.samplers.mala import MALAState
 from eeyore_tpu_torch.samplers.mh import MHState
+from eeyore_tpu_torch.samplers.nuts import NUTSState
 from eeyore_tpu_torch.tuners.dual_averaging import DualAveragingState
 
 
@@ -103,6 +104,29 @@ def gibbs_state_from_numpy(state, model, device="cuda", dtype=torch.float32):
         sample=thetas_from_numpy(state.sample, model, device, dtype),
         target_val=_tensor(state.target_val, device, dtype),
         accepted=_tensor(state.accepted, device, torch.int32),
+    )
+
+
+def nuts_state_from_numpy(state, model, device="cuda", dtype=torch.float32):
+    """A ``NUTSState`` of the JAX package with chains stacked first -> the
+    port's batched ``NUTSState``. ``to_numpy`` goes back, field for field, to
+    the JAX ``NUTSState``'s arrays."""
+    i32 = torch.int32
+    return NUTSState(
+        sample=thetas_from_numpy(state.sample, model, device, dtype),
+        target_val=_tensor(state.target_val, device, dtype),
+        grad_val=thetas_from_numpy(state.grad_val, model, device, dtype),
+        accepted=_tensor(state.accepted, device, i32),
+        accept_stat=_tensor(state.accept_stat, device, dtype),
+        depth=_tensor(state.depth, device, i32),
+        num_leapfrogs=_tensor(state.num_leapfrogs, device, i32),
+        divergent=_tensor(state.divergent, device, i32),
+        step=_tensor(state.step, device, dtype),
+        inv_mass=thetas_from_numpy(state.inv_mass, model, device, dtype),
+        wf_mean=thetas_from_numpy(state.wf_mean, model, device, dtype),
+        wf_m2=thetas_from_numpy(state.wf_m2, model, device, dtype),
+        wf_n=_tensor(state.wf_n, device, i32),
+        tuner=dual_averaging_state_from_numpy(state.tuner, device, dtype),
     )
 
 

@@ -8,7 +8,9 @@
 // numbers up to f32 rounding. The HMC stream (hmc_draws) and the walk stream
 // (walk_draws) share their layout: key (seed, chain), counter (iteration, j).
 // The Gibbs stream (gibbs_draws) offsets j by b * kGibbsStride for sub-block
-// b of the sweep.
+// b of the sweep. The NUTS stream (nuts_draws) takes the momenta from words j <
+// ceil(P/2) and then, depth by depth, a direction, 2^d leaf and one merge
+// uniform, each in [0, 1) (u01_at).
 
 #pragma once
 
@@ -109,6 +111,12 @@ __device__ __forceinline__ void normals(unsigned k0, unsigned k1, unsigned ctr, 
 // The uniform of word j of the stream (the accept test: j = ceil(P/2)).
 __device__ __forceinline__ float uniform_at(unsigned k0, unsigned k1, unsigned ctr, unsigned j) {
   return uniform(threefry2x32(k0, k1, ctr, j).x);
+}
+
+// The [0, 1) uniform of word j, 1 - uniform_at: the NUTS kernels' draws
+// (log(u) < 0 holds for every one of them).
+__device__ __forceinline__ float u01_at(unsigned k0, unsigned k1, unsigned ctr, unsigned j) {
+  return 1.0f - uniform_at(k0, k1, ctr, j);
 }
 
 }  // namespace kernel_prng

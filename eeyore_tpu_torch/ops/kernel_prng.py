@@ -38,6 +38,16 @@ staged and the dense kernel: key = (seed, global chain index), counter =
 with w the sub-block's width, the two words are the Box-Muller pair of
 proposal normals 2j and 2j+1; j = ceil(w/2) gives the accept uniform. A sweep
 has fewer than 2**16 sub-blocks, each narrower than 2**17 coordinates.
+
+The stream of the fixed-budget NUTS kernels (``nuts_draws``), the same for
+the staged and the dense kernel: key = (seed, global chain index), counter =
+(iteration, j). For j < ceil(P/2) the two words are the Box-Muller pair of
+momenta 2j and 2j+1. Then, for each depth d = 0 .. D-1 in order, from word
+ceil(P/2) + (2**d - 1) + 2d: the direction uniform (right when u < 1/2), the
+2**d leaf uniforms of the subtree's multinomial draws, and the merge
+uniform. Every NUTS uniform is ``1 - uniform``, in [0, 1), as the JAX
+kernels' ``u01`` (``resident_nuts_dense.py:101-106``): log(u) < 0 then
+holds for every draw, so the first live leaf of a subtree is always taken.
 """
 
 import math
@@ -149,3 +159,28 @@ def gibbs_draws(seed, chains, iteration, sub_block, width):
     [C]) for the global chain indices ``chains``."""
     return _draws(seed, chains, iteration, width, 1,
                   first_word=sub_block * GIBBS_SUB_BLOCK_STRIDE)
+
+
+def nuts_word(num_params, depth):
+    """The first word (the direction uniform) of depth ``depth`` of the NUTS
+    stream: ceil(P/2) + (2**depth - 1) + 2 depth."""
+    return (num_params + 1) // 2 + (1 << depth) - 1 + 2 * depth
+
+
+def nuts_draws(seed, chains, iteration, num_params, max_depth):
+    """The NUTS kernels' draws for one iteration, for the global chain
+    indices ``chains`` [C] (int64): (momentum normals [P, C] float32,
+    direction uniforms [D, C], leaf uniforms [D tensors of [2**d, C]], merge
+    uniforms [D, C]), every uniform in [0, 1)."""
+    (normals,) = _draws(seed, chains, iteration, num_params, 0)
+    j = torch.arange(nuts_word(num_params, max_depth) - nuts_word(num_params, 0),
+                     dtype=torch.int64, device=chains.device)[:, None]
+    y0, _ = threefry2x32(seed, chains[None, :], iteration, nuts_word(num_params, 0) + j)
+    u = 1.0 - uniform(y0)
+    directions, leaves, merges = [], [], []
+    for d in range(max_depth):
+        first = nuts_word(num_params, d) - nuts_word(num_params, 0)
+        directions.append(u[first])
+        leaves.append(u[first + 1:first + 1 + (1 << d)])
+        merges.append(u[first + 1 + (1 << d)])
+    return normals, torch.stack(directions), leaves, torch.stack(merges)

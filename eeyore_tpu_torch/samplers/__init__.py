@@ -3,6 +3,7 @@ from eeyore_tpu_torch.samplers.gibbs import Gibbs, GibbsState
 from eeyore_tpu_torch.samplers.hmc import HMC, HMCState
 from eeyore_tpu_torch.samplers.mala import MALA, MALAState
 from eeyore_tpu_torch.samplers.mh import MetropolisHastings, MHState
+from eeyore_tpu_torch.samplers.nuts import NUTS, NUTSState, choose_max_depth
 from eeyore_tpu_torch.samplers.population import PopulationKernel, sample_population
 from eeyore_tpu_torch.samplers.power_posterior import (
     PowerPosteriorSampler,

@@ -1,7 +1,7 @@
 """Kernel-backend dispatch: route ``sample_chains`` onto the whole-loop
 kernels when the configuration is eligible.
 
-Counterpart of the HMC, MH, MALA and Gibbs parts of
+Counterpart of the HMC, NUTS, MH, MALA and Gibbs parts of
 ``eeyore_tpu/samplers/dispatch.py``. ``resolve_backend`` decides, per
 (transition kernel, model, data, chain count), which engine runs the
 request, and ``run_kernel_backend`` runs it and re-wraps the kernel's
@@ -19,10 +19,12 @@ Backends:
 
 Both kernel backends need the model and the data on a CUDA device, a
 full-batch schedule, an ``extract_arch``-able MLP and at most
-``MAX_DISPATCH_PARAMS`` parameters. HMC, random-walk MH (a symmetric
+``MAX_DISPATCH_PARAMS`` parameters. HMC, fixed-budget NUTS (``fixed_budget=True``
+or a resolved ``max_depth="auto"``, at most ``MAX_KERNEL_DEPTH``; its
+kernels ``ops/resident_nuts{,_dense}.py``), random-walk MH (a symmetric
 ``NormalKernel`` of scalar scale), MALA and blocked Gibbs have kernels;
-every other sampler (and an asymmetric or vector-scale MH) runs the generic
-path under ``"auto"``.
+every other sampler (adaptive NUTS, an asymmetric or vector-scale MH) runs
+the generic path under ``"auto"``.
 
 Statistical contract: the kernel draws its own numbers (``ops/
 kernel_prng.py``) from a seed taken from the caller's generator, so its runs
@@ -30,7 +32,8 @@ are statistically equivalent to, not equal to, the generic path's. Recorded
 keys by default are ``sample`` plus a derived ``accepted`` flag (sample[t]
 != sample[t-1], with the first kept row set from the kernel's accept count,
 or to 1 where the count is per Gibbs sub-block, ``info["accept_counts"]``
-[C, B]);
+[C, B], or NUTS's sum of accept_stat, where ``info["divergent_sums"]`` [C]
+holds the divergences too);
 an explicit ``record_keys`` containing ``target_val`` turns on the kernel's
 extras rows, which carry the value and an exact moved flag. Any other key
 forces the generic path.
@@ -70,6 +73,11 @@ HOPPER_BLOCK_CAP_WIDE = 256
 HOPPER_BLOCK_CAP_SMALL = 512
 SMALL_MODEL_ROWS = 32
 KERNEL_MAX_NUM_STEPS = 64
+# JAX's limit on the NUTS kernels' depth, from its TPU compile service (its
+# kernels unroll the 2^depth - 1 leapfrogs). The CUDA kernels loop over the
+# leaves and have no such limit; the port keeps JAX's so that it routes where
+# JAX routes.
+MAX_KERNEL_DEPTH = 5
 
 
 def _freeze(v):
@@ -109,7 +117,9 @@ def _model_fingerprint(model):
 class _Plan:
     """``acc_kind``: "counts" when the kernel returns accepted-transition
     counts [C], "per_block" when it returns them per Gibbs sub-block [C, B]
-    (a tempering plan's counts [C, 2] go to the walk module's ``last_info``)."""
+    (a tempering plan's counts [C, 2] go to the walk module's
+    ``last_info``), "stat" for NUTS's sums of accept_stat [C], followed by
+    its divergence sums [C]."""
 
     def __init__(self, backend, maker, kwargs, chain_block, acc_kind="counts"):
         self.backend = backend
@@ -128,6 +138,29 @@ def _pick_block(num_chains, candidates, cap=None):
     return None
 
 
+def _cap_note(cap):
+    """What a reason adds where the card caps the tuning group (``cap`` from
+    ``_largest_group``; None off the card or untuned)."""
+    if cap is None:
+        return ""
+    if cap == 0:
+        return " (this card holds no tuning group of this build)"
+    return f" (tuning groups of at most {cap} on this card)"
+
+
+def _largest_group(blocks, group_shape):
+    """The largest of ``blocks`` for which ``group_shape(cb)`` finds a launch
+    shape (it raises ValueError where the card cannot hold the group), else
+    0."""
+    for cb in blocks:
+        try:
+            group_shape(cb)
+        except ValueError:
+            continue
+        return cb
+    return 0
+
+
 def _dense_group_cap(kernel, x, y):
     """The largest dense block that a tuned population run's tuning group can
     be on this card: a group is one thread-block cluster, and what the
@@ -139,13 +172,70 @@ def _dense_group_cap(kernel, x, y):
     from eeyore_tpu_torch.ops import resident_hmc_dense
 
     lib = resident_hmc_dense.load_kernel(kernel.model, x.cpu().numpy(), y.cpu().numpy())
-    for cb in _DENSE_BLOCKS:
-        try:
-            resident_hmc_dense.group_shape(lib, cb)
-        except ValueError:
-            continue
-        return cb
-    return 0
+    return _largest_group(_DENSE_BLOCKS, lambda cb: resident_hmc_dense.group_shape(lib, cb))
+
+
+def _nuts_group_cap(kernel, x, y, dense, inv_mass):
+    """The largest block that a tuned NUTS run's tuning group can be on this
+    card (the NUTS kernel's build asked, as ``_dense_group_cap`` asks the
+    dense HMC one); None untuned or off the card."""
+    if kernel.tuner is None or not x.is_cuda:
+        return None
+    from eeyore_tpu_torch.ops import resident_nuts, resident_nuts_dense
+    from eeyore_tpu_torch.ops.mlp_math import prepare_data
+
+    xn, yn = x.cpu().numpy(), y.cpu().numpy()
+    if dense:
+        lib = resident_nuts_dense.load_kernel(kernel.model, xn, yn, kernel.max_depth, inv_mass)
+        return _largest_group(_DENSE_BLOCKS,
+                              lambda cb: resident_nuts_dense.group_shape(lib, cb))
+    lib = resident_nuts.load_kernel(kernel.model, kernel.max_depth)
+    n_rows = prepare_data(kernel.model, xn, yn)[0].shape[0]
+    return _largest_group(_RESIDENT_BLOCKS,
+                          lambda cb: resident_nuts.group_shape(lib, cb, n_rows))
+
+
+def _nuts_plan(kernel, x, y, num_chains, common, want_dense):
+    """The NUTS branch of ``_sampler_plan`` (JAX's, reasons included)."""
+    # max_depth="auto" kernels dispatch as fixed-budget once the probe has
+    # resolved their depth (the fixed-budget and adaptive trees draw the same
+    # samples at equal max_depth, so the probed depth cap is the only change)
+    auto_ok = kernel.auto_depth and kernel._auto_fingerprint is not None
+    if not kernel.fixed_budget and not auto_ok:
+        return None, ("adaptive NUTS has data-dependent trees; only fixed_budget=True (or "
+                      "max_depth='auto') dispatches to the kernels")
+    if int(kernel.max_depth) > MAX_KERNEL_DEPTH:
+        return None, (f"max_depth={kernel.max_depth} > MAX_KERNEL_DEPTH={MAX_KERNEL_DEPTH} "
+                      "(the kernels unroll 2^depth-1 leapfrogs; deep budgets run the scanned "
+                      "engine)")
+    frozen_metric = kernel._frozen_inv_mass
+    if kernel.mass_adapt and frozen_metric is None:
+        return None, ("mass_adapt needs a FROZEN metric for the kernels: use max_depth='auto' "
+                      "(the warmup probe freezes the diagonal) or the scanned path")
+    nuts_kw = dict(step=float(kernel.step0), max_depth=kernel.max_depth, tuner=kernel.tuner,
+                   **common)
+    if frozen_metric is not None:
+        nuts_kw["inv_mass"] = np.asarray(frozen_metric)
+    cap = _nuts_group_cap(kernel, x, y, want_dense, nuts_kw.get("inv_mass"))
+    if want_dense:
+        from eeyore_tpu_torch.ops.resident_nuts_dense import make_resident_nuts_dense
+
+        cb = _pick_block(num_chains, _DENSE_BLOCKS, cap=cap)
+        if cb is None:
+            return None, "dense NUTS needs chains divisible by 1024" + _cap_note(cap)
+        return _Plan("dense", make_resident_nuts_dense, dict(chain_block=cb, **nuts_kw), cb,
+                     acc_kind="stat"), None
+    from eeyore_tpu_torch.ops.resident_nuts import make_resident_nuts
+
+    # JAX's streamed-body cap, and on the card what a tuning group can be
+    jax_cap = 256 if x.shape[0] >= SMALL_MODEL_ROWS else 4096
+    cb = _pick_block(num_chains, _RESIDENT_BLOCKS,
+                     cap=jax_cap if cap is None else min(cap, jax_cap))
+    if cb is None:
+        return None, ("resident NUTS needs chains divisible by 128"
+                      + _cap_note(cap if cap is not None and cap < jax_cap else None))
+    return _Plan("resident", make_resident_nuts, dict(chain_block=cb, **nuts_kw), cb,
+                 acc_kind="stat"), None
 
 
 def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_thin,
@@ -156,6 +246,7 @@ def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_
     from eeyore_tpu_torch.samplers.hmc import HMC
     from eeyore_tpu_torch.samplers.mala import MALA
     from eeyore_tpu_torch.samplers.mh import MetropolisHastings
+    from eeyore_tpu_torch.samplers.nuts import NUTS
 
     common = dict(num_iters=num_iters, num_burnin_iters=num_burnin_iters,
                   record_thin=record_thin, record_extras=record_extras)
@@ -195,6 +286,9 @@ def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_
             return None, "resident MALA needs chains divisible by 128"
         return _Plan("resident", make_resident_mala,
                      dict(step=step, chain_block=cb, **common), cb), None
+
+    if type(kernel) is NUTS:
+        return _nuts_plan(kernel, x, y, num_chains, common, want_dense)
 
     if type(kernel) is Gibbs:
         gibbs_kw = dict(scales=list(kernel.scales),
@@ -240,8 +334,7 @@ def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_
         cap = _dense_group_cap(kernel, x, y) if kernel.tuner is not None else None
         cb = _pick_block(num_chains, _DENSE_BLOCKS, cap=cap)
         if cb is None:
-            return None, ("dense HMC needs chains divisible by 1024"
-                          + (f" (tuning groups of at most {cap} on this card)" if cap else ""))
+            return None, "dense HMC needs chains divisible by 1024" + _cap_note(cap)
         return _Plan("dense", make_resident_hmc_dense, dict(chain_block=cb, **hmc_kw),
                      cb), None
     from eeyore_tpu_torch.ops.resident_hmc import make_resident_hmc
@@ -363,18 +456,20 @@ def run_kernel_backend(kernel, generator, theta0s, data, num_iters, num_burnin_i
     seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              device=generator.device if generator is not None else "cpu"))
     out = fn(seed, theta0s, **call_kw)
+    if want_extras:
+        out, values, flags = out[:-2], out[-2], out[-1]
     # [kept, C, P] view of the kernel's [kept, P, C] -> [C, kept, P], one copy
     samples = out[0].transpose(0, 1).contiguous()
     final, acc = out[1], out[2]
     recorded = {"sample": samples}
     if want_extras:
-        recorded["accepted"] = out[4].T.contiguous()
-        recorded["target_val"] = out[3].T.contiguous()
+        recorded["accepted"] = flags.T.contiguous()
+        recorded["target_val"] = values.T.contiguous()
     elif needs_accepted:
         # derived accepted: moved against the previous kept row; where the
         # kernel returns accepted-transition counts (record_thin 1) the first
         # kept row takes the count's remainder, else (per-sub-block Gibbs
-        # counts) it is 1, as in the JAX package
+        # counts, NUTS's accept_stat sums) it is 1, as in the JAX package
         moved = torch.any(samples[:, 1:, :] != samples[:, :-1, :], dim=-1)
         if plan.acc_kind == "counts" and record_thin == 1:
             first = torch.clamp(torch.round(acc - moved.sum(dim=1)), 0, 1)
@@ -382,9 +477,11 @@ def run_kernel_backend(kernel, generator, theta0s, data, num_iters, num_burnin_i
             first = torch.ones(moved.shape[0], dtype=acc.dtype, device=acc.device)
         recorded["accepted"] = torch.cat([first[:, None].to(moved.dtype), moved],
                                          dim=1).to(torch.int32)
-    del out
     kept = (num_iters - num_burnin_iters) // record_thin
     info = {"accept_counts": acc, "final": final, "kept": kept, "backend": plan.backend}
+    if plan.acc_kind == "stat":
+        info["divergent_sums"] = out[3]
+    del out
     return recorded, info
 
 

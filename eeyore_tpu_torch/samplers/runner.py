@@ -57,6 +57,16 @@ def _run_generic(kernel, generator, theta0s, schedule, num_iters, num_burnin_ite
     return state, recorded
 
 
+def _resolve_auto_budget(kernel, generator, schedule, theta0s):
+    """NUTS with ``max_depth="auto"``: probe the depth and step on this data
+    before dispatch (the probe's seed from ``generator``); the run's inits go
+    to the probe of a prior-less model only."""
+    if getattr(kernel, "auto_depth", False):
+        kernel.resolve_auto_budget(
+            schedule, generator,
+            theta0s=theta0s if not hasattr(kernel.model, "prior") else None)
+
+
 def _prepare(kernel, theta0s, data, num_iters, num_burnin_iters, record_thin):
     theta0s = torch.as_tensor(theta0s)
     model_dtype = getattr(kernel.model, "dtype", None)
@@ -96,6 +106,7 @@ def sample_chains(kernel, generator, theta0s, data, num_iters, num_burnin_iters=
     """
     theta0s, schedule = _prepare(kernel, theta0s, data, num_iters, num_burnin_iters,
                                  record_thin)
+    _resolve_auto_budget(kernel, generator, schedule, theta0s)
     if backend != "scan":
         from eeyore_tpu_torch.samplers.dispatch import resolve_backend, run_kernel_backend
 
@@ -144,6 +155,7 @@ def sample_chain(kernel, generator, theta0, data, num_iters, num_burnin_iters=0,
 
         theta0s, schedule = _prepare(kernel, theta0[None], data, num_iters,
                                      num_burnin_iters, record_thin)
+        _resolve_auto_budget(kernel, generator, schedule, theta0s)
         plan, _reason = resolve_backend(
             kernel, schedule, 1024, num_iters, num_burnin_iters, record_thin,
             backend=backend, platform=platform, record_keys=record_keys)

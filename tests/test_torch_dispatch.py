@@ -819,3 +819,151 @@ def test_smc_reuses_the_runner_and_fills_log_lik_with_zeros(target):
     assert resident_smc.launch_counts == launched  # no card here
     generic_state, _ = smc.run(gen, data, backend="scan")
     assert not generic_state.log_lik.any()
+
+
+# ----------------------------------------------------------------------
+# NUTS: fixed-budget and resolved max_depth="auto" kernels go to the NUTS
+# kernels where JAX sends them (its resolve_backend at platform="tpu" is the
+# oracle); adaptive NUTS, deep trees and an unfrozen metric stay generic
+# ----------------------------------------------------------------------
+
+def nuts_pair(rows, **kw):
+    """(port NUTS, JAX NUTS, x, y) over XOR (4 rows) or iris (150 rows)."""
+    from eeyore_tpu.samplers import NUTS as JNUTS
+    from eeyore_tpu_torch.samplers import NUTS
+
+    model, jmodel, x, y = smc_problem(rows)
+    jkw = dict(kw)
+    if "tuner" in kw:
+        from eeyore_tpu.tuners.dual_averaging import HMCDATuner as JHMCDATuner
+
+        jkw["tuner"] = JHMCDATuner(**vars(kw["tuner"]))
+    return NUTS(model, **kw), JNUTS(jmodel, **jkw), x, y
+
+
+NUTS_CONFIGS = {
+    "fixed": dict(step=0.1, max_depth=3, fixed_budget=True),
+    "fixed_tuned": dict(step=0.1, max_depth=4, fixed_budget=True, tuner=HMCDATuner(d=0.8)),
+    "adaptive": dict(step=0.1, max_depth=3),
+    "depth_6": dict(step=0.1, max_depth=6, fixed_budget=True),
+    "depth_5": dict(step=0.1, max_depth=5, fixed_budget=True),
+    "mass_adapt_unfrozen": dict(step=0.1, max_depth=3, fixed_budget=True, mass_adapt=True),
+    "auto_unprobed": dict(step=0.1, max_depth="auto"),
+}
+
+
+def plan_summary(plan, reason):
+    if plan is None:
+        return None, reason
+    return (plan.backend, plan.maker.__name__, plan.chain_block, plan.acc_kind,
+            plan.kwargs["max_depth"], plan.kwargs["step"]), reason
+
+
+@pytest.mark.parametrize("rows", [4, 150])
+@pytest.mark.parametrize("config", sorted(NUTS_CONFIGS))
+def test_nuts_resolves_as_jax(rows, config):
+    """Maker, block, acc_kind, divergence output and reason equal JAX's,
+    over chain counts and both explicit backends."""
+    from eeyore_tpu.samplers.dispatch import resolve_backend as jresolve_backend
+
+    kernel, jkernel, x, y = nuts_pair(rows, **NUTS_CONFIGS[config])
+    for C in (384, 1000, 1024, 4096, 16384, 32768):
+        for backend in ("auto", "resident", "dense"):
+            try:
+                jplan, jreason = jresolve_backend(jkernel, (x, y), C, 256, 64, platform="tpu",
+                                                  backend=backend)
+            except ValueError as err:
+                with pytest.raises(ValueError) as raised:
+                    resolve_backend(kernel, (x, y), C, 256, 64, platform="cuda", backend=backend)
+                assert str(raised.value) == str(err)
+                continue
+            # the port reads the divergence sums wherever acc_kind is "stat";
+            # JAX's extra_outputs says the same
+            assert jplan is None or jplan.extra_outputs == int(jplan.acc_kind == "stat")
+            want = plan_summary(jplan, jreason)
+            got = plan_summary(*resolve_backend(kernel, (x, y), C, 256, 64, platform="cuda",
+                                                backend=backend))
+            assert got == want, (C, backend)
+
+
+@pytest.mark.parametrize("rows, cap, C, want", [
+    (4, 0, 4096, "dense NUTS needs chains divisible by 1024 (this card holds no tuning group "
+                 "of this build)"),
+    (4, 512, 4096, "dense NUTS needs chains divisible by 1024 (tuning groups of at most 512 on "
+                   "this card)"),
+    (150, 0, 4096, "resident NUTS needs chains divisible by 128 (this card holds no tuning "
+                   "group of this build)"),
+    (150, 64, 4096, "resident NUTS needs chains divisible by 128 (tuning groups of at most 64 "
+                    "on this card)"),
+    (150, 4096, 1000, "resident NUTS needs chains divisible by 128"),
+])
+def test_nuts_reason_names_the_cards_tuning_group_cap(monkeypatch, rows, cap, C, want):
+    """Where the card caps a tuned NUTS run's tuning group below every block
+    (the cap is asked of the build on the card, so it is given here), the
+    generic fallback's reason says so, as dense HMC's does; a cap above
+    JAX's own block cap adds nothing."""
+    kernel, _, x, y = nuts_pair(rows, step=0.1, max_depth=3, fixed_budget=True,
+                                tuner=HMCDATuner(d=0.8))
+    monkeypatch.setattr(dispatch, "_nuts_group_cap", lambda *args: cap)
+    if rows == 4:  # XOR falls through to the resident kernel under "auto"
+        with pytest.raises(ValueError) as raised:
+            resolve_backend(kernel, (x, y), C, 256, 64, platform="cuda", backend="dense")
+        assert str(raised.value).endswith(f"ineligible: {want}")
+        return
+    plan, reason = resolve_backend(kernel, (x, y), C, 256, 64, platform="cuda")
+    assert plan is None and reason == want
+
+
+def test_auto_nuts_dispatches_after_its_probe_with_the_frozen_metric():
+    """Unprobed, an auto kernel runs generic (JAX's reason); probed, it plans
+    the dense kernel at the probed depth and step, the frozen metric
+    forwarded as inv_mass, as tests/test_nuts.py::TestFrozenMetricBridge."""
+    from eeyore_tpu_torch.samplers import NUTS
+
+    model = xor_model()
+    kernel = NUTS(model, step=0.1, max_depth="auto", mass_adapt=True)
+    plan, reason = resolve_backend(kernel, XOR, 8192, 256, platform="cuda")
+    assert plan is None and "adaptive NUTS" in reason
+    kernel.resolve_auto_budget(XOR, torch.Generator().manual_seed(0), num_warmup=64,
+                               num_chains=4)
+    plan, reason = resolve_backend(kernel, XOR, 8192, 256, platform="cuda")
+    assert plan is not None, reason
+    assert plan.maker.__name__ == "make_resident_nuts_dense" and plan.chain_block == 8192
+    assert plan.kwargs["max_depth"] == kernel.max_depth and plan.kwargs["step"] == kernel.step0
+    np.testing.assert_allclose(plan.kwargs["inv_mass"], kernel._frozen_inv_mass)
+
+
+@pytest.mark.parametrize("record_keys", [None, ("sample", "target_val", "accepted")])
+def test_nuts_slice_runs_the_plain_kernel_into_chainlists(record_keys):
+    """``sample_chains(NUTS(fixed_budget=True), backend="auto",
+    platform="cuda")`` on CPU tensors: the dense plain version through
+    dispatch, the first kept row of the derived flags set to 1 (acc_kind
+    "stat"), and ``info["divergent_sums"]`` from ``run_kernel_backend``; no
+    kernel launch."""
+    from eeyore_tpu_torch.ops import resident_nuts, resident_nuts_dense
+    from eeyore_tpu_torch.samplers import NUTS
+
+    model = xor_model()
+    C, iters, burnin = 1024, 12, 4
+    theta0s = torch.randn(C, model.num_params, generator=torch.Generator().manual_seed(3))
+    kernel = NUTS(model, step=2.0, max_depth=3, fixed_budget=True, tuner=HMCDATuner(d=0.8))
+    launched = dict(resident_nuts.launch_counts, **resident_nuts_dense.launch_counts)
+    chains = sample_chains(kernel, torch.Generator().manual_seed(4), theta0s, XOR, iters, burnin,
+                           record_keys=record_keys, platform="cuda")
+    assert dict(resident_nuts.launch_counts, **resident_nuts_dense.launch_counts) == launched
+    samples = chains.get_samples()
+    assert samples.shape == (C, iters - burnin, model.num_params)
+    flags = chains.tensor("accepted")
+    assert flags.dtype == torch.int32
+    moved = torch.any(samples[:, 1:] != samples[:, :-1], dim=-1)
+    assert torch.equal(flags[:, 1:].bool(), moved)
+    if record_keys is None:
+        assert bool(flags[:, 0].eq(1).all())
+    else:
+        assert set(chains.keys()) == set(record_keys)
+    plan, _ = resolve_backend(kernel, XOR, C, iters, burnin, platform="cuda")
+    _, info = dispatch.run_kernel_backend(kernel, torch.Generator().manual_seed(4), theta0s, XOR,
+                                          iters, burnin, plan)
+    assert info["divergent_sums"].shape == (C,) and info["accept_counts"].shape == (C,)
+    assert 0.0 < float(info["accept_counts"].mean()) / info["kept"] <= 1.0
+    assert float(info["divergent_sums"].max()) <= iters - burnin
