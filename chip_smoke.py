@@ -9,15 +9,20 @@ kernels are built for sm_90a). Phases, one JSON line each:
    log-posterior kernel ``fused_mlp_vg`` for the three architectures below;
    ``resident_hmc`` for iris MLP(4,3,3) CE and XOR MLP(2,2,1) BCE;
    ``resident_hmc_dense`` for XOR MLP(2,2,1); ``resident_walk`` (MH and MALA)
-   for iris MLP(4,3,3) and (its Gibbs move) iris MLP(4,3,2,3);
+   for iris MLP(4,3,3) and (its Gibbs move, a chain on ``GIBBS_LANES`` lanes
+   caching its rows' activations) iris MLP(4,3,2,3), once more with every
+   unit split, and XOR MLP(2,2,1) staged;
    ``resident_walk_dense`` for XOR MLP(2,2,1) and MLP(2,3,2,1), and for
    MLP(2,3,2,1) with one-coordinate Gibbs sub-blocks; ``resident_smc`` for
    XOR MLP(2,2,1) BCE and iris MLP(4,3,3) CE; ``resident_smc_closure`` for
    the 2-d mixture of benchmarks/validate_smc_hard.py, its body generated
    from the closure (``ops/closure_trace.py``); ``resident_nuts`` for iris
    MLP(4,3,3) and ``resident_nuts_dense`` for XOR MLP(2,2,1), at tree depth
-   3, the dense one also with a diagonal metric. It reports each build's
-   registers and local-memory (spill) bytes per thread, the Gibbs and
+   3, the dense one also with a diagonal metric (the staged one on
+   ``NUTS_LANES`` lanes a chain, and on one thread a chain for XOR's tuning
+   groups of 4096 chains). It reports the lane kernels' lanes, occupancy
+   targets and the Gibbs cache's choice, each build's registers and
+   local-memory (spill) bytes per thread, the Gibbs and
    tempering moves' too (iris MLP(4,3,3) MH and MALA on ``resident_walk``,
    XOR MLP(2,2,1) MH and MALA on ``resident_walk_dense``), the SMC mutation
    kernels' MH and MALA, and the thread-block cluster a population-tuned
@@ -41,7 +46,9 @@ kernels are built for sm_90a). Phases, one JSON line each:
    and MALA MLP(2,3,2,1) (step 0.01), untuned with extras and tuned; the
    Gibbs moves on iris MLP(4,3,2,3) (scales 0.1, staged), XOR MLP(2,2,1)
    (scales 0.5, dense) and XOR MLP(2,3,2,1) with ``node_subblock_size=[1]*6``
-   (dense), 32768 chains x 20 iterations, extras, per-sub-block counts; the
+   (dense), and staged on iris MLP(4,3,2,3) with every unit split into two
+   sub-blocks and on XOR MLP(2,2,1), 32768 chains x 20 iterations, extras,
+   per-sub-block counts, the lane kernels' launches (blocks, SMs covered); the
    tempering moves (ladders of 8 rungs at (i/8)^4, swaps every 5 iterations)
    on iris MALA (step 0.003) and MH (scale 0.1), staged, and XOR MLP(2,2,1)
    MALA (step 0.05), dense, 32768 chains x 20 iterations, extras, both count
@@ -75,7 +82,10 @@ kernels are built for sm_90a). Phases, one JSON line each:
    moves its whole tuning group's step), so at least 97% of its chains and
    75% of its steps must agree, with pooled means within 5 pooled standard
    errors and accept_stat within 0.02, and the plain version's own
-   agreement under a one-ulp change of theta0 reported.
+   agreement under a one-ulp change of theta0 reported. Then tuned staged
+   NUTS on XOR (3 burn-in iterations) at the plan's tuning group for
+   ``backend="resident"``, which must be JAX's 4096 chains (the build with
+   one thread a chain), held as the tuned iris case is.
 4. main path, iris, FusedHMC: tuned ``FusedHMC`` on config 3 (32768 chains,
    1500 iterations, 500 burn-in). Checks finite samples, post-burn-in
    acceptance in 0.65 +- 0.15, and pooled posterior means within 5 pooled
@@ -119,7 +129,8 @@ kernels are built for sm_90a). Phases, one JSON line each:
     acceptance (the kernel's counts over the kept iterations) within 0.02 of
     the generic path's ``block_acceptance_rate``, finite ``multi_rhat`` /
     ``multi_ess`` on the first 64 chains, and reports the kernel's time
-    beside its bound.
+    beside its bound, and beside the time of the same run keeping one
+    iteration (what recording costs).
 13. main paths, tempering, PowerPosteriorSampler.run(backend="auto",
     all_ladders=True): ladders of 8 rungs, MALA within the rungs, even/odd
     swaps every 10 iterations, 2048 iterations with 1024 burn-in, on XOR
@@ -255,6 +266,9 @@ SMC_PARTICLES, SMC_STEPS, SMC_SEEDS = 16384, 5, 16
 LADDER_RUNGS, CHECK_BETWEEN, MAIN_BETWEEN = 8, 5, 10
 # per-block acceptance of a Gibbs kernel run against its generic path
 GIBBS_BLOCK_ACCEPTANCE_TOL = 0.02
+# node sub-blocks that split every unit of iris MLP(4,3,2,3) (5, 4 and 3
+# coordinates a unit), so that the staged Gibbs move updates partial units
+IRIS4323_SPLIT_UNITS = [3, 3, 3, 2, 2, 2, 2, 2]
 # resident vs plain: a chain agrees when every value it recorded is within
 # RESIDENT_ATOL + RESIDENT_RTOL * |plain value|; at least RESIDENT_MIN_AGREEING
 # of the chains must agree
@@ -665,13 +679,18 @@ def main(argv=None):
     start = time.perf_counter()
     nuts_metric = {"iris": np.linspace(0.5, 2.0, iris_model.num_params),
                    "xor": np.linspace(0.5, 2.0, xor_model.num_params)}
-    with concurrent.futures.ThreadPoolExecutor(len(cases) + 14) as pool:
+    iris_rows = prepare_data(iris_model, iris.x, iris.y)[0].shape[0]
+    xor_rows = prepare_data(xor_model, xor.x, xor.y)[0].shape[0]
+    with concurrent.futures.ThreadPoolExecutor(len(cases) + 15) as pool:
         futures = [pool.submit(fused_mlp.load_kernel, model) for _, model, _, _, _ in cases]
         resident_futures = [pool.submit(resident_hmc.load_kernel, model)
                             for _, model in resident_cases]
         dense_future = pool.submit(resident_hmc_dense.load_kernel, xor_model, xor.x, xor.y)
         walk_future = pool.submit(resident_walk.load_kernel, iris_model)
-        gibbs_future = pool.submit(resident_walk.load_kernel, iris4323_model)
+        gibbs_future = pool.submit(resident_walk.load_kernel, iris4323_model, None, iris_rows)
+        gibbs_split_future = pool.submit(resident_walk.load_kernel, iris4323_model,
+                                         IRIS4323_SPLIT_UNITS, iris_rows)
+        gibbs_xor_future = pool.submit(resident_walk.load_kernel, xor_model, None, xor_rows)
         gibbs_sub_future = pool.submit(resident_walk_dense.load_kernel, xor2321_model, xor.x,
                                        xor.y, xor2321_subblocks)
         walk_dense_futures = {name: pool.submit(resident_walk_dense.load_kernel, model, xor.x,
@@ -685,7 +704,10 @@ def main(argv=None):
             lambda: resident_smc.load_closure_kernel(resident_smc.closure_programs(
                 mixture, *empty, mixture_base, device)))
         nuts_futures = {
-            "iris_mlp433_ce": pool.submit(resident_nuts.load_kernel, iris_model, NUTS_DEPTH),
+            "iris_mlp433_ce": pool.submit(resident_nuts.load_kernel, iris_model, NUTS_DEPTH,
+                                          resident_nuts.NUTS_LANES),
+            "xor_mlp221_bce_one_thread": pool.submit(resident_nuts.load_kernel, xor_model,
+                                                     NUTS_DEPTH, 1),
             "xor_mlp221_bce_dense": pool.submit(resident_nuts_dense.load_kernel, xor_model,
                                                 xor.x, xor.y, NUTS_DEPTH),
             "xor_mlp221_bce_dense_metric": pool.submit(
@@ -696,6 +718,8 @@ def main(argv=None):
         dense_lib = dense_future.result()
         walk_lib = walk_future.result()
         gibbs_lib = gibbs_future.result()
+        gibbs_split_lib = gibbs_split_future.result()
+        gibbs_xor_lib = gibbs_xor_future.result()
         gibbs_sub_lib = gibbs_sub_future.result()
         walk_dense_libs = {name: f.result() for name, f in walk_dense_futures.items()}
         smc_libs = {name: f.result() for name, f in smc_futures.items()}
@@ -721,7 +745,13 @@ def main(argv=None):
                     shape = str(err)
                 walk_dense_groups[f"{name}_{move}_{cb}"] = shape
     gibbs_resources = {
-        "iris_mlp4323_ce": resident_walk.kernel_resources(gibbs_lib, "gibbs"),
+        "iris_mlp4323_ce": dict(resident_walk.kernel_resources(gibbs_lib, "gibbs"),
+                                **resident_walk.gibbs_layout(gibbs_lib)),
+        "iris_mlp4323_ce_split_units": dict(
+            resident_walk.kernel_resources(gibbs_split_lib, "gibbs"),
+            **resident_walk.gibbs_layout(gibbs_split_lib)),
+        "xor_mlp221_bce_staged": dict(resident_walk.kernel_resources(gibbs_xor_lib, "gibbs"),
+                                      **resident_walk.gibbs_layout(gibbs_xor_lib)),
         "xor_mlp221_bce": resident_walk_dense.kernel_resources(walk_dense_libs["xor_mlp221_bce"],
                                                                "gibbs"),
         "xor_mlp2321_bce_one_coordinate_sub_blocks": resident_walk_dense.kernel_resources(
@@ -735,6 +765,8 @@ def main(argv=None):
     nuts_resources = {
         name: (resident_nuts_dense if "dense" in name else resident_nuts).kernel_resources(lib)
         for name, lib in nuts_libs.items()}
+    for name in ("iris_mlp433_ce", "xor_mlp221_bce_one_thread"):
+        nuts_resources[name]["lanes"] = nuts_libs[name].resident_nuts_lanes()
     nuts_groups = {}
     for cb in (8192, 4096, 2048, 1024):
         try:
@@ -742,7 +774,6 @@ def main(argv=None):
                 nuts_libs["xor_mlp221_bce_dense"], cb)
         except ValueError as err:
             nuts_groups[f"{resident_nuts_dense.KERNEL}_xor_{cb}"] = str(err)
-    iris_rows = prepare_data(iris_model, iris.x, iris.y)[0].shape[0]
     for cb in (256, 512, 1024):
         try:
             nuts_groups[f"{resident_nuts.KERNEL}_iris_{cb}"] = resident_nuts.group_shape(
@@ -760,6 +791,13 @@ def main(argv=None):
                       WALK_DENSE_SOURCE, SMC_SOURCE, SMC_CLOSURE_SOURCE, NUTS_SOURCE,
                       NUTS_DENSE_SOURCE],
           "nuts_depth": NUTS_DEPTH,
+          "lane_settings": {
+              resident_walk.GIBBS_KERNEL: {"lanes": resident_walk.GIBBS_LANES,
+                                           "min_blocks": resident_walk.GIBBS_MIN_BLOCKS,
+                                           "cache_budget": resident_walk.GIBBS_CACHE_BUDGET},
+              resident_nuts.KERNEL: {"lanes": resident_nuts.NUTS_LANES,
+                                     "min_blocks": resident_nuts.NUTS_MIN_BLOCKS,
+                                     "lane_group_cap": resident_nuts.LANE_GROUP_CAP}},
           "seconds": build_seconds,
           "resources": {fused_mlp.KERNEL: {name: fused_mlp.kernel_resources(lib)
                                            for (name, *_), lib in zip(cases, libs)},
@@ -973,6 +1011,11 @@ def main(argv=None):
             tuner=HMCDATuner(d=0.574))),
         ("iris4323_gibbs_extras", False, gibbs_case(iris4323_model, iris, 32768, 0.1, 20,
                                                     extras=True, chain_block=4096)),
+        ("iris4323_gibbs_split_units_extras", False, gibbs_case(
+            iris4323_model, iris, 32768, 0.1, 20, extras=True, chain_block=4096,
+            node_subblock_size=IRIS4323_SPLIT_UNITS)),
+        ("xor_gibbs_staged_extras", False, gibbs_case(xor_model, xor, 32768, 0.5, 20,
+                                                      extras=True, chain_block=4096)),
         ("xor_gibbs_dense_extras", False, gibbs_case(xor_model, xor, 32768, 0.5, 20,
                                                      extras=True, dense=True)),
         ("xor2321_gibbs_dense_subblocks", False, gibbs_case(
@@ -1032,6 +1075,7 @@ def main(argv=None):
         emit({"phase": "resident_vs_plain", "kernel": kernel_name, "case": name,
               "chains": C, "iterations": iters, "burnin": burnin,
               "launch_shape": getattr(fn, "launch_shape", None),
+              "lane_launch": fn.gibbs_launch(C, sm_count) if hasattr(fn, "gibbs_launch") else None,
               "evaluations_per_chain": evaluations / C,
               "kernel_evaluations_per_chain": None if counted is None else counted / C,
               "share_agreeing": share, "limit": limit, "atol": RESIDENT_ATOL,
@@ -1098,14 +1142,21 @@ def main(argv=None):
     nuts_data = {name: tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
                              for a in (ds.x, ds.y)) for name, ds in (("xor", xor), ("iris", iris))}
 
-    def nuts_plan(model, data_name, C, **kw):
+    def nuts_plan(model, data_name, C, backend="auto", **kw):
         kernel = NUTS(model, step=0.1, max_depth=NUTS_DEPTH, fixed_budget=True, **kw)
-        plan, reason = resolve_backend(kernel, nuts_data[data_name], C, 2048, 1024)
+        plan, reason = resolve_backend(kernel, nuts_data[data_name], C, 2048, 1024,
+                                       backend=backend)
         check(plan is not None, f"no NUTS plan: {reason}")
         return plan
 
     nuts_blocks = {name: nuts_plan(model, name, C, tuner=HMCDATuner(d=0.8)).chain_block
                    for name, model, C in (("xor", xor_model, 32768), ("iris", iris_model, 16384))}
+    # staged NUTS on XOR keeps JAX's tuning group of 4096 chains, which takes
+    # the build with one thread a chain (a cluster of lane blocks holds 256)
+    nuts_blocks["xor_staged"] = nuts_plan(xor_model, "xor", NUTS_CHECK_CHAINS, backend="resident",
+                                          tuner=HMCDATuner(d=0.8)).chain_block
+    check(nuts_blocks["xor_staged"] == 4096,
+          f"tuned staged XOR NUTS plans groups of {nuts_blocks['xor_staged']}, not JAX's 4096")
 
     def nuts_eval(model, dataset, dense):
         """(eval_work, data_floats) of a NUTS kernel's evaluation."""
@@ -1184,6 +1235,10 @@ def main(argv=None):
              dict(chain_block=cb, inv_mass=nuts_metric[data_name])),
             (f"{label}_extras", model, dataset, dense, step,
              dict(chain_block=cb, record_extras=True, num_burnin_iters=1))]
+    nuts_runs.append((f"xor_nuts_staged_tuned_group_{nuts_blocks['xor_staged']}", xor_model, xor,
+                      False, 0.1, dict(chain_block=nuts_blocks["xor_staged"],
+                                       tuner=HMCDATuner(d=0.8),
+                                       num_burnin_iters=NUTS_CHECK_BURNIN)))
     nuts_timings = {}
     gen = torch.Generator(device=device).manual_seed(args.seed)
     for name, model, dataset, dense, step, kw in nuts_runs:
@@ -1205,6 +1260,7 @@ def main(argv=None):
         emit({"phase": "resident_vs_plain", "kernel": module.KERNEL, "case": name,
               "depth": NUTS_DEPTH, "step": step, "chain_block": kw["chain_block"],
               "launch_shape": fn.launch_shape,
+              "lane_launch": fn.nuts_launch(C, sm_count) if hasattr(fn, "nuts_launch") else None,
               "evaluations_per_chain": 1 + iters * (2 ** NUTS_DEPTH - 1), **held, "ms": ms,
               "ms_runs": ms_runs, "bound_ms": b_ms, "bound_by": b_by, "card": card})
         torch.cuda.empty_cache()
@@ -1655,8 +1711,16 @@ def main(argv=None):
                                                 chain_block=plan.chain_block)
         gibbs_ms, gibbs_runs = event_times(lambda: fn(args.seed, theta0s))
         b_ms, b_by = bound_ms(work(None), sm_count)
+        # the record's share of the kernel: the same run keeping one iteration
+        one_kept = gibbs_case(model, dataset, C_walk, scales, walk_iters, walk_iters - 1,
+                              dense=want == "dense", chain_block=plan.chain_block)[2]
+        one_kept_ms = event_times(lambda: one_kept(args.seed, theta0s))[0]
+        del one_kept
+        lane = fn.gibbs_launch(C_walk, sm_count) if hasattr(fn, "gibbs_launch") else None
         gibbs_main[module.GIBBS_KERNEL] = {"case": name, "ms": gibbs_ms, "ms_runs": gibbs_runs,
-                                           "bound_ms": b_ms, "bound_by": b_by}
+                                           "bound_ms": b_ms, "bound_by": b_by,
+                                           "ms_keeping_one_iteration": one_kept_ms,
+                                           "lane_launch": lane}
         torch.cuda.empty_cache()
         reset_counts()
         start = time.perf_counter()
@@ -1676,7 +1740,8 @@ def main(argv=None):
               "iterations": walk_iters, "burnin": walk_burnin, "seconds": wall,
               "samples_per_s": C_walk * walk_iters / wall, "kernel_launches": counts,
               "kernel_ms": gibbs_ms, "kernel_bound_ms": b_ms, "kernel_bound_by": b_by,
-              "block_acceptance": kernel_rates.tolist(),
+              "kernel_ms_keeping_one_iteration": one_kept_ms,
+              "lane_launch": lane, "block_acceptance": kernel_rates.tolist(),
               "generic_block_acceptance": generic_rates.tolist(),
               "max_abs_block_acceptance_difference": rate_diff,
               "block_acceptance_limit": GIBBS_BLOCK_ACCEPTANCE_TOL,
@@ -2088,6 +2153,8 @@ def main(argv=None):
             "plan": {"backend": plan.backend, "maker": plan.maker.__name__,
                      "chain_block": plan.chain_block, "depth": depth,
                      "step": plan.kwargs["step"], "launch_shape": fn.launch_shape,
+                     "lane_launch": (fn.nuts_launch(C, sm_count) if hasattr(fn, "nuts_launch")
+                                     else None),
                      "inv_mass": None if "inv_mass" not in plan.kwargs
                      else [float(v) for v in plan.kwargs["inv_mass"]]},
             "probed": kernel.auto_depth, "probe_seconds": probe["seconds"],

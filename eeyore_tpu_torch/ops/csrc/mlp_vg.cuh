@@ -172,6 +172,57 @@ __device__ __forceinline__ Data stage_data(float* smem, const float* __restrict_
   return Data{xs, ys, ms, locs, ivs};
 }
 
+// Adds the untempered log-likelihood of staged row r (its mask applied) to
+// log_lik; with kGrad the row's gradient is added to g, without it g is not
+// touched and no backward pass runs. The row body of chain_log_lik and of the
+// lane kernels (lane_eval.cuh), which split the rows over a chain's lanes.
+template <bool kGrad>
+__device__ __forceinline__ void row_log_lik(const float (&th)[kP], const Data& d, int r,
+                                            float& log_lik, float (&g)[kP]) {
+  float a[kActs];
+  float z_out[kOut];
+  float delta[kMaxWidth];
+#pragma unroll
+  for (int i = 0; i < kIn; ++i) a[i] = d.x[r * kIn + i];
+  forward<0>(th, a, z_out);
+
+  const float m = d.mask[r];
+  const float* yr = d.y + r * kOut;
+  if constexpr (kCrossEntropy) {
+    float zmax = z_out[0];
+#pragma unroll
+    for (int j = 1; j < kOut; ++j) zmax = fmaxf(zmax, z_out[j]);
+    // The k shifted exps serve both the log-sum-exp and the softmax.
+    float e[kOut];
+    float sumexp = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      e[j] = expf(z_out[j] - zmax);
+      sumexp += e[j];
+    }
+    const float lse = zmax + logf(sumexp);
+    float picked = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) picked += yr[j] * z_out[j];
+    log_lik += (picked - lse) * m;
+    if constexpr (kGrad) {
+      const float inv_sumexp = 1.0f / sumexp;
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) delta[j] = (yr[j] - e[j] * inv_sumexp) * m;
+    }
+  } else {
+    constexpr int out = act_off(kNumLayers);
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      const float z = z_out[j];
+      const float softplus = fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)));
+      log_lik += (yr[j] * z - softplus) * m;
+      if constexpr (kGrad) delta[j] = (yr[j] - a[out + j]) * m;
+    }
+  }
+  if constexpr (kGrad) backward<kNumLayers - 1>(th, a, delta, g);
+}
+
 // Untempered log-likelihood of one chain over the staged rows; with kGrad
 // its gradient is added to g (which the caller zeroes), without it g is not
 // touched and no backward pass runs.
@@ -179,50 +230,7 @@ template <bool kGrad>
 __device__ __forceinline__ float chain_log_lik(const float (&th)[kP], const Data& d, int n_rows,
                                                float (&g)[kP]) {
   float log_lik = 0.0f;
-  float a[kActs];
-  float z_out[kOut];
-  float delta[kMaxWidth];
-  for (int r = 0; r < n_rows; ++r) {
-#pragma unroll
-    for (int i = 0; i < kIn; ++i) a[i] = d.x[r * kIn + i];
-    forward<0>(th, a, z_out);
-
-    const float m = d.mask[r];
-    const float* yr = d.y + r * kOut;
-    if constexpr (kCrossEntropy) {
-      float zmax = z_out[0];
-#pragma unroll
-      for (int j = 1; j < kOut; ++j) zmax = fmaxf(zmax, z_out[j]);
-      // The k shifted exps serve both the log-sum-exp and the softmax.
-      float e[kOut];
-      float sumexp = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        e[j] = expf(z_out[j] - zmax);
-        sumexp += e[j];
-      }
-      const float lse = zmax + logf(sumexp);
-      float picked = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) picked += yr[j] * z_out[j];
-      log_lik += (picked - lse) * m;
-      if constexpr (kGrad) {
-        const float inv_sumexp = 1.0f / sumexp;
-#pragma unroll
-        for (int j = 0; j < kOut; ++j) delta[j] = (yr[j] - e[j] * inv_sumexp) * m;
-      }
-    } else {
-      constexpr int out = act_off(kNumLayers);
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        const float z = z_out[j];
-        const float softplus = fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)));
-        log_lik += (yr[j] * z - softplus) * m;
-        if constexpr (kGrad) delta[j] = (yr[j] - a[out + j]) * m;
-      }
-    }
-    if constexpr (kGrad) backward<kNumLayers - 1>(th, a, delta, g);
-  }
+  for (int r = 0; r < n_rows; ++r) row_log_lik<kGrad>(th, d, r, log_lik, g);
   return log_lik;
 }
 

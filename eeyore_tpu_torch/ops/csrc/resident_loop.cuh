@@ -8,19 +8,24 @@
 // Eval argument: an object with vg(th, g) -> value (gradient into g) and
 // v(th) -> value, and for Gibbs the cached value-only interface described
 // at gibbs_chain. StagedEval reads the rows a block staged in shared memory
-// (mlp_vg.cuh); the dense kernels' evaluator calls the code generated for
-// one dataset (ops/mlp_dense.py::dense_source, gibbs_dense_source).
+// (mlp_vg.cuh), one thread a chain; lane_eval.cuh's evaluators read them a
+// group of lanes a chain (the staged Gibbs move and NUTS); the dense
+// kernels' evaluator calls the code generated for one dataset
+// (ops/mlp_dense.py::dense_source, gibbs_dense_source).
 // smc_mutation_chain is one particle's SMC mutation pass (resident_smc.cu),
 // on SplitEval, the staged rows with the likelihood-tempered target.
 //
-// Layout and state. One thread owns one chain. The accepted theta (and its
-// gradient, for HMC and MALA), touched once per iteration, live in shared
-// memory at [P][blockDim]; the proposal and its gradient live in registers
-// (Gibbs keeps theta in registers and saves only the sub-block it moves).
-// Samples are written chain-minor, [kept, rows, C] with rows = P (+2 with
-// record_extras: the value and the moved flag), so a warp's stores are
-// coalesced. The [P*8, C/8] tiles of the TPU's dense layout are this same
-// [P, C] array, so the dense kernels write the same layout.
+// Layout and state. One thread owns one chain, but in the staged Gibbs move
+// and the staged NUTS kernel, where a group of lanes of a warp owns it
+// (lane_eval.cuh). The accepted theta (and its gradient, for HMC and MALA),
+// touched once per iteration, live in shared memory at [P][blockDim]; the
+// proposal and its gradient live in registers (Gibbs keeps theta in
+// registers and saves only the sub-block it moves). Samples are written
+// chain-minor, [kept, rows, C] with rows = P (+2 with record_extras: the
+// value and the moved flag), so a warp's stores are coalesced (a chain on
+// lanes records through a shared-memory tile). The [P*8, C/8] tiles of the
+// TPU's dense layout are this same [P, C] array, so the dense kernels write
+// the same layout.
 //
 // Tuning groups. A tuned population run applies one dual-averaging update
 // to every chain of a group of chain_block chains, on the mean of their
@@ -33,9 +38,10 @@
 // group the TPU's sublane-strided sets s*(C/8) + i*lb + j (lb = chain_block /
 // 8), the chains of grid block i of the TPU kernel.
 //
-// NUTS. nuts_chain is one chain's whole fixed-budget NUTS run
-// (resident_nuts.cu, resident_nuts_dense.cu), every leaf of every depth
-// evaluated; its tree state is described there.
+// NUTS. The fixed-budget NUTS loop is lane_eval.cuh::nuts_chain, written
+// once over the lanes a chain: one thread a chain (resident_nuts_dense.cu,
+// and resident_nuts.cu for tuning groups of more than 256 chains) or a group
+// of lanes of a warp (resident_nuts.cu); this header keeps its scalar pieces.
 //
 // Ladders. tempering_chain runs L consecutive chains as one power-posterior
 // ladder (rung = chain % L, the coldest last). A block holds whole ladders
@@ -140,20 +146,6 @@ struct StagedEval {
   __device__ __forceinline__ float v(const float (&th)[kP]) const {
     return mlp_vg::chain_v(th, d, prior_const, temperature, n_rows);
   }
-  // Gibbs: no cache (a per-chain cache of the staged rows' activations does
-  // not fit on chip); every proposal is one whole value-only forward pass,
-  // the same function as the incremental body of the plain version.
-  static constexpr int kCache = 1;
-  __device__ __forceinline__ float init(const float (&th)[kP], float (&)[kCache]) const {
-    return v(th);
-  }
-  template <int U>
-  __device__ __forceinline__ float update(const float (&th)[kP], const float (&)[kCache],
-                                          float (&)[kCache]) const {
-    return v(th);
-  }
-  template <int U>
-  __device__ __forceinline__ void commit(float (&)[kCache], const float (&)[kCache]) const {}
 };
 
 // The staged rows with the SMC target lp + beta * ll, beta taken at run
@@ -763,17 +755,57 @@ __device__ __forceinline__ void tempering_chain(const Eval& ev, const ResidentWa
   accepts[static_cast<size_t>(C) + c] = n_swaps;
 }
 
+// The layout of a chain that one thread owns (gibbs_chain's default): the
+// draws of sub-block b where they are used, the record and the final state
+// written by the thread. lane_eval.cuh::LaneGibbsLayout is the one of a chain
+// on a group of lanes.
+struct ThreadGibbsLayout {
+  __device__ __forceinline__ void begin(unsigned, unsigned, unsigned) const {}
+  template <int b, int W>
+  __device__ __forceinline__ void normals(unsigned key0, unsigned key1, unsigned ctr,
+                                          float (&z)[W]) const {
+    kernel_prng::normals(key0, key1, ctr, z, static_cast<unsigned>(b) * kernel_prng::kGibbsStride);
+  }
+  template <int b, int W>
+  __device__ __forceinline__ float uniform(unsigned key0, unsigned key1, unsigned ctr) const {
+    return kernel_prng::uniform_at(
+        key0, key1, ctr, static_cast<unsigned>(b) * kernel_prng::kGibbsStride + (W + 1) / 2);
+  }
+  __device__ __forceinline__ void record(float* __restrict__ samples, int k, int, int C, int c,
+                                         bool extras, const float (&th)[kP], float val,
+                                         bool moved) const {
+    const int rows = extras ? kP + 2 : kP;
+    float* out = samples + static_cast<size_t>(k) * rows * C;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) out[static_cast<size_t>(p) * C + c] = th[p];
+    if (extras) {
+      out[static_cast<size_t>(kP) * C + c] = val;
+      out[static_cast<size_t>(kP + 1) * C + c] = moved ? 1.0f : 0.0f;
+    }
+  }
+  template <int kB>
+  __device__ __forceinline__ void finish(float* __restrict__ final_theta,
+                                         float* __restrict__ accepts, int C, int c,
+                                         const float (&th)[kP], const float (&n)[kB]) const {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = th[p];
+#pragma unroll
+    for (int b = 0; b < kB; ++b) accepts[static_cast<size_t>(b) * C + c] = n[b];
+  }
+};
+
 // Sub-block b, and those after it, of one Gibbs sweep (see gibbs_chain).
-template <class Eval, class Blocks, int b>
-__device__ __forceinline__ void gibbs_sub_blocks(const Eval& ev, unsigned key0, unsigned key1,
-                                                 unsigned ctr, const float* __restrict__ scales,
-                                                 bool counting, float (&th)[kP],
-                                                 float (&cache)[Eval::kCache], float& val,
-                                                 float (&n_accepts)[Blocks::kB], bool& moved) {
+template <class Eval, class Blocks, int b, class Layout>
+__device__ __forceinline__ void gibbs_sub_blocks(const Eval& ev, const Layout& layout,
+                                                 unsigned key0, unsigned key1, unsigned ctr,
+                                                 const float* __restrict__ scales, bool counting,
+                                                 float (&th)[kP], float (&cache)[Eval::kCache],
+                                                 float& val, float (&n_accepts)[Blocks::kB],
+                                                 bool& moved) {
   if constexpr (b < Blocks::kB) {
     constexpr int w = Blocks::width(b);
     float z[w];
-    kernel_prng::normals(key0, key1, ctr, z, static_cast<unsigned>(b) * kernel_prng::kGibbsStride);
+    layout.template normals<b>(key0, key1, ctr, z);
     const float scale = scales[b];
     float old[w];
 #pragma unroll
@@ -783,8 +815,7 @@ __device__ __forceinline__ void gibbs_sub_blocks(const Eval& ev, unsigned key0, 
     }
     float next[Eval::kCache];
     const float v_p = ev.template update<Blocks::unit(b)>(th, cache, next);
-    const float u = kernel_prng::uniform_at(
-        key0, key1, ctr, static_cast<unsigned>(b) * kernel_prng::kGibbsStride + (w + 1) / 2);
+    const float u = layout.template uniform<b, w>(key0, key1, ctr);
     if (logf(u) < v_p - val) {
 #pragma unroll
       for (int k = 0; k < w; ++k) moved |= th[Blocks::index(b, k)] != old[k];
@@ -795,8 +826,8 @@ __device__ __forceinline__ void gibbs_sub_blocks(const Eval& ev, unsigned key0, 
 #pragma unroll
       for (int k = 0; k < w; ++k) th[Blocks::index(b, k)] = old[k];
     }
-    gibbs_sub_blocks<Eval, Blocks, b + 1>(ev, key0, key1, ctr, scales, counting, th, cache, val,
-                                          n_accepts, moved);
+    gibbs_sub_blocks<Eval, Blocks, b + 1>(ev, layout, key0, key1, ctr, scales, counting, th,
+                                          cache, val, n_accepts, moved);
   }
 }
 
@@ -811,21 +842,27 @@ __device__ __forceinline__ void gibbs_sub_blocks(const Eval& ev, unsigned key0, 
 // Eval is value only: ev.init(th, cache) -> value fills the evaluator's
 // cache, ev.update<U>(prop, cache, next) -> value evaluates a proposal that
 // moved unit U (writing the cache entries it changes into next) and
-// ev.commit<U>(cache, next) keeps them. The staged evaluator has no cache
-// and evaluates the whole forward pass; the dense one recomputes unit U and
-// everything downstream from a per-chain cache in registers.
+// ev.commit<U>(cache, next) keeps them. The dense evaluator recomputes unit
+// U and everything downstream from a per-chain cache in registers; the
+// staged one (lane_eval.cuh::LaneGibbsEval) does so per lane, over the
+// lane's own rows.
 //
-// theta lives in registers (each coordinate is indexed at compile time once
-// the sweep unrolls), the counts of each sub-block too; accepts is [kB, C].
-// The moved flag is true when theta differs from theta at the start of the
-// sweep (each coordinate belongs to at most one sub-block of a sweep).
-template <class Eval, class Blocks>
+// Layout: one thread a chain (ThreadGibbsLayout, the dense kernel), or a
+// group of lanes a chain (lane_eval.cuh::LaneGibbsLayout, the staged
+// kernel), which draws the sweep's words at its start (layout.begin) and
+// records through shared memory. theta lives in registers, whole in every
+// lane (each coordinate is indexed at compile time once the sweep unrolls),
+// the counts of each sub-block too; accepts is [kB, C]. The moved flag is
+// true when theta differs from theta at the start of the sweep (each
+// coordinate belongs to at most one sub-block of a sweep).
+template <class Eval, class Blocks, class Layout = ThreadGibbsLayout>
 __device__ __forceinline__ void gibbs_chain(const Eval& ev, const ResidentWalkParams& pr, int c,
                                             const float* __restrict__ theta0,
                                             const float* __restrict__ scales,
                                             float* __restrict__ samples,
                                             float* __restrict__ final_theta,
-                                            float* __restrict__ accepts) {
+                                            float* __restrict__ accepts,
+                                            Layout layout = Layout{}) {
   const int C = pr.num_chains;
   const unsigned key0 = static_cast<unsigned>(pr.seed);
   const unsigned key1 = static_cast<unsigned>(c);
@@ -840,25 +877,16 @@ __device__ __forceinline__ void gibbs_chain(const Eval& ev, const ResidentWalkPa
 
   for (int t = 0; t < pr.num_iters; ++t) {
     bool moved = false;
-    gibbs_sub_blocks<Eval, Blocks, 0>(ev, key0, key1, static_cast<unsigned>(t), scales,
+    layout.begin(key0, key1, static_cast<unsigned>(t));
+    gibbs_sub_blocks<Eval, Blocks, 0>(ev, layout, key0, key1, static_cast<unsigned>(t), scales,
                                       t >= pr.num_burnin_iters, th, cache, val, n_accepts, moved);
     const int since = t - pr.num_burnin_iters;
     if (since >= 0 && since % pr.record_thin == 0 && since / pr.record_thin < pr.kept) {
-      const int rows = pr.record_extras ? kP + 2 : kP;
-      float* out = samples + static_cast<size_t>(since / pr.record_thin) * rows * C;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) out[static_cast<size_t>(p) * C + c] = th[p];
-      if (pr.record_extras) {
-        out[static_cast<size_t>(kP) * C + c] = val;
-        out[static_cast<size_t>(kP + 1) * C + c] = moved ? 1.0f : 0.0f;
-      }
+      layout.record(samples, since / pr.record_thin, pr.kept, C, c, pr.record_extras != 0, th,
+                    val, moved);
     }
   }
-
-#pragma unroll
-  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = th[p];
-#pragma unroll
-  for (int b = 0; b < Blocks::kB; ++b) accepts[static_cast<size_t>(b) * C + c] = n_accepts[b];
+  layout.finish(final_theta, accepts, C, c, th, n_accepts);
 }
 
 // ---- fixed-budget NUTS ----
@@ -880,255 +908,6 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
   const float m = (a != a || a > b) ? a : b;
   if (m == -INFINITY) return m;
   return m + log1pf(expf(-fabsf(a - b)));
-}
-
-// sum_p M^-1[p] a[p] b[p]: the kinetic energy and the U-turn products.
-template <class Metric>
-__device__ __forceinline__ float mdot(const Metric& mt, const float (&a)[kP],
-                                      const float (&b)[kP]) {
-  float s = 0.0f;
-#pragma unroll
-  for (int p = 0; p < kP; ++p) s += mt.im(p) * (a[p] * b[p]);
-  return s;
-}
-
-// The U-turn criterion on velocities: (ta - tb) . M^-1 r_left < 0 or
-// (ta - tb) . M^-1 r_right < 0.
-template <class Metric>
-__device__ __forceinline__ bool uturn(const Metric& mt, const float (&ta)[kP],
-                                      const float (&tb)[kP], const float (&r_left)[kP],
-                                      const float (&r_right)[kP]) {
-  float sl = 0.0f;
-  float sr = 0.0f;
-#pragma unroll
-  for (int p = 0; p < kP; ++p) {
-    const float d = ta[p] - tb[p];
-    sl += mt.im(p) * (d * r_left[p]);
-    sr += mt.im(p) * (d * r_right[p]);
-  }
-  return sl < 0.0f || sr < 0.0f;
-}
-
-// One chain's whole fixed-budget NUTS run at tree depth D (a compile-time
-// constant): per iteration t, the momenta (rho = sqrt(M) z, the NUTS stream:
-// key (seed, chain), counter (t, j)), then D doublings in a random direction,
-// doubling d integrating 2^d leapfrog steps from the chosen end with the
-// momentum oriented by the direction. Every leaf runs; after a subtree's
-// U-turn or divergence its later leaves weigh -inf and its statistics and
-// flags are gated, and after the trajectory's stop every later doubling is
-// gated whole (JAX's samplers/nuts.py::_tree_fixed). A leaf's weight is w =
-// v - |rho|^2_M/2 - logp0, divergent when !(w > -1000) (NaN too), its
-// statistic min(1, e^w) with NaN set to 0; the subtree draws its proposal
-// progressively (u < e^(w - lse), u in [0, 1)), checks each odd leaf n
-// against the checkpoints of the complete subtrees ending at it (slots
-// [popcount(n) - trailing_ones(n), popcount(n)), stored by the even leaves at
-// popcount(n)), and a good subtree merges with Betancourt's biased draw
-// (log(u) < min(lse_sub - lse, 0)) and installs its end with the forward-time
-// momentum; the whole trajectory's U-turn ends it. accept_stat = sum of the
-// statistics / max(their count, 1). Post-burn-in sums of accept_stat and of
-// the divergence flag go to accepts and divergences; a tuned run
-// dual-averages the step on the group mean of accept_stat (NaN counts as 0).
-//
-// State of the thread, (13 + 2 (D - 1)) P floats: the trajectory's ends
-// (theta, rho, gradient each), its proposal (theta, gradient), the leaf
-// (theta, rho, gradient), the subtree's proposal (theta, gradient) and the
-// checkpoint stack of D - 1 (theta, rho) slots, which the popcount indexes
-// at run time (so it lives in local memory); acc_th [P][bd] in shared memory
-// holds the accepted theta for the record and the moved flag. Whatever the
-// registers do not hold the compiler spills to local memory.
-template <int D, class Eval, class Metric>
-__device__ __forceinline__ void nuts_chain(const Eval& ev, const Metric& mt,
-                                           const ResidentHMCParams& pr, int c,
-                                           int cluster_blocks, const float* __restrict__ theta0,
-                                           float* __restrict__ samples,
-                                           float* __restrict__ final_theta,
-                                           float* __restrict__ accepts,
-                                           float* __restrict__ divergences,
-                                           float* __restrict__ steps, float* acc_th,
-                                           float* red, float* partial) {
-  static_assert(D >= 1, "max_depth >= 1");
-  constexpr int kSlots = D > 1 ? D - 1 : 1;
-  const int bd = blockDim.x;
-  const int me = threadIdx.x;
-  const int C = pr.num_chains;
-  const unsigned key0 = static_cast<unsigned>(pr.seed);
-  const unsigned key1 = static_cast<unsigned>(c);
-
-  float pt[kP], pg[kP];  // the trajectory's proposal: the accepted state between iterations
-#pragma unroll
-  for (int p = 0; p < kP; ++p) pt[p] = theta0[static_cast<size_t>(p) * C + c];
-  float pv = ev.vg(pt, pg);
-#pragma unroll
-  for (int p = 0; p < kP; ++p) acc_th[p * bd + me] = pt[p];
-
-  float tl[kP], rl[kP], gl[kP], tr[kP], rr[kP], gr[kP];  // the trajectory's ends
-  float lt[kP], lr[kP], lg[kP];                          // the leaf
-  float st[kP], sg[kP];                                  // the subtree's proposal
-  float ck_t[kSlots][kP], ck_r[kSlots][kP];              // the checkpoint stack
-  float acc_sum = 0.0f;
-  float div_sum = 0.0f;
-  float step = pr.step;
-  float barh = 0.0f;
-  float logbare = 0.0f;
-
-  for (int t = 0; t < pr.num_iters; ++t) {
-    const unsigned ctr = static_cast<unsigned>(t);
-    {
-      float z[kP];
-      kernel_prng::normals(key0, key1, ctr, z);
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        rl[p] = mt.msc(p) * z[p];
-        rr[p] = rl[p];
-        tl[p] = pt[p];
-        tr[p] = pt[p];
-        gl[p] = pg[p];
-        gr[p] = pg[p];
-      }
-    }
-    const float logp0 = pv - 0.5f * mdot(mt, rl, rl);
-    float lse = 0.0f;  // the start state weighs exp(0)
-    float sum_alpha = 0.0f;
-    float num_alpha = 0.0f;
-    bool turning = false;
-    bool diverging = false;
-    unsigned word = static_cast<unsigned>(kPairs);  // the direction uniform of depth 0
-
-#pragma unroll 1
-    for (int depth = 0; depth < D; ++depth) {
-      const bool active = !(turning || diverging);
-      const int leaves = 1 << depth;
-      const bool go_right = kernel_prng::u01_at(key0, key1, ctr, word) < 0.5f;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        lt[p] = go_right ? tr[p] : tl[p];
-        lr[p] = go_right ? rr[p] : -rl[p];
-        lg[p] = go_right ? gr[p] : gl[p];
-        st[p] = lt[p];
-        sg[p] = lg[p];
-      }
-      float s_lse = -INFINITY;
-      float sv = 0.0f;
-      float s_sum = 0.0f;
-      float s_num = 0.0f;
-      bool s_turn = false;
-      bool s_div = false;
-
-#pragma unroll 1
-      for (int n = 0; n < leaves; ++n) {
-        const bool live = !(s_turn || s_div);
-        const float half = 0.5f * step;
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          lr[p] = lr[p] + half * lg[p];
-          lt[p] = lt[p] + step * (mt.im(p) * lr[p]);
-        }
-        const float lv = ev.vg(lt, lg);
-#pragma unroll
-        for (int p = 0; p < kP; ++p) lr[p] = lr[p] + half * lg[p];
-        const float w = (lv - 0.5f * mdot(mt, lr, lr)) - logp0;
-        const bool leaf_div = !(w > -kDivergence);
-        const float e = expf(w);
-        float alpha = e > 1.0f ? 1.0f : e;  // NaN stays NaN
-        if (alpha != alpha) alpha = 0.0f;
-        const float w_eff = live ? w : -INFINITY;
-        const float new_lse = logaddexp(s_lse, w_eff);
-        const float u = kernel_prng::u01_at(key0, key1, ctr, word + 1u + static_cast<unsigned>(n));
-        if (live && logf(u) < w_eff - new_lse) {
-#pragma unroll
-          for (int p = 0; p < kP; ++p) {
-            st[p] = lt[p];
-            sg[p] = lg[p];
-          }
-          sv = lv;
-        }
-        s_lse = new_lse;
-        const int pc = __popc(n);
-        if ((n & 1) == 0) {
-#pragma unroll
-          for (int p = 0; p < kP; ++p) {
-            ck_t[pc][p] = lt[p];
-            ck_r[pc][p] = lr[p];
-          }
-        } else {
-          const int lo = pc - (__popc(n ^ (n + 1)) - 1);  // pc - trailing_ones(n)
-          bool found = false;
-          for (int i = lo; i < pc; ++i) found = found || uturn(mt, lt, ck_t[i], ck_r[i], lr);
-          s_turn = s_turn || (live && found);
-        }
-        s_div = s_div || (live && leaf_div);
-        if (live) {
-          s_sum += alpha;
-          s_num += 1.0f;
-        }
-      }
-
-      const bool bad = s_turn || s_div;
-      if (active) {
-        sum_alpha += s_sum;
-        num_alpha += s_num;
-      }
-      const float diff = s_lse - lse;
-      const float accept_log_prob = diff > 0.0f ? 0.0f : diff;  // min(diff, 0), NaN stays
-      const float um = kernel_prng::u01_at(key0, key1, ctr,
-                                           word + 1u + static_cast<unsigned>(leaves));
-      const bool ok = active && !bad;
-      if (ok && logf(um) < accept_log_prob) {
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          pt[p] = st[p];
-          pg[p] = sg[p];
-        }
-        pv = sv;
-      }
-      if (ok) {
-        lse = logaddexp(lse, s_lse);
-        // install the new end with the forward-time momentum
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          if (go_right) {
-            tr[p] = lt[p];
-            rr[p] = lr[p];
-            gr[p] = lg[p];
-          } else {
-            tl[p] = lt[p];
-            rl[p] = -lr[p];
-            gl[p] = lg[p];
-          }
-        }
-      }
-      const bool whole_turn = ok && uturn(mt, tr, tl, rl, rr);
-      turning = turning || (active && (bad || whole_turn));
-      diverging = diverging || (active && s_div);
-      word += static_cast<unsigned>(leaves) + 2u;
-    }
-
-    const float accept_stat = sum_alpha / (num_alpha > 1.0f ? num_alpha : 1.0f);
-    if (t >= pr.num_burnin_iters) {
-      acc_sum += accept_stat;
-      if (diverging) div_sum += 1.0f;
-    }
-    if (pr.tuned && t < pr.num_burnin_iters) {  // uniform over the group
-      float stat = group_mean(accept_stat, red, partial, t & 1, cluster_blocks);
-      if (stat != stat) stat = 0.0f;
-      step = dual_average(stat, t, pr.num_burnin_iters, pr.tuner_m, pr.d, pr.g, pr.t0, pr.k,
-                          pr.log_eub, barh, logbare);
-    }
-    bool moved = false;
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      moved |= pt[p] != acc_th[p * bd + me];
-      acc_th[p * bd + me] = pt[p];
-    }
-    record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept, pr.record_extras, C, c,
-           acc_th, pv, moved);
-  }
-
-#pragma unroll
-  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = pt[p];
-  accepts[c] = acc_sum;
-  divergences[c] = div_sum;
-  steps[c] = step;
 }
 
 // ---- host side ----
@@ -1193,6 +972,19 @@ inline cudaError_t max_active_clusters(void (*kernel)(Params...), int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
+// Blocks of threads threads and smem bytes of dynamic shared memory that an SM
+// of this card holds at once, from the build's registers and the card's
+// limits (the CUDA runtime's occupancy calculator), into *out.
+template <typename... Params>
+inline cudaError_t max_active_blocks(void (*kernel)(Params...), int threads, size_t smem,
+                                     int* out) {
+  *out = 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, smem);
 }
 
 // Registers per thread, local-memory (spill) bytes per thread and the most

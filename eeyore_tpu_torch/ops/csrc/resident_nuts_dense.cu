@@ -5,8 +5,8 @@
 // (make_resident_nuts_dense); the plain PyTorch version is
 // eeyore_tpu_torch/ops/resident_nuts.py::_run_nuts_plain on
 // ops/mlp_dense.py::make_vg_dense. The loop is the one of resident_nuts.cu
-// (resident_loop.cuh::nuts_chain, the same NUTS stream keyed by the global
-// chain index); what differs:
+// (lane_eval.cuh::nuts_chain, here on one thread a chain, Lanes<1>; the same
+// NUTS stream keyed by the global chain index); what differs:
 // - The value and gradient is dense_body.cuh, which ops/mlp_dense.py
 //   generates for one model and dataset, as resident_hmc_dense.cu takes it.
 //   No data is staged: a block's shared memory holds the accepted theta.
@@ -25,7 +25,7 @@
 // and the samples' bytes. XOR's evaluation is a few hundred operations, so
 // the Threefry words weigh about as much as the evaluations.
 
-#include "resident_loop.cuh"
+#include "lane_eval.cuh"
 #include "dense_body.cuh"
 #include "nuts_metric.cuh"
 
@@ -66,9 +66,9 @@ __global__ void resident_nuts_dense_kernel(const float* __restrict__ theta0,  //
   __shared__ float partial[2];
   float* acc_th = smem;  // accepted theta, [P][bd]
   const int c = resident_loop::chain_index(pr.sublanes, pr.chain_block, pr.num_chains);
-  resident_loop::nuts_chain<kDepth>(DenseEval{}, DenseMetric{}, pr, c, cluster_blocks, theta0,
-                                    samples, final_theta, accepts, divergences, steps, acc_th,
-                                    red, partial);
+  lane_eval::nuts_chain<kDepth>(DenseEval{}, lane_eval::Lanes<1>{}, DenseMetric{}, pr, c,
+                                cluster_blocks, theta0, samples, final_theta, accepts,
+                                divergences, steps, acc_th, red, partial);
   // no block of a cluster leaves while another may read its partial sum
   if (cluster_blocks > 1) cooperative_groups::this_cluster().sync();
 }

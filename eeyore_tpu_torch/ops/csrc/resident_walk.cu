@@ -19,15 +19,22 @@
 //
 // Gibbs. The TPU kernel keeps a per-chain cache of the activations of every
 // data row and recomputes only the moved unit and what lies downstream. On
-// iris that cache is 4.8 KB a chain, which no block of chains can keep in
-// shared memory or registers, so each sub-block proposal here is a whole
-// value-only forward pass: by the plain version's bit-identity contract the
-// same function, at more work than the incremental update (the bound counts
-// the incremental work, so the gap a cache could close stays visible).
+// iris that cache is 4.8 KB a chain, which no thread can hold, so the Gibbs
+// move gives a chain GibbsBlocks::kLanes lanes of a warp (lane_eval.cuh),
+// each caching the hidden activations of its own rows in registers: on iris
+// MLP(4,3,2,3) at 32 lanes, 5 rows x 5 floats a lane. The generated
+// gibbs_blocks.cuh says whether the cache fits a lane's budget
+// (GibbsBlocks::kCached, ops/resident_walk.py::gibbs_lane_plan); a model
+// over it evaluates each proposal by a whole value-only forward pass on the
+// same lanes, the same function at more work.
 //
-// Design. One thread per chain; the accepted theta (and gradient, MALA) in
-// shared memory at [P][blockDim] beside the staged data rows; the proposal
-// (and its gradient) in registers; samples chain-minor [kept, rows, C].
+// Design. MH, MALA and tempering: one thread per chain; the accepted theta
+// (and gradient, MALA) in shared memory at [P][blockDim] beside the staged
+// data rows; the proposal (and its gradient) in registers; samples
+// chain-minor [kept, rows, C]. Gibbs: kLanes lanes a chain, theta whole in
+// every lane's registers, the sweep's draws spread over the lanes, the
+// record through a shared-memory tile; the launch covers the chains
+// exactly (blocks = C kLanes / threads).
 //
 // Bound. One evaluation per chain and iteration (value only for MH), plus
 // ceil(P/2) + 1 Threefry calls and ceil(P/2) Box-Muller pairs, plus kept x
@@ -35,13 +42,19 @@
 // operations (the special-function unit). Gibbs: one evaluation per
 // sub-block, counted for the bound at the TPU kernel's incremental work.
 
-#include "resident_loop.cuh"
+#include "lane_eval.cuh"
 #include "gibbs_blocks.cuh"
 
 using namespace mlp_vg;
 using resident_loop::kMaxThreads;
 
 namespace {
+
+// The Gibbs move's lanes and evaluator (the cache, or the whole forward pass).
+using GibbsLanes = lane_eval::Lanes<GibbsBlocks::kLanes>;
+using GibbsEval =
+    lane_eval::LaneGibbsEval<GibbsLanes, GibbsBlocks::kCached ? GibbsBlocks::kRowsPerLane : 0>;
+using GibbsLayout = lane_eval::LaneGibbsLayout<GibbsLanes, GibbsBlocks>;
 
 template <bool kMALA>
 __global__ void resident_walk_kernel(const float* __restrict__ theta0,  // [P, C]
@@ -63,25 +76,32 @@ __global__ void resident_walk_kernel(const float* __restrict__ theta0,  // [P, C
       ev, pr, c, 1, theta0, samples, final_theta, accepts, acc_th, acc_g, nullptr, nullptr);
 }
 
-__global__ void resident_walk_gibbs_kernel(const float* __restrict__ theta0,  // [P, C]
-                                           const float* __restrict__ x,
-                                           const float* __restrict__ y,
-                                           const float* __restrict__ mask,
-                                           const float* __restrict__ loc,
-                                           const float* __restrict__ ivar,
-                                           const float* __restrict__ scales,  // [kB]
-                                           const ResidentWalkParams pr,
-                                           float* __restrict__ samples,      // [kept, rows, C]
-                                           float* __restrict__ final_theta,  // [P, C]
-                                           float* __restrict__ accepts) {    // [kB, C]
+// at most kGibbsThreads threads a block (ops/resident_hmc_dense.py::
+// UNGROUPED_BLOCK: the chains share nothing), of which GibbsBlocks::kMinBlocks
+// blocks fit an SM
+constexpr int kGibbsThreads = 256;
+
+__global__ void __launch_bounds__(kGibbsThreads, GibbsBlocks::kMinBlocks)
+    resident_walk_gibbs_kernel(const float* __restrict__ theta0,  // [P, C]
+                               const float* __restrict__ x,
+                               const float* __restrict__ y,
+                               const float* __restrict__ mask,
+                               const float* __restrict__ loc,
+                               const float* __restrict__ ivar,
+                               const float* __restrict__ scales,  // [kB]
+                               const ResidentWalkParams pr,
+                               float* __restrict__ samples,      // [kept, rows, C]
+                               float* __restrict__ final_theta,  // [P, C]
+                               float* __restrict__ accepts) {    // [kB, C]
   extern __shared__ float smem[];
   const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= pr.num_chains) return;
-  const resident_loop::StagedEval ev{d, pr.prior_const, pr.temperature, pr.n_rows};
-  resident_loop::gibbs_chain<resident_loop::StagedEval, GibbsBlocks>(ev, pr, c, theta0, scales,
-                                                                      samples, final_theta,
-                                                                      accepts);
+  // the launch covers the chains exactly: every thread reaches the record's barriers
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / GibbsBlocks::kLanes;
+  const GibbsLanes ln;
+  const GibbsEval ev{d, pr.prior_const, pr.temperature, pr.n_rows, ln};
+  resident_loop::gibbs_chain<GibbsEval, GibbsBlocks>(
+      ev, pr, c, theta0, scales, samples, final_theta, accepts,
+      GibbsLayout{ln, smem + data_floats(pr.n_rows)});
 }
 
 template <bool kMALA>
@@ -111,7 +131,11 @@ size_t tempering_smem_bytes(bool mala, int n_rows, int threads, bool extras) {
 }
 
 size_t smem_bytes(int move, int n_rows, int threads) {
-  const int theta_copies = move == 2 ? 0 : move == 1 ? 2 : 1;  // Gibbs: theta in registers
+  if (move == 2) {  // Gibbs: theta in registers, the record tile
+    return sizeof(float) *
+           (data_floats(n_rows) + lane_eval::tile_floats(GibbsBlocks::kLanes, threads));
+  }
+  const int theta_copies = move == 1 ? 2 : 1;
   return sizeof(float) *
          (data_floats(n_rows) + theta_copies * static_cast<size_t>(kP) * threads);
 }
@@ -130,6 +154,23 @@ extern "C" int resident_walk_arch(int* out) {
 }
 
 extern "C" int resident_walk_num_sub_blocks() { return GibbsBlocks::kB; }
+
+// The Gibbs move's lanes a chain, whether it caches the rows' activations,
+// and the rows a lane caches.
+extern "C" int resident_walk_gibbs_layout(int* out) {
+  out[0] = GibbsBlocks::kLanes;
+  out[1] = GibbsBlocks::kCached ? 1 : 0;
+  out[2] = GibbsBlocks::kRowsPerLane;
+  out[3] = GibbsEval::kCache;
+  return 0;
+}
+
+// Blocks of the Gibbs move of threads threads an SM holds at once, for n_rows
+// staged rows.
+extern "C" int resident_walk_gibbs_max_blocks(int threads, int n_rows, int* out) {
+  return static_cast<int>(resident_loop::max_active_blocks(
+      resident_walk_gibbs_kernel, threads, smem_bytes(2, n_rows, threads), out));
+}
 
 // move: 0 MH, 1 MALA, 2 Gibbs, 3 tempering with MH, 4 tempering with MALA.
 extern "C" int resident_walk_resources(int move, int* out) {
@@ -177,11 +218,14 @@ extern "C" int resident_walk_gibbs_launch(const float* theta0, const float* x, c
                                           float* samples, float* final_theta, float* accepts,
                                           void* stream) {
   const ResidentWalkParams pr = *params;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || pr.tuned) {
+  const long long lanes = static_cast<long long>(pr.num_chains) * GibbsBlocks::kLanes;
+  if (threads < 32 || threads > kGibbsThreads || threads % 32 != 0 || pr.tuned ||
+      lanes % threads != 0 ||
+      (GibbsBlocks::kCached && pr.n_rows > GibbsBlocks::kRowsPerLane * GibbsBlocks::kLanes)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const size_t smem = smem_bytes(2, pr.n_rows, threads);
-  const int blocks = (pr.num_chains + threads - 1) / threads;
+  const int blocks = static_cast<int>(lanes / threads);
   return static_cast<int>(resident_loop::launch(resident_walk_gibbs_kernel, blocks, threads, smem,
                                                 1, stream, theta0, x, y, mask, loc, ivar, scales,
                                                 pr, samples, final_theta, accepts));

@@ -95,7 +95,8 @@ def launch_shape(resources, max_clusters, chain_block, grouped):
     """(threads per block, blocks per cluster) of a launch. A run whose
     chains share nothing (untuned or per-chain) takes blocks of at most
     ``UNGROUPED_BLOCK`` threads and no cluster. A population-tuned run needs
-    its group of ``chain_block`` chains in one block, or in one cluster of
+    its group of ``chain_block`` threads (a thread a chain here; the lane
+    kernels pass chains x lanes) in one block, or in one cluster of
     at most ``MAX_CLUSTER`` blocks that ``max_clusters(threads, blocks)``
     says the card can hold; the largest block that works is taken, and
     none raises."""
@@ -108,9 +109,33 @@ def launch_shape(resources, max_clusters, chain_block, grouped):
             break
         if blocks == 1 or max_clusters(threads, blocks) >= 1:
             return threads, blocks
-    raise ValueError(f"a tuning group of {chain_block} chains does not fit one cluster of "
+    raise ValueError(f"a tuning group of {chain_block} threads does not fit one cluster of "
                      f"at most {MAX_CLUSTER} blocks on this card at "
                      f"{resources['registers']} registers a thread")
+
+
+def lane_launch(num_chains, lanes, resources, chain_block, max_blocks, max_clusters=None,
+                grouped=False, sm_count=None):
+    """The launch of ``num_chains`` chains of ``lanes`` threads each (the
+    staged Gibbs move and NUTS kernel): ``launch_shape`` of a group of
+    ``chain_block`` chains (``chain_block * lanes`` threads), its blocks,
+    and what the card says of them: ``max_blocks(threads)`` blocks an SM
+    holds at once (the CUDA runtime's occupancy calculator on the build, at
+    the launch's shared memory) and, for a cluster, ``max_clusters(threads,
+    blocks)`` clusters the card holds at once. With the card's ``sm_count``
+    also the blocks resident at once, the waves, and the SMs the first wave
+    covers at least (no SM holds more than ``blocks_per_sm`` of them)."""
+    threads, cluster = launch_shape(resources, max_clusters, chain_block * lanes, grouped)
+    blocks = num_chains * lanes // threads
+    per_sm = max_blocks(threads)
+    out = {"lanes": lanes, "threads": threads, "blocks": blocks, "cluster_blocks": cluster,
+           "blocks_per_sm": per_sm, "resident_blocks": None, "waves": None, "sms_covered": None}
+    if sm_count is not None:
+        resident = per_sm * sm_count if cluster == 1 else max_clusters(threads, cluster) * cluster
+        out.update(resident_blocks=resident,
+                   waves=-(-blocks // resident) if resident else None,
+                   sms_covered=min(sm_count, -(-min(blocks, resident) // per_sm)) if per_sm else 0)
+    return out
 
 
 def max_active_clusters(lib, threads, blocks):

@@ -21,8 +21,11 @@ its statistics and flags gated, the masked algebra of JAX's
 without ``l``), one step per tuning group of ``chain_block`` consecutive
 chains is dual-averaged on the group mean of accept_stat (a NaN mean counts
 as 0) during burn-in, from ``m = log(10 step)``; the last burn-in iteration
-freezes the averaged step. On the card a tuning group is one CUDA block, or a
-thread-block cluster when it is larger than a block can be.
+freezes the averaged step. On the card a chain is ``NUTS_LANES`` lanes of a
+warp, its tree state spread over them (``csrc/lane_eval.cuh``), and a tuning
+group of ``chain_block`` chains is one CUDA block, or a thread-block cluster
+when it is larger than a block can be; a group larger than a cluster of lane
+blocks holds (``LANE_GROUP_CAP``) takes the build with one thread a chain.
 
 ``inv_mass``: an optional frozen diagonal of M^-1 [P]: momenta ~ N(0, M),
 positions move at M^-1 rho, kinetic energy and U-turns on velocities. No
@@ -53,10 +56,20 @@ from eeyore_tpu_torch.ops.resident_hmc import (
     raise_on,
     read_resources,
 )
-from eeyore_tpu_torch.ops.resident_hmc_dense import launch_shape
+from eeyore_tpu_torch.ops.resident_hmc_dense import MAX_CLUSTER, lane_launch, launch_shape
 
 KERNEL = "resident_nuts"
 DIVERGENCE_THRESHOLD = 1000.0
+# Lanes of a warp a chain, and the blocks of at most 16 x NUTS_LANES threads
+# an SM must hold at once, which caps the registers the compiler may use
+# (more resident warps at the price of a few spills): the fastest that
+# scripts/lane_sweep.py measured on the H100 (PERF.md, section 6).
+NUTS_LANES = 8
+NUTS_MIN_BLOCKS = 5
+# The largest tuning group on lanes: a cluster of MAX_CLUSTER blocks of 16
+# chains. A larger group (JAX's up to 4096 chains on small data) takes the
+# build with one thread a chain (``chain_lanes``).
+LANE_GROUP_CAP = MAX_CLUSTER * 16
 
 launch_counts = {KERNEL: 0}
 # What the last call of the kernel's function returned beside the samples,
@@ -99,14 +112,26 @@ def metric_arrays(inv_mass, P):
     return im, (1.0 / np.sqrt(im)).astype(np.float32)
 
 
-def load_kernel(model, max_depth):
+def chain_lanes(chain_block, tuned):
+    """Lanes a chain of the build that runs ``chain_block``-chain groups:
+    ``NUTS_LANES``, or 1 (one thread a chain) for a tuning group larger
+    than ``LANE_GROUP_CAP``, which no cluster of lane blocks holds."""
+    return 1 if tuned and chain_block > LANE_GROUP_CAP else NUTS_LANES
+
+
+def load_kernel(model, max_depth, lanes):
     """Build (at first use) and load the staged NUTS kernel for ``model``'s
-    architecture and the tree depth, which it takes as compile-time
-    constants."""
+    architecture, the tree depth and ``lanes`` lanes a chain (``NUTS_LANES``,
+    or 1: ``chain_lanes``), which it takes as compile-time constants."""
+    if lanes not in (1, NUTS_LANES):
+        raise ValueError(f"the staged NUTS kernel takes 1 or {NUTS_LANES} lanes a chain, "
+                         f"not {lanes}")
     tag, defines = arch_defines(model)
-    name = f"{KERNEL}_{tag}_d{int(max_depth)}"
+    name = f"{KERNEL}_{tag}_d{int(max_depth)}_l{lanes}_b{NUTS_MIN_BLOCKS}"
     lib = _build.load_library(name, "resident_nuts.cu",
-                              tuple(defines) + (f"NUTS_DEPTH={int(max_depth)}",))
+                              tuple(defines) + (f"NUTS_DEPTH={int(max_depth)}",
+                                                f"NUTS_LANES={lanes}",
+                                                f"NUTS_MIN_BLOCKS={NUTS_MIN_BLOCKS}"))
     lib.resident_nuts_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.POINTER(ResidentHMCParams), ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 6)
@@ -119,6 +144,11 @@ def load_kernel(model, max_depth):
     lib.resident_nuts_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                                ctypes.POINTER(ctypes.c_int)]
     lib.resident_nuts_max_clusters.restype = ctypes.c_int
+    lib.resident_nuts_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
+    lib.resident_nuts_max_blocks.restype = ctypes.c_int
+    lib.resident_nuts_lanes.argtypes = []
+    lib.resident_nuts_lanes.restype = ctypes.c_int
     check_arch(lib.resident_nuts_arch, model, name)
     return lib
 
@@ -138,10 +168,29 @@ def max_active_clusters(lib, threads, blocks, n_rows):
 
 def group_shape(lib, chain_block, n_rows):
     """``launch_shape`` of a tuned run of this build: the tuning group of
-    ``chain_block`` chains in one block, or in a cluster the card holds."""
+    ``chain_block`` chains (``chain_block`` times the build's lanes threads)
+    in one block, or in a cluster the card holds."""
     return launch_shape(kernel_resources(lib),
-                        lambda t, b: max_active_clusters(lib, t, b, n_rows), chain_block,
-                        grouped=True)
+                        lambda t, b: max_active_clusters(lib, t, b, n_rows),
+                        chain_block * lib.resident_nuts_lanes(), grouped=True)
+
+
+def max_active_blocks(lib, threads, n_rows):
+    """Blocks of ``threads`` threads of this build that an SM holds at once,
+    for ``n_rows`` staged rows, as the card's occupancy calculator says."""
+    out = ctypes.c_int(0)
+    raise_on(lib.resident_nuts_max_blocks(threads, n_rows, ctypes.byref(out)),
+             lib.resident_nuts_error_string, KERNEL)
+    return out.value
+
+
+def nuts_launch(lib, num_chains, chain_block, n_rows, tuned, sm_count=None):
+    """``lane_launch`` of this build for ``num_chains`` chains in groups of
+    ``chain_block``: threads, blocks, cluster, the card's occupancy and the
+    SMs covered."""
+    return lane_launch(num_chains, lib.resident_nuts_lanes(), kernel_resources(lib), chain_block,
+                       lambda t: max_active_blocks(lib, t, n_rows),
+                       lambda t, b: max_active_clusters(lib, t, b, n_rows), tuned, sm_count)
 
 
 def _output_buffers(theta0, params):
@@ -356,11 +405,12 @@ def make_resident_nuts(model, x, y, step, max_depth, num_iters, num_burnin_iters
     vg = make_vg(model, x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature)
     lib, shape = None, None
     if device.type == "cuda":
-        lib = load_kernel(model, D)
+        lib = load_kernel(model, D, chain_lanes(chain_block, tuner is not None))
         if tuner is not None:
             shape = group_shape(lib, chain_block, x_pad.shape[0])
         else:
-            shape = launch_shape(kernel_resources(lib), None, chain_block, grouped=False)
+            shape = launch_shape(kernel_resources(lib), None,
+                                 chain_block * lib.resident_nuts_lanes(), grouped=False)
 
     def setup(seed, theta0s):
         C = theta0s.shape[0]
@@ -396,4 +446,7 @@ def make_resident_nuts(model, x, y, step, max_depth, num_iters, num_burnin_iters
 
     fn.plain = plain
     fn.launch_shape = shape
+    fn.nuts_launch = lambda C, sm_count=None: (
+        None if lib is None else nuts_launch(lib, C, chain_block, x_pad.shape[0],
+                                             tuner is not None, sm_count))
     return fn

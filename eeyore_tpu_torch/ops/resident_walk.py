@@ -30,10 +30,13 @@ version ``_run_walk_plain`` (shared with ``ops/resident_walk_dense.py``), on
 the same Threefry stream (``kernel_prng.walk_draws``: key (seed, chain),
 counter (iteration, j)), or for Gibbs ``_run_gibbs_plain`` on the
 incremental body ``mlp_math.make_incremental_gibbs`` and the Gibbs stream
-(``kernel_prng.gibbs_draws``). The kernel compiles the Gibbs blocking in
-(``gibbs_blocks_source``) and evaluates each proposal with the whole
-value-only forward pass, the same function as the incremental body (a
-per-chain cache of the 150 iris rows does not fit on chip).
+(``kernel_prng.gibbs_draws``). The Gibbs kernel gives a chain
+``GIBBS_LANES`` lanes of a warp, each caching the activations of its own data
+rows in registers and recomputing only the moved unit and what lies
+downstream (``csrc/lane_eval.cuh``); the build compiles in the Gibbs blocking
+and whether the cache fits a lane (``gibbs_blocks_source``,
+``gibbs_lane_plan``), and a model over that budget evaluates each proposal
+by the whole value-only forward pass on the same lanes.
 
 - Tempering (``temperatures``, the ladder of ``ops/resident_tempering.py``):
   L consecutive chains form a ladder, rung c % L at temperature T_rung, the
@@ -59,7 +62,12 @@ import torch
 
 from eeyore_tpu_torch.ops import _build, kernel_prng
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
-from eeyore_tpu_torch.ops.mlp_math import make_incremental_gibbs, make_vg, prepare_data
+from eeyore_tpu_torch.ops.mlp_math import (
+    extract_arch,
+    make_incremental_gibbs,
+    make_vg,
+    prepare_data,
+)
 from eeyore_tpu_torch.ops.resident_hmc import (
     _population_tune,
     check_arch,
@@ -69,6 +77,7 @@ from eeyore_tpu_torch.ops.resident_hmc import (
     read_resources,
     unpack_outputs,
 )
+from eeyore_tpu_torch.ops.resident_hmc_dense import lane_launch, launch_shape
 
 KERNEL = "resident_walk"
 GIBBS_KERNEL = "resident_walk_gibbs"  # the Gibbs move of the same library, counted apart
@@ -80,6 +89,16 @@ RESOURCE_CODES = {**MOVES, "tempering_mh": 3, "tempering_mala": 4}
 # build can hold this many (at most 255 registers a thread), so a tempering
 # ladder of up to WALK_BLOCK rungs always fits one block.
 WALK_BLOCK = 256
+# The Gibbs move: lanes of a warp a chain (8, 16 or 32), and the most floats
+# of row cache a lane may hold in registers; a model and dataset over it take
+# the whole forward pass on the same lanes.
+GIBBS_LANES = 32
+GIBBS_CACHE_BUDGET = 64
+# Blocks of the Gibbs move (at most 256 threads) an SM must hold at once,
+# which caps the registers the compiler may use (GIBBS_LANES and this are the
+# fastest that scripts/lane_sweep.py measured on the H100, PERF.md, section 6).
+GIBBS_MIN_BLOCKS = 3
+LANE_COUNTS = (8, 16, 32)
 
 launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0, TEMPERING_KERNEL: 0}
 # What the last call of a Gibbs or tempering function returned as its accept
@@ -141,17 +160,50 @@ def gibbs_sub_blocks(model, scales=1.0, node_subblock_size=None):
             for indices, scale, block in blocking.sub_blocks]
 
 
-def gibbs_blocks_source(model, node_subblock_size=None):
+def check_lanes(lanes):
+    """``lanes`` as an int, if it is a lane count a chain that the lane
+    kernels take (8, 16 or 32, a divisor of a warp): else ValueError."""
+    if int(lanes) not in LANE_COUNTS:
+        raise ValueError(f"a chain takes 8, 16 or 32 lanes, not {lanes}")
+    return int(lanes)
+
+
+def gibbs_lane_plan(model, n_rows):
+    """Whether the staged Gibbs move caches the activations of the rows
+    (``n_rows``, padded) of ``model`` a lane of ``GIBBS_LANES``: each lane
+    caches, for each of its ceil(n_rows / lanes) rows, the hidden
+    activations (``row_floats``; the CE logits are recomputed), and for BCE
+    one partial log-likelihood per output unit; the cache fits when that is
+    at most ``GIBBS_CACHE_BUDGET`` floats. ``n_rows`` 0 (a build for the
+    other moves) takes no cache."""
+    lanes = check_lanes(GIBBS_LANES)
+    dims, _, loss_kind, _ = extract_arch(model)
+    row_floats = sum(dims[1:-1])
+    rows_per_lane = -(-int(n_rows) // lanes)
+    cache_floats = rows_per_lane * row_floats + (0 if loss_kind == "ce" else dims[-1])
+    return {"lanes": lanes, "rows_per_lane": rows_per_lane, "row_floats": row_floats,
+            "cache_floats": cache_floats, "budget": GIBBS_CACHE_BUDGET,
+            "cached": n_rows > 0 and cache_floats <= GIBBS_CACHE_BUDGET}
+
+
+def gibbs_blocks_source(model, node_subblock_size=None, n_rows=0):
     """The text of ``gibbs_blocks.cuh``: ``struct GibbsBlocks`` with the
     sweep's sub-block count ``kB`` and, as compile-time functions, each
     sub-block's ``width(b)``, flat indices ``index(b, k)`` and the node block
     ``unit(b)`` it moves (layer by layer, node by node), for the Gibbs moves
-    of the walk kernels."""
+    of the walk kernels; and the staged move's lanes a chain ``kLanes``, the
+    blocks an SM must hold ``kMinBlocks``, whether it caches the rows'
+    activations (``kCached``, from ``gibbs_lane_plan`` for ``n_rows`` padded
+    rows) and the rows a lane caches ``kRowsPerLane``. The row count enters
+    the text only where the cache is taken, so the builds without it share
+    one library."""
     from eeyore_tpu_torch.samplers.gibbs import Gibbs
 
     subs = [(indices, block) for indices, _, block in
             Gibbs(model, node_subblock_size=node_subblock_size).sub_blocks]
     stride = max(len(indices) for indices, _ in subs)
+    plan = gibbs_lane_plan(model, n_rows)
+    cached = plan["cached"]
 
     def switch(cases):
         return (["    switch (i) {"] + [f"      case {i}: return {v};" for i, v in cases]
@@ -161,6 +213,10 @@ def gibbs_blocks_source(model, node_subblock_size=None):
         ["// Generated by eeyore_tpu_torch/ops/resident_walk.py::gibbs_blocks_source for one",
          "// model and Gibbs blocking. Do not edit.", "#pragma once", "", "struct GibbsBlocks {",
          f"  static constexpr int kB = {len(subs)};",
+         f"  static constexpr int kLanes = {plan['lanes']};",
+         f"  static constexpr int kMinBlocks = {GIBBS_MIN_BLOCKS};",
+         f"  static constexpr bool kCached = {'true' if cached else 'false'};",
+         f"  static constexpr int kRowsPerLane = {plan['rows_per_lane'] if cached else 0};",
          "  __host__ __device__ static constexpr int width(int i) {",
          *switch((b, len(indices)) for b, (indices, _) in enumerate(subs)), "  }",
          "  __host__ __device__ static constexpr int unit(int i) {",
@@ -171,14 +227,17 @@ def gibbs_blocks_source(model, node_subblock_size=None):
                  for k, p in enumerate(indices)), "  }", "};", ""])
 
 
-def load_kernel(model, node_subblock_size=None):
+def load_kernel(model, node_subblock_size=None, n_rows=0):
     """Build (at first use) and load the walk kernels for ``model``'s
     architecture and the Gibbs blocking of ``node_subblock_size``, which
-    they take as compile-time constants."""
+    they take as compile-time constants; the Gibbs move on ``GIBBS_LANES``
+    lanes a chain, caching the rows' activations where ``gibbs_lane_plan``
+    of ``n_rows`` padded rows says the cache fits (a library built for fewer
+    rows than a launch gives refuses the launch)."""
     tag, defines = arch_defines(model)
     lib = _build.load_library(
         f"{KERNEL}_{tag}", "resident_walk.cu", defines,
-        generated={"gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size)})
+        generated={"gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size, n_rows)})
     lib.resident_walk_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 6
         + [ctypes.POINTER(ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
@@ -195,6 +254,11 @@ def load_kernel(model, node_subblock_size=None):
     lib.resident_walk_gibbs_launch.restype = ctypes.c_int
     lib.resident_walk_num_sub_blocks.argtypes = []
     lib.resident_walk_num_sub_blocks.restype = ctypes.c_int
+    lib.resident_walk_gibbs_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.resident_walk_gibbs_layout.restype = ctypes.c_int
+    lib.resident_walk_gibbs_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                   ctypes.POINTER(ctypes.c_int)]
+    lib.resident_walk_gibbs_max_blocks.restype = ctypes.c_int
     lib.resident_walk_tempering_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 7
         + [ctypes.POINTER(ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
@@ -208,6 +272,37 @@ def kernel_resources(lib, move):
     ``RESOURCE_CODES``)."""
     return read_resources(lambda out: lib.resident_walk_resources(RESOURCE_CODES[move], out),
                           lib.resident_walk_error_string, KERNEL)
+
+
+def gibbs_layout(lib):
+    """The loaded Gibbs move's lanes a chain, whether it caches the rows'
+    activations, the rows a lane caches and its cache floats a lane."""
+    out = (ctypes.c_int * 4)()
+    raise_on(lib.resident_walk_gibbs_layout(out), lib.resident_walk_error_string, GIBBS_KERNEL)
+    return {"lanes": out[0], "cached": bool(out[1]), "rows_per_lane": out[2],
+            "cache_floats": out[3]}
+
+
+def gibbs_threads(lib, chain_block):
+    """Threads a block of the loaded Gibbs move for chain blocks of
+    ``chain_block`` chains: at most ``UNGROUPED_BLOCK``, dividing the chain
+    block's threads (the chains share nothing)."""
+    return launch_shape(kernel_resources(lib, "gibbs"), None,
+                        chain_block * gibbs_layout(lib)["lanes"], grouped=False)[0]
+
+
+def gibbs_launch(lib, num_chains, chain_block, n_rows, sm_count=None):
+    """``lane_launch`` of the loaded Gibbs move for ``num_chains`` chains (a
+    multiple of ``chain_block``) on ``n_rows`` staged rows: threads, blocks,
+    the card's occupancy and the SMs covered."""
+    def max_blocks(threads):
+        out = ctypes.c_int(0)
+        raise_on(lib.resident_walk_gibbs_max_blocks(threads, n_rows, ctypes.byref(out)),
+                 lib.resident_walk_error_string, GIBBS_KERNEL)
+        return out.value
+
+    return lane_launch(num_chains, gibbs_layout(lib)["lanes"], kernel_resources(lib, "gibbs"),
+                       chain_block, max_blocks, sm_count=sm_count)
 
 
 def check_tensors(name, tensors):
@@ -627,9 +722,11 @@ def make_resident_gibbs(model, x, y, scales=1.0, node_subblock_size=None, num_it
     (sub-)blocks, each proposed with its block's scale on its own coordinates
     and accepted on the full log target, value only. Returns per-chain
     per-sub-block accept counts [C, B]. The plain version runs the
-    incremental body (``mlp_math.make_incremental_gibbs``); the kernel
-    evaluates the same function by whole forward passes. C must be a
-    multiple of ``chain_block``."""
+    incremental body (``mlp_math.make_incremental_gibbs``); the kernel the
+    same function on a chain's lanes, each caching its own rows'
+    activations where they fit (``gibbs_lane_plan``). C must be a multiple
+    of ``chain_block``. ``fn.gibbs_launch(C)`` gives the kernel's launch for
+    C chains (None off the card)."""
     device = torch.device(device)
     sub_blocks = gibbs_sub_blocks(model, scales, node_subblock_size)
     x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature = prepare_data(model, x, y)
@@ -657,8 +754,8 @@ def make_resident_gibbs(model, x, y, scales=1.0, node_subblock_size=None, num_it
     updates = {unit: make_update(f) for unit, f in inc_updates.items()}
     lib, threads = None, None
     if device.type == "cuda":
-        lib = load_kernel(model, node_subblock_size)
-        threads = _threads(lib, "gibbs")
+        lib = load_kernel(model, node_subblock_size, x_pad.shape[0])
+        threads = gibbs_threads(lib, chain_block)
     setup = _setup(params, chain_block, device)
 
     def fn(seed, theta0s):
@@ -677,6 +774,9 @@ def make_resident_gibbs(model, x, y, scales=1.0, node_subblock_size=None, num_it
         return unpack_outputs(samples, final, acc.T, P, record_extras), info
 
     fn.plain = plain
+    fn.gibbs_launch = lambda C, sm_count=None: (
+        None if lib is None else dict(gibbs_launch(lib, C, chain_block, x_pad.shape[0],
+                                                   sm_count), **gibbs_layout(lib)))
     return fn
 
 

@@ -175,10 +175,11 @@ def _dense_group_cap(kernel, x, y):
     return _largest_group(_DENSE_BLOCKS, lambda cb: resident_hmc_dense.group_shape(lib, cb))
 
 
-def _nuts_group_cap(kernel, x, y, dense, inv_mass):
-    """The largest block that a tuned NUTS run's tuning group can be on this
-    card (the NUTS kernel's build asked, as ``_dense_group_cap`` asks the
-    dense HMC one); None untuned or off the card."""
+def _nuts_group_cap(kernel, x, y, dense, inv_mass, blocks):
+    """The largest of ``blocks`` that a tuned NUTS run's tuning group can be
+    on this card (the NUTS kernel's build asked, as ``_dense_group_cap`` asks
+    the dense HMC one; a staged group takes the build of its lanes a chain,
+    ``resident_nuts.chain_lanes``); None untuned or off the card."""
     if kernel.tuner is None or not x.is_cuda:
         return None
     from eeyore_tpu_torch.ops import resident_nuts, resident_nuts_dense
@@ -187,12 +188,15 @@ def _nuts_group_cap(kernel, x, y, dense, inv_mass):
     xn, yn = x.cpu().numpy(), y.cpu().numpy()
     if dense:
         lib = resident_nuts_dense.load_kernel(kernel.model, xn, yn, kernel.max_depth, inv_mass)
-        return _largest_group(_DENSE_BLOCKS,
-                              lambda cb: resident_nuts_dense.group_shape(lib, cb))
-    lib = resident_nuts.load_kernel(kernel.model, kernel.max_depth)
+        return _largest_group(blocks, lambda cb: resident_nuts_dense.group_shape(lib, cb))
     n_rows = prepare_data(kernel.model, xn, yn)[0].shape[0]
-    return _largest_group(_RESIDENT_BLOCKS,
-                          lambda cb: resident_nuts.group_shape(lib, cb, n_rows))
+
+    def group_shape(cb):
+        lib = resident_nuts.load_kernel(kernel.model, kernel.max_depth,
+                                        resident_nuts.chain_lanes(cb, True))
+        return resident_nuts.group_shape(lib, cb, n_rows)
+
+    return _largest_group(blocks, group_shape)
 
 
 def _nuts_plan(kernel, x, y, num_chains, common, want_dense):
@@ -216,7 +220,11 @@ def _nuts_plan(kernel, x, y, num_chains, common, want_dense):
                    **common)
     if frozen_metric is not None:
         nuts_kw["inv_mass"] = np.asarray(frozen_metric)
-    cap = _nuts_group_cap(kernel, x, y, want_dense, nuts_kw.get("inv_mass"))
+    # the staged kernel: JAX's streamed-body cap, and on the card what a
+    # tuning group can be
+    jax_cap = 256 if x.shape[0] >= SMALL_MODEL_ROWS else 4096
+    blocks = _DENSE_BLOCKS if want_dense else tuple(b for b in _RESIDENT_BLOCKS if b <= jax_cap)
+    cap = _nuts_group_cap(kernel, x, y, want_dense, nuts_kw.get("inv_mass"), blocks)
     if want_dense:
         from eeyore_tpu_torch.ops.resident_nuts_dense import make_resident_nuts_dense
 
@@ -227,8 +235,6 @@ def _nuts_plan(kernel, x, y, num_chains, common, want_dense):
                      acc_kind="stat"), None
     from eeyore_tpu_torch.ops.resident_nuts import make_resident_nuts
 
-    # JAX's streamed-body cap, and on the card what a tuning group can be
-    jax_cap = 256 if x.shape[0] >= SMALL_MODEL_ROWS else 4096
     cb = _pick_block(num_chains, _RESIDENT_BLOCKS,
                      cap=jax_cap if cap is None else min(cap, jax_cap))
     if cb is None:

@@ -226,7 +226,7 @@ def test_build_name_carries_the_headers_hash(tmp_path, monkeypatch):
     from eeyore_tpu_torch.ops import _build
 
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == [
-        "kernel_prng.cuh", "mlp_vg.cuh", "resident_loop.cuh"]
+        "kernel_prng.cuh", "lane_eval.cuh", "mlp_vg.cuh", "resident_loop.cuh"]
     (tmp_path / "a.cuh").write_text("// one")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     first = _build.headers_hash()
