@@ -7,10 +7,12 @@ kernels are built for sm_90a). Phases, one JSON line each:
 
 1. build: builds, all at once from ``eeyore_tpu_torch/ops/csrc/``, the fused
    log-posterior kernel ``fused_mlp_vg`` for the three architectures below;
-   ``resident_hmc`` for iris MLP(4,3,3) CE and XOR MLP(2,2,1) BCE;
-   ``resident_hmc_dense`` for XOR MLP(2,2,1); ``resident_walk`` (MH and MALA)
-   for iris MLP(4,3,3) and (its Gibbs move, a chain on ``GIBBS_LANES`` lanes
-   caching its rows' activations) iris MLP(4,3,2,3), once more with every
+   ``resident_hmc`` for iris MLP(4,3,3) CE (a chain on ``HMC_LANES`` lanes of
+   a warp) and XOR MLP(2,2,1) BCE (one thread a chain: 8 padded rows);
+   ``resident_hmc_dense`` for XOR MLP(2,2,1); ``resident_walk`` (MH and MALA,
+   a chain on ``WALK_LANES`` lanes) for iris MLP(4,3,3) and (its Gibbs move,
+   a chain on ``GIBBS_LANES`` lanes caching its rows' activations) iris
+   MLP(4,3,2,3), once more with every
    unit split, and XOR MLP(2,2,1) staged;
    ``resident_walk_dense`` for XOR MLP(2,2,1) and MLP(2,3,2,1), and for
    MLP(2,3,2,1) with one-coordinate Gibbs sub-blocks; ``resident_smc`` for
@@ -21,7 +23,9 @@ kernels are built for sm_90a). Phases, one JSON line each:
    3, the dense one also with a diagonal metric (the staged one on
    ``NUTS_LANES`` lanes a chain, and on one thread a chain for XOR's tuning
    groups of 4096 chains). It reports the lane kernels' lanes, occupancy
-   targets and the Gibbs cache's choice, each build's registers and
+   targets and the Gibbs cache's choice, the launches of the staged HMC, MH
+   and MALA kernels on the iris main paths (threads, blocks, cluster, blocks
+   an SM, SMs covered), each build's registers and
    local-memory (spill) bytes per thread, the Gibbs and
    tempering moves' too (iris MLP(4,3,3) MH and MALA on ``resident_walk``,
    XOR MLP(2,2,1) MH and MALA on ``resident_walk_dense``), the SMC mutation
@@ -33,7 +37,8 @@ kernels are built for sm_90a). Phases, one JSON line each:
    2e-5, atol 1e-4; 3e-4 on the 150-row iris case, as tests/test_ops.py::
    compare), for iris MLP(4,3,3) CE, XOR MLP(2,2,1) BCE and MLP(3,4,2,1)
    without biases on layers 0 and 2, a (0.5, 2.0) prior and temperature
-   0.3; and times both.
+   0.3; and times both (the kernel by its device time in ``torch.profiler``,
+   and by CUDA events around a launch, which hold the host's launch path).
 3. resident vs plain: each whole-loop kernel against its plain version (same
    seed, same inputs, on the card), at its main path's chain count:
    ``resident_hmc`` on untuned iris (step 0.02, 8 leapfrog steps, 20
@@ -58,7 +63,8 @@ kernels are built for sm_90a). Phases, one JSON line each:
    every rung every eligible swap is accepted. A chain agrees when all its outputs are within atol 1e-3 + rtol 1e-3 of the
    plain version's; at least 99% of chains must agree on the untuned runs and on
    the tuned runs with 5 burn-in iterations (an accept decision at u ~ rate
-   may flip on f32 rounding and part a chain's path); a tuned run with 20
+   may flip on f32 rounding and part a chain's path), and 99.9% on the
+   untuned iris HMC, MH and MALA runs, whose chains run on lanes; a tuned run with 20
    burn-in iterations, where early long steps make the dynamics chaotic, is
    held statistically instead (pooled means within 5 pooled standard
    errors, acceptance within 0.01). The HMC kernels' evaluation counters
@@ -193,7 +199,9 @@ kernels are built for sm_90a). Phases, one JSON line each:
     CUDA-event time), the divergence rate and the kernel's time beside its
     bound.
 16. kernels: each kernel's launches on the main paths, its error against its
-    plain version, its time, the plain version's time and its bound.
+    plain version, its time, the plain version's time and its bound, and
+    for ``resident_hmc`` and ``resident_walk`` the lanes a chain of each
+    build.
 
 Then the card's name and power limit, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero; it also exits
@@ -275,6 +283,12 @@ IRIS4323_SPLIT_UNITS = [3, 3, 3, 2, 2, 2, 2, 2]
 RESIDENT_ATOL = 1e-3
 RESIDENT_RTOL = 1e-3
 RESIDENT_MIN_AGREEING = 0.99
+# the untuned checks of the staged HMC, MH and MALA kernels on lanes: the
+# least share of chains that agree
+RESIDENT_LANE_MIN_AGREEING = 0.999
+LANE_CASES = ("iris_untuned_extras", "iris_mh_extras", "iris_mala_extras")
+# config 3's tuning group on the card (dispatch's chain block for iris HMC)
+IRIS_HMC_BLOCK = 256
 
 
 def check(ok, message):
@@ -683,10 +697,12 @@ def main(argv=None):
     xor_rows = prepare_data(xor_model, xor.x, xor.y)[0].shape[0]
     with concurrent.futures.ThreadPoolExecutor(len(cases) + 15) as pool:
         futures = [pool.submit(fused_mlp.load_kernel, model) for _, model, _, _, _ in cases]
-        resident_futures = [pool.submit(resident_hmc.load_kernel, model)
-                            for _, model in resident_cases]
+        resident_futures = [pool.submit(resident_hmc.load_kernel, model,
+                                        resident_hmc.chain_lanes(rows, IRIS_HMC_BLOCK, True))
+                            for (_, model), rows in zip(resident_cases, (iris_rows, xor_rows))]
         dense_future = pool.submit(resident_hmc_dense.load_kernel, xor_model, xor.x, xor.y)
-        walk_future = pool.submit(resident_walk.load_kernel, iris_model)
+        walk_future = pool.submit(resident_walk.load_kernel, iris_model,
+                                  lanes=resident_walk.chain_lanes(iris_rows))
         gibbs_future = pool.submit(resident_walk.load_kernel, iris4323_model, None, iris_rows)
         gibbs_split_future = pool.submit(resident_walk.load_kernel, iris4323_model,
                                          IRIS4323_SPLIT_UNITS, iris_rows)
@@ -780,6 +796,16 @@ def main(argv=None):
                 nuts_libs["iris_mlp433_ce"], cb, iris_rows)
         except ValueError as err:
             nuts_groups[f"{resident_nuts.KERNEL}_iris_{cb}"] = str(err)
+    # the staged HMC, MH and MALA launches of the iris main paths: config 3's
+    # tuned groups of IRIS_HMC_BLOCK chains, the walks' chain blocks of 4096
+    lane_launches = {
+        f"{resident_hmc.KERNEL}_iris_tuned_{IRIS_HMC_BLOCK}": resident_hmc.hmc_launch(
+            resident_libs[0], 32768, IRIS_HMC_BLOCK, iris_rows, True, sm_count),
+        f"{resident_hmc.KERNEL}_xor_untuned_1024": resident_hmc.hmc_launch(
+            resident_libs[1], 131072, 1024, xor_rows, False, sm_count)}
+    lane_launches.update({
+        f"{resident_walk.KERNEL}_iris_{move}_4096": resident_walk.walk_launch(
+            walk_lib, move, 32768, 4096, iris_rows, sm_count) for move in ("mh", "mala")})
     emit({"phase": "build",
           "kernels": [fused_mlp.KERNEL, resident_hmc.KERNEL, resident_hmc_dense.KERNEL,
                       resident_walk.KERNEL, resident_walk_dense.KERNEL, resident_walk.GIBBS_KERNEL,
@@ -797,17 +823,27 @@ def main(argv=None):
                                            "cache_budget": resident_walk.GIBBS_CACHE_BUDGET},
               resident_nuts.KERNEL: {"lanes": resident_nuts.NUTS_LANES,
                                      "min_blocks": resident_nuts.NUTS_MIN_BLOCKS,
-                                     "lane_group_cap": resident_nuts.LANE_GROUP_CAP}},
+                                     "lane_group_cap": resident_nuts.LANE_GROUP_CAP},
+              resident_hmc.KERNEL: {"lanes": resident_hmc.HMC_LANES,
+                                    "min_blocks": resident_hmc.HMC_MIN_BLOCKS,
+                                    "lane_min_rows": resident_hmc.LANE_MIN_ROWS},
+              resident_walk.KERNEL: {"lanes": resident_walk.WALK_LANES,
+                                     "min_blocks": resident_walk.WALK_MIN_BLOCKS,
+                                     "lane_min_rows": resident_hmc.LANE_MIN_ROWS}},
+          "lane_launches": lane_launches,
           "seconds": build_seconds,
           "resources": {fused_mlp.KERNEL: {name: fused_mlp.kernel_resources(lib)
                                            for (name, *_), lib in zip(cases, libs)},
-                        resident_hmc.KERNEL: {name: resident_hmc.kernel_resources(lib)
+                        resident_hmc.KERNEL: {name: dict(resident_hmc.kernel_resources(lib),
+                                                         lanes=lib.resident_hmc_lanes())
                                               for (name, _), lib in zip(resident_cases,
                                                                         resident_libs)},
                         resident_hmc_dense.KERNEL: {
                             "xor_mlp221_bce": resident_hmc_dense.kernel_resources(dense_lib)},
                         resident_walk.KERNEL: {
-                            f"iris_mlp433_ce_{move}": resident_walk.kernel_resources(walk_lib, move)
+                            f"iris_mlp433_ce_{move}": dict(
+                                resident_walk.kernel_resources(walk_lib, move),
+                                lanes=walk_lib.resident_walk_lanes())
                             for move in ("mh", "mala")},
                         resident_walk_dense.KERNEL: walk_dense_resources,
                         "gibbs_moves": gibbs_resources,
@@ -829,7 +865,7 @@ def main(argv=None):
     # 2. fused kernel vs plain, on the same inputs on the card, at the main
     #    paths' chain counts (iris runs 32768 chains, XOR 131072)
     max_abs_err = 0.0
-    timings = {}
+    timings, fused_event_times = {}, {}
     for (name, model, x, y, atol), lib in zip(cases, libs):
         arrays = prepare_data(model, x, y)
         tensors = [torch.as_tensor(a, device=device) for a in arrays[:5]]
@@ -850,12 +886,17 @@ def main(argv=None):
             max_abs_err = max(max_abs_err, err)
             ms = device_ms(lambda: fused_mlp.fused_mlp_vg(lib, theta, *tensors, prior_const,
                                                           temperature), 50)
+            # CUDA events around one launch hold the host's launch path too
+            event_ms = event_times(lambda: fused_mlp.fused_mlp_vg(
+                lib, theta, *tensors, prior_const, temperature), reps=5)[0]
             plain_ms = device_ms(lambda: plain(theta, *tensors), 5)
             b_ms, b_by = bound_ms(vg_work(dims, bias, loss_kind == "ce", len(x), C), sm_count)
             timings[(name, C)] = (ms, plain_ms, b_ms, b_by)
+            fused_event_times[(name, C)] = event_ms
             emit({"phase": "kernel_vs_plain", "case": name, "chains": C, "max_abs_err": err,
-                  "rtol": 2e-5, "atol": atol, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": b_ms, "bound_by": b_by, "card": card})
+                  "rtol": 2e-5, "atol": atol, "ms": ms, "ms_is": "torch.profiler device time",
+                  "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                  "bound_by": b_by, "card": card})
 
     # 3. each whole-loop kernel vs its plain version, same seed and inputs, on
     #    the card. A tuned run is chaotic while early burn-in tries long
@@ -1045,6 +1086,14 @@ def main(argv=None):
             err = max(err, e)
         return agree, err
 
+    def lane_launch_of(fn, C):
+        """The launch of a lane kernel's function for C chains (None for the
+        kernels without lanes)."""
+        for attr in ("gibbs_launch", "hmc_launch", "walk_launch"):
+            if hasattr(fn, attr):
+                return getattr(fn, attr)(C, sm_count)
+        return None
+
     for name, chaotic, (kernel_name, module, fn, C, P, iters, burnin, work) in resident_runs:
         theta0s = torch.as_tensor(0.1 * rng.normal(size=(C, P)), dtype=torch.float32,
                                   device=device)
@@ -1060,7 +1109,8 @@ def main(argv=None):
         plain_ms = 1e3 * (time.perf_counter() - start)
         agree, err = agreement(out, plain_out)
         share = agree.float().mean().item()
-        limit = None if chaotic else RESIDENT_MIN_AGREEING
+        limit = None if chaotic else (RESIDENT_LANE_MIN_AGREEING if name in LANE_CASES
+                                      else RESIDENT_MIN_AGREEING)
         z = max_z(pooled_summary(out[0].transpose(0, 1)),
                   pooled_summary(plain_out[0].transpose(0, 1)))
         acc_diff = abs(out[2].mean().item() - plain_out[2].mean().item()) / (iters - burnin)
@@ -1075,7 +1125,7 @@ def main(argv=None):
         emit({"phase": "resident_vs_plain", "kernel": kernel_name, "case": name,
               "chains": C, "iterations": iters, "burnin": burnin,
               "launch_shape": getattr(fn, "launch_shape", None),
-              "lane_launch": fn.gibbs_launch(C, sm_count) if hasattr(fn, "gibbs_launch") else None,
+              "lane_launch": lane_launch_of(fn, C),
               "evaluations_per_chain": evaluations / C,
               "kernel_evaluations_per_chain": None if counted is None else counted / C,
               "share_agreeing": share, "limit": limit, "atol": RESIDENT_ATOL,
@@ -2260,6 +2310,7 @@ def main(argv=None):
 
     xor_timed_at = "XOR MLP(2,2,1), step 0.05, 10 leapfrog steps, 131072 chains x 256"
     ms, plain_ms, b_ms, b_by = timings[("iris_mlp433_ce", 32768)]
+    fused_event_ms = fused_event_times[("iris_mlp433_ce", 32768)]
     resident_entry = whole_loop_entry(resident_hmc, RESIDENT_SOURCE, RESIDENT_REPLACES,
                                       xor_timed_at)
     resident_entry["tuned_iris"] = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
@@ -2267,7 +2318,11 @@ def main(argv=None):
     resident_entry["main_iris_run"] = {"ms": kernel_ms, "bound_ms": iris_b_ms,
                                        "bound_by": iris_b_by,
                                        "evaluations_per_chain":
-                                           iris_evaluations / iris_theta0s.shape[0]}
+                                           iris_evaluations / iris_theta0s.shape[0],
+                                       "lanes": resident_libs[0].resident_hmc_lanes()}
+    # the lanes a chain of each build (XOR, timed above, on one thread a chain)
+    resident_entry["lanes"] = {"iris": resident_libs[0].resident_hmc_lanes(),
+                               "xor": resident_libs[1].resident_hmc_lanes()}
     walk_at = f"{C_walk} chains x {walk_iters} iterations, {walk_burnin} burn-in"
 
     def gibbs_entry(module, source, replaces, case):
@@ -2344,13 +2399,15 @@ def main(argv=None):
         {"name": fused_mlp.KERNEL, "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": sum(launches.values()),
          "launches_by_path": launches, "max_abs_err": max_abs_err, "ms": ms,
-         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-         "timed_at": "iris MLP(4,3,3), 32768 chains"},
+         "ms_is": "torch.profiler device time a launch",
+         "event_ms": fused_event_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": None, "timed_at": "iris MLP(4,3,3), 32768 chains"},
         resident_entry,
         whole_loop_entry(resident_hmc_dense, DENSE_SOURCE, DENSE_REPLACES, xor_timed_at),
         dict(whole_loop_entry(resident_walk, WALK_SOURCE, WALK_REPLACES,
                               f"{walk_timed[resident_walk.KERNEL][0]}, {walk_at}"),
-             other_path=other_walks[resident_walk.KERNEL]),
+             other_path=other_walks[resident_walk.KERNEL],
+             lanes={"iris_mh_mala": walk_lib.resident_walk_lanes()}),
         dict(whole_loop_entry(resident_walk_dense, WALK_DENSE_SOURCE, WALK_DENSE_REPLACES,
                               f"{walk_timed[resident_walk_dense.KERNEL][0]}, {walk_at}"),
              other_path=other_walks[resident_walk_dense.KERNEL]),

@@ -1,18 +1,22 @@
 // A chain owned by a group of lanes of one warp: the evaluators of the staged
-// Gibbs move (resident_walk.cu, move 2) and of the staged NUTS kernel
-// (resident_nuts.cu), and the fixed-budget NUTS loop, written once over the
-// lanes a chain (nuts_chain: Lanes<1>, one thread a chain, is the dense NUTS
-// kernel's layout and the staged kernel's for tuning groups of more than 256
-// chains).
+// Gibbs move (resident_walk.cu, move 2), of the staged NUTS kernel
+// (resident_nuts.cu) and of the staged HMC kernel and MH and MALA moves
+// (resident_hmc.cu, resident_walk.cu moves 0-1), and the fixed-budget NUTS,
+// HMC, MH and MALA loops, each written once over the lanes a chain
+// (nuts_chain, hmc_chain, walk_chain: Lanes<1>, one thread a chain, is the
+// dense kernels' layout, and the staged kernels' on data of few rows or for
+// tuning groups larger than a cluster of lane blocks holds).
 //
-// Layout. kLanes consecutive lanes of a warp (8, 16 or 32, a compile-time
-// constant) own one chain; chain c is threads [c kLanes, (c + 1) kLanes) of
-// the grid, so a warp holds 32 / kLanes whole chains. Lane l evaluates the
-// staged data rows l, l + kLanes, ... (stage_data, mlp_vg.cuh). A vector of
-// the chain's parameter space is either whole in every lane (Gibbs: theta,
-// 32 floats on iris MLP(4,3,2,3)) or spread over the lanes, lane l owning the
-// coordinates k kLanes + l, k < kPer (NUTS: every vector of the tree state;
-// coordinates at or past P are padding, held at 0).
+// Layout. kLanes consecutive lanes of a warp (1, 2, 4, 8, 16 or 32, a
+// compile-time constant) own one chain; chain c is threads [c kLanes, (c + 1)
+// kLanes) of the grid, so a warp holds 32 / kLanes whole chains. Lane l
+// evaluates the staged data rows l, l + kLanes, ... (stage_data, mlp_vg.cuh).
+// A vector of the chain's parameter space is either whole in every lane
+// (Gibbs: theta, 32 floats on iris MLP(4,3,2,3)) or spread over the lanes,
+// lane l owning the coordinates k kLanes + l, k < kPer (NUTS: every vector of
+// the tree state; HMC, MH and MALA: the proposal, momentum or z, gradient and
+// the accepted theta and gradient; coordinates at or past P are padding, held
+// at 0).
 //
 // Identical bits. Sums over the chain's lanes (the log-likelihood over the
 // rows, the dot products of the NUTS algebra) reduce with an xor butterfly
@@ -27,8 +31,9 @@
 //
 // Draws. The Threefry words of an iteration (a Gibbs sweep: every sub-block's
 // normals and accept uniform; a NUTS iteration: the momenta, then depth by
-// depth the direction, leaf and merge uniforms) are spread over the chain's
-// lanes, word g on lane g % kLanes in round g / kLanes, each computed once,
+// depth the direction, leaf and merge uniforms; an HMC, MH or MALA
+// iteration: the normal pairs and the accept uniform) are spread over the
+// chain's lanes, word g on lane g % kLanes in round g / kLanes, each computed once,
 // and reach the lanes that use them by shuffles. A warp issues one instruction
 // stream for all its lanes, so a word that every lane computed would cost as
 // much as computing it once a lane: spread, the 27 words of a depth-3 iris
@@ -66,17 +71,25 @@
 // indexed by popcount through selects over its slots, so it stays in
 // registers.
 //
-// Occupancy. Both kernels are bound by latency rather than by issue: each
+// HMC, MH and MALA (hmc_chain, walk_chain on LaneStagedEval, whose value-only
+// v() serves MH). The chain's state is 5 kPer floats a lane in registers; the
+// kinetic energies, |z|^2, the reverse-proposal norm, the value and the moved
+// flag reduce over the lanes, so the accept test, the tuner's statistic and
+// the trip count are lane-uniform. A tuning group is a block (a block
+// reduction, group_mean) or a cluster.
+//
+// Occupancy. The kernels are bound by latency rather than by issue: each
 // caps its registers by launch bounds so that more warps share an SM
-// (ops/resident_walk.py::GIBBS_MIN_BLOCKS, ops/resident_nuts.py::
-// NUTS_MIN_BLOCKS), and a few hundred bytes a thread spill; the lane counts
-// and caps are the fastest that scripts/lane_sweep.py measured on the H100
-// (PERF.md, section 6).
+// (ops/resident_walk.py::GIBBS_MIN_BLOCKS and WALK_MIN_BLOCKS,
+// ops/resident_nuts.py::NUTS_MIN_BLOCKS, ops/resident_hmc.py::
+// HMC_MIN_BLOCKS), and some spill; the lane counts and caps are the fastest
+// that scripts/lane_sweep.py measured on the H100 (PERF.md, section 6).
 //
 // Recording. Samples stay chain-minor [kept, rows, C]. With a chain spread
 // over lanes a warp's direct stores would fall on kLanes-strided rows, so a
 // recorded state goes through a shared-memory tile of the block's chains
-// (record_slot), and every kRecordBatch records the block writes the batch
+// (record_slot), and every kRecordBatch records (kWalkRecordBatch for HMC, MH
+// and MALA, whose blocks hold up to 256 chains) the block writes the batch
 // out row by row, coalesced, a block's chains being consecutive
 // (flush_records): one barrier a batch.
 
@@ -113,8 +126,9 @@ using mlp_vg::dim;
 template <int kLanesT>
 struct Lanes {
   static constexpr int kLanes = kLanesT;
-  static_assert(kLanes == 1 || kLanes == 8 || kLanes == 16 || kLanes == 32,
-                "1, 8, 16 or 32 lanes a chain");
+  static_assert(kLanes == 1 || kLanes == 2 || kLanes == 4 || kLanes == 8 || kLanes == 16 ||
+                    kLanes == 32,
+                "1, 2, 4, 8, 16 or 32 lanes a chain");
   static constexpr int kPer = (kP + kLanes - 1) / kLanes;  // coordinates a lane owns
   int lane;       // 0 .. kLanes - 1
   unsigned mask;  // the chain's lanes in its warp
@@ -218,6 +232,30 @@ struct LaneStagedEval {
       } else {
         g[k] = 0.0f;
       }
+    }
+    return temperature * (ln.sum(part) + prior_const);
+  }
+  // The tempered log-posterior alone (MH): the forward pass on the lane's
+  // rows and the prior terms of its coordinates, summed over the lanes.
+  __device__ __forceinline__ float v(const float (&th)[kPer]) const {
+    __syncwarp(ln.mask);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (ln.coord(k) < kP) slot[ln.coord(k)] = th[k];
+    }
+    __syncwarp(ln.mask);
+    float full[kP], unused[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) full[p] = slot[p];
+    float part = 0.0f;
+#pragma unroll 2
+    for (int r = ln.lane; r < n_rows; r += L::kLanes) {
+      mlp_vg::row_log_lik<false>(full, d, r, part, unused);
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int p = ln.coord(k);
+      if (p < kP) part += prior_term(d, p, th[k]);
     }
     return temperature * (ln.sum(part) + prior_const);
   }
@@ -524,29 +562,31 @@ struct LaneGibbsEval {
 // before the staging that reuses its buffer.
 constexpr int kRecordBatch = 4;
 
-// Floats of shared memory of the record tile for a block of threads threads.
-__host__ __device__ constexpr size_t tile_floats(int lanes, int threads) {
-  return 2 * kRecordBatch * static_cast<size_t>(kP + 2) * (threads / lanes);
+// Floats of shared memory of the record tile for a block of threads threads
+// (batches of kBatch records).
+__host__ __device__ constexpr size_t tile_floats(int lanes, int threads,
+                                                 int batch = kRecordBatch) {
+  return 2 * batch * static_cast<size_t>(kP + 2) * (threads / lanes);
 }
 
 // Where this thread's chain stages record k: entry r at [r * nb].
-template <int kLanes>
+template <int kLanes, int kBatch = kRecordBatch>
 __device__ __forceinline__ float* record_slot(float* tile, int k, int rows) {
   const int nb = blockDim.x / kLanes;
-  const int batch = ((k / kRecordBatch) & 1) * kRecordBatch + k % kRecordBatch;
+  const int batch = ((k / kBatch) & 1) * kBatch + k % kBatch;
   return tile + static_cast<size_t>(batch) * rows * nb + threadIdx.x / kLanes;
 }
 
 // Flushes the batch that record k ends, if it ends one (of kept records).
 // Every thread of the block calls it at the same records.
-template <int kLanes>
+template <int kLanes, int kBatch = kRecordBatch>
 __device__ __forceinline__ void flush_records(float* __restrict__ samples, const float* tile,
                                               int k, int kept, int rows, int C) {
-  const int j = k % kRecordBatch;
-  if (j != kRecordBatch - 1 && k != kept - 1) return;
+  const int j = k % kBatch;
+  if (j != kBatch - 1 && k != kept - 1) return;
   const int nb = blockDim.x / kLanes;
   const int per = rows * nb;
-  const float* batch = tile + static_cast<size_t>((k / kRecordBatch) & 1) * kRecordBatch * per;
+  const float* batch = tile + static_cast<size_t>((k / kBatch) & 1) * kBatch * per;
   float* out = samples + static_cast<size_t>(k - j) * rows * C + blockIdx.x * nb;
   __syncthreads();
   for (int i = threadIdx.x; i < (j + 1) * per; i += blockDim.x) {
@@ -1058,6 +1098,442 @@ __device__ __forceinline__ void nuts_chain(const Eval& ev, const L& ln, const Me
     divergences[c] = div_sum;
     steps[c] = step;
   }
+}
+
+// ---- HMC, MH and MALA ----
+
+// Records of the HMC and walk loops on lanes go through the tile one at a
+// time: a tuned HMC block holds a whole tuning group (256 chains at 4 lanes),
+// whose tile of kRecordBatch records would not fit shared memory.
+constexpr int kWalkRecordBatch = 1;
+
+// The words of one iteration of the HMC and walk streams (key (k0, k1),
+// counter (ctr, j)) on a chain's lanes: the kPairs normal pairs, then the
+// accept uniform (word kPairs), word g on lane g % kLanes in round g /
+// kLanes, each computed once. Coordinate p is normal p % 2 of word p / 2:
+// for an even kLanes the coordinates a lane owns in slot k (k kLanes + lane)
+// all take round k / 2, from lane (k kLanes / 2 + lane / 2) % kLanes, so two
+// shuffles a slot bring them to their owners.
+template <class L>
+struct WalkWords {
+  static constexpr int kLanes = L::kLanes;
+  static constexpr int kWords = resident_loop::kPairs + 1;
+  static constexpr int kRounds = (kWords + kLanes - 1) / kLanes;
+  static_assert(kLanes % 2 == 0, "one thread a chain draws where it uses");
+  static_assert((L::kPer - 1) / 2 < kRounds, "every owned coordinate's word is drawn");
+  Word w[kRounds];
+  __device__ __forceinline__ WalkWords(const L& ln, unsigned k0, unsigned k1, unsigned ctr) {
+#pragma unroll
+    for (int m = 0; m < kRounds; ++m) {
+      w[m] = draw_word(k0, k1, ctr, static_cast<unsigned>(ln.lane + m * kLanes));
+    }
+  }
+  // the normals of the owned coordinates (0 for padding)
+  __device__ __forceinline__ void normals(const L& ln, float (&z)[L::kPer]) const {
+#pragma unroll
+    for (int k = 0; k < L::kPer; ++k) {
+      const int src = (k * kLanes / 2 + ln.lane / 2) % kLanes;
+      const float a = ln.from(w[k / 2].z0, src);
+      const float b = ln.from(w[k / 2].z1, src);
+      z[k] = ln.coord(k) < kP ? ((ln.lane & 1) ? b : a) : 0.0f;
+    }
+  }
+  // the accept uniform, in (0, 1]
+  __device__ __forceinline__ float uniform(const L& ln) const {
+    constexpr int g = resident_loop::kPairs;
+    return ln.from(w[g / kLanes].u, g % kLanes);
+  }
+};
+
+// Stages the owned coordinates of th (and with extras the value and the
+// moved flag) as record k of kept in the tile, and flushes its batch. Every
+// thread of the block calls it at the same records.
+template <class L>
+__device__ __forceinline__ void record_lanes(const L& ln, float* __restrict__ samples,
+                                             float* tile, int k, int kept, int C, bool extras,
+                                             const float (&th)[L::kPer], float val,
+                                             bool moved) {
+  constexpr int kLanes = L::kLanes;
+  const int rows = extras ? kP + 2 : kP;
+  const int nb = blockDim.x / kLanes;
+  float* slot = record_slot<kLanes, kWalkRecordBatch>(tile, k, rows);
+#pragma unroll
+  for (int j = 0; j < L::kPer; ++j) {
+    if (ln.coord(j) < kP) slot[ln.coord(j) * nb] = th[j];
+  }
+  if (extras && ln.lane == 0) {
+    slot[kP * nb] = val;
+    slot[(kP + 1) * nb] = moved ? 1.0f : 0.0f;
+  }
+  flush_records<kLanes, kWalkRecordBatch>(samples, tile, k, kept, rows, C);
+}
+
+// One chain's whole HMC run, on the lanes ln (Lanes<1>: one thread): per
+// iteration t, the momenta (normals, key (seed, chain), counter (t, j)),
+// num_steps leapfrog steps from the accepted state, the accept test u <
+// min(1, exp(H_cur - H_prop)) with u from word ceil(P/2), the post-burn-in
+// accept count, the tuner (dual averaging on the group mean of the rate, or
+// on the chain's own; the l-rule sets num_steps, and with stochastic
+// rounding the last burn-in iteration freezes floor(l/e) + Bernoulli(frac)
+// from word ceil(P/2) + 1) and the record. Adds the chain's
+// value-and-gradient evaluations (1 + its leapfrog steps) to *evaluations,
+// once a chain. A chain stops after its own num_steps (the TPU kernel masks
+// the lanes whose trajectory ended).
+//
+// The layouts differ where the registers decide:
+// - One thread a chain (the dense kernel, and the staged one on few rows):
+//   the proposal theta, momentum and gradient in registers, the accepted
+//   theta and gradient in buf, [P][blockDim] of shared memory, touched once
+//   an iteration; the draws where they are used; the record written by the
+//   thread (resident_loop.cuh::record).
+// - A group of lanes (kPer = ceil(P / kLanes) coordinates a lane): the
+//   proposal, momentum, gradient and the accepted theta and gradient, 5 kPer
+//   floats a lane, all in registers; the iteration's words spread over the
+//   lanes (WalkWords); the kinetic energies and the moved flag reduced over
+//   the lanes, so every lane takes the same decisions; buf is the block's
+//   record tile.
+template <class L, class Eval>
+__device__ __forceinline__ void hmc_chain(const Eval& ev, const L& ln,
+                                          const ResidentHMCParams& pr, int c, int cluster_blocks,
+                                          const float* __restrict__ theta0,
+                                          float* __restrict__ samples,
+                                          float* __restrict__ final_theta,
+                                          float* __restrict__ accepts,
+                                          unsigned long long* __restrict__ evaluations,
+                                          float* buf, float* red, float* partial) {
+  constexpr int kN = L::kPer;
+  constexpr bool kThread = L::kLanes == 1;
+  constexpr int kPairs = resident_loop::kPairs;
+  const int bd = blockDim.x;
+  const int me = threadIdx.x;
+  const int C = pr.num_chains;
+  const unsigned key0 = static_cast<unsigned>(pr.seed);
+  const unsigned key1 = static_cast<unsigned>(c);
+  float* acc_th = buf;            // one thread: the accepted theta, [P][bd]
+  float* acc_g = buf + kP * bd;   // one thread: its gradient, [P][bd]
+  float reg_th[kThread ? 1 : kN];  // lanes: the accepted theta's owned coordinates
+  float reg_g[kThread ? 1 : kN];   // lanes: its gradient's
+  auto at = [&](int k) -> float& {
+    if constexpr (kThread) {
+      return acc_th[k * bd + me];
+    } else {
+      return reg_th[k];
+    }
+  };
+  auto ag = [&](int k) -> float& {
+    if constexpr (kThread) {
+      return acc_g[k * bd + me];
+    } else {
+      return reg_g[k];
+    }
+  };
+
+  float th[kN], g[kN], mom[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const int p = ln.coord(k);
+    th[k] = p < kP ? theta0[static_cast<size_t>(p) * C + c] : 0.0f;
+  }
+  float cur_val = ev.vg(th, g);
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    at(k) = th[k];
+    ag(k) = g[k];
+  }
+
+  unsigned evals = 1;
+  float n_accepts = 0.0f;
+  float step = pr.step;
+  int n_steps = pr.num_steps;
+  float barh = 0.0f;
+  float logbare = 0.0f;
+
+  for (int t = 0; t < pr.num_iters; ++t) {
+    const unsigned ctr = static_cast<unsigned>(t);
+    float u_lanes = 0.0f;
+    if constexpr (kThread) {
+      kernel_prng::normals(key0, key1, ctr, mom);
+    } else {
+      const WalkWords<L> words(ln, key0, key1, ctr);
+      words.normals(ln, mom);
+      u_lanes = words.uniform(ln);
+    }
+    float kin = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) kin += mom[k] * mom[k];
+    kin = ln.sum(kin);
+    const float h_cur = -cur_val + 0.5f * kin;
+
+    const float half_step = 0.5f * step;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      th[k] = at(k);
+      g[k] = ag(k);
+      mom[k] = mom[k] + half_step * g[k];
+    }
+    float val = cur_val;
+    for (int s = 0; s < n_steps; ++s) {
+#pragma unroll
+      for (int k = 0; k < kN; ++k) th[k] = th[k] + step * mom[k];
+      val = ev.vg(th, g);
+      const float f = (s == n_steps - 1 ? 0.5f : 1.0f) * step;
+#pragma unroll
+      for (int k = 0; k < kN; ++k) mom[k] = mom[k] + f * g[k];
+    }
+    evals += static_cast<unsigned>(n_steps);
+    float kin_prop = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) kin_prop += mom[k] * mom[k];
+    kin_prop = ln.sum(kin_prop);
+    const float h_prop = -val + 0.5f * kin_prop;
+    const float e = expf(h_cur - h_prop);
+    const float rate = e > 1.0f ? 1.0f : e;  // NaN stays NaN and rejects
+    float u;
+    if constexpr (kThread) {
+      u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
+    } else {
+      u = u_lanes;
+    }
+    bool moved = false;
+    if (u < rate) {
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        moved |= th[k] != at(k);
+        at(k) = th[k];
+        ag(k) = g[k];
+      }
+      cur_val = val;
+      if (t >= pr.num_burnin_iters) n_accepts += 1.0f;
+    }
+    moved = ln.any(moved);
+
+    if (pr.tuned && t < pr.num_burnin_iters) {  // uniform over a population group
+      float stat;
+      if constexpr (kThread) {
+        stat = pr.per_chain ? rate
+                            : resident_loop::group_mean(rate, red, partial, t & 1, cluster_blocks);
+      } else {
+        stat = pr.per_chain ? rate : group_mean(ln, rate, red, partial, t & 1, cluster_blocks);
+      }
+      if (pr.nan_guard && stat != stat) stat = 0.0f;
+      step = resident_loop::dual_average(stat, t, pr.num_burnin_iters, pr.tuner_m, pr.d, pr.g,
+                                         pr.t0, pr.k, pr.log_eub, barh, logbare);
+      if (pr.use_l) {
+        const float ratio = pr.l / step;
+        const float cap = static_cast<float>(pr.max_num_steps);
+        n_steps = static_cast<int>(fminf(fmaxf(rintf(ratio), 1.0f), cap));
+        if (pr.stochastic && t == pr.num_burnin_iters - 1) {
+          const float n_lo = floorf(ratio);
+          const float ur = kernel_prng::uniform_at(key0, key1, ctr, kPairs + 1);
+          const float n = n_lo + (ur < ratio - n_lo ? 1.0f : 0.0f);
+          n_steps = static_cast<int>(fminf(fmaxf(n, 1.0f), cap));
+        }
+      }
+    }
+
+    if constexpr (kThread) {
+      resident_loop::record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept,
+                            pr.record_extras, C, c, acc_th, cur_val, moved);
+    } else {
+      const int since = t - pr.num_burnin_iters;
+      if (since >= 0 && since % pr.record_thin == 0 && since / pr.record_thin < pr.kept) {
+        record_lanes(ln, samples, buf, since / pr.record_thin, pr.kept, C,
+                     pr.record_extras != 0, reg_th, cur_val, moved);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const int p = ln.coord(k);
+    if (p < kP) final_theta[static_cast<size_t>(p) * C + c] = at(k);
+  }
+  if (ln.lane == 0) accepts[c] = n_accepts;
+  resident_loop::count_evaluations(ln.lane == 0 ? evals : 0u, evaluations);
+}
+
+// One chain's whole random-walk run, on the lanes ln (Lanes<1>: one thread).
+// Per iteration t: P normals z (the walk stream: key (seed, chain), counter
+// (t, j)), the proposal, its value (MH) or value and gradient (MALA), and the
+// accept test log(u) < log_rate with u from word ceil(P/2).
+//   MH:   prop = theta + scale * z; log_rate = v(prop) - v(theta).
+//   MALA: prop = theta + (step/2) grad + sqrt(step) z;
+//         log_rate = v(prop) - v(theta) - |theta - prop - (step/2) grad(prop)|^2 / (2 step)
+//                    + |z|^2 / 2
+//         (the two sqrt(step)-Normal densities' constants cancel).
+// With pr.tuned (dense kernels), the scale or step is dual-averaged on the
+// group mean of min(1, exp(min(log_rate, 0))) during burn-in, with no NaN
+// guard (as the TPU kernel has it: a NaN rate stops the group's tuning).
+// Layouts as hmc_chain's: one thread keeps the accepted theta (and gradient,
+// MALA) in buf, [P][blockDim] of shared memory; a group of lanes keeps them
+// in registers, spread over the lanes, with |z|^2, the reverse-proposal norm
+// and the moved flag reduced over the lanes, and buf is the record tile.
+template <bool kMALA, class L, class Eval>
+__device__ __forceinline__ void walk_chain(const Eval& ev, const L& ln,
+                                           const ResidentWalkParams& pr, int c,
+                                           int cluster_blocks, const float* __restrict__ theta0,
+                                           float* __restrict__ samples,
+                                           float* __restrict__ final_theta,
+                                           float* __restrict__ accepts, float* buf, float* red,
+                                           float* partial) {
+  constexpr int kN = L::kPer;
+  constexpr bool kThread = L::kLanes == 1;
+  constexpr int kPairs = resident_loop::kPairs;
+  const int bd = blockDim.x;
+  const int me = threadIdx.x;
+  const int C = pr.num_chains;
+  const unsigned key0 = static_cast<unsigned>(pr.seed);
+  const unsigned key1 = static_cast<unsigned>(c);
+  float* acc_th = buf;           // one thread: the accepted theta, [P][bd]
+  float* acc_g = buf + kP * bd;  // one thread, MALA: its gradient, [P][bd]
+  float reg_th[kThread ? 1 : kN];
+  float reg_g[kThread || !kMALA ? 1 : kN];
+  auto at = [&](int k) -> float& {
+    if constexpr (kThread) {
+      return acc_th[k * bd + me];
+    } else {
+      return reg_th[k];
+    }
+  };
+  auto ag = [&](int k) -> float& {
+    if constexpr (kThread) {
+      return acc_g[k * bd + me];
+    } else if constexpr (kMALA) {
+      return reg_g[k];
+    } else {
+      return reg_g[0];
+    }
+  };
+
+  float val;
+  {
+    float th[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const int p = ln.coord(k);
+      th[k] = p < kP ? theta0[static_cast<size_t>(p) * C + c] : 0.0f;
+    }
+    if constexpr (kMALA) {
+      float g[kN];
+      val = ev.vg(th, g);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) ag(k) = g[k];
+    } else {
+      val = ev.v(th);
+    }
+#pragma unroll
+    for (int k = 0; k < kN; ++k) at(k) = th[k];
+  }
+
+  float n_accepts = 0.0f;
+  float cur = pr.value;
+  float barh = 0.0f;
+  float logbare = 0.0f;
+
+  for (int t = 0; t < pr.num_iters; ++t) {
+    const unsigned ctr = static_cast<unsigned>(t);
+    float prop[kN];
+    float log_rate;
+    bool moved = false;
+    {
+      float z[kN];
+      float u_lanes = 0.0f;
+      if constexpr (kThread) {
+        kernel_prng::normals(key0, key1, ctr, z);
+      } else {
+        const WalkWords<L> words(ln, key0, key1, ctr);
+        words.normals(ln, z);
+        u_lanes = words.uniform(ln);
+      }
+      auto accept_uniform = [&]() {
+        if constexpr (kThread) {
+          return kernel_prng::uniform_at(key0, key1, ctr, kPairs);
+        } else {
+          return u_lanes;
+        }
+      };
+      if constexpr (kMALA) {
+        const float half = pr.tuned ? 0.5f * cur : pr.half_step;
+        const float sq = pr.tuned ? sqrtf(cur) : pr.sqrt_step;
+        float z_sq = z[0] * z[0];
+#pragma unroll
+        for (int k = 1; k < kN; ++k) z_sq = z_sq + z[k] * z[k];
+        z_sq = ln.sum(z_sq);
+#pragma unroll
+        for (int k = 0; k < kN; ++k) prop[k] = (at(k) + half * ag(k)) + sq * z[k];
+        float gp[kN];
+        const float v_p = ev.vg(prop, gp);
+        float rev_sq = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kN; ++k) {
+          const float dp = at(k) - (prop[k] + half * gp[k]);
+          rev_sq = rev_sq + dp * dp;
+        }
+        rev_sq = ln.sum(rev_sq);
+        const float half_inv = pr.tuned ? 0.5f / cur : pr.half_inv_step;
+        log_rate = ((v_p - val) - half_inv * rev_sq) + 0.5f * z_sq;
+        const float u = accept_uniform();
+        if (logf(u) < log_rate) {
+#pragma unroll
+          for (int k = 0; k < kN; ++k) {
+            moved |= prop[k] != at(k);
+            at(k) = prop[k];
+            ag(k) = gp[k];
+          }
+          val = v_p;
+          if (t >= pr.num_burnin_iters) n_accepts += 1.0f;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kN; ++k) prop[k] = at(k) + cur * z[k];
+        const float v_p = ev.v(prop);
+        log_rate = v_p - val;
+        const float u = accept_uniform();
+        if (logf(u) < log_rate) {
+#pragma unroll
+          for (int k = 0; k < kN; ++k) {
+            moved |= prop[k] != at(k);
+            at(k) = prop[k];
+          }
+          val = v_p;
+          if (t >= pr.num_burnin_iters) n_accepts += 1.0f;
+        }
+      }
+    }
+    moved = ln.any(moved);
+
+    if (pr.tuned && t < pr.num_burnin_iters) {  // uniform over the group
+      const float r = log_rate > 0.0f ? 0.0f : log_rate;  // min(log_rate, 0), NaN stays
+      const float e = expf(r);
+      const float rate = e > 1.0f ? 1.0f : e;
+      float mean_rate;
+      if constexpr (kThread) {
+        mean_rate = resident_loop::group_mean(rate, red, partial, t & 1, cluster_blocks);
+      } else {
+        mean_rate = group_mean(ln, rate, red, partial, t & 1, cluster_blocks);
+      }
+      cur = resident_loop::dual_average(mean_rate, t, pr.num_burnin_iters, pr.tuner_m, pr.d,
+                                        pr.g, pr.t0, pr.k, pr.log_eub, barh, logbare);
+    }
+
+    if constexpr (kThread) {
+      resident_loop::record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept,
+                            pr.record_extras, C, c, acc_th, val, moved);
+    } else {
+      const int since = t - pr.num_burnin_iters;
+      if (since >= 0 && since % pr.record_thin == 0 && since / pr.record_thin < pr.kept) {
+        record_lanes(ln, samples, buf, since / pr.record_thin, pr.kept, C,
+                     pr.record_extras != 0, reg_th, val, moved);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const int p = ln.coord(k);
+    if (p < kP) final_theta[static_cast<size_t>(p) * C + c] = at(k);
+  }
+  if (ln.lane == 0) accepts[c] = n_accepts;
 }
 
 }  // namespace lane_eval

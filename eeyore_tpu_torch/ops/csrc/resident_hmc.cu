@@ -11,24 +11,48 @@
 // averaging runs on the mean acceptance rate of the chain block during
 // burn-in (the l-rule sets num_steps), and the last burn-in iteration
 // freezes the averaged step, as resident_hmc.py:184-218 does. The loop is
-// resident_loop.cuh::hmc_chain, shared with resident_hmc_dense.cu.
+// lane_eval.cuh::hmc_chain, which resident_hmc_dense.cu runs too.
 //
 // Design.
-// - One thread per chain; the tuning group is the CUDA block, one block per
-//   chain_block chains (resident_loop.cuh::group_mean).
-// - The leapfrog trip count is a per-thread loop. The TPU kernel masks the
-//   lanes whose trajectory ended (resident_hmc.py:149-158); a thread stops on
+// - HMC_LANES lanes of a warp per chain (lane_eval.cuh): lane l owns the
+//   coordinates l, l + HMC_LANES, ... of the proposal, the momentum, the
+//   gradient and the accepted theta and gradient, all in registers (14 each
+//   on iris MLP(4,3,3) at 2 lanes, where one thread a chain held 27 of each
+//   and kept the accepted pair in 55 KB of shared memory a block). Each
+//   evaluation gathers theta through the chain's slot of P floats in shared
+//   memory, runs the forward and backward pass of mlp_vg.cuh on the lane's
+//   rows l, l + HMC_LANES, ... and reduce-scatters the gradient onto the
+//   owners by shuffles; the kinetic energies and the log-likelihood reduce by
+//   xor butterflies, so every lane holds the same bits and takes the same
+//   accept, tuning and trip-count decisions. The 15 Threefry words of an
+//   iteration (14 normal pairs and the accept uniform on iris) are spread
+//   over the lanes, each computed once, and the normals reach their owners by
+//   shuffles.
+// - The tuning group is the chain_block consecutive chains, chain_block x
+//   HMC_LANES threads: at up to 4 lanes one CUDA block of up to 1024 threads
+//   (a group of 256 chains), so the group mean is a block reduction with no
+//   cluster barrier; at 8 lanes a thread-block cluster of blocks of 256
+//   (lane_eval.cuh::group_mean counts each chain once). The launch bounds
+//   (HMC_MIN_BLOCKS blocks of that size an SM) cap the registers: the
+//   kernel is bound by latency, so resident warps pay, but the evaluator's
+//   gathered theta and gradient partials (54 floats a lane) spill under a
+//   cap of 64 registers. On config 3 (groups of 256 chains, 128 groups)
+//   2 lanes at 128 registers, 16 warps an SM, ran fastest, ahead of 4 lanes
+//   at 64 (32 warps, 320 B of spills) and 8 lanes in clusters
+//   (ops/resident_hmc.py::HMC_LANES, scripts/lane_sweep.py, PERF.md).
+// - HMC_LANES = 1 is one thread a chain: the accepted theta and gradient in
+//   shared memory at [P][blockDim] beside the data rows, the draws where they
+//   are used, no launch bounds; ops/resident_hmc.py::chain_lanes picks it for
+//   data of few rows (staged XOR), where a lane would get no rows to split.
+// - The leapfrog trip count is a per-chain loop. The TPU kernel masks the
+//   lanes whose trajectory ended (resident_hmc.py:149-158); a chain stops on
 //   its own and gets the same numbers.
-// - The proposal theta, momentum and gradient live in registers (3P floats
-//   beside the value-and-gradient body's own); the accepted theta and
-//   gradient, touched once per iteration, live in shared memory at
-//   [P][blockDim] (2 * 27 * 4 B * 256 = 55 KB for iris, dynamic shared
-//   memory above 48 KB), beside the data rows.
-// - Samples are written chain-minor, [kept, rows, C], so a warp's stores are
-//   coalesced; the wrapper views them as [kept, C, P].
+// - Samples are written chain-minor, [kept, rows, C]: on lanes through a
+//   shared-memory tile of the block's chains, one record a flush; the wrapper
+//   views them as [kept, C, P].
 // - The launch counts the value-and-gradient evaluations it made (one per
-//   chain at the start and one per leapfrog step) into a device counter,
-//   from which chip_smoke.py computes the run's bound exactly.
+//   chain at the start and one per leapfrog step, once a chain) into a device
+//   counter, from which chip_smoke.py computes the run's bound exactly.
 //
 // Bound. evaluations x the value and gradient (each bound by the
 // special-function unit on iris, chip_smoke.py::vg_work), plus about 100
@@ -38,34 +62,75 @@
 // XOR, whose evaluation is a few hundred operations, the sample bytes and the
 // PRNG weigh more.
 
-#include "resident_loop.cuh"
+#include "lane_eval.cuh"
+
+#if !defined(HMC_LANES) || !defined(HMC_MIN_BLOCKS)
+#error "HMC_LANES (lanes a chain) and HMC_MIN_BLOCKS must be defined"
+#endif
 
 using namespace mlp_vg;
 using resident_loop::kMaxThreads;
 
 namespace {
 
-__global__ void resident_hmc_kernel(const float* __restrict__ theta0,  // [P, C]
-                                    const float* __restrict__ x, const float* __restrict__ y,
-                                    const float* __restrict__ mask,
-                                    const float* __restrict__ loc,
-                                    const float* __restrict__ ivar, const ResidentHMCParams pr,
-                                    float* __restrict__ samples,      // [kept, rows, C]
-                                    float* __restrict__ final_theta,  // [P, C]
-                                    float* __restrict__ accepts,      // [C]
-                                    unsigned long long* __restrict__ evaluations) {
+constexpr int kLanes = HMC_LANES;
+using HmcLanes = lane_eval::Lanes<kLanes>;
+// Threads a block may have: one thread a chain, kMaxThreads; on up to 4
+// lanes a tuning group of 256 chains; on 8 lanes 256 (a group of 256 chains
+// is a cluster of 8 such blocks). The launch bounds keep HMC_MIN_BLOCKS such
+// blocks on an SM.
+constexpr int kBlockThreads = kLanes == 1 ? kMaxThreads : (kLanes <= 4 ? 256 * kLanes : 256);
+
+#if HMC_LANES == 1
+#define HMC_LAUNCH_BOUNDS
+#else
+#define HMC_LAUNCH_BOUNDS __launch_bounds__(kBlockThreads, HMC_MIN_BLOCKS)
+#endif
+
+__global__ void HMC_LAUNCH_BOUNDS
+    resident_hmc_kernel(const float* __restrict__ theta0,  // [P, C]
+                        const float* __restrict__ x, const float* __restrict__ y,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ loc,
+                        const float* __restrict__ ivar, const ResidentHMCParams pr,
+                        float* __restrict__ samples,      // [kept, rows, C]
+                        float* __restrict__ final_theta,  // [P, C]
+                        float* __restrict__ accepts,      // [C]
+                        unsigned long long* __restrict__ evaluations,
+                        int cluster_blocks) {
   extern __shared__ float smem[];
   __shared__ float red[kMaxThreads / 32];
   const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
-  float* acc_th = smem + data_floats(pr.n_rows);  // accepted theta, [P][bd]
-  float* acc_g = acc_th + kP * blockDim.x;        // its gradient, [P][bd]
+  float* buf = smem + data_floats(pr.n_rows);
+#if HMC_LANES == 1  // buf: the accepted theta and its gradient, [P][bd] each
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   // Only an untuned run has a ragged last block; a tuned block is full, so
   // every thread reaches the block reductions.
   if (c >= pr.num_chains) return;
   const resident_loop::StagedEval ev{d, pr.prior_const, pr.temperature, pr.n_rows};
-  resident_loop::hmc_chain(ev, pr, c, 1, theta0, samples, final_theta, accepts, evaluations,
-                           acc_th, acc_g, red, nullptr);
+  lane_eval::hmc_chain(ev, HmcLanes{}, pr, c, 1, theta0, samples, final_theta, accepts,
+                       evaluations, buf, red, nullptr);
+#else  // buf: a theta slot [P] per chain, then the record tile
+  __shared__ float partial[2];
+  // the launch covers the chains exactly: every thread reaches every barrier
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kLanes;
+  const HmcLanes ln;
+  const lane_eval::LaneStagedEval<HmcLanes> ev{d, pr.prior_const, pr.temperature, pr.n_rows, ln,
+                                               buf + kP * (threadIdx.x / kLanes)};
+  buf += static_cast<size_t>(kP) * (blockDim.x / kLanes);
+  lane_eval::hmc_chain(ev, ln, pr, c, cluster_blocks, theta0, samples, final_theta, accepts,
+                       evaluations, buf, red, partial);
+  // no block of a cluster leaves while another may read its partial sum
+  if (cluster_blocks > 1) cooperative_groups::this_cluster().sync();
+#endif
+}
+
+size_t smem_bytes(int threads, int n_rows) {
+  const size_t chain_floats =
+      kLanes == 1 ? 2 * static_cast<size_t>(kP) * threads
+                  : static_cast<size_t>(kP) * (threads / kLanes) +
+                        lane_eval::tile_floats(kLanes, threads, lane_eval::kWalkRecordBatch);
+  return sizeof(float) * (data_floats(n_rows) + chain_floats);
 }
 
 }  // namespace
@@ -82,10 +147,23 @@ extern "C" int resident_hmc_arch(int* out) {
   return 0;
 }
 
+extern "C" int resident_hmc_lanes() { return kLanes; }
+
 extern "C" int resident_hmc_resources(int* out) {
   // registers per thread, local-memory (spill) bytes per thread, and the
   // most threads a block of this build can launch with those registers
   return static_cast<int>(resident_loop::resources(resident_hmc_kernel, out));
+}
+
+extern "C" int resident_hmc_max_clusters(int threads, int cluster_blocks, int n_rows, int* out) {
+  return static_cast<int>(resident_loop::max_active_clusters(
+      resident_hmc_kernel, threads, cluster_blocks, smem_bytes(threads, n_rows), out));
+}
+
+// Blocks of threads threads an SM holds at once, for n_rows staged rows.
+extern "C" int resident_hmc_max_blocks(int threads, int n_rows, int* out) {
+  return static_cast<int>(resident_loop::max_active_blocks(
+      resident_hmc_kernel, threads, smem_bytes(threads, n_rows), out));
 }
 
 extern "C" const char* resident_hmc_error_string(int code) {
@@ -95,16 +173,26 @@ extern "C" const char* resident_hmc_error_string(int code) {
 extern "C" int resident_hmc_launch(const float* theta0, const float* x, const float* y,
                                    const float* mask, const float* loc, const float* ivar,
                                    const ResidentHMCParams* params, int threads,
-                                   float* samples, float* final_theta, float* accepts,
-                                   unsigned long long* evaluations, void* stream) {
+                                   int cluster_blocks, float* samples, float* final_theta,
+                                   float* accepts, unsigned long long* evaluations,
+                                   void* stream) {
   const ResidentHMCParams pr = *params;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) {
+  const long long lanes = static_cast<long long>(pr.num_chains) * kLanes;
+  const long long group = static_cast<long long>(pr.chain_block) * kLanes;  // threads a group
+  if (threads < 32 || threads > kBlockThreads || threads % 32 != 0 || cluster_blocks < 1 ||
+      cluster_blocks > resident_loop::kMaxCluster) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const size_t smem =
-      sizeof(float) * (data_floats(pr.n_rows) + 2 * static_cast<size_t>(kP) * threads);
-  const int blocks = (pr.num_chains + threads - 1) / threads;
-  return static_cast<int>(resident_loop::launch(resident_hmc_kernel, blocks, threads, smem, 1,
-                                                stream, theta0, x, y, mask, loc, ivar, pr,
-                                                samples, final_theta, accepts, evaluations));
+  if (kLanes == 1 ? cluster_blocks != 1
+                  : (lanes % threads != 0 ||
+                     ((pr.tuned || cluster_blocks > 1) &&
+                      (group % threads != 0 || cluster_blocks * threads != group)))) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int blocks =
+      static_cast<int>(kLanes == 1 ? (pr.num_chains + threads - 1) / threads : lanes / threads);
+  return static_cast<int>(resident_loop::launch(
+      resident_hmc_kernel, blocks, threads, smem_bytes(threads, pr.n_rows), cluster_blocks,
+      stream, theta0, x, y, mask, loc, ivar, pr, samples, final_theta, accepts, evaluations,
+      cluster_blocks));
 }

@@ -4,8 +4,9 @@
 // Replaces the Pallas TPU kernel eeyore_tpu/ops/resident_hmc_dense.py:303
 // (make_resident_hmc_dense); the plain PyTorch version is the CPU branch of
 // eeyore_tpu_torch/ops/resident_hmc_dense.py. The loop is the one of
-// resident_hmc.cu (resident_loop.cuh::hmc_chain, the same Threefry stream
-// keyed by the global chain index); what differs:
+// resident_hmc.cu (lane_eval.cuh::hmc_chain on one thread a chain,
+// Lanes<1>, the same Threefry stream keyed by the global chain index); what
+// differs:
 // - The value and gradient is dense_body.cuh, which ops/mlp_dense.py
 //   generates for one model and dataset (the build's name carries its
 //   hash): the rows unrolled, zero inputs' terms dropped and unit inputs
@@ -30,7 +31,7 @@
 // operations, so the Threefry and Box-Muller work and the sample bytes weigh
 // as much as the evaluations.
 
-#include "resident_loop.cuh"
+#include "lane_eval.cuh"
 #include "dense_body.cuh"
 
 using namespace mlp_vg;
@@ -57,11 +58,10 @@ __global__ void resident_hmc_dense_kernel(const float* __restrict__ theta0,  // 
   extern __shared__ float smem[];
   __shared__ float red[kMaxThreads / 32];
   __shared__ float partial[2];
-  float* acc_th = smem;                     // accepted theta, [P][bd]
-  float* acc_g = acc_th + kP * blockDim.x;  // its gradient, [P][bd]
+  // smem: the accepted theta and its gradient, [P][bd] each
   const int c = resident_loop::chain_index(pr.sublanes, pr.chain_block, pr.num_chains);
-  resident_loop::hmc_chain(DenseEval{}, pr, c, cluster_blocks, theta0, samples, final_theta,
-                           accepts, evaluations, acc_th, acc_g, red, partial);
+  lane_eval::hmc_chain(DenseEval{}, lane_eval::Lanes<1>{}, pr, c, cluster_blocks, theta0,
+                       samples, final_theta, accepts, evaluations, smem, red, partial);
   // no block of a cluster leaves while another may read its partial sum
   if (cluster_blocks > 1) cooperative_groups::this_cluster().sync();
 }

@@ -1,31 +1,35 @@
 // The per-chain loops of the whole-loop kernels, written once for both data
 // strategies.
 //
-// hmc_chain is one chain's whole HMC run (resident_hmc.cu on staged data,
-// resident_hmc_dense.cu on data folded in as constants); walk_chain is one
-// chain's whole random-walk MH or MALA run and gibbs_chain its blocked-Gibbs
-// run (resident_walk.cu and resident_walk_dense.cu). The data strategy is the
-// Eval argument: an object with vg(th, g) -> value (gradient into g) and
-// v(th) -> value, and for Gibbs the cached value-only interface described
-// at gibbs_chain. StagedEval reads the rows a block staged in shared memory
-// (mlp_vg.cuh), one thread a chain; lane_eval.cuh's evaluators read them a
-// group of lanes a chain (the staged Gibbs move and NUTS); the dense
-// kernels' evaluator calls the code generated for one dataset
-// (ops/mlp_dense.py::dense_source, gibbs_dense_source).
-// smc_mutation_chain is one particle's SMC mutation pass (resident_smc.cu),
-// on SplitEval, the staged rows with the likelihood-tempered target.
+// gibbs_chain is one chain's whole blocked-Gibbs run (resident_walk.cu and
+// resident_walk_dense.cu). The whole HMC, MH and MALA runs (hmc_chain,
+// walk_chain) and the NUTS run (nuts_chain) are written once over the lanes
+// a chain in lane_eval.cuh, one thread a chain being Lanes<1>; this header
+// keeps their scalar pieces (draw counts, group means, dual averaging, the
+// thread layout's record). The data strategy is the Eval argument: an object
+// with vg(th, g) -> value (gradient into g) and v(th) -> value, and for Gibbs
+// the cached value-only interface described at gibbs_chain. StagedEval reads
+// the rows a block staged in shared memory (mlp_vg.cuh), one thread a chain;
+// lane_eval.cuh's evaluators read them a group of lanes a chain (the staged
+// HMC, MH, MALA and Gibbs moves and NUTS); the dense kernels' evaluator
+// calls the code generated for one dataset (ops/mlp_dense.py::dense_source,
+// gibbs_dense_source). smc_mutation_chain is one particle's SMC mutation
+// pass (resident_smc.cu), on SplitEval, the staged rows with the
+// likelihood-tempered target.
 //
-// Layout and state. One thread owns one chain, but in the staged Gibbs move
-// and the staged NUTS kernel, where a group of lanes of a warp owns it
-// (lane_eval.cuh). The accepted theta (and its gradient, for HMC and MALA),
-// touched once per iteration, live in shared memory at [P][blockDim]; the
-// proposal and its gradient live in registers (Gibbs keeps theta in
-// registers and saves only the sub-block it moves). Samples are written
-// chain-minor, [kept, rows, C] with rows = P (+2 with record_extras: the
-// value and the moved flag), so a warp's stores are coalesced (a chain on
-// lanes records through a shared-memory tile). The [P*8, C/8] tiles of the
-// TPU's dense layout are this same [P, C] array, so the dense kernels write
-// the same layout.
+// Layout and state. One thread owns one chain in the dense kernels, the
+// tempering move and the SMC mutation pass (and in the staged HMC, MH, MALA
+// and NUTS kernels when the data has few rows or a tuning group is larger
+// than a cluster of lane blocks holds); a group of lanes of a warp owns it in
+// the staged kernels otherwise (lane_eval.cuh). On one thread the accepted
+// theta (and its gradient, for HMC and MALA), touched once per iteration,
+// live in shared memory at [P][blockDim]; the proposal and its gradient live
+// in registers (Gibbs keeps theta in registers and saves only the sub-block
+// it moves). Samples are written chain-minor, [kept, rows, C] with rows = P
+// (+2 with record_extras: the value and the moved flag), so a warp's stores
+// are coalesced (a chain on lanes records through a shared-memory tile). The
+// [P*8, C/8] tiles of the TPU's dense layout are this same [P, C] array, so
+// the dense kernels write the same layout.
 //
 // Tuning groups. A tuned population run applies one dual-averaging update
 // to every chain of a group of chain_block chains, on the mean of their
@@ -249,239 +253,6 @@ __device__ __forceinline__ float dual_average(float stat, int t, int num_burnin_
   loge = loge > log_eub ? log_eub : loge;  // NaN stays NaN
   logbare = e_w * loge + (1.0f - e_w) * logbare;
   return t == num_burnin_iters - 1 ? expf(logbare) : expf(loge);
-}
-
-// One chain's whole HMC run: per iteration t, the momenta (normals, key
-// (seed, chain), counter (t, j)), num_steps leapfrog steps from the
-// accepted state, the accept test u < min(1, exp(H_cur - H_prop)), the
-// post-burn-in accept count, the tuner and the record. Adds the chain's
-// value-and-gradient evaluations (1 + its leapfrog steps) to *evaluations.
-template <class Eval>
-__device__ __forceinline__ void hmc_chain(const Eval& ev, const ResidentHMCParams& pr, int c,
-                                          int cluster_blocks, const float* __restrict__ theta0,
-                                          float* __restrict__ samples,
-                                          float* __restrict__ final_theta,
-                                          float* __restrict__ accepts,
-                                          unsigned long long* __restrict__ evaluations,
-                                          float* acc_th, float* acc_g, float* red,
-                                          float* partial) {
-  const int bd = blockDim.x;
-  const int me = threadIdx.x;
-  const int C = pr.num_chains;
-  const unsigned key0 = static_cast<unsigned>(pr.seed);
-  const unsigned key1 = static_cast<unsigned>(c);
-
-  float th[kP], g[kP], mom[kP];
-#pragma unroll
-  for (int p = 0; p < kP; ++p) th[p] = theta0[static_cast<size_t>(p) * C + c];
-  float cur_val = ev.vg(th, g);
-#pragma unroll
-  for (int p = 0; p < kP; ++p) {
-    acc_th[p * bd + me] = th[p];
-    acc_g[p * bd + me] = g[p];
-  }
-
-  unsigned evals = 1;
-  float n_accepts = 0.0f;
-  float step = pr.step;
-  int n_steps = pr.num_steps;
-  float barh = 0.0f;
-  float logbare = 0.0f;
-
-  for (int t = 0; t < pr.num_iters; ++t) {
-    const unsigned ctr = static_cast<unsigned>(t);
-    kernel_prng::normals(key0, key1, ctr, mom);
-    float kin = 0.0f;
-#pragma unroll
-    for (int p = 0; p < kP; ++p) kin += mom[p] * mom[p];
-    const float h_cur = -cur_val + 0.5f * kin;
-
-    // leapfrog from the accepted state; a chain stops after its own
-    // num_steps (the TPU kernel masks the lanes whose trajectory ended)
-    const float half_step = 0.5f * step;
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      th[p] = acc_th[p * bd + me];
-      g[p] = acc_g[p * bd + me];
-      mom[p] = mom[p] + half_step * g[p];
-    }
-    float val = cur_val;
-    for (int s = 0; s < n_steps; ++s) {
-#pragma unroll
-      for (int p = 0; p < kP; ++p) th[p] = th[p] + step * mom[p];
-      val = ev.vg(th, g);
-      const float f = (s == n_steps - 1 ? 0.5f : 1.0f) * step;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) mom[p] = mom[p] + f * g[p];
-    }
-    evals += static_cast<unsigned>(n_steps);
-    float kin_prop = 0.0f;
-#pragma unroll
-    for (int p = 0; p < kP; ++p) kin_prop += mom[p] * mom[p];
-    const float h_prop = -val + 0.5f * kin_prop;
-    const float e = expf(h_cur - h_prop);
-    const float rate = e > 1.0f ? 1.0f : e;  // NaN stays NaN and rejects
-    const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
-    bool moved = false;
-    if (u < rate) {
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        moved |= th[p] != acc_th[p * bd + me];
-        acc_th[p * bd + me] = th[p];
-        acc_g[p * bd + me] = g[p];
-      }
-      cur_val = val;
-      if (t >= pr.num_burnin_iters) n_accepts += 1.0f;
-    }
-
-    if (pr.tuned && t < pr.num_burnin_iters) {  // uniform over a population group
-      float stat = pr.per_chain ? rate : group_mean(rate, red, partial, t & 1, cluster_blocks);
-      if (pr.nan_guard && stat != stat) stat = 0.0f;
-      step = dual_average(stat, t, pr.num_burnin_iters, pr.tuner_m, pr.d, pr.g, pr.t0, pr.k,
-                          pr.log_eub, barh, logbare);
-      if (pr.use_l) {
-        const float ratio = pr.l / step;
-        const float cap = static_cast<float>(pr.max_num_steps);
-        n_steps = static_cast<int>(fminf(fmaxf(rintf(ratio), 1.0f), cap));
-        if (pr.stochastic && t == pr.num_burnin_iters - 1) {
-          const float n_lo = floorf(ratio);
-          const float ur = kernel_prng::uniform_at(key0, key1, ctr, kPairs + 1);
-          const float n = n_lo + (ur < ratio - n_lo ? 1.0f : 0.0f);
-          n_steps = static_cast<int>(fminf(fmaxf(n, 1.0f), cap));
-        }
-      }
-    }
-
-    record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept, pr.record_extras, C, c,
-           acc_th, cur_val, moved);
-  }
-
-#pragma unroll
-  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = acc_th[p * bd + me];
-  accepts[c] = n_accepts;
-  count_evaluations(evals, evaluations);
-}
-
-// One chain's whole random-walk run. Per iteration t: P normals z (the walk
-// stream: key (seed, chain), counter (t, j)), the proposal, its value (MH)
-// or value and gradient (MALA), and the accept test log(u) < log_rate with
-// u from word ceil(P/2).
-//   MH:   prop = theta + scale * z; log_rate = v(prop) - v(theta).
-//   MALA: prop = theta + (step/2) grad + sqrt(step) z;
-//         log_rate = v(prop) - v(theta) - |theta - prop - (step/2) grad(prop)|^2 / (2 step)
-//                    + |z|^2 / 2
-//         (the two sqrt(step)-Normal densities' constants cancel).
-// With pr.tuned (dense kernels), the scale or step is dual-averaged on the
-// group mean of min(1, exp(min(log_rate, 0))) during burn-in, with no NaN
-// guard (as the TPU kernel has it: a NaN rate stops the group's tuning).
-template <class Eval, bool kMALA>
-__device__ __forceinline__ void walk_chain(const Eval& ev, const ResidentWalkParams& pr, int c,
-                                           int cluster_blocks, const float* __restrict__ theta0,
-                                           float* __restrict__ samples,
-                                           float* __restrict__ final_theta,
-                                           float* __restrict__ accepts, float* acc_th,
-                                           float* acc_g, float* red, float* partial) {
-  const int bd = blockDim.x;
-  const int me = threadIdx.x;
-  const int C = pr.num_chains;
-  const unsigned key0 = static_cast<unsigned>(pr.seed);
-  const unsigned key1 = static_cast<unsigned>(c);
-
-  float val;
-  {
-    float th[kP];
-#pragma unroll
-    for (int p = 0; p < kP; ++p) th[p] = theta0[static_cast<size_t>(p) * C + c];
-    if constexpr (kMALA) {
-      float g[kP];
-      val = ev.vg(th, g);
-#pragma unroll
-      for (int p = 0; p < kP; ++p) acc_g[p * bd + me] = g[p];
-    } else {
-      val = ev.v(th);
-    }
-#pragma unroll
-    for (int p = 0; p < kP; ++p) acc_th[p * bd + me] = th[p];
-  }
-
-  float n_accepts = 0.0f;
-  float cur = pr.value;
-  float barh = 0.0f;
-  float logbare = 0.0f;
-
-  for (int t = 0; t < pr.num_iters; ++t) {
-    const unsigned ctr = static_cast<unsigned>(t);
-    float prop[kP];
-    float log_rate;
-    bool moved = false;
-    {
-      float z[kP];
-      kernel_prng::normals(key0, key1, ctr, z);
-      if constexpr (kMALA) {
-        const float half = pr.tuned ? 0.5f * cur : pr.half_step;
-        const float sq = pr.tuned ? sqrtf(cur) : pr.sqrt_step;
-        float z_sq = z[0] * z[0];
-#pragma unroll
-        for (int p = 1; p < kP; ++p) z_sq = z_sq + z[p] * z[p];
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          prop[p] = (acc_th[p * bd + me] + half * acc_g[p * bd + me]) + sq * z[p];
-        }
-        float gp[kP];
-        const float v_p = ev.vg(prop, gp);
-        float rev_sq = 0.0f;
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          const float dp = acc_th[p * bd + me] - (prop[p] + half * gp[p]);
-          rev_sq = rev_sq + dp * dp;
-        }
-        const float half_inv = pr.tuned ? 0.5f / cur : pr.half_inv_step;
-        log_rate = ((v_p - val) - half_inv * rev_sq) + 0.5f * z_sq;
-        const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
-        if (logf(u) < log_rate) {
-#pragma unroll
-          for (int p = 0; p < kP; ++p) {
-            moved |= prop[p] != acc_th[p * bd + me];
-            acc_th[p * bd + me] = prop[p];
-            acc_g[p * bd + me] = gp[p];
-          }
-          val = v_p;
-          if (t >= pr.num_burnin_iters) n_accepts += 1.0f;
-        }
-      } else {
-#pragma unroll
-        for (int p = 0; p < kP; ++p) prop[p] = acc_th[p * bd + me] + cur * z[p];
-        const float v_p = ev.v(prop);
-        log_rate = v_p - val;
-        const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
-        if (logf(u) < log_rate) {
-#pragma unroll
-          for (int p = 0; p < kP; ++p) {
-            moved |= prop[p] != acc_th[p * bd + me];
-            acc_th[p * bd + me] = prop[p];
-          }
-          val = v_p;
-          if (t >= pr.num_burnin_iters) n_accepts += 1.0f;
-        }
-      }
-    }
-
-    if (pr.tuned && t < pr.num_burnin_iters) {  // uniform over the group
-      const float r = log_rate > 0.0f ? 0.0f : log_rate;  // min(log_rate, 0), NaN stays
-      const float e = expf(r);
-      const float rate = e > 1.0f ? 1.0f : e;
-      const float mean_rate = group_mean(rate, red, partial, t & 1, cluster_blocks);
-      cur = dual_average(mean_rate, t, pr.num_burnin_iters, pr.tuner_m, pr.d, pr.g, pr.t0, pr.k,
-                         pr.log_eub, barh, logbare);
-    }
-
-    record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept, pr.record_extras, C, c,
-           acc_th, val, moved);
-  }
-
-#pragma unroll
-  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = acc_th[p * bd + me];
-  accepts[c] = n_accepts;
 }
 
 // One particle's SMC mutation pass: num_steps MH or MALA moves at the

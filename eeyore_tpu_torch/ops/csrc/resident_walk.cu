@@ -6,8 +6,8 @@
 // make_resident_mh :251, make_resident_mala :212, make_resident_gibbs :281
 // and eeyore_tpu/ops/resident_tempering.py:178); the plain PyTorch versions
 // are the CPU branches of eeyore_tpu_torch/ops/resident_walk.py. The loops
-// are resident_loop.cuh::walk_chain, gibbs_chain and tempering_chain, shared
-// with resident_walk_dense.cu; one library holds the four moves for one
+// are lane_eval.cuh::walk_chain and resident_loop.cuh::gibbs_chain and
+// tempering_chain, shared with resident_walk_dense.cu; one library holds the four moves for one
 // architecture and one Gibbs blocking (move 0: MH, on the value-only body,
 // no backward pass; move 1: MALA, on the value and gradient; move 2: Gibbs,
 // a sweep over the sub-blocks of the generated gibbs_blocks.cuh, value only;
@@ -28,13 +28,28 @@
 // over it evaluates each proposal by a whole value-only forward pass on the
 // same lanes, the same function at more work.
 //
-// Design. MH, MALA and tempering: one thread per chain; the accepted theta
-// (and gradient, MALA) in shared memory at [P][blockDim] beside the staged
-// data rows; the proposal (and its gradient) in registers; samples
-// chain-minor [kept, rows, C]. Gibbs: kLanes lanes a chain, theta whole in
-// every lane's registers, the sweep's draws spread over the lanes, the
-// record through a shared-memory tile; the launch covers the chains
-// exactly (blocks = C kLanes / threads).
+// Design. MH and MALA: WALK_LANES lanes of a warp a chain (lane_eval.cuh),
+// lane l owning the coordinates l, l + WALK_LANES, ... of the accepted theta
+// (and gradient, MALA), the proposal (and its gradient) and z, all in
+// registers; each evaluation gathers theta through the chain's slot in
+// shared memory and runs the lane's rows l, l + WALK_LANES, ... (MH: the
+// forward pass alone, LaneStagedEval::v; MALA: forward and backward, the
+// gradient reduce-scattered onto the owners); the value, |z|^2, the
+// reverse-proposal norm and the moved flag reduce by xor butterflies, so
+// every lane takes the same accept decision; the 15 Threefry words of an
+// iteration (on iris) are spread over the lanes; the record goes through a
+// shared-memory tile of the block's chains. The chains share nothing, so a
+// block is 256 threads, of which WALK_MIN_BLOCKS must fit an SM (the launch
+// bounds that cap the registers: the moves are bound by latency, so resident
+// warps pay; on iris 8 lanes at 2 blocks an SM, 128 registers and no spill,
+// ran fastest over both moves; ops/resident_walk.py::WALK_LANES,
+// scripts/lane_sweep.py, PERF.md). WALK_LANES = 1 is one thread a chain: the accepted
+// theta (and gradient) in shared memory at [P][blockDim] beside the data
+// rows, no launch bounds (ops/resident_walk.py::chain_lanes takes it for data
+// of few rows). Tempering: one thread a chain, as that. Gibbs: kLanes lanes
+// a chain, theta whole in every lane's registers, the sweep's draws spread
+// over the lanes, the record through a shared-memory tile. A launch on lanes
+// covers the chains exactly (blocks = C lanes / threads).
 //
 // Bound. One evaluation per chain and iteration (value only for MH), plus
 // ceil(P/2) + 1 Threefry calls and ceil(P/2) Box-Muller pairs, plus kept x
@@ -45,10 +60,26 @@
 #include "lane_eval.cuh"
 #include "gibbs_blocks.cuh"
 
+#if !defined(WALK_LANES) || !defined(WALK_MIN_BLOCKS)
+#error "WALK_LANES (lanes a chain of MH and MALA) and WALK_MIN_BLOCKS must be defined"
+#endif
+
 using namespace mlp_vg;
 using resident_loop::kMaxThreads;
 
 namespace {
+
+// MH and MALA: lanes a chain, and the threads a block may have (the chains
+// share nothing: on lanes 256, of which WALK_MIN_BLOCKS blocks fit an SM).
+constexpr int kWalkLanes = WALK_LANES;
+using WalkLanes = lane_eval::Lanes<kWalkLanes>;
+constexpr int kWalkThreads = kWalkLanes == 1 ? kMaxThreads : 256;
+
+#if WALK_LANES == 1
+#define WALK_LAUNCH_BOUNDS
+#else
+#define WALK_LAUNCH_BOUNDS __launch_bounds__(kWalkThreads, WALK_MIN_BLOCKS)
+#endif
 
 // The Gibbs move's lanes and evaluator (the cache, or the whole forward pass).
 using GibbsLanes = lane_eval::Lanes<GibbsBlocks::kLanes>;
@@ -57,23 +88,34 @@ using GibbsEval =
 using GibbsLayout = lane_eval::LaneGibbsLayout<GibbsLanes, GibbsBlocks>;
 
 template <bool kMALA>
-__global__ void resident_walk_kernel(const float* __restrict__ theta0,  // [P, C]
-                                     const float* __restrict__ x, const float* __restrict__ y,
-                                     const float* __restrict__ mask,
-                                     const float* __restrict__ loc,
-                                     const float* __restrict__ ivar, const ResidentWalkParams pr,
-                                     float* __restrict__ samples,      // [kept, rows, C]
-                                     float* __restrict__ final_theta,  // [P, C]
-                                     float* __restrict__ accepts) {    // [C]
+__global__ void WALK_LAUNCH_BOUNDS
+    resident_walk_kernel(const float* __restrict__ theta0,  // [P, C]
+                         const float* __restrict__ x, const float* __restrict__ y,
+                         const float* __restrict__ mask,
+                         const float* __restrict__ loc,
+                         const float* __restrict__ ivar, const ResidentWalkParams pr,
+                         float* __restrict__ samples,      // [kept, rows, C]
+                         float* __restrict__ final_theta,  // [P, C]
+                         float* __restrict__ accepts) {    // [C]
   extern __shared__ float smem[];
   const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
-  float* acc_th = smem + data_floats(pr.n_rows);  // accepted theta, [P][bd]
-  float* acc_g = acc_th + kP * blockDim.x;        // its gradient (MALA), [P][bd]
+  float* buf = smem + data_floats(pr.n_rows);
+#if WALK_LANES == 1  // buf: the accepted theta and (MALA) its gradient, [P][bd] each
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= pr.num_chains) return;  // untuned: no block reduction follows
   const resident_loop::StagedEval ev{d, pr.prior_const, pr.temperature, pr.n_rows};
-  resident_loop::walk_chain<resident_loop::StagedEval, kMALA>(
-      ev, pr, c, 1, theta0, samples, final_theta, accepts, acc_th, acc_g, nullptr, nullptr);
+  lane_eval::walk_chain<kMALA>(ev, WalkLanes{}, pr, c, 1, theta0, samples, final_theta, accepts,
+                               buf, nullptr, nullptr);
+#else  // buf: a theta slot [P] per chain, then the record tile
+  // the launch covers the chains exactly: every thread reaches the record's barriers
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kWalkLanes;
+  const WalkLanes ln;
+  const lane_eval::LaneStagedEval<WalkLanes> ev{d, pr.prior_const, pr.temperature, pr.n_rows,
+                                                ln, buf + kP * (threadIdx.x / kWalkLanes)};
+  buf += static_cast<size_t>(kP) * (blockDim.x / kWalkLanes);
+  lane_eval::walk_chain<kMALA>(ev, ln, pr, c, 1, theta0, samples, final_theta, accepts, buf,
+                               nullptr, nullptr);
+#endif
 }
 
 // at most kGibbsThreads threads a block (ops/resident_hmc_dense.py::
@@ -135,6 +177,11 @@ size_t smem_bytes(int move, int n_rows, int threads) {
     return sizeof(float) *
            (data_floats(n_rows) + lane_eval::tile_floats(GibbsBlocks::kLanes, threads));
   }
+  if (kWalkLanes > 1) {  // a theta slot per chain, the record tile
+    return sizeof(float) *
+           (data_floats(n_rows) + static_cast<size_t>(kP) * (threads / kWalkLanes) +
+            lane_eval::tile_floats(kWalkLanes, threads, lane_eval::kWalkRecordBatch));
+  }
   const int theta_copies = move == 1 ? 2 : 1;
   return sizeof(float) *
          (data_floats(n_rows) + theta_copies * static_cast<size_t>(kP) * threads);
@@ -154,6 +201,19 @@ extern "C" int resident_walk_arch(int* out) {
 }
 
 extern "C" int resident_walk_num_sub_blocks() { return GibbsBlocks::kB; }
+
+// Lanes a chain of the MH and MALA moves.
+extern "C" int resident_walk_lanes() { return kWalkLanes; }
+
+// Blocks of the MH (move 0) or MALA (move 1) kernel of threads threads an SM
+// holds at once, for n_rows staged rows.
+extern "C" int resident_walk_max_blocks(int move, int threads, int n_rows, int* out) {
+  const size_t smem = smem_bytes(move, n_rows, threads);
+  return static_cast<int>(
+      move == 1 ? resident_loop::max_active_blocks(resident_walk_kernel<true>, threads, smem, out)
+                : resident_loop::max_active_blocks(resident_walk_kernel<false>, threads, smem,
+                                                   out));
+}
 
 // The Gibbs move's lanes a chain, whether it caches the rows' activations,
 // and the rows a lane caches.
@@ -195,12 +255,13 @@ extern "C" int resident_walk_launch(int move, const float* theta0, const float* 
                                     int threads, float* samples, float* final_theta,
                                     float* accepts, void* stream) {
   const ResidentWalkParams pr = *params;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || pr.tuned ||
-      (move != 0 && move != 1)) {
+  const long long lanes = static_cast<long long>(pr.num_chains) * kWalkLanes;
+  if (threads < 32 || threads > kWalkThreads || threads % 32 != 0 || pr.tuned ||
+      (move != 0 && move != 1) || (kWalkLanes > 1 && lanes % threads != 0)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const size_t smem = smem_bytes(move, pr.n_rows, threads);
-  const int blocks = (pr.num_chains + threads - 1) / threads;
+  const int blocks = static_cast<int>((lanes + threads - 1) / threads);
   const cudaError_t err =
       move == 1 ? resident_loop::launch(resident_walk_kernel<true>, blocks, threads, smem, 1,
                                         stream, theta0, x, y, mask, loc, ivar, pr, samples,

@@ -8,8 +8,9 @@
 // make_resident_gibbs_dense :240 and
 // eeyore_tpu/ops/resident_tempering_dense.py:150); the plain PyTorch
 // versions are the CPU branches of eeyore_tpu_torch/ops/resident_walk_dense.py.
-// The loops are resident_loop.cuh::walk_chain (move 0: MH, value only; move
-// 1: MALA) and tempering_chain (move 3: a power-posterior ladder, MH or MALA
+// The loops are lane_eval.cuh::walk_chain on one thread a chain, Lanes<1>
+// (move 0: MH, value only; move 1: MALA), and resident_loop.cuh::
+// tempering_chain (move 3: a power-posterior ladder, MH or MALA
 // within each rung by the template flag kMALA; a block holds whole ladders of
 // the sublane-strided chain layout, which needs chain_block / 8 and the block
 // to be multiples of the ladder size), on
@@ -31,7 +32,7 @@
 // bytes; on XOR the PRNG work and the sample bytes weigh as much as the
 // evaluations.
 
-#include "resident_loop.cuh"
+#include "lane_eval.cuh"
 #include "dense_body.cuh"
 #include "dense_gibbs.cuh"
 #include "gibbs_blocks.cuh"
@@ -73,12 +74,10 @@ __global__ void resident_walk_dense_kernel(const float* __restrict__ theta0,  //
   extern __shared__ float smem[];
   __shared__ float red[kMaxThreads / 32];
   __shared__ float partial[2];
-  float* acc_th = smem;                     // accepted theta, [P][bd]
-  float* acc_g = acc_th + kP * blockDim.x;  // its gradient (MALA), [P][bd]
+  // smem: the accepted theta and (MALA) its gradient, [P][bd] each
   const int c = resident_loop::chain_index(pr.sublanes, pr.chain_block, pr.num_chains);
-  resident_loop::walk_chain<DenseEval, kMALA>(DenseEval{}, pr, c, cluster_blocks, theta0,
-                                              samples, final_theta, accepts, acc_th, acc_g, red,
-                                              partial);
+  lane_eval::walk_chain<kMALA>(DenseEval{}, lane_eval::Lanes<1>{}, pr, c, cluster_blocks, theta0,
+                               samples, final_theta, accepts, smem, red, partial);
   // no block of a cluster leaves while another may read its partial sum
   if (cluster_blocks > 1) cooperative_groups::this_cluster().sync();
 }

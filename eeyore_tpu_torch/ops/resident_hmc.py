@@ -4,7 +4,9 @@ Counterpart of ``eeyore_tpu/ops/resident_hmc.py``. ``make_resident_hmc``
 returns ``fn(seed, theta0s [C, P]) -> (samples [kept, C, P], final [C, P],
 accept_counts [C])``, plus ``target_val [kept, C]`` and ``accepted [kept, C]``
 (int32) with ``record_extras``. On CUDA tensors every call is one launch of
-``ops/csrc/resident_hmc.cu``; on CPU tensors it runs the plain version
+``ops/csrc/resident_hmc.cu``, a chain on ``HMC_LANES`` lanes of a warp
+(``csrc/lane_eval.cuh``; one thread a chain on data of few rows,
+``chain_lanes``); on CPU tensors it runs the plain version
 below, a PyTorch loop over iterations and leapfrog steps on ``[P, C]`` with
 ``mlp_math.make_vg``, the same Threefry stream (``kernel_prng.hmc_draws``)
 and the same population tuner algebra. There is no fallback from one to the
@@ -16,8 +18,9 @@ during burn-in on the mean acceptance rate of each block of ``chain_block``
 chains, the l-rule sets the trajectory length (capped at ``max_num_steps``),
 and the last burn-in iteration freezes the averaged step. ``l_rounding=
 "stochastic"`` freezes per-chain trajectory lengths ``floor(l/e) +
-Bernoulli(frac(l/e))``. On the card a tuning group is one CUDA block, so a
-tuned run takes ``chain_block <= MAX_BLOCK``.
+Bernoulli(frac(l/e))``. On the card a tuning group is one CUDA block (at up
+to 4 lanes a chain, or one thread) or a thread-block cluster (at 8 lanes),
+and a tuned run takes ``chain_block <= MAX_BLOCK``.
 
 The TPU kernel's schedule knobs (``stream``, ``mxu_layer0``,
 ``matmul_precision``, ``vmem_limit_bytes``) have no counterpart: the CUDA
@@ -40,10 +43,25 @@ from eeyore_tpu_torch.ops.fused_mlp import arch_defines
 from eeyore_tpu_torch.ops.mlp_math import extract_arch, make_vg, prepare_data
 
 KERNEL = "resident_hmc"
-# Most threads of one block, hence of one tuning group.
+# Most threads of one block, hence of one tuning group of one thread a chain.
 MAX_BLOCK = 1024
 # Threads per block of an untuned run, where blocks share nothing.
 UNTUNED_BLOCK = 256
+# Lanes of a warp a chain of the staged HMC kernel (1, 2, 4 or 8), and the
+# blocks an SM must hold at once (of 256 x HMC_LANES threads, a tuning group
+# of 256 chains, at up to 4 lanes; of 256 threads at 8), which caps the
+# registers the compiler may use: the fastest that scripts/lane_sweep.py
+# measured on the H100 (PERF.md, section 6).
+HMC_LANES = 2
+HMC_MIN_BLOCKS = 1
+LANE_COUNTS = (1, 2, 4, 8)
+# Fewest staged data rows (padded) on which a chain takes lanes: on fewer
+# (XOR's 8) a lane would get next to no rows to split, and one thread a chain
+# runs.
+LANE_MIN_ROWS = 32
+# Most blocks of a thread-block cluster on Hopper (with the non-portable
+# attribute; 8 without).
+MAX_CLUSTER = 16
 
 # Launches of each kernel of this module, counted where they happen.
 launch_counts = {KERNEL: 0}
@@ -87,13 +105,54 @@ def hmc_params(step, num_steps, num_iters, num_burnin_iters, record_thin, tuner,
     return params
 
 
-def load_kernel(model):
-    """Build (at first use) and load the resident HMC kernel for ``model``'s
-    architecture, which it takes as compile-time constants."""
+def check_lanes(lanes):
+    """``lanes`` as an int, if it is a lane count a chain of the staged HMC,
+    MH and MALA kernels (1, 2, 4 or 8): else ValueError."""
+    if int(lanes) not in LANE_COUNTS:
+        raise ValueError(f"a chain of the staged HMC, MH and MALA kernels takes 1, 2, 4 or 8 "
+                         f"lanes, not {lanes}")
+    return int(lanes)
+
+
+def block_threads(lanes):
+    """Threads a block of the staged HMC build on ``lanes`` lanes may have
+    (its launch bounds): one thread a chain 1024; up to 4 lanes a tuning
+    group of 256 chains; 8 lanes 256 (a group of 256 chains is a cluster)."""
+    return MAX_BLOCK if lanes == 1 else (256 * lanes if lanes <= 4 else 256)
+
+
+def chain_lanes(n_rows, chain_block, tuned):
+    """Lanes a chain of the staged HMC build for ``n_rows`` staged (padded)
+    rows and ``chain_block``-chain groups: ``HMC_LANES``, or 1 (one thread a
+    chain) on fewer than ``LANE_MIN_ROWS`` rows, where a lane would get no
+    rows to split, or for a tuning group larger than a cluster of
+    ``MAX_CLUSTER`` lane blocks holds."""
+    lanes = check_lanes(HMC_LANES)
+    if n_rows < LANE_MIN_ROWS:
+        return 1
+    if tuned and chain_block * lanes > MAX_CLUSTER * block_threads(lanes):
+        return 1
+    return lanes
+
+
+def library_spec(model, lanes=None):
+    """(name, source, defines) of the staged HMC build for ``model`` on
+    ``lanes`` lanes a chain (``HMC_LANES`` by default) at ``HMC_MIN_BLOCKS``:
+    the arguments of ``_build.load_library``."""
+    lanes = check_lanes(HMC_LANES if lanes is None else lanes)
     tag, defines = arch_defines(model)
-    lib = _build.load_library(f"{KERNEL}_{tag}", "resident_hmc.cu", defines)
+    return (f"{KERNEL}_{tag}_l{lanes}_b{HMC_MIN_BLOCKS}", "resident_hmc.cu",
+            tuple(defines) + (f"HMC_LANES={lanes}", f"HMC_MIN_BLOCKS={HMC_MIN_BLOCKS}"))
+
+
+def load_kernel(model, lanes=None):
+    """Build (at first use) and load the resident HMC kernel for ``model``'s
+    architecture and ``lanes`` lanes a chain (``HMC_LANES``, or 1:
+    ``chain_lanes``), which it takes as compile-time constants."""
+    name, source, defines = library_spec(model, lanes)
+    lib = _build.load_library(name, source, defines)
     lib.resident_hmc_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ResidentHMCParams), ctypes.c_int]
+        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ResidentHMCParams), ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 5)
     lib.resident_hmc_launch.restype = ctypes.c_int
     lib.resident_hmc_error_string.argtypes = [ctypes.c_int]
@@ -101,7 +160,15 @@ def load_kernel(model):
     for fn in (lib.resident_hmc_arch, lib.resident_hmc_resources):
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-    check_arch(lib.resident_hmc_arch, model, f"{KERNEL}_{tag}")
+    lib.resident_hmc_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.resident_hmc_max_clusters.restype = ctypes.c_int
+    lib.resident_hmc_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.resident_hmc_max_blocks.restype = ctypes.c_int
+    lib.resident_hmc_lanes.argtypes = []
+    lib.resident_hmc_lanes.restype = ctypes.c_int
+    check_arch(lib.resident_hmc_arch, model, name)
     return lib
 
 
@@ -137,11 +204,51 @@ def kernel_resources(lib):
     return read_resources(lib.resident_hmc_resources, lib.resident_hmc_error_string, KERNEL)
 
 
-def resident_hmc(lib, theta0, x, y, mask, loc, ivar, params, threads):
+def max_active_clusters(lib, threads, blocks, n_rows):
+    out = ctypes.c_int(0)
+    raise_on(lib.resident_hmc_max_clusters(threads, blocks, n_rows, ctypes.byref(out)),
+             lib.resident_hmc_error_string, KERNEL)
+    return out.value
+
+
+def max_active_blocks(lib, threads, n_rows):
+    """Blocks of ``threads`` threads of this build that an SM holds at once,
+    for ``n_rows`` staged rows, as the card's occupancy calculator says."""
+    out = ctypes.c_int(0)
+    raise_on(lib.resident_hmc_max_blocks(threads, n_rows, ctypes.byref(out)),
+             lib.resident_hmc_error_string, KERNEL)
+    return out.value
+
+
+def launch_threads(lib, chain_block, n_rows, tuned):
+    """(threads a block, blocks a cluster) of a launch of this build:
+    ``launch_shape`` of a group's ``chain_block`` x lanes threads, in one
+    block or (on lanes) a cluster the card holds when tuned, in blocks of up
+    to ``UNTUNED_BLOCK`` threads that cover the chains exactly when not."""
+    from eeyore_tpu_torch.ops.resident_hmc_dense import launch_shape
+
+    return launch_shape(kernel_resources(lib),
+                        lambda t, b: max_active_clusters(lib, t, b, n_rows),
+                        chain_block * lib.resident_hmc_lanes(), grouped=tuned)
+
+
+def hmc_launch(lib, num_chains, chain_block, n_rows, tuned, sm_count=None):
+    """``lane_launch`` of this build for ``num_chains`` chains in groups of
+    ``chain_block``: lanes, threads, blocks, cluster, the card's occupancy
+    and the SMs covered."""
+    from eeyore_tpu_torch.ops.resident_hmc_dense import lane_launch
+
+    return lane_launch(num_chains, lib.resident_hmc_lanes(), kernel_resources(lib), chain_block,
+                       lambda t: max_active_blocks(lib, t, n_rows),
+                       lambda t, b: max_active_clusters(lib, t, b, n_rows), tuned, sm_count)
+
+
+def resident_hmc(lib, theta0, x, y, mask, loc, ivar, params, threads, cluster_blocks=1):
     """Launch the kernel: theta0 [P, C] -> (samples [kept, rows, C], final
     [P, C], accepts [C], {"evaluations": int64 0-d tensor}), f32 on one CUDA
     device, on the current stream. ``params`` is a filled
-    ``ResidentHMCParams``; rows = P (+2 with record_extras)."""
+    ``ResidentHMCParams``; rows = P (+2 with record_extras); a tuning group
+    on lanes takes ``cluster_blocks`` blocks of ``threads``."""
     P, C = theta0.shape
     for t in (theta0, x, y, mask, loc, ivar):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
@@ -162,8 +269,8 @@ def resident_hmc(lib, theta0, x, y, mask, loc, ivar, params, threads):
     stream = torch.cuda.current_stream(theta0.device).cuda_stream
     err = lib.resident_hmc_launch(
         theta0.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(), loc.data_ptr(),
-        ivar.data_ptr(), ctypes.byref(params), threads, samples.data_ptr(), final.data_ptr(),
-        accepts.data_ptr(), evaluations.data_ptr(), stream)
+        ivar.data_ptr(), ctypes.byref(params), threads, cluster_blocks, samples.data_ptr(),
+        final.data_ptr(), accepts.data_ptr(), evaluations.data_ptr(), stream)
     raise_on(err, lib.resident_hmc_error_string, f"{KERNEL} launch failed")
     launch_counts[KERNEL] += 1
     return samples, final, accepts, {"evaluations": evaluations}
@@ -310,7 +417,14 @@ def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=
                         temperature=temperature)
     arrays = [torch.as_tensor(a, device=device).contiguous()
               for a in (x_pad, y_pad, row_mask, loc, ivar)]
-    lib = load_kernel(model) if device.type == "cuda" else None
+    n_rows = x_pad.shape[0]
+    lib, shape = None, None
+    if device.type == "cuda":
+        if chain_block % 32 != 0:
+            raise ValueError(f"on the card chain_block must be a multiple of 32, "
+                             f"got {chain_block}")
+        lib = load_kernel(model, chain_lanes(n_rows, chain_block, tuner is not None))
+        shape = launch_threads(lib, chain_block, n_rows, tuner is not None)
     vg = make_vg(model, x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature)
 
     def setup(seed, theta0s):
@@ -329,11 +443,7 @@ def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=
         if lib is None:
             samples, final, acc, info = _run_plain(vg, arrays, pr, chain_block, theta_t)
         else:
-            if chain_block % 32 != 0:
-                raise ValueError(f"on the card chain_block must be a multiple of 32, "
-                                 f"got {chain_block}")
-            threads = chain_block if tuner is not None else min(chain_block, UNTUNED_BLOCK)
-            samples, final, acc, info = resident_hmc(lib, theta_t, *arrays, pr, threads)
+            samples, final, acc, info = resident_hmc(lib, theta_t, *arrays, pr, *shape)
         last_info[KERNEL] = {"evaluations": info["evaluations"]}
         return unpack_outputs(samples, final, acc, P, record_extras)
 
@@ -348,6 +458,9 @@ def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=
                 dict(info, evaluations=int(info["evaluations"])))
 
     fn.plain = plain
+    fn.hmc_launch = lambda C, sm_count=None: (
+        None if lib is None else hmc_launch(lib, C, chain_block, n_rows, tuner is not None,
+                                            sm_count))
     return fn
 
 

@@ -35,6 +35,7 @@ from eeyore_tpu_torch.ops import _build
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
 from eeyore_tpu_torch.ops.mlp_dense import dense_source, make_vg_dense
 from eeyore_tpu_torch.ops.resident_hmc import (
+    MAX_CLUSTER,
     ResidentHMCParams,
     _run_plain,
     check_arch,
@@ -46,9 +47,6 @@ from eeyore_tpu_torch.ops.resident_hmc import (
 
 KERNEL = "resident_hmc_dense"
 SUBLANES = 8
-# Most blocks of a thread-block cluster on Hopper (with the non-portable
-# attribute; 8 without).
-MAX_CLUSTER = 16
 # Threads per block of a run whose blocks share nothing.
 UNGROUPED_BLOCK = 256
 

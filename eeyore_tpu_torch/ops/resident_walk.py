@@ -25,7 +25,9 @@ flags) with ``record_extras``; accept counts are post-burn-in and every
   from theta at the start of the sweep.
 
 All accept when ``log(u) < log_rate``. On CUDA tensors every call is one
-launch of ``ops/csrc/resident_walk.cu``; on CPU tensors it runs the plain
+launch of ``ops/csrc/resident_walk.cu`` (MH and MALA: a chain on
+``WALK_LANES`` lanes of a warp, ``csrc/lane_eval.cuh``, or one thread a chain
+on data of few rows, ``chain_lanes``); on CPU tensors it runs the plain
 version ``_run_walk_plain`` (shared with ``ops/resident_walk_dense.py``), on
 the same Threefry stream (``kernel_prng.walk_draws``: key (seed, chain),
 counter (iteration, j)), or for Gibbs ``_run_gibbs_plain`` on the
@@ -69,6 +71,7 @@ from eeyore_tpu_torch.ops.mlp_math import (
     prepare_data,
 )
 from eeyore_tpu_torch.ops.resident_hmc import (
+    LANE_MIN_ROWS,
     _population_tune,
     check_arch,
     group_index,
@@ -77,6 +80,7 @@ from eeyore_tpu_torch.ops.resident_hmc import (
     read_resources,
     unpack_outputs,
 )
+from eeyore_tpu_torch.ops.resident_hmc import check_lanes as check_walk_lanes
 from eeyore_tpu_torch.ops.resident_hmc_dense import lane_launch, launch_shape
 
 KERNEL = "resident_walk"
@@ -99,6 +103,12 @@ GIBBS_CACHE_BUDGET = 64
 # fastest that scripts/lane_sweep.py measured on the H100, PERF.md, section 6).
 GIBBS_MIN_BLOCKS = 3
 LANE_COUNTS = (8, 16, 32)
+# The MH and MALA moves: lanes of a warp a chain (1, 2, 4 or 8) on data of at
+# least resident_hmc.LANE_MIN_ROWS rows, and the blocks of WALK_BLOCK threads
+# an SM must hold at once, which caps the registers (the fastest that
+# scripts/lane_sweep.py measured on the H100, PERF.md, section 6).
+WALK_LANES = 8
+WALK_MIN_BLOCKS = 2
 
 launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0, TEMPERING_KERNEL: 0}
 # What the last call of a Gibbs or tempering function returned as its accept
@@ -227,17 +237,35 @@ def gibbs_blocks_source(model, node_subblock_size=None, n_rows=0):
                  for k, p in enumerate(indices)), "  }", "};", ""])
 
 
-def load_kernel(model, node_subblock_size=None, n_rows=0):
+def chain_lanes(n_rows):
+    """Lanes a chain of the staged MH and MALA moves on ``n_rows`` staged
+    (padded) rows: ``WALK_LANES``, or 1 (one thread a chain) on fewer than
+    ``LANE_MIN_ROWS`` rows, where a lane would get no rows to split. The
+    chains share nothing, so no tuning group bounds it."""
+    return check_walk_lanes(WALK_LANES) if n_rows >= LANE_MIN_ROWS else 1
+
+
+def library_spec(model, node_subblock_size=None, n_rows=0, lanes=None):
+    """(name, source, defines, generated headers) of the walk build that
+    ``load_kernel`` loads for these arguments, at the module's settings: the
+    arguments of ``_build.load_library``."""
+    lanes = check_walk_lanes(WALK_LANES if lanes is None else lanes)
+    tag, defines = arch_defines(model)
+    return (f"{KERNEL}_{tag}_l{lanes}_b{WALK_MIN_BLOCKS}", "resident_walk.cu",
+            tuple(defines) + (f"WALK_LANES={lanes}", f"WALK_MIN_BLOCKS={WALK_MIN_BLOCKS}"),
+            {"gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size, n_rows)})
+
+
+def load_kernel(model, node_subblock_size=None, n_rows=0, lanes=None):
     """Build (at first use) and load the walk kernels for ``model``'s
     architecture and the Gibbs blocking of ``node_subblock_size``, which
     they take as compile-time constants; the Gibbs move on ``GIBBS_LANES``
     lanes a chain, caching the rows' activations where ``gibbs_lane_plan``
     of ``n_rows`` padded rows says the cache fits (a library built for fewer
-    rows than a launch gives refuses the launch)."""
-    tag, defines = arch_defines(model)
-    lib = _build.load_library(
-        f"{KERNEL}_{tag}", "resident_walk.cu", defines,
-        generated={"gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size, n_rows)})
+    rows than a launch gives refuses the launch); the MH and MALA moves on
+    ``lanes`` lanes a chain (``WALK_LANES``, or 1: ``chain_lanes``)."""
+    spec = library_spec(model, node_subblock_size, n_rows, lanes)
+    lib = _build.load_library(*spec)
     lib.resident_walk_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 6
         + [ctypes.POINTER(ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
@@ -263,7 +291,12 @@ def load_kernel(model, node_subblock_size=None, n_rows=0):
         [ctypes.c_int] + [ctypes.c_void_p] * 7
         + [ctypes.POINTER(ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
     lib.resident_walk_tempering_launch.restype = ctypes.c_int
-    check_arch(lib.resident_walk_arch, model, f"{KERNEL}_{tag}")
+    lib.resident_walk_lanes.argtypes = []
+    lib.resident_walk_lanes.restype = ctypes.c_int
+    lib.resident_walk_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
+    lib.resident_walk_max_blocks.restype = ctypes.c_int
+    check_arch(lib.resident_walk_arch, model, spec[0])
     return lib
 
 
@@ -302,6 +335,29 @@ def gibbs_launch(lib, num_chains, chain_block, n_rows, sm_count=None):
         return out.value
 
     return lane_launch(num_chains, gibbs_layout(lib)["lanes"], kernel_resources(lib, "gibbs"),
+                       chain_block, max_blocks, sm_count=sm_count)
+
+
+def walk_threads(lib, move, chain_block):
+    """Threads a block of a staged MH or MALA launch of the loaded build:
+    ``launch_shape`` of the chain block's threads, at most
+    ``UNGROUPED_BLOCK`` and dividing them, so that the blocks cover the
+    chains exactly (the chains share nothing)."""
+    return launch_shape(kernel_resources(lib, move), None,
+                        chain_block * lib.resident_walk_lanes(), grouped=False)[0]
+
+
+def walk_launch(lib, move, num_chains, chain_block, n_rows, sm_count=None):
+    """``lane_launch`` of the loaded MH or MALA move for ``num_chains``
+    chains in chain blocks of ``chain_block`` on ``n_rows`` staged rows:
+    lanes, threads, blocks, the card's occupancy and the SMs covered."""
+    def max_blocks(threads):
+        out = ctypes.c_int(0)
+        raise_on(lib.resident_walk_max_blocks(MOVES[move], threads, n_rows, ctypes.byref(out)),
+                 lib.resident_walk_error_string, KERNEL)
+        return out.value
+
+    return lane_launch(num_chains, lib.resident_walk_lanes(), kernel_resources(lib, move),
                        chain_block, max_blocks, sm_count=sm_count)
 
 
@@ -646,12 +702,6 @@ def _setup(params, chain_block, device):
     return setup
 
 
-def _threads(lib, move):
-    """Threads per block of a staged walk launch: ``WALK_BLOCK``, or fewer
-    when the build's registers allow fewer."""
-    return min(WALK_BLOCK, kernel_resources(lib, move)["max_threads_per_block"] // 32 * 32)
-
-
 def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record_thin, move,
                    value, temperatures=None, between_step=None, record_extras=False,
                    device="cuda"):
@@ -675,12 +725,17 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
               for a in (x_pad, y_pad, row_mask, loc, ivar)]
     vg = make_vg(model, x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature,
                  with_grad=move == "mala")
+    n_rows = x_pad.shape[0]
     lib, threads = None, None
     if device.type == "cuda":
-        lib = load_kernel(model)
         if rungs is None:
-            threads = _threads(lib, move)
+            if chain_block % 32 != 0:
+                raise ValueError(f"on the card chain_block must be a multiple of 32, "
+                                 f"got {chain_block}")
+            lib = load_kernel(model, lanes=chain_lanes(n_rows))
+            threads = walk_threads(lib, move, chain_block)
         else:
+            lib = load_kernel(model)
             max_threads = kernel_resources(lib, f"tempering_{move}")["max_threads_per_block"]
             threads = ladder_threads(max_threads, chain_block, len(rungs))
     setup = _setup(params, chain_block, device)
@@ -711,6 +766,9 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
         return unpack_outputs(samples, final, acc, P, record_extras), info
 
     fn.plain = plain
+    fn.walk_launch = lambda C, sm_count=None: (
+        None if lib is None or rungs is not None
+        else walk_launch(lib, move, C, chain_block, n_rows, sm_count))
     return fn
 
 

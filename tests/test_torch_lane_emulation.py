@@ -1,14 +1,17 @@
 """Port, the lane kernels' sources on the host: ``csrc/resident_walk.cu`` (the
-staged Gibbs move) and ``csrc/resident_nuts.cu`` (staged NUTS), whose chains
-each take 8, 16 or 32 lanes of a warp (``csrc/lane_eval.cuh``), compiled
-with g++ against ``tests/cuda_host_emulation.h``, which runs every thread of
-a block as a coroutine and the warp shuffles, ballots and barriers as
-barriers over their lanes. Their launch entry points, called through ctypes
-on CPU tensors, are held against the plain versions (``fn.plain`` of the
-makers) per chain: the lane algebra (the row cache and its updates, the
+staged Gibbs move, whose chains each take 8, 16 or 32 lanes of a warp, and
+the staged MH and MALA moves, on 1, 2, 4 or 8), ``csrc/resident_nuts.cu``
+(staged NUTS, on 1, 8, 16 or 32) and ``csrc/resident_hmc.cu`` (staged HMC, on
+1, 2, 4 or 8), written over the lanes a chain (``csrc/lane_eval.cuh``),
+compiled with g++ against ``tests/cuda_host_emulation.h``, which runs every
+thread of a block as a coroutine and the warp shuffles, ballots and barriers
+as barriers over their lanes. Their launch entry points, called through
+ctypes on CPU tensors, are held against the plain versions (``fn.plain`` of
+the makers) per chain: the lane algebra (the row cache and its updates, the
 butterfly sums, the gradient's reduce-scatter, the draws spread over the
-lanes, the record tile) computes the plain versions' function. The card's
-own compiler and its timings are ``chip_smoke.py``'s."""
+lanes, the group mean of a tuned group, the record tile) computes the plain
+versions' function. The card's own compiler and its timings are
+``chip_smoke.py``'s."""
 
 import ctypes
 import hashlib
@@ -23,7 +26,7 @@ import torch
 
 from eeyore_tpu_torch.datasets import XYDataset
 from eeyore_tpu_torch.models import MLP, loss_functions, mlp
-from eeyore_tpu_torch.ops import resident_nuts, resident_walk
+from eeyore_tpu_torch.ops import resident_hmc, resident_nuts, resident_walk
 from eeyore_tpu_torch.ops._build import CSRC
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
 from eeyore_tpu_torch.ops.mlp_math import prepare_data
@@ -81,7 +84,16 @@ def problem(name):
         return model_of([4, 3, 2, 3], activations=[mlp.sigmoid, mlp.sigmoid, None]), (ds.x, ds.y)
     if name == "iris_wide":
         return model_of([4, 16, 3], activations=[mlp.sigmoid, None]), (ds.x, ds.y)
+    if name == "iris_subset":  # every fifth row: 30 rows of the three classes
+        return model_of([4, 3, 3], activations=[mlp.sigmoid, None]), (ds.x[::5], ds.y[::5])
     return model_of([4, 3, 3], activations=[mlp.sigmoid, None]), (ds.x, ds.y)
+
+
+def walk_defines(model, lanes):
+    """The defines of a walk build: the architecture and the MH and MALA
+    moves' lanes a chain (the launch bounds are the card's only)."""
+    return tuple(arch_defines(model)[1]) + (f"WALK_LANES={lanes}",
+                                            f"WALK_MIN_BLOCKS={resident_walk.WALK_MIN_BLOCKS}")
 
 
 def closure(fn):
@@ -112,7 +124,7 @@ def test_gibbs_move_on_lanes_equals_the_plain_version(build, monkeypatch, name, 
     model, (x, y) = problem(name)
     C, iters, burnin = 16, 9, 2  # 7 records: a batch of the record tile and part of one
     n_rows = prepare_data(model, x, y)[0].shape[0]
-    lib = build("resident_walk.cu", arch_defines(model)[1],
+    lib = build("resident_walk.cu", walk_defines(model, resident_walk.WALK_LANES),
                 {"gibbs_blocks.cuh": resident_walk.gibbs_blocks_source(model, subblocks, n_rows)})
     lib.resident_walk_gibbs_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.POINTER(resident_walk.ResidentWalkParams), ctypes.c_int]
@@ -144,7 +156,7 @@ def test_gibbs_move_on_lanes_equals_the_plain_version(build, monkeypatch, name, 
 
 def test_gibbs_launch_refuses_more_rows_than_its_cache(build):
     model, (x, y) = problem("xor")
-    lib = build("resident_walk.cu", arch_defines(model)[1],
+    lib = build("resident_walk.cu", walk_defines(model, resident_walk.WALK_LANES),
                 {"gibbs_blocks.cuh": resident_walk.gibbs_blocks_source(model, None, 8)})
     lib.resident_walk_gibbs_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.POINTER(resident_walk.ResidentWalkParams), ctypes.c_int]
@@ -204,3 +216,122 @@ def test_nuts_on_lanes_equals_the_plain_version(build, name, lanes, kw):
     got = resident_nuts.unpack_nuts_outputs(*out[:4], P, pr.record_extras)
     assert max_err(got, want) < 2e-4
     assert (out[4] - info["step"]).abs().max().item() <= 1e-4 * info["step"].abs().max().item()
+
+
+# ---- staged HMC, MH and MALA on 1, 2, 4 or 8 lanes a chain ----
+
+# (problem, lanes, maker keywords): untuned with extras (several blocks), and
+# tuned over a 5-iteration burn-in (the l-rule, stochastic rounding at the
+# hand-off; the tuning group one block); one thread a chain is the layout of
+# data of few rows (staged XOR) and of the dense kernel
+HMC_TUNED = dict(step=0.05, num_steps=3, tuner=HMCDATuner(l=0.15), num_burnin_iters=5,
+                 max_num_steps=8, l_rounding="stochastic")
+HMC_CASES = [("iris_subset", 1, dict(step=0.05, num_steps=3, record_extras=True)),
+             ("iris_subset", 1, HMC_TUNED),
+             ("iris_subset", 2, dict(step=0.05, num_steps=3, record_extras=True)),
+             ("iris_subset", 2, HMC_TUNED),
+             ("iris_subset", 4, dict(step=0.05, num_steps=3, record_extras=True)),
+             ("iris_subset", 4, dict(HMC_TUNED, record_extras=True)),
+             ("iris_subset", 8, dict(step=0.05, num_steps=3, record_extras=True)),
+             ("iris_subset", 8, HMC_TUNED),
+             ("xor", 4, dict(step=0.1, num_steps=4, tuner=HMCDATuner(l=0.5),
+                             num_burnin_iters=5, record_extras=True))]
+
+
+@pytest.mark.parametrize("name,lanes,kw", HMC_CASES)
+def test_hmc_on_lanes_equals_the_plain_version(build, name, lanes, kw):
+    model, (x, y) = problem(name)
+    C = 32
+    lib = build("resident_hmc.cu", tuple(arch_defines(model)[1])
+                + (f"HMC_LANES={lanes}", f"HMC_MIN_BLOCKS={resident_hmc.HMC_MIN_BLOCKS}"))
+    lib.resident_hmc_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ResidentHMCParams), ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 5)
+    assert lib.resident_hmc_lanes() == lanes
+    fn = resident_hmc.make_resident_hmc(model, x, y, num_iters=10, chain_block=C, device="cpu",
+                                        **kw)
+    theta0s = torch.as_tensor(0.3 * np.random.default_rng(1).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    want, info = fn.plain(3, theta0s)
+    cells = closure(fn)
+    pr, theta = cells["setup"](3, theta0s)
+    P = model.num_params
+    rows = P + 2 if pr.record_extras else P
+    samples, final, accepts = torch.zeros((pr.kept, rows, C)), torch.zeros((P, C)), torch.zeros(C)
+    evaluations = torch.zeros((), dtype=torch.int64)
+    # a tuned group is one block; untuned chains in two blocks, each staging
+    # the data, its theta slots and its record tile
+    threads = C * lanes if pr.tuned else max(32, C * lanes // 2)
+    err = lib.resident_hmc_launch(
+        theta.data_ptr(), *(a.data_ptr() for a in cells["arrays"]), ctypes.byref(pr), threads, 1,
+        samples.data_ptr(), final.data_ptr(), accepts.data_ptr(), evaluations.data_ptr(), None)
+    assert err == 0
+    got = unpack_outputs(samples, final, accepts, P, pr.record_extras)
+    assert max_err(got, want) < 2e-4
+    assert int(evaluations) == info["evaluations"]  # once a chain, not once a lane
+    assert 0 < int(accepts.sum()) < C * pr.kept  # some accepted, some not
+
+
+@pytest.mark.parametrize("name,lanes", [("iris_subset", 1), ("iris_subset", 2),
+                                        ("iris_subset", 4), ("iris_subset", 8), ("xor", 4)])
+def test_walk_moves_on_lanes_equal_the_plain_version(build, name, lanes):
+    model, (x, y) = problem(name)
+    C, iters, burnin = 32, 9, 2
+    lib = build("resident_walk.cu", walk_defines(model, lanes),
+                {"gibbs_blocks.cuh": resident_walk.gibbs_blocks_source(model)})
+    lib.resident_walk_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.POINTER(resident_walk.ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
+    assert lib.resident_walk_lanes() == lanes
+    theta0s = torch.as_tensor(0.3 * np.random.default_rng(1).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    steps = {"mh": 0.5, "mala": 0.5} if name == "xor" else {"mh": 0.05, "mala": 0.003}
+    for move, maker in (("mh", resident_walk.make_resident_mh),
+                        ("mala", resident_walk.make_resident_mala)):
+        value = steps[move]
+        fn = maker(model, x, y, value, iters, burnin, chain_block=C, record_extras=True,
+                   device="cpu")
+        want, _ = fn.plain(3, theta0s)
+        cells = closure(fn)
+        pr, theta = cells["setup"](3, theta0s)
+        P = model.num_params
+        samples, final, accepts = (torch.zeros((iters - burnin, P + 2, C)), torch.zeros((P, C)),
+                                   torch.zeros(C))
+        threads = max(32, C * lanes // 2)  # two blocks on lanes
+        err = lib.resident_walk_launch(
+            resident_walk.MOVES[move], theta.data_ptr(), *(a.data_ptr() for a in cells["arrays"]),
+            ctypes.byref(pr), threads, samples.data_ptr(), final.data_ptr(), accepts.data_ptr(),
+            None)
+        assert err == 0
+        got = unpack_outputs(samples, final, accepts, P, True)
+        assert max_err(got, want) < 2e-4, move
+        assert 0 < int(accepts.sum()) < C * (iters - burnin), move
+
+
+def test_lane_launches_refuse_chains_the_blocks_do_not_cover(build):
+    """On lanes every thread reaches the record tile's barriers, so a launch
+    must cover the chains exactly, and a tuned group must be the block or
+    the cluster."""
+    model, _ = problem("iris_subset")
+    hmc = build("resident_hmc.cu", tuple(arch_defines(model)[1])
+                + ("HMC_LANES=4", f"HMC_MIN_BLOCKS={resident_hmc.HMC_MIN_BLOCKS}"))
+    hmc.resident_hmc_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ResidentHMCParams), ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 5)
+    pr = resident_hmc.hmc_params(0.05, 3, 4, 0, 1, None, 8, "round", False, 32, n_rows=32)
+    pr.num_chains = 40  # 160 lanes: no block of 64 or 128 covers them
+    assert hmc.resident_hmc_launch(*[None] * 6, ctypes.byref(pr), 64, 1, *[None] * 5) != 0
+    pr.num_chains = 64
+    pr.tuned = 1  # a group of 32 chains is 128 threads: not a block of 64 alone
+    assert hmc.resident_hmc_launch(*[None] * 6, ctypes.byref(pr), 64, 1, *[None] * 5) != 0
+    assert hmc.resident_hmc_launch(*[None] * 6, ctypes.byref(pr), 2048, 1, *[None] * 5) != 0
+    walk = build("resident_walk.cu", walk_defines(model, 4),
+                 {"gibbs_blocks.cuh": resident_walk.gibbs_blocks_source(model)})
+    walk.resident_walk_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.POINTER(resident_walk.ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
+    wp = resident_walk.walk_params("mh", 0.1, 4, 0, 1, False, 32, n_rows=32)
+    wp.num_chains = 40
+    assert walk.resident_walk_launch(0, *[None] * 6, ctypes.byref(wp), 64, *[None] * 4) != 0
+    wp.num_chains = 32
+    assert walk.resident_walk_launch(0, *[None] * 6, ctypes.byref(wp), 512, *[None] * 4) != 0

@@ -1,5 +1,6 @@
 """Port, the lane layout of the staged Gibbs move and the staged NUTS kernel
-(``csrc/lane_eval.cuh``): a chain on 8, 16 or 32 lanes of a warp. The host
+(``csrc/lane_eval.cuh``): a chain on 8, 16 or 32 lanes of a warp; and of the
+staged HMC kernel and the staged MH and MALA moves, on 1, 2, 4 or 8. The host
 side is tested here: the launch shape (threads, blocks, cluster, SMs
 covered) from register counts and the occupancy the card reports, the rule that decides whether the Gibbs move
 caches the rows' activations and the generated header that carries it, the
@@ -15,10 +16,10 @@ import torch
 
 from eeyore_tpu_torch.datasets import XYDataset
 from eeyore_tpu_torch.models import MLP, loss_functions, mlp
-from eeyore_tpu_torch.ops import resident_nuts, resident_walk
+from eeyore_tpu_torch.ops import resident_hmc, resident_nuts, resident_walk
 from eeyore_tpu_torch.ops.mlp_math import prepare_data
 from eeyore_tpu_torch.ops.resident_hmc_dense import lane_launch
-from eeyore_tpu_torch.samplers import NUTS, Gibbs
+from eeyore_tpu_torch.samplers import HMC, MALA, NUTS, Gibbs, MetropolisHastings
 from eeyore_tpu_torch.samplers.dispatch import resolve_backend
 from eeyore_tpu_torch.tuners import HMCDATuner
 
@@ -354,3 +355,179 @@ def test_a_tuned_staged_plan_on_small_data_keeps_jaxs_tuning_group(monkeypatch):
                                    platform="cuda")
     assert plan.chain_block == 256 and resident_nuts.chain_lanes(plan.chain_block, True) == 8
     assert asked == [(4096, 2048, 1024, 512, 256, 128), (256, 128)]
+
+
+# ---- staged HMC, MH and MALA on lanes ----
+
+class FakeLaneLibrary:
+    """The calls of a loaded staged HMC or walk build that the launch
+    helpers make, answering as a build of ``lanes`` lanes at ``registers``
+    registers a thread would on an H100 (the block bound that the build's
+    launch bounds put on its threads included)."""
+
+    def __init__(self, lanes, registers, bound):
+        self.lanes, self.registers = lanes, registers
+        self.max_threads = min(bound, threads_for_registers(registers))
+        self.blocks = occupancy(registers)
+        self.asked = []
+
+    def _resources(self, out):
+        out[0], out[1], out[2] = self.registers, 0, self.max_threads
+        return 0
+
+    def resident_hmc_lanes(self):
+        return self.lanes
+
+    def resident_hmc_error_string(self, code):
+        return b"refused"
+
+    resident_walk_error_string = resident_hmc_error_string
+
+    resident_walk_lanes = resident_hmc_lanes
+
+    def resident_hmc_resources(self, out):
+        return self._resources(out)
+
+    def resident_walk_resources(self, move, out):
+        return self._resources(out)
+
+    def resident_hmc_max_blocks(self, threads, n_rows, out):
+        out._obj.value = self.blocks(threads)
+        return 0
+
+    def resident_walk_max_blocks(self, move, threads, n_rows, out):
+        out._obj.value = self.blocks(threads)
+        return 0
+
+    def resident_hmc_max_clusters(self, threads, blocks, n_rows, out):
+        self.asked.append((threads, blocks))
+        out._obj.value = 16
+        return 0
+
+
+@pytest.mark.parametrize("lanes,registers,want", [
+    # config 3: 32768 chains in tuning groups of 256, 128 groups
+    (1, 254, dict(threads=256, cluster_blocks=1, blocks=128, blocks_per_sm=1, sms_covered=128)),
+    (2, 128, dict(threads=512, cluster_blocks=1, blocks=128, blocks_per_sm=1, sms_covered=128)),
+    (4, 64, dict(threads=1024, cluster_blocks=1, blocks=128, blocks_per_sm=1,
+                 sms_covered=128)),
+    (8, 64, dict(threads=256, cluster_blocks=8, blocks=1024, blocks_per_sm=4)),
+])
+def test_a_tuned_group_of_256_chains_is_one_block_up_to_4_lanes_and_a_cluster_at_8(
+        lanes, registers, want):
+    lib = FakeLaneLibrary(lanes, registers, resident_hmc.block_threads(lanes))
+    shape = resident_hmc.hmc_launch(lib, 32768, 256, 152, True, sm_count=H100_SMS)
+    assert {k: shape[k] for k in want} == want
+    assert shape["lanes"] == lanes
+    assert shape["blocks"] * shape["threads"] == 32768 * lanes
+    # a block reduction needs no cluster: the card is asked only at 8 lanes
+    assert bool(lib.asked) == (lanes == 8)
+    assert resident_hmc.launch_threads(lib, 256, 152, True) == (want["threads"],
+                                                                want["cluster_blocks"])
+
+
+@pytest.mark.parametrize("lanes,registers,want", [
+    (1, 254, (256, 128)), (4, 64, (256, 512)), (8, 64, (256, 1024))])
+def test_untuned_hmc_blocks_share_nothing(lanes, registers, want):
+    """Untuned chains share nothing: blocks of at most 256 threads, no
+    cluster, covering the chains exactly."""
+    lib = FakeLaneLibrary(lanes, registers, resident_hmc.block_threads(lanes))
+    shape = resident_hmc.hmc_launch(lib, 32768, 256, 152, False, sm_count=H100_SMS)
+    assert (shape["threads"], shape["blocks"], shape["cluster_blocks"]) == (*want, 1)
+    assert not lib.asked
+    odd = resident_hmc.hmc_launch(lib, 1056, 1056, 152, False)
+    assert odd["threads"] <= 256 and odd["blocks"] * odd["threads"] == 1056 * lanes
+
+
+@pytest.mark.parametrize("lanes,registers,want", [
+    (1, 168, dict(threads=256, blocks=128, blocks_per_sm=1, sms_covered=128)),
+    (4, 64, dict(threads=256, blocks=512, blocks_per_sm=4, sms_covered=128)),
+    (8, 80, dict(threads=256, blocks=1024, blocks_per_sm=3, sms_covered=132)),
+])
+def test_walk_launch_of_the_iris_main_paths(lanes, registers, want):
+    lib = FakeLaneLibrary(lanes, registers, 1024 if lanes == 1 else resident_walk.WALK_BLOCK)
+    for move in ("mh", "mala"):
+        shape = resident_walk.walk_launch(lib, move, 32768, 4096, 152, sm_count=H100_SMS)
+        assert {k: shape[k] for k in want} == want
+        assert shape["lanes"] == lanes and shape["cluster_blocks"] == 1
+        assert resident_walk.walk_threads(lib, move, 4096) == want["threads"]
+
+
+def test_the_lane_choice_follows_the_rows_and_the_group(monkeypatch):
+    """Iris (152 padded rows) takes the settings' lanes; staged XOR (8) one
+    thread a chain, where a lane would get no rows to split; a tuning group
+    larger than a cluster of 16 lane blocks holds takes one thread a chain
+    (at 4 lanes a cluster holds 16 x 256 chains, at 8 lanes 16 x 32)."""
+    assert resident_hmc.LANE_MIN_ROWS == 32
+    assert resident_hmc.chain_lanes(152, 256, True) == resident_hmc.HMC_LANES
+    assert resident_hmc.chain_lanes(8, 512, True) == 1
+    assert resident_hmc.chain_lanes(8, 1024, False) == 1
+    assert resident_walk.chain_lanes(152) == resident_walk.WALK_LANES
+    assert resident_walk.chain_lanes(8) == 1
+    for lanes, cases in ((2, [(32, 256, True, 2)]),
+                         (4, [(152, 4096, True, 4), (152, 8192, True, 1)]),
+                         (8, [(152, 512, True, 8), (152, 1024, True, 1),
+                              (152, 1024, False, 8)])):
+        monkeypatch.setattr(resident_hmc, "HMC_LANES", lanes)
+        for n_rows, chain_block, tuned, want in cases:
+            assert resident_hmc.chain_lanes(n_rows, chain_block, tuned) == want
+    monkeypatch.setattr(resident_walk, "WALK_LANES", 8)
+    assert resident_walk.chain_lanes(31) == 1 and resident_walk.chain_lanes(32) == 8
+    assert [resident_hmc.block_threads(k) for k in (1, 2, 4, 8)] == [1024, 512, 1024, 256]
+
+
+@pytest.mark.parametrize("lanes", [0, 3, 16, 32])
+def test_hmc_and_walk_lane_counts_other_than_1_2_4_8_raise(monkeypatch, lanes):
+    monkeypatch.setattr(resident_hmc, "HMC_LANES", lanes)
+    monkeypatch.setattr(resident_walk, "WALK_LANES", lanes)
+    with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+        resident_hmc.chain_lanes(152, 256, True)
+    with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+        resident_walk.chain_lanes(152)
+    with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+        resident_hmc.load_kernel(iris433(), lanes)
+    with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+        resident_walk.load_kernel(iris433(), lanes=lanes)
+
+
+def test_the_settings_name_the_builds():
+    """A build's name carries its lanes and occupancy target, so builds at
+    other settings never share a library; the defines carry them to the
+    source."""
+    name, source, defines = resident_hmc.library_spec(iris433(), 2)
+    assert source == "resident_hmc.cu" and name.endswith(f"_l2_b{resident_hmc.HMC_MIN_BLOCKS}")
+    assert "HMC_LANES=2" in defines and f"HMC_MIN_BLOCKS={resident_hmc.HMC_MIN_BLOCKS}" in defines
+    name, source, defines, generated = resident_walk.library_spec(iris433(), lanes=8)
+    assert source == "resident_walk.cu" and name.endswith(
+        f"_l8_b{resident_walk.WALK_MIN_BLOCKS}")
+    assert "WALK_LANES=8" in defines and "gibbs_blocks.cuh" in generated
+    assert resident_hmc.library_spec(iris433())[0] != resident_hmc.library_spec(iris433(), 1)[0]
+
+
+@pytest.mark.parametrize("name,kernel,data,C,want", [
+    ("config 3", lambda: HMC(iris433(), tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64),
+     iris_data, 32768, ("resident", "make_resident_hmc", 256)),
+    ("iris MH", lambda: MetropolisHastings(iris433(), scale=0.1), iris_data, 32768,
+     ("resident", "make_resident_mh", 4096)),
+    ("iris MALA", lambda: MALA(iris433(), step=0.003), iris_data, 32768,
+     ("resident", "make_resident_mala", 4096)),
+    ("XOR HMC", lambda: HMC(xor221(), step=0.05, num_steps=10), lambda: XOR, 131072,
+     ("dense", "make_resident_hmc_dense", 8192)),
+])
+def test_dispatch_sends_hmc_mh_and_mala_to_the_same_kernels(name, kernel, data, C, want):
+    plan, reason = resolve_backend(kernel(), data(), C, 2048, 1024, platform="cuda")
+    assert plan is not None, reason
+    assert (plan.backend, plan.maker.__name__, plan.chain_block) == want, name
+
+
+def test_staged_xor_hmc_runs_one_thread_a_chain():
+    """XOR asked for ``backend="resident"`` (131072 chains, groups of up to
+    512) keeps the staged kernel on one thread a chain: its 8 padded rows
+    give a lane none to split."""
+    for tuner in (None, HMCDATuner(l=0.5)):
+        plan, reason = resolve_backend(HMC(xor221(), step=0.05, num_steps=10, tuner=tuner), XOR,
+                                       131072, 256, 128 if tuner else 0, platform="cuda",
+                                       backend="resident")
+        assert plan is not None and plan.maker.__name__ == "make_resident_hmc", reason
+        n_rows = prepare_data(xor221(), *XOR)[0].shape[0]
+        assert resident_hmc.chain_lanes(n_rows, plan.chain_block, tuner is not None) == 1
