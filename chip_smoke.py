@@ -43,7 +43,10 @@ kernels are built for sm_90a). Phases, one JSON line each:
    seed, same inputs, on the card), at its main path's chain count:
    ``resident_hmc`` on untuned iris (step 0.02, 8 leapfrog steps, 20
    iterations, record_extras), untuned XOR (131072 chains, step 0.05, 10
-   steps) and tuned iris (the dispatch plan of BASELINE.md config 3);
+   steps), tuned iris (the dispatch plan of BASELINE.md config 3, and the
+   maker's default tuning group, JAX's 2048 chains, a cluster) and tuned XOR
+   at the group dispatch gives ``backend="resident"``, which must be JAX's
+   4096 chains (a cluster of the build with one thread a chain);
    ``resident_hmc_dense`` on untuned XOR (131072 chains, extras), tuned in
    population groups of 8192 chains (a cluster) and per chain;
    ``resident_walk`` on iris MH (scale 0.1) and MALA (step 0.003), 32768
@@ -58,7 +61,8 @@ kernels are built for sm_90a). Phases, one JSON line each:
    on iris MALA (step 0.003) and MH (scale 0.1), staged, and XOR MLP(2,2,1)
    MALA (step 0.05), dense, 32768 chains x 20 iterations, extras, both count
    columns, each at the chain block that dispatch gives phase 13's main path
-   (128 staged, 1024 dense), so at its launch layout; then the
+   (128 staged, 1024 dense), so at its launch layout, and a staged ladder of
+   ``WALK_BLOCK`` rungs (the longest on the kernel; one thread a chain); then the
    equal-temperature pin on the dense XOR ladder: with one temperature on
    every rung every eligible swap is accepted. A chain agrees when all its outputs are within atol 1e-3 + rtol 1e-3 of the
    plain version's; at least 99% of chains must agree on the untuned runs and on
@@ -148,8 +152,9 @@ kernels are built for sm_90a). Phases, one JSON line each:
     reports the within-rung acceptance per rung (and its distance from the
     generic ladder's) and the swap acceptance per pair;
     then each maker is called directly at 32768 chains (4096 ladders) x 2048
-    iterations and its kernel timed beside its bound (the median of three
-    launches after a warm-up, as phase 12's Gibbs kernels).
+    iterations, and at the entry point's one chain block, and its kernel
+    timed beside its bound (the median of three launches after a warm-up,
+    as phase 12's Gibbs kernels).
 14. main paths, SMC, SMCSampler.run(backend="auto"), each over SMC_SEEDS
     seeds beside the generic path (``backend="scan"``) over as many:
     BASELINE.md config 5, the SMC half (XOR MLP(2,2,1), 16384 particles,
@@ -286,7 +291,8 @@ RESIDENT_MIN_AGREEING = 0.99
 # the untuned checks of the staged HMC, MH and MALA kernels on lanes: the
 # least share of chains that agree
 RESIDENT_LANE_MIN_AGREEING = 0.999
-LANE_CASES = ("iris_untuned_extras", "iris_mh_extras", "iris_mala_extras")
+LANE_CASES = ("iris_untuned_extras", "iris_mh_extras", "iris_mala_extras",
+              "iris_tempering_mala_extras", "iris_tempering_mh_extras")
 # config 3's tuning group on the card (dispatch's chain block for iris HMC)
 IRIS_HMC_BLOCK = 256
 
@@ -695,7 +701,7 @@ def main(argv=None):
                    "xor": np.linspace(0.5, 2.0, xor_model.num_params)}
     iris_rows = prepare_data(iris_model, iris.x, iris.y)[0].shape[0]
     xor_rows = prepare_data(xor_model, xor.x, xor.y)[0].shape[0]
-    with concurrent.futures.ThreadPoolExecutor(len(cases) + 15) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(cases) + 18) as pool:
         futures = [pool.submit(fused_mlp.load_kernel, model) for _, model, _, _, _ in cases]
         resident_futures = [pool.submit(resident_hmc.load_kernel, model,
                                         resident_hmc.chain_lanes(rows, IRIS_HMC_BLOCK, True))
@@ -703,6 +709,11 @@ def main(argv=None):
         dense_future = pool.submit(resident_hmc_dense.load_kernel, xor_model, xor.x, xor.y)
         walk_future = pool.submit(resident_walk.load_kernel, iris_model,
                                   lanes=resident_walk.chain_lanes(iris_rows))
+        # the ladder move of a ladder of WALK_BLOCK rungs: one thread a chain
+        long_ladder_future = pool.submit(
+            resident_walk.load_kernel, iris_model, lanes=resident_walk.chain_lanes(iris_rows),
+            ladder_lanes=resident_walk.tempering_lanes(iris_rows, resident_walk.WALK_BLOCK,
+                                                       resident_walk.WALK_BLOCK))
         gibbs_future = pool.submit(resident_walk.load_kernel, iris4323_model, None, iris_rows)
         gibbs_split_future = pool.submit(resident_walk.load_kernel, iris4323_model,
                                          IRIS4323_SPLIT_UNITS, iris_rows)
@@ -733,6 +744,7 @@ def main(argv=None):
         resident_libs = [f.result() for f in resident_futures]
         dense_lib = dense_future.result()
         walk_lib = walk_future.result()
+        long_ladder_lib = long_ladder_future.result()
         gibbs_lib = gibbs_future.result()
         gibbs_split_lib = gibbs_split_future.result()
         gibbs_xor_lib = gibbs_xor_future.result()
@@ -773,8 +785,15 @@ def main(argv=None):
         "xor_mlp2321_bce_one_coordinate_sub_blocks": resident_walk_dense.kernel_resources(
             gibbs_sub_lib, "gibbs")}
     tempering_resources = {
-        f"iris_mlp433_ce_{move}": resident_walk.kernel_resources(walk_lib, f"tempering_{move}")
+        f"iris_mlp433_ce_{move}": dict(
+            resident_walk.kernel_resources(walk_lib, f"tempering_{move}"),
+            lanes=walk_lib.resident_walk_tempering_lanes())
         for move in ("mh", "mala")}
+    tempering_resources.update({
+        f"iris_mlp433_ce_{move}_{resident_walk.WALK_BLOCK}_rungs": dict(
+            resident_walk.kernel_resources(long_ladder_lib, f"tempering_{move}"),
+            lanes=long_ladder_lib.resident_walk_tempering_lanes())
+        for move in ("mh", "mala")})
     tempering_resources.update({
         f"xor_mlp221_bce_{move}": resident_walk_dense.kernel_resources(
             walk_dense_libs["xor_mlp221_bce"], f"tempering_{move}") for move in ("mh", "mala")})
@@ -829,7 +848,11 @@ def main(argv=None):
                                     "lane_min_rows": resident_hmc.LANE_MIN_ROWS},
               resident_walk.KERNEL: {"lanes": resident_walk.WALK_LANES,
                                      "min_blocks": resident_walk.WALK_MIN_BLOCKS,
-                                     "lane_min_rows": resident_hmc.LANE_MIN_ROWS}},
+                                     "lane_min_rows": resident_hmc.LANE_MIN_ROWS},
+              resident_walk.TEMPERING_KERNEL: {"lanes": resident_walk.TEMPERING_LANES,
+                                               "min_blocks": resident_walk.TEMPERING_MIN_BLOCKS,
+                                               "block": resident_walk.TEMPERING_BLOCK},
+              resident_nuts_dense.KERNEL: {"bound": resident_nuts_dense.NUTS_DENSE_BOUND}},
           "lane_launches": lane_launches,
           "seconds": build_seconds,
           "resources": {fused_mlp.KERNEL: {name: fused_mlp.kernel_resources(lib)
@@ -977,10 +1000,10 @@ def main(argv=None):
         return module.GIBBS_KERNEL, module, fn, C, model.num_params, iters, burnin, work
 
     def tempering_case(model, data, C, sampler, step, iters, burnin=0, extras=False,
-                       dense=False, between_step=CHECK_BETWEEN, **kw):
+                       dense=False, between_step=CHECK_BETWEEN, rungs=LADDER_RUNGS, **kw):
         module = resident_walk_dense if dense else resident_walk
         maker = make_resident_tempering_dense if dense else make_resident_tempering
-        fn = maker(model, data.x, data.y, LADDER_RUNGS, step, sampler, between_step=between_step,
+        fn = maker(model, data.x, data.y, rungs, step, sampler, between_step=between_step,
                    num_iters=iters, num_burnin_iters=burnin, record_extras=extras, device=device,
                    **kw)
         dims, bias, loss_kind = dims_of[id(model)]
@@ -993,7 +1016,7 @@ def main(argv=None):
 
         def work(_evaluations):
             return tempering_work(model.num_params, C, iters, iters - burnin, extras, mala,
-                                  eval_work, data_floats, LADDER_RUNGS, between_step)
+                                  eval_work, data_floats, rungs, between_step)
 
         return module.TEMPERING_KERNEL, module, fn, C, model.num_params, iters, burnin, work
 
@@ -1015,6 +1038,16 @@ def main(argv=None):
     iris_ladder_block = ladder_plan(iris_model, iris, 0.003).chain_block
     xor_ladder_block = ladder_plan(xor_model, xor, 0.05).chain_block
     xor_tuner = dict(step=0.1, num_steps=10, tuner=HMCDATuner(l=0.5))
+    # tuned staged XOR HMC (backend="resident") takes JAX's group of 4096
+    # chains, asked of the card: a cluster of the build with one thread a chain
+    xor_staged_plan, reason = resolve_backend(
+        HMC(xor_model, **xor_tuner),
+        tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in (xor.x, xor.y)),
+        131072, 10, 5, backend="resident")
+    check(xor_staged_plan.chain_block == 4096, f"tuned staged XOR HMC plans groups of "
+          f"{xor_staged_plan.chain_block}, not JAX's 4096 ({reason})")
+    # a ladder of WALK_BLOCK rungs, the longest on the kernel: one thread a chain
+    long_ladder = resident_walk.WALK_BLOCK
     resident_runs = [
         ("iris_untuned_extras", False, hmc_case(iris_model, iris, 32768, 20, extras=True,
                                                  step=0.02, num_steps=8, chain_block=256)),
@@ -1024,6 +1057,12 @@ def main(argv=None):
                                                 chain_block=256, **tuned_kw)),
         ("iris_tuned_burnin_20", True, hmc_case(iris_model, iris, 32768, 40, 20,
                                                 chain_block=256, **tuned_kw)),
+        # the maker's default tuning group, JAX's 2048 chains: a cluster
+        ("iris_tuned_default_group_burnin_5", False, hmc_case(iris_model, iris, 32768, 10, 5,
+                                                              **tuned_kw)),
+        (f"xor_staged_tuned_group_{xor_staged_plan.chain_block}_burnin_5", False, hmc_case(
+            xor_model, xor, 131072, 10, 5, chain_block=xor_staged_plan.chain_block,
+            **xor_tuner)),
         ("xor_dense_untuned_extras", False, hmc_case(
             xor_model, xor, 131072, 20, extras=True, dense=True, step=0.05, num_steps=10,
             chain_block=8192)),
@@ -1068,6 +1107,9 @@ def main(argv=None):
         ("iris_tempering_mh_extras", False, tempering_case(
             iris_model, iris, 32768, "MetropolisHastings", 0.1, 20, extras=True,
             chain_block=iris_ladder_block)),
+        (f"iris_tempering_mala_{long_ladder}_rungs_extras", False, tempering_case(
+            iris_model, iris, 4096, "MALA", 0.003, 20, extras=True, rungs=long_ladder,
+            chain_block=long_ladder)),
         ("xor_tempering_mala_dense_extras", False, tempering_case(
             xor_model, xor, 32768, "MALA", 0.05, 20, extras=True, dense=True,
             chain_block=xor_ladder_block)),
@@ -1089,6 +1131,9 @@ def main(argv=None):
     def lane_launch_of(fn, C):
         """The launch of a lane kernel's function for C chains (None for the
         kernels without lanes)."""
+        launch = getattr(fn, "tempering_launch", lambda C: None)(C)
+        if launch is not None:
+            return launch
         for attr in ("gibbs_launch", "hmc_launch", "walk_launch"):
             if hasattr(fn, attr):
                 return getattr(fn, attr)(C, sm_count)
@@ -1882,17 +1927,24 @@ def main(argv=None):
         z_within = per_ladder_z(within, generic_within)
         del generic, generic_samples
         torch.cuda.empty_cache()
-        _, _, fn, C_size, _, _, _, work = tempering_case(
-            model, dataset, C_walk, "MALA", step, ladder_iters, ladder_burnin,
-            dense=want == "dense", between_step=MAIN_BETWEEN, chain_block=at_size_block)
-        size_theta0s = theta0.repeat(C_size // L, 1)
-        ms, ms_runs = event_times(lambda: fn(args.seed, size_theta0s))
-        b_ms, b_by = bound_ms(work(None), sm_count)
-        tempering_main[module.TEMPERING_KERNEL] = {
-            "case": name, "chains": C_size, "ladders": C_size // L, "ms": ms,
-            "ms_runs": ms_runs, "bound_ms": b_ms, "bound_by": b_by,
-            "samples_per_s": C_size * ladder_iters / (ms / 1e3),
-            "launch_threads": getattr(fn, "launch_shape", None)}
+        timed = {}
+        for label, C_timed, block in (("at_size", C_walk, at_size_block),
+                                      ("entry_point_block", C, C)):
+            _, _, fn, C_timed, _, _, _, work = tempering_case(
+                model, dataset, C_timed, "MALA", step, ladder_iters, ladder_burnin,
+                dense=want == "dense", between_step=MAIN_BETWEEN, chain_block=block)
+            timed_theta0s = theta0.repeat(C_timed // L, 1)
+            ms, ms_runs = event_times(lambda: fn(args.seed, timed_theta0s))
+            b_ms, b_by = bound_ms(work(None), sm_count)
+            timed[label] = {
+                "case": name, "chains": C_timed, "chain_block": block, "ladders": C_timed // L,
+                "ms": ms, "ms_runs": ms_runs, "bound_ms": b_ms, "bound_by": b_by,
+                "samples_per_s": C_timed * ladder_iters / (ms / 1e3),
+                "launch": lane_launch_of(fn, C_timed),
+                "launch_threads": getattr(fn, "launch_shape", None)}
+            del fn
+        tempering_main[module.TEMPERING_KERNEL] = dict(
+            timed["at_size"], entry_point_block=timed["entry_point_block"])
         emit({"phase": "main_tempering", "case": name,
               "plan": [plan.backend, plan.chain_block], "rungs": L,
               "temperatures": plan.kwargs["temperatures"].tolist(), "between_step": MAIN_BETWEEN,

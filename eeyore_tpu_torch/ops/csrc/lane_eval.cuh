@@ -1,11 +1,13 @@
 // A chain owned by a group of lanes of one warp: the evaluators of the staged
 // Gibbs move (resident_walk.cu, move 2), of the staged NUTS kernel
-// (resident_nuts.cu) and of the staged HMC kernel and MH and MALA moves
-// (resident_hmc.cu, resident_walk.cu moves 0-1), and the fixed-budget NUTS,
-// HMC, MH and MALA loops, each written once over the lanes a chain
-// (nuts_chain, hmc_chain, walk_chain: Lanes<1>, one thread a chain, is the
-// dense kernels' layout, and the staged kernels' on data of few rows or for
-// tuning groups larger than a cluster of lane blocks holds).
+// (resident_nuts.cu) and of the staged HMC kernel and MH, MALA and ladder
+// moves (resident_hmc.cu, resident_walk.cu moves 0-1 and 3), and the
+// fixed-budget NUTS, HMC, MH, MALA and power-posterior ladder loops, each
+// written once over the lanes a chain (nuts_chain, hmc_chain, walk_chain,
+// tempering_chain: Lanes<1>, one thread a chain, is the dense kernels'
+// layout, and the staged kernels' on data of few rows, for tuning groups
+// larger than a cluster of lane blocks holds, or for ladders longer than a
+// block of lane chains holds).
 //
 // Layout. kLanes consecutive lanes of a warp (1, 2, 4, 8, 16 or 32, a
 // compile-time constant) own one chain; chain c is threads [c kLanes, (c + 1)
@@ -1109,15 +1111,17 @@ constexpr int kWalkRecordBatch = 1;
 
 // The words of one iteration of the HMC and walk streams (key (k0, k1),
 // counter (ctr, j)) on a chain's lanes: the kPairs normal pairs, then the
-// accept uniform (word kPairs), word g on lane g % kLanes in round g /
-// kLanes, each computed once. Coordinate p is normal p % 2 of word p / 2:
+// accept uniform (word kPairs) and kExtra more words (the ladder's swap
+// uniform, word kPairs + 1), word g on lane g % kLanes in round g / kLanes,
+// each computed once. Coordinate p is normal p % 2 of word p / 2:
 // for an even kLanes the coordinates a lane owns in slot k (k kLanes + lane)
 // all take round k / 2, from lane (k kLanes / 2 + lane / 2) % kLanes, so two
 // shuffles a slot bring them to their owners.
-template <class L>
+template <class L, int kExtra = 0>
 struct WalkWords {
   static constexpr int kLanes = L::kLanes;
-  static constexpr int kWords = resident_loop::kPairs + 1;
+  // the normal pairs, the accept uniform and kExtra more words
+  static constexpr int kWords = resident_loop::kPairs + 1 + kExtra;
   static constexpr int kRounds = (kWords + kLanes - 1) / kLanes;
   static_assert(kLanes % 2 == 0, "one thread a chain draws where it uses");
   static_assert((L::kPer - 1) / 2 < kRounds, "every owned coordinate's word is drawn");
@@ -1139,8 +1143,12 @@ struct WalkWords {
     }
   }
   // the accept uniform, in (0, 1]
-  __device__ __forceinline__ float uniform(const L& ln) const {
-    constexpr int g = resident_loop::kPairs;
+  __device__ __forceinline__ float uniform(const L& ln) const { return uniform_of<0>(ln); }
+  // the uniform of word kPairs + i (the accept uniform, then the extra words), in (0, 1]
+  template <int i>
+  __device__ __forceinline__ float uniform_of(const L& ln) const {
+    constexpr int g = resident_loop::kPairs + i;
+    static_assert(g < kWords, "a word that was drawn");
     return ln.from(w[g / kLanes].u, g % kLanes);
   }
 };
@@ -1534,6 +1542,313 @@ __device__ __forceinline__ void walk_chain(const Eval& ev, const L& ln,
     if (p < kP) final_theta[static_cast<size_t>(p) * C + c] = at(k);
   }
   if (ln.lane == 0) accepts[c] = n_accepts;
+}
+
+// ---- power-posterior tempering ----
+
+// Floats of shared memory that tempering_chain takes for a block of threads
+// threads: on one thread a chain resident_loop::tempering_floats (the ladder
+// state); on lanes, a chain's post of the swap round (theta [P], its gradient
+// [P] with MALA, the value and the swap uniform, each [chains]), then the
+// record tile.
+__host__ __device__ constexpr size_t tempering_lane_floats(bool mala, bool extras, int lanes,
+                                                           int threads) {
+  return lanes == 1 ? resident_loop::tempering_floats(mala, extras, threads)
+                    : ((mala ? 2 : 1) * static_cast<size_t>(kP) + 2) * (threads / lanes) +
+                          tile_floats(lanes, threads, kWalkRecordBatch);
+}
+
+// One chain's whole power-posterior run, on the lanes ln (Lanes<1>: one
+// thread), the chain being rung c % L of its ladder (L = pr.num_rungs
+// consecutive chains, the coldest last). The stored value is the untempered
+// log-target v; the rung's temperature T (temps[rung], float32) enters at the
+// accept tests only. Per iteration t:
+//   the within-rung move on the walk stream (normals from words j <
+//   ceil(P/2), the accept uniform from word ceil(P/2)):
+//     MH:   prop = theta + scale * z; log_rate = T (v(prop) - v(theta)).
+//     MALA: prop = theta + (step/2)(T grad) + sqrt(step) z;
+//           log_rate = T (v(prop) - v(theta))
+//                      - |theta - prop - (step/2)(T grad(prop))|^2 / (2 step) + |z|^2 / 2;
+//   then, when t % between_step == 0, a swap round of parity (t /
+//   between_step) % 2: a chain with rung % 2 == parity and rung < L - 1 is
+//   the lower member of the pair (rung, rung + 1); with the uniform u of word
+//   ceil(P/2) + 1 of its stream it accepts when log(u) < (T_rung -
+//   T_rung+1)(v_upper - v), which needs no new evaluation, and the pair
+//   exchanges theta, the value and (MALA) the gradient.
+// accepts is [2, C]: post-burn-in within-rung accepts, and swap accepts on
+// the lower member. With extras the moved flag compares theta after the
+// swap round with theta at the start of the iteration (a swapped upper
+// member has moved too).
+//
+// A block holds whole ladders, so a chain's partner one rung up is the next
+// chain of its block; pairs are disjoint, and every thread takes the same
+// trip count and reaches every barrier of a round, a warp's when whole
+// ladders fit a warp, else the block's (resident_loop::ladder_sync). The
+// layouts differ where the registers decide:
+// - One thread a chain (the dense kernel; the staged one on few rows or for
+//   a ladder too long for a block of lane chains): the accepted theta, its
+//   gradient (MALA) and the values in ladder, [P][blockDim] each; the lower
+//   member decides and exchanges both members' entries (resident_loop.cuh's
+//   thread layout, unchanged).
+// - A group of lanes (kPer coordinates a lane): the accepted theta and
+//   gradient in registers, the within move as walk_chain's on lanes (|z|^2
+//   and the reverse-proposal norm butterfly sums, the value the evaluator's
+//   butterfly sum, the iteration's words spread over the lanes, the swap
+//   uniform among them, each drawn once a chain); at a swap round every
+//   chain posts its theta, gradient, value and swap uniform to its slot in
+//   ladder, and both members of a pair evaluate the lower member's test
+//   from the same bits (its uniform, both values and the two temperatures
+//   in the same order), so they take the same decision on every lane; each
+//   then reads its partner's post. The record goes through the tile.
+template <bool kMALA, class L, class Eval>
+__device__ __forceinline__ void tempering_chain(const Eval& ev, const L& ln,
+                                                const ResidentWalkParams& pr, int c,
+                                                const float* __restrict__ theta0,
+                                                const float* __restrict__ temps,
+                                                float* __restrict__ samples,
+                                                float* __restrict__ final_theta,
+                                                float* __restrict__ accepts, float* ladder) {
+  constexpr int kN = L::kPer;
+  constexpr int kLanes = L::kLanes;
+  constexpr bool kThread = kLanes == 1;
+  constexpr int kPairs = resident_loop::kPairs;
+  const int bd = blockDim.x;
+  const int me = threadIdx.x;
+  const int C = pr.num_chains;
+  const int rungs = pr.num_rungs;
+  // one thread: the ladder state, [P][bd] each
+  float* acc_th = ladder;                              // [P][bd]
+  float* acc_g = acc_th + kP * bd;                     // [P][bd], MALA
+  float* acc_v = acc_g + (kMALA ? kP * bd : 0);        // [bd]
+  float* start_th = acc_v + bd;                        // [P][bd], extras
+  // lanes: the posts of the block's nb chains, then the record tile
+  const int nb = bd / kLanes;
+  const int ci = me / kLanes;                          // the chain's slot in the block
+  float* post_th = ladder;                             // [P][nb]
+  float* post_g = post_th + kP * nb;                   // [P][nb], MALA
+  float* post_v = post_g + (kMALA ? kP * nb : 0);      // [nb]
+  float* post_u = post_v + nb;                         // [nb]
+  float* tile = post_u + nb;
+  float reg_th[kThread ? 1 : kN];
+  float reg_g[kThread || !kMALA ? 1 : kN];
+  auto at = [&](int k) -> float& {
+    if constexpr (kThread) {
+      return acc_th[k * bd + me];
+    } else {
+      return reg_th[k];
+    }
+  };
+  auto ag = [&](int k) -> float& {
+    if constexpr (kThread) {
+      return acc_g[k * bd + me];
+    } else if constexpr (kMALA) {
+      return reg_g[k];
+    } else {
+      return reg_g[0];
+    }
+  };
+  const unsigned key0 = static_cast<unsigned>(pr.seed);
+  const unsigned key1 = static_cast<unsigned>(c);
+  const int rung = c % rungs;
+  const float temp = temps[rung];
+  const float temp_upper = rung < rungs - 1 ? temps[rung + 1] : 0.0f;
+  const float temp_lower = rung > 0 ? temps[rung - 1] : 0.0f;  // lanes
+  const bool warp_local = 32 % (rungs * kLanes) == 0;
+
+  float val;
+  {
+    float th[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const int p = ln.coord(k);
+      th[k] = p < kP ? theta0[static_cast<size_t>(p) * C + c] : 0.0f;
+    }
+    if constexpr (kMALA) {
+      float g[kN];
+      val = ev.vg(th, g);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) ag(k) = g[k];
+    } else {
+      val = ev.v(th);
+    }
+#pragma unroll
+    for (int k = 0; k < kN; ++k) at(k) = th[k];
+  }
+
+  float n_within = 0.0f;
+  float n_swaps = 0.0f;
+  float start[kThread ? 1 : kN];  // lanes: theta at the start of a recorded swap iteration
+  for (int t = 0; t < pr.num_iters; ++t) {
+    const unsigned ctr = static_cast<unsigned>(t);
+    const bool counting = t >= pr.num_burnin_iters;
+    const bool swap_round = t % pr.between_step == 0;
+    const int since = t - pr.num_burnin_iters;
+    const bool track_start = pr.record_extras && swap_round && since >= 0 &&
+                             since % pr.record_thin == 0 && since / pr.record_thin < pr.kept;
+    if (track_start) {
+      if constexpr (kThread) {
+#pragma unroll
+        for (int p = 0; p < kP; ++p) start_th[p * bd + me] = acc_th[p * bd + me];
+      } else {
+        copy(start, reg_th);
+      }
+    }
+    bool moved = false;
+    float u_swap = 0.0f;  // lanes: this chain's swap uniform
+    {
+      float z[kN];
+      float u_lanes = 0.0f;
+      if constexpr (kThread) {
+        kernel_prng::normals(key0, key1, ctr, z);
+      } else {
+        const WalkWords<L, 1> words(ln, key0, key1, ctr);
+        words.normals(ln, z);
+        u_lanes = words.uniform(ln);
+        u_swap = words.template uniform_of<1>(ln);
+      }
+      float prop[kN];
+      float v_p;
+      float log_rate;
+      float gp[kMALA ? kN : 1];
+      if constexpr (kMALA) {
+        float z_sq = z[0] * z[0];
+#pragma unroll
+        for (int k = 1; k < kN; ++k) z_sq = z_sq + z[k] * z[k];
+        z_sq = ln.sum(z_sq);
+#pragma unroll
+        for (int k = 0; k < kN; ++k) {
+          prop[k] = (at(k) + pr.half_step * (temp * ag(k))) + pr.sqrt_step * z[k];
+        }
+        v_p = ev.vg(prop, gp);
+        float rev_sq = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kN; ++k) {
+          const float dp = at(k) - (prop[k] + pr.half_step * (temp * gp[k]));
+          rev_sq = rev_sq + dp * dp;
+        }
+        rev_sq = ln.sum(rev_sq);
+        log_rate = (temp * (v_p - val) - pr.half_inv_step * rev_sq) + 0.5f * z_sq;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kN; ++k) prop[k] = at(k) + pr.value * z[k];
+        v_p = ev.v(prop);
+        log_rate = temp * (v_p - val);
+      }
+      float u;
+      if constexpr (kThread) {
+        u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
+      } else {
+        u = u_lanes;
+      }
+      if (logf(u) < log_rate) {
+#pragma unroll
+        for (int k = 0; k < kN; ++k) {
+          moved |= prop[k] != at(k);
+          at(k) = prop[k];
+          if constexpr (kMALA) ag(k) = gp[k];
+        }
+        val = v_p;
+        if (counting) n_within += 1.0f;
+      }
+    }
+
+    if (swap_round) {
+      const int parity = (t / pr.between_step) % 2;
+      if constexpr (kThread) {
+        acc_v[me] = val;
+        resident_loop::ladder_sync(warp_local);  // every within move and value is written
+        if (rung % 2 == parity && rung < rungs - 1) {
+          const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs + 1);
+          const float log_rate = (temp - temp_upper) * (acc_v[me + 1] - val);
+          if (logf(u) < log_rate) {
+#pragma unroll
+            for (int p = 0; p < kP; ++p) {
+              const float th = acc_th[p * bd + me];
+              acc_th[p * bd + me] = acc_th[p * bd + me + 1];
+              acc_th[p * bd + me + 1] = th;
+              if constexpr (kMALA) {
+                const float g = acc_g[p * bd + me];
+                acc_g[p * bd + me] = acc_g[p * bd + me + 1];
+                acc_g[p * bd + me + 1] = g;
+              }
+            }
+            acc_v[me] = acc_v[me + 1];
+            acc_v[me + 1] = val;
+            if (counting) n_swaps += 1.0f;
+          }
+        }
+        resident_loop::ladder_sync(warp_local);  // every exchange is done
+        val = acc_v[me];
+        if (track_start) {
+          moved = false;
+#pragma unroll
+          for (int p = 0; p < kP; ++p) moved |= acc_th[p * bd + me] != start_th[p * bd + me];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kN; ++k) {
+          const int p = ln.coord(k);
+          if (p < kP) {
+            post_th[p * nb + ci] = at(k);
+            if constexpr (kMALA) post_g[p * nb + ci] = ag(k);
+          }
+        }
+        if (ln.lane == 0) {
+          post_v[ci] = val;
+          post_u[ci] = u_swap;
+        }
+        resident_loop::ladder_sync(warp_local);  // every chain has posted
+        const bool lower = rung % 2 == parity && rung < rungs - 1;
+        const bool upper = rung > 0 && (rung - 1) % 2 == parity;
+        int partner = ci;
+        bool take = false;
+        if (lower) {
+          partner = ci + 1;
+          take = logf(u_swap) < (temp - temp_upper) * (post_v[partner] - val);
+        } else if (upper) {
+          partner = ci - 1;
+          take = logf(post_u[partner]) < (temp_lower - temp) * (val - post_v[partner]);
+        }
+        if (take) {
+#pragma unroll
+          for (int k = 0; k < kN; ++k) {
+            const int p = ln.coord(k);
+            if (p < kP) {
+              at(k) = post_th[p * nb + partner];
+              if constexpr (kMALA) ag(k) = post_g[p * nb + partner];
+            }
+          }
+          val = post_v[partner];
+          if (lower && counting) n_swaps += 1.0f;
+        }
+        resident_loop::ladder_sync(warp_local);  // every chain has read its partner's post
+        if (track_start) {
+          moved = false;
+#pragma unroll
+          for (int k = 0; k < kN; ++k) moved |= at(k) != start[k];
+        }
+      }
+    }
+    moved = ln.any(moved);
+
+    if constexpr (kThread) {
+      resident_loop::record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept,
+                            pr.record_extras, C, c, acc_th, val, moved);
+    } else if (since >= 0 && since % pr.record_thin == 0 && since / pr.record_thin < pr.kept) {
+      record_lanes(ln, samples, tile, since / pr.record_thin, pr.kept, C, pr.record_extras != 0,
+                   reg_th, val, moved);
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const int p = ln.coord(k);
+    if (p < kP) final_theta[static_cast<size_t>(p) * C + c] = at(k);
+  }
+  if (ln.lane == 0) {
+    accepts[c] = n_within;
+    accepts[static_cast<size_t>(C) + c] = n_swaps;
+  }
 }
 
 }  // namespace lane_eval

@@ -43,7 +43,12 @@
 // - HMC_LANES = 1 is one thread a chain: the accepted theta and gradient in
 //   shared memory at [P][blockDim] beside the data rows, the draws where they
 //   are used, no launch bounds; ops/resident_hmc.py::chain_lanes picks it for
-//   data of few rows (staged XOR), where a lane would get no rows to split.
+//   data of few rows (staged XOR), where a lane would get no rows to split,
+//   and for a tuning group larger than a cluster of lane blocks holds. Its
+//   tuning group is a block or, larger than the registers let a block be, a
+//   cluster (resident_loop.cuh::group_mean, as resident_hmc_dense.cu runs
+//   it): staged XOR at 96 registers takes JAX's group of 4096 chains as a
+//   cluster of 8 blocks of 512.
 // - The leapfrog trip count is a per-chain loop. The TPU kernel masks the
 //   lanes whose trajectory ended (resident_hmc.py:149-158); a chain stops on
 //   its own and gets the same numbers.
@@ -100,18 +105,18 @@ __global__ void HMC_LAUNCH_BOUNDS
                         int cluster_blocks) {
   extern __shared__ float smem[];
   __shared__ float red[kMaxThreads / 32];
+  __shared__ float partial[2];
   const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
   float* buf = smem + data_floats(pr.n_rows);
 #if HMC_LANES == 1  // buf: the accepted theta and its gradient, [P][bd] each
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  // Only an untuned run has a ragged last block; a tuned block is full, so
-  // every thread reaches the block reductions.
+  // Only an untuned run, which takes no cluster, has a ragged last block; a
+  // tuned block is full, so every thread reaches the group reductions.
   if (c >= pr.num_chains) return;
   const resident_loop::StagedEval ev{d, pr.prior_const, pr.temperature, pr.n_rows};
-  lane_eval::hmc_chain(ev, HmcLanes{}, pr, c, 1, theta0, samples, final_theta, accepts,
-                       evaluations, buf, red, nullptr);
+  lane_eval::hmc_chain(ev, HmcLanes{}, pr, c, cluster_blocks, theta0, samples, final_theta,
+                       accepts, evaluations, buf, red, partial);
 #else  // buf: a theta slot [P] per chain, then the record tile
-  __shared__ float partial[2];
   // the launch covers the chains exactly: every thread reaches every barrier
   const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kLanes;
   const HmcLanes ln;
@@ -120,9 +125,9 @@ __global__ void HMC_LAUNCH_BOUNDS
   buf += static_cast<size_t>(kP) * (blockDim.x / kLanes);
   lane_eval::hmc_chain(ev, ln, pr, c, cluster_blocks, theta0, samples, final_theta, accepts,
                        evaluations, buf, red, partial);
+#endif
   // no block of a cluster leaves while another may read its partial sum
   if (cluster_blocks > 1) cooperative_groups::this_cluster().sync();
-#endif
 }
 
 size_t smem_bytes(int threads, int n_rows) {
@@ -183,10 +188,11 @@ extern "C" int resident_hmc_launch(const float* theta0, const float* x, const fl
       cluster_blocks > resident_loop::kMaxCluster) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  if (kLanes == 1 ? cluster_blocks != 1
-                  : (lanes % threads != 0 ||
-                     ((pr.tuned || cluster_blocks > 1) &&
-                      (group % threads != 0 || cluster_blocks * threads != group)))) {
+  // a tuning group is the block or the cluster, and the clusters cover the chains
+  const bool grouped = pr.tuned || cluster_blocks > 1;
+  if ((kLanes > 1 && lanes % threads != 0) ||
+      (grouped && (cluster_blocks * threads != group || pr.chain_block < 1 ||
+                   pr.num_chains % pr.chain_block != 0))) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const int blocks =

@@ -3,10 +3,11 @@
 //
 // gibbs_chain is one chain's whole blocked-Gibbs run (resident_walk.cu and
 // resident_walk_dense.cu). The whole HMC, MH and MALA runs (hmc_chain,
-// walk_chain) and the NUTS run (nuts_chain) are written once over the lanes
-// a chain in lane_eval.cuh, one thread a chain being Lanes<1>; this header
-// keeps their scalar pieces (draw counts, group means, dual averaging, the
-// thread layout's record). The data strategy is the Eval argument: an object
+// walk_chain), the power-posterior ladder (tempering_chain) and the NUTS
+// run (nuts_chain) are written once over the lanes a chain in lane_eval.cuh,
+// one thread a chain being Lanes<1>; this header keeps their scalar pieces
+// (draw counts, group means, dual averaging, the thread layout's record, the
+// ladder's barrier). The data strategy is the Eval argument: an object
 // with vg(th, g) -> value (gradient into g) and v(th) -> value, and for Gibbs
 // the cached value-only interface described at gibbs_chain. StagedEval reads
 // the rows a block staged in shared memory (mlp_vg.cuh), one thread a chain;
@@ -17,11 +18,12 @@
 // pass (resident_smc.cu), on SplitEval, the staged rows with the
 // likelihood-tempered target.
 //
-// Layout and state. One thread owns one chain in the dense kernels, the
-// tempering move and the SMC mutation pass (and in the staged HMC, MH, MALA
-// and NUTS kernels when the data has few rows or a tuning group is larger
-// than a cluster of lane blocks holds); a group of lanes of a warp owns it in
-// the staged kernels otherwise (lane_eval.cuh). On one thread the accepted
+// Layout and state. One thread owns one chain in the dense kernels and the
+// SMC mutation pass (and in the staged HMC, MH, MALA, tempering and NUTS
+// kernels when the data has few rows, a tuning group is larger than a
+// cluster of lane blocks holds or a ladder longer than a block of lane
+// chains); a group of lanes of a warp owns it in the staged kernels
+// otherwise (lane_eval.cuh). On one thread the accepted
 // theta (and its gradient, for HMC and MALA), touched once per iteration,
 // live in shared memory at [P][blockDim]; the proposal and its gradient live
 // in registers (Gibbs keeps theta in registers and saves only the sub-block
@@ -47,11 +49,12 @@
 // and resident_nuts.cu for tuning groups of more than 256 chains) or a group
 // of lanes of a warp (resident_nuts.cu); this header keeps its scalar pieces.
 //
-// Ladders. tempering_chain runs L consecutive chains as one power-posterior
-// ladder (rung = chain % L, the coldest last). A block holds whole ladders
-// (blockDim.x a multiple of L; on the dense kernels also chain_block / 8),
-// so the partner one rung up of a chain is the next thread of its block, and
-// an accepted swap exchanges the pair's entries in shared memory.
+// Ladders. lane_eval.cuh::tempering_chain runs L consecutive chains as one
+// power-posterior ladder (rung = chain % L, the coldest last). A block holds
+// whole ladders (blockDim.x a multiple of L times the lanes a chain; on the
+// dense kernels also chain_block / 8), so the partner one rung up of a chain
+// is the next chain of its block, and an accepted swap exchanges the pair's
+// states through shared memory.
 
 #pragma once
 
@@ -348,9 +351,10 @@ __device__ __forceinline__ void smc_mutation_chain(const Eval& ev, const Residen
   accepts[c] = n_accepts;
 }
 
-// Floats of shared memory that tempering_chain takes for a block of bd
-// threads: theta [P][bd], its gradient [P][bd] (MALA), the values [bd], and
-// with extras theta at the start of a recorded swap iteration [P][bd].
+// Floats of shared memory that lane_eval.cuh::tempering_chain takes on one
+// thread a chain for a block of bd threads: theta [P][bd], its gradient
+// [P][bd] (MALA), the values [bd], and with extras theta at the start of a
+// recorded swap iteration [P][bd].
 __host__ __device__ constexpr size_t tempering_floats(bool mala, bool extras, int bd) {
   return ((1 + (mala ? 1 : 0) + (extras ? 1 : 0)) * static_cast<size_t>(kP) + 1) * bd;
 }
@@ -363,167 +367,6 @@ __device__ __forceinline__ void ladder_sync(bool warp_local) {
   } else {
     __syncthreads();
   }
-}
-
-// One chain's whole power-posterior run, the chain being rung c % L of its
-// ladder. The stored value is the untempered log-target v; the rung's
-// temperature T (temps[rung], float32) enters at the accept tests only. Per
-// iteration t:
-//   the within-rung move on the walk stream (normals from words j <
-//   ceil(P/2), the accept uniform from word ceil(P/2)):
-//     MH:   prop = theta + scale * z; log_rate = T (v(prop) - v(theta)).
-//     MALA: prop = theta + (step/2)(T grad) + sqrt(step) z;
-//           log_rate = T (v(prop) - v(theta))
-//                      - |theta - prop - (step/2)(T grad(prop))|^2 / (2 step) + |z|^2 / 2;
-//   then, when t % between_step == 0, a swap round of parity (t /
-//   between_step) % 2: a chain with rung % 2 == parity and rung < L - 1 is
-//   the lower member of the pair (rung, rung + 1); it draws the uniform of
-//   word ceil(P/2) + 1 and accepts when log(u) < (T_rung - T_rung+1)(v_upper
-//   - v), which needs no new evaluation, and exchanges theta, the value and
-//   (MALA) the gradient with the next thread. Pairs are disjoint, so the
-//   lower members write between two barriers without a race; the trip count
-//   is the same for every thread, so every thread reaches every barrier.
-// accepts is [2, C]: post-burn-in within-rung accepts, and swap accepts on
-// the lower member. With extras the moved flag compares theta after the
-// swap round with theta at the start of the iteration (a swapped upper
-// member has moved too).
-template <class Eval, bool kMALA>
-__device__ __forceinline__ void tempering_chain(const Eval& ev, const ResidentWalkParams& pr,
-                                                int c, const float* __restrict__ theta0,
-                                                const float* __restrict__ temps,
-                                                float* __restrict__ samples,
-                                                float* __restrict__ final_theta,
-                                                float* __restrict__ accepts, float* ladder) {
-  const int bd = blockDim.x;
-  const int me = threadIdx.x;
-  const int C = pr.num_chains;
-  const int L = pr.num_rungs;
-  float* acc_th = ladder;                              // [P][bd]
-  float* acc_g = acc_th + kP * bd;                     // [P][bd], MALA
-  float* acc_v = acc_g + (kMALA ? kP * bd : 0);        // [bd]
-  float* start_th = acc_v + bd;                        // [P][bd], extras
-  const unsigned key0 = static_cast<unsigned>(pr.seed);
-  const unsigned key1 = static_cast<unsigned>(c);
-  const int rung = c % L;
-  const float temp = temps[rung];
-  const float temp_upper = rung < L - 1 ? temps[rung + 1] : 0.0f;
-  const bool warp_local = 32 % L == 0;
-
-  float val;
-  {
-    float th[kP];
-#pragma unroll
-    for (int p = 0; p < kP; ++p) th[p] = theta0[static_cast<size_t>(p) * C + c];
-    if constexpr (kMALA) {
-      float g[kP];
-      val = ev.vg(th, g);
-#pragma unroll
-      for (int p = 0; p < kP; ++p) acc_g[p * bd + me] = g[p];
-    } else {
-      val = ev.v(th);
-    }
-#pragma unroll
-    for (int p = 0; p < kP; ++p) acc_th[p * bd + me] = th[p];
-  }
-
-  float n_within = 0.0f;
-  float n_swaps = 0.0f;
-  for (int t = 0; t < pr.num_iters; ++t) {
-    const unsigned ctr = static_cast<unsigned>(t);
-    const bool counting = t >= pr.num_burnin_iters;
-    const bool swap_round = t % pr.between_step == 0;
-    const int since = t - pr.num_burnin_iters;
-    const bool track_start = pr.record_extras && swap_round && since >= 0 &&
-                             since % pr.record_thin == 0 && since / pr.record_thin < pr.kept;
-    if (track_start) {
-#pragma unroll
-      for (int p = 0; p < kP; ++p) start_th[p * bd + me] = acc_th[p * bd + me];
-    }
-    bool moved = false;
-    {
-      float z[kP];
-      kernel_prng::normals(key0, key1, ctr, z);
-      float prop[kP];
-      float v_p;
-      float log_rate;
-      float gp[kMALA ? kP : 1];
-      if constexpr (kMALA) {
-        float z_sq = z[0] * z[0];
-#pragma unroll
-        for (int p = 1; p < kP; ++p) z_sq = z_sq + z[p] * z[p];
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          prop[p] = (acc_th[p * bd + me] + pr.half_step * (temp * acc_g[p * bd + me])) +
-                    pr.sqrt_step * z[p];
-        }
-        v_p = ev.vg(prop, gp);
-        float rev_sq = 0.0f;
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          const float dp = acc_th[p * bd + me] - (prop[p] + pr.half_step * (temp * gp[p]));
-          rev_sq = rev_sq + dp * dp;
-        }
-        log_rate = (temp * (v_p - val) - pr.half_inv_step * rev_sq) + 0.5f * z_sq;
-      } else {
-#pragma unroll
-        for (int p = 0; p < kP; ++p) prop[p] = acc_th[p * bd + me] + pr.value * z[p];
-        v_p = ev.v(prop);
-        log_rate = temp * (v_p - val);
-      }
-      const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
-      if (logf(u) < log_rate) {
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          moved |= prop[p] != acc_th[p * bd + me];
-          acc_th[p * bd + me] = prop[p];
-          if constexpr (kMALA) acc_g[p * bd + me] = gp[p];
-        }
-        val = v_p;
-        if (counting) n_within += 1.0f;
-      }
-    }
-
-    if (swap_round) {
-      acc_v[me] = val;
-      ladder_sync(warp_local);  // every within move and value is written
-      const int parity = (t / pr.between_step) % 2;
-      if (rung % 2 == parity && rung < L - 1) {
-        const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs + 1);
-        const float log_rate = (temp - temp_upper) * (acc_v[me + 1] - val);
-        if (logf(u) < log_rate) {
-#pragma unroll
-          for (int p = 0; p < kP; ++p) {
-            const float th = acc_th[p * bd + me];
-            acc_th[p * bd + me] = acc_th[p * bd + me + 1];
-            acc_th[p * bd + me + 1] = th;
-            if constexpr (kMALA) {
-              const float g = acc_g[p * bd + me];
-              acc_g[p * bd + me] = acc_g[p * bd + me + 1];
-              acc_g[p * bd + me + 1] = g;
-            }
-          }
-          acc_v[me] = acc_v[me + 1];
-          acc_v[me + 1] = val;
-          if (counting) n_swaps += 1.0f;
-        }
-      }
-      ladder_sync(warp_local);  // every exchange is done
-      val = acc_v[me];
-      if (track_start) {
-        moved = false;
-#pragma unroll
-        for (int p = 0; p < kP; ++p) moved |= acc_th[p * bd + me] != start_th[p * bd + me];
-      }
-    }
-
-    record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept, pr.record_extras, C, c,
-           acc_th, val, moved);
-  }
-
-#pragma unroll
-  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * C + c] = acc_th[p * bd + me];
-  accepts[c] = n_within;
-  accepts[static_cast<size_t>(C) + c] = n_swaps;
 }
 
 // The layout of a chain that one thread owns (gibbs_chain's default): the
@@ -684,11 +527,14 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
 // ---- host side ----
 
 // Launches kernel on blocks x threads with smem bytes of dynamic shared
-// memory, in clusters of cluster_blocks blocks when that is above 1.
+// memory, in clusters of cluster_blocks blocks when that is above 1. The
+// kernel's dynamic shared memory limit is set to smem at every launch: an
+// occupancy query (max_active_blocks, max_active_clusters) sets it to what
+// it asked about, which may be less than this launch takes.
 template <typename... Params, typename... Args>
 inline cudaError_t launch(void (*kernel)(Params...), int blocks, int threads, size_t smem,
                           int cluster_blocks, void* stream, Args... args) {
-  if (smem > 48 * 1024) {
+  {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;

@@ -19,6 +19,17 @@
 // - The tuning groups are the TPU kernel's grid blocks: chain_block chains
 //   (a multiple of 1024), sublane-strided (chain s*(C/8) + i*lb + j of
 //   group i, lb = chain_block/8), in one block or a thread-block cluster.
+// - Registers. A chain's whole tree state on one thread (17 P floats at
+//   depth 3) took 172 registers on XOR, so blocks of 256 threads, 8 warps an
+//   SM at the main path's 32768 chains, and JAX's group of 8192 chains no
+//   cluster held. Launch bounds of one block of NUTS_DENSE_BOUND threads an
+//   SM (ops/resident_nuts_dense.py, chosen by scripts/lane_sweep.py) cap
+//   them: at 512, 128 registers and a few hundred bytes of spills, a cluster
+//   of 16 blocks of 512 holds 8192 chains, and the kernel, bound by latency,
+//   ran faster with 16 warps an SM on 64 SMs than with 8 on 128 (PERF.md).
+//   Chains on 2 or 4 lanes of a warp over staged rows, and skipping the
+//   leaves of a warp whose trees had all stopped, ran slower or no faster
+//   and were not kept.
 //
 // Bound. As resident_nuts.cu: 1 + num_iters (2^D - 1) evaluations a chain
 // (the generated body's operations, ops/mlp_dense.py::dense_work), the PRNG
@@ -29,8 +40,8 @@
 #include "dense_body.cuh"
 #include "nuts_metric.cuh"
 
-#ifndef NUTS_DEPTH
-#error "NUTS_DEPTH (the tree depth) must be defined"
+#if !defined(NUTS_DEPTH) || !defined(NUTS_DENSE_BOUND)
+#error "NUTS_DEPTH (the tree depth) and NUTS_DENSE_BOUND must be defined"
 #endif
 
 using namespace mlp_vg;
@@ -41,6 +52,14 @@ static_assert(dense_body::kP == kP, "generated body and architecture disagree");
 namespace {
 
 constexpr int kDepth = NUTS_DEPTH;
+// Threads a block may have: NUTS_DENSE_BOUND (0: no launch bounds, kMaxThreads).
+constexpr int kBlockThreads = NUTS_DENSE_BOUND > 0 ? NUTS_DENSE_BOUND : kMaxThreads;
+
+#if NUTS_DENSE_BOUND > 0
+#define NUTS_DENSE_LAUNCH_BOUNDS __launch_bounds__(NUTS_DENSE_BOUND, 1)
+#else
+#define NUTS_DENSE_LAUNCH_BOUNDS
+#endif
 
 struct DenseEval {
   __device__ __forceinline__ float vg(const float (&th)[kP], float (&g)[kP]) const {
@@ -53,14 +72,15 @@ struct DenseMetric {
   __device__ __forceinline__ float msc(int p) const { return nuts_metric::mom_scale(p); }
 };
 
-__global__ void resident_nuts_dense_kernel(const float* __restrict__ theta0,  // [P, C]
-                                           const ResidentHMCParams pr,
-                                           float* __restrict__ samples,      // [kept, rows, C]
-                                           float* __restrict__ final_theta,  // [P, C]
-                                           float* __restrict__ accepts,      // [C]
-                                           float* __restrict__ divergences,  // [C]
-                                           float* __restrict__ steps,        // [C]
-                                           int cluster_blocks) {
+__global__ void NUTS_DENSE_LAUNCH_BOUNDS
+    resident_nuts_dense_kernel(const float* __restrict__ theta0,  // [P, C]
+                               const ResidentHMCParams pr,
+                               float* __restrict__ samples,      // [kept, rows, C]
+                               float* __restrict__ final_theta,  // [P, C]
+                               float* __restrict__ accepts,      // [C]
+                               float* __restrict__ divergences,  // [C]
+                               float* __restrict__ steps,        // [C]
+                               int cluster_blocks) {
   extern __shared__ float smem[];
   __shared__ float red[kMaxThreads / 32];
   __shared__ float partial[2];
@@ -106,7 +126,7 @@ extern "C" int resident_nuts_dense_launch(const float* theta0, const ResidentHMC
                                           float* final_theta, float* accepts,
                                           float* divergences, float* steps, void* stream) {
   const ResidentHMCParams pr = *params;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+  if (threads < 32 || threads > kBlockThreads || threads % 32 != 0 ||
       pr.chain_block % threads != 0 || pr.num_chains % pr.chain_block != 0 ||
       cluster_blocks < 1 || cluster_blocks > resident_loop::kMaxCluster ||
       ((pr.tuned || cluster_blocks > 1) && cluster_blocks * threads != pr.chain_block)) {

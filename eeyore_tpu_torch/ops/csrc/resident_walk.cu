@@ -6,8 +6,8 @@
 // make_resident_mh :251, make_resident_mala :212, make_resident_gibbs :281
 // and eeyore_tpu/ops/resident_tempering.py:178); the plain PyTorch versions
 // are the CPU branches of eeyore_tpu_torch/ops/resident_walk.py. The loops
-// are lane_eval.cuh::walk_chain and resident_loop.cuh::gibbs_chain and
-// tempering_chain, shared with resident_walk_dense.cu; one library holds the four moves for one
+// are lane_eval.cuh::walk_chain and tempering_chain and resident_loop.cuh::
+// gibbs_chain, shared with resident_walk_dense.cu; one library holds the four moves for one
 // architecture and one Gibbs blocking (move 0: MH, on the value-only body,
 // no backward pass; move 1: MALA, on the value and gradient; move 2: Gibbs,
 // a sweep over the sub-blocks of the generated gibbs_blocks.cuh, value only;
@@ -46,10 +46,17 @@
 // scripts/lane_sweep.py, PERF.md). WALK_LANES = 1 is one thread a chain: the accepted
 // theta (and gradient) in shared memory at [P][blockDim] beside the data
 // rows, no launch bounds (ops/resident_walk.py::chain_lanes takes it for data
-// of few rows). Tempering: one thread a chain, as that. Gibbs: kLanes lanes
-// a chain, theta whole in every lane's registers, the sweep's draws spread
-// over the lanes, the record through a shared-memory tile. A launch on lanes
-// covers the chains exactly (blocks = C lanes / threads).
+// of few rows). Tempering: TEMPERING_LANES lanes a chain, the within move as
+// MH's and MALA's on lanes, a swap round through each chain's post in shared
+// memory (lane_eval.cuh::tempering_chain); a block of at most 256 threads
+// holds whole ladders, of which TEMPERING_MIN_BLOCKS must fit an SM, so a
+// ladder longer than 256 / TEMPERING_LANES rungs takes a build of fewer
+// lanes, down to one thread a chain (no launch bounds, blocks of up to 1024
+// threads) for a ladder of 256 rungs (ops/resident_walk.py::tempering_lanes).
+// Gibbs: kLanes lanes a chain, theta whole in every lane's registers, the
+// sweep's draws spread over the lanes, the record through a shared-memory
+// tile. A launch on lanes covers the chains exactly (blocks = C lanes /
+// threads).
 //
 // Bound. One evaluation per chain and iteration (value only for MH), plus
 // ceil(P/2) + 1 Threefry calls and ceil(P/2) Box-Muller pairs, plus kept x
@@ -60,8 +67,10 @@
 #include "lane_eval.cuh"
 #include "gibbs_blocks.cuh"
 
-#if !defined(WALK_LANES) || !defined(WALK_MIN_BLOCKS)
-#error "WALK_LANES (lanes a chain of MH and MALA) and WALK_MIN_BLOCKS must be defined"
+#if !defined(WALK_LANES) || !defined(WALK_MIN_BLOCKS) || !defined(TEMPERING_LANES) || \
+    !defined(TEMPERING_MIN_BLOCKS)
+#error "WALK_LANES and TEMPERING_LANES (lanes a chain of MH and MALA and of the ladder move) \
+and WALK_MIN_BLOCKS and TEMPERING_MIN_BLOCKS must be defined"
 #endif
 
 using namespace mlp_vg;
@@ -79,6 +88,18 @@ constexpr int kWalkThreads = kWalkLanes == 1 ? kMaxThreads : 256;
 #define WALK_LAUNCH_BOUNDS
 #else
 #define WALK_LAUNCH_BOUNDS __launch_bounds__(kWalkThreads, WALK_MIN_BLOCKS)
+#endif
+
+// The ladder move: lanes a chain, and the threads a block may have (on lanes
+// 256, of which TEMPERING_MIN_BLOCKS blocks fit an SM).
+constexpr int kTemperingLanes = TEMPERING_LANES;
+using TemperingLanes = lane_eval::Lanes<kTemperingLanes>;
+constexpr int kTemperingThreads = kTemperingLanes == 1 ? kMaxThreads : 256;
+
+#if TEMPERING_LANES == 1
+#define TEMPERING_LAUNCH_BOUNDS
+#else
+#define TEMPERING_LAUNCH_BOUNDS __launch_bounds__(kTemperingThreads, TEMPERING_MIN_BLOCKS)
 #endif
 
 // The Gibbs move's lanes and evaluator (the cache, or the whole forward pass).
@@ -147,29 +168,43 @@ __global__ void __launch_bounds__(kGibbsThreads, GibbsBlocks::kMinBlocks)
 }
 
 template <bool kMALA>
-__global__ void resident_walk_tempering_kernel(const float* __restrict__ theta0,  // [P, C]
-                                               const float* __restrict__ x,
-                                               const float* __restrict__ y,
-                                               const float* __restrict__ mask,
-                                               const float* __restrict__ loc,
-                                               const float* __restrict__ ivar,
-                                               const float* __restrict__ temps,  // [L]
-                                               const ResidentWalkParams pr,
-                                               float* __restrict__ samples,  // [kept, rows, C]
-                                               float* __restrict__ final_theta,  // [P, C]
-                                               float* __restrict__ accepts) {    // [2, C]
+__global__ void TEMPERING_LAUNCH_BOUNDS
+    resident_walk_tempering_kernel(const float* __restrict__ theta0,  // [P, C]
+                                   const float* __restrict__ x, const float* __restrict__ y,
+                                   const float* __restrict__ mask,
+                                   const float* __restrict__ loc,
+                                   const float* __restrict__ ivar,
+                                   const float* __restrict__ temps,  // [L]
+                                   const ResidentWalkParams pr,
+                                   float* __restrict__ samples,      // [kept, rows, C]
+                                   float* __restrict__ final_theta,  // [P, C]
+                                   float* __restrict__ accepts) {    // [2, C]
   extern __shared__ float smem[];
   const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
-  // the blocks divide the chains: every thread owns one and reaches every barrier
+  float* buf = smem + data_floats(pr.n_rows);
+  // the blocks divide the chains' threads: every thread reaches every barrier
+#if TEMPERING_LANES == 1  // buf: the ladder state, [P][bd] each
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const resident_loop::StagedEval ev{d, pr.prior_const, pr.temperature, pr.n_rows};
-  resident_loop::tempering_chain<resident_loop::StagedEval, kMALA>(
-      ev, pr, c, theta0, temps, samples, final_theta, accepts, smem + data_floats(pr.n_rows));
+  lane_eval::tempering_chain<kMALA>(ev, TemperingLanes{}, pr, c, theta0, temps, samples,
+                                    final_theta, accepts, buf);
+#else  // buf: a theta slot [P] per chain, then the posts and the record tile
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kTemperingLanes;
+  const TemperingLanes ln;
+  const int chains = blockDim.x / kTemperingLanes;
+  const lane_eval::LaneStagedEval<TemperingLanes> ev{
+      d, pr.prior_const, pr.temperature, pr.n_rows, ln, buf + kP * (threadIdx.x / kTemperingLanes)};
+  lane_eval::tempering_chain<kMALA>(ev, ln, pr, c, theta0, temps, samples, final_theta, accepts,
+                                    buf + static_cast<size_t>(kP) * chains);
+#endif
 }
 
 size_t tempering_smem_bytes(bool mala, int n_rows, int threads, bool extras) {
+  const size_t slots =
+      kTemperingLanes == 1 ? 0 : static_cast<size_t>(kP) * (threads / kTemperingLanes);
   return sizeof(float) *
-         (data_floats(n_rows) + resident_loop::tempering_floats(mala, extras, threads));
+         (data_floats(n_rows) + slots +
+          lane_eval::tempering_lane_floats(mala, extras, kTemperingLanes, threads));
 }
 
 size_t smem_bytes(int move, int n_rows, int threads) {
@@ -202,8 +237,21 @@ extern "C" int resident_walk_arch(int* out) {
 
 extern "C" int resident_walk_num_sub_blocks() { return GibbsBlocks::kB; }
 
-// Lanes a chain of the MH and MALA moves.
+// Lanes a chain of the MH and MALA moves, and of the ladder move.
 extern "C" int resident_walk_lanes() { return kWalkLanes; }
+extern "C" int resident_walk_tempering_lanes() { return kTemperingLanes; }
+
+// Blocks of the ladder move (mala: within-rung MALA, else MH) of threads
+// threads an SM holds at once, for n_rows staged rows.
+extern "C" int resident_walk_tempering_max_blocks(int mala, int threads, int n_rows, int extras,
+                                                  int* out) {
+  const size_t smem = tempering_smem_bytes(mala != 0, n_rows, threads, extras != 0);
+  return static_cast<int>(
+      mala ? resident_loop::max_active_blocks(resident_walk_tempering_kernel<true>, threads, smem,
+                                              out)
+           : resident_loop::max_active_blocks(resident_walk_tempering_kernel<false>, threads,
+                                              smem, out));
+}
 
 // Blocks of the MH (move 0) or MALA (move 1) kernel of threads threads an SM
 // holds at once, for n_rows staged rows.
@@ -300,13 +348,14 @@ extern "C" int resident_walk_tempering_launch(int mala, const float* theta0, con
                                               float* samples, float* final_theta,
                                               float* accepts, void* stream) {
   const ResidentWalkParams pr = *params;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || pr.tuned ||
-      pr.num_rungs < 1 || threads % pr.num_rungs != 0 || pr.num_chains % threads != 0 ||
-      pr.between_step < 1) {
+  const long long lanes = static_cast<long long>(pr.num_chains) * kTemperingLanes;
+  if (threads < 32 || threads > kTemperingThreads || threads % 32 != 0 || pr.tuned ||
+      pr.num_rungs < 1 || threads % (pr.num_rungs * kTemperingLanes) != 0 ||
+      lanes % threads != 0 || pr.between_step < 1) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const size_t smem = tempering_smem_bytes(mala != 0, pr.n_rows, threads, pr.record_extras != 0);
-  const int blocks = pr.num_chains / threads;
+  const int blocks = static_cast<int>(lanes / threads);
   const cudaError_t err =
       mala ? resident_loop::launch(resident_walk_tempering_kernel<true>, blocks, threads, smem, 1,
                                    stream, theta0, x, y, mask, loc, ivar, temps, pr, samples,

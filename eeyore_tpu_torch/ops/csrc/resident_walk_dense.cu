@@ -9,8 +9,8 @@
 // eeyore_tpu/ops/resident_tempering_dense.py:150); the plain PyTorch
 // versions are the CPU branches of eeyore_tpu_torch/ops/resident_walk_dense.py.
 // The loops are lane_eval.cuh::walk_chain on one thread a chain, Lanes<1>
-// (move 0: MH, value only; move 1: MALA), and resident_loop.cuh::
-// tempering_chain (move 3: a power-posterior ladder, MH or MALA
+// (move 0: MH, value only; move 1: MALA), and lane_eval.cuh::
+// tempering_chain, also at Lanes<1> (move 3: a power-posterior ladder, MH or MALA
 // within each rung by the template flag kMALA; a block holds whole ladders of
 // the sublane-strided chain layout, which needs chain_block / 8 and the block
 // to be multiples of the ladder size), on
@@ -102,8 +102,8 @@ __global__ void resident_walk_dense_tempering_kernel(const float* __restrict__ t
                                                      float* __restrict__ accepts) {    // [2, C]
   extern __shared__ float smem[];
   const int c = resident_loop::chain_index(pr.sublanes, pr.chain_block, pr.num_chains);
-  resident_loop::tempering_chain<DenseEval, kMALA>(DenseEval{}, pr, c, theta0, temps, samples,
-                                                   final_theta, accepts, smem);
+  lane_eval::tempering_chain<kMALA>(DenseEval{}, lane_eval::Lanes<1>{}, pr, c, theta0, temps,
+                                    samples, final_theta, accepts, smem);
 }
 
 size_t smem_bytes(int move, int threads) {

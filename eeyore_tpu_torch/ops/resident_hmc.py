@@ -18,9 +18,11 @@ during burn-in on the mean acceptance rate of each block of ``chain_block``
 chains, the l-rule sets the trajectory length (capped at ``max_num_steps``),
 and the last burn-in iteration freezes the averaged step. ``l_rounding=
 "stochastic"`` freezes per-chain trajectory lengths ``floor(l/e) +
-Bernoulli(frac(l/e))``. On the card a tuning group is one CUDA block (at up
-to 4 lanes a chain, or one thread) or a thread-block cluster (at 8 lanes),
-and a tuned run takes ``chain_block <= MAX_BLOCK``.
+Bernoulli(frac(l/e))``. On the card a tuning group is one CUDA block or,
+where the build's registers let no block hold it, a thread-block cluster of
+up to ``MAX_CLUSTER`` blocks, at any lane count (``launch_threads``); a
+``chain_block`` that the card cannot hold so raises ValueError. The default,
+2048 chains, is JAX's. The plain version takes any group.
 
 The TPU kernel's schedule knobs (``stream``, ``mxu_layer0``,
 ``matmul_precision``, ``vmem_limit_bytes``) have no counterpart: the CUDA
@@ -43,7 +45,7 @@ from eeyore_tpu_torch.ops.fused_mlp import arch_defines
 from eeyore_tpu_torch.ops.mlp_math import extract_arch, make_vg, prepare_data
 
 KERNEL = "resident_hmc"
-# Most threads of one block, hence of one tuning group of one thread a chain.
+# Most threads of one CUDA block.
 MAX_BLOCK = 1024
 # Threads per block of an untuned run, where blocks share nothing.
 UNTUNED_BLOCK = 256
@@ -223,8 +225,9 @@ def max_active_blocks(lib, threads, n_rows):
 def launch_threads(lib, chain_block, n_rows, tuned):
     """(threads a block, blocks a cluster) of a launch of this build:
     ``launch_shape`` of a group's ``chain_block`` x lanes threads, in one
-    block or (on lanes) a cluster the card holds when tuned, in blocks of up
-    to ``UNTUNED_BLOCK`` threads that cover the chains exactly when not."""
+    block or a cluster the card holds when tuned (ValueError where none
+    does), in blocks of up to ``UNTUNED_BLOCK`` threads that cover the
+    chains exactly when not."""
     from eeyore_tpu_torch.ops.resident_hmc_dense import launch_shape
 
     return launch_shape(kernel_resources(lib),
@@ -383,7 +386,7 @@ def _run_plain(vg, arrays, pr, chain_block, theta):
 
 
 def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=0,
-                      chain_block=256, record_thin=1, tuner=None, max_num_steps=64,
+                      chain_block=2048, record_thin=1, tuner=None, max_num_steps=64,
                       stream=None, vmem_limit_bytes=None, mxu_layer0=None,
                       matmul_precision=None, l_rounding="round", record_extras=False,
                       device="cuda"):
@@ -393,9 +396,10 @@ def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=
     also ``target_val [kept, C]`` and ``accepted [kept, C]`` (int32, exact
     moved flags). C must be a multiple of ``chain_block``. ``device`` is
     where the data lives and the tensors ``fn`` takes: on a CUDA device
-    every call launches the kernel, on the CPU it runs the plain version.
-    The samples come back as a transposed view of the kernel's chain-minor
-    output."""
+    every call launches the kernel (a tuned ``chain_block`` that no block or
+    cluster of the card holds raises ValueError here), on the CPU it runs
+    the plain version. The samples come back as a transposed view of the
+    kernel's chain-minor output."""
     for name, value in (("stream", stream), ("vmem_limit_bytes", vmem_limit_bytes),
                         ("mxu_layer0", mxu_layer0), ("matmul_precision", matmul_precision)):
         if value is not None:
@@ -403,9 +407,6 @@ def make_resident_hmc(model, x, y, step, num_steps, num_iters, num_burnin_iters=
                              "leave it None")
     if l_rounding not in ("round", "stochastic"):
         raise ValueError(f"l_rounding must be 'round' or 'stochastic', got {l_rounding!r}")
-    if tuner is not None and chain_block > MAX_BLOCK:
-        raise ValueError(f"a tuned run's chain_block (its tuning group, one CUDA block) "
-                         f"is at most {MAX_BLOCK}, got {chain_block}")
     if tuner is not None and tuner.l is None:
         raise ValueError("the in-loop tuner needs the trajectory length l (HMCDATuner(l=...))")
     device = torch.device(device)

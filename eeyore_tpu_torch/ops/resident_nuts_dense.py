@@ -10,7 +10,8 @@ tiles ``(samples [kept, rows*8, C/8], final [P*8, C/8], acc [8, C/8], div [8,
 C/8])``, views of the kernel's [P, C] outputs. ``dense_input=True`` takes the
 inits as [P*8, C/8] tiles. On CUDA tensors every call is one launch of
 ``ops/csrc/resident_nuts_dense.cu``, built for the model, its data
-(``mlp_dense.dense_source``), the metric (``metric_source``) and the depth;
+(``mlp_dense.dense_source``), the metric (``metric_source``), the depth and
+the register cap ``NUTS_DENSE_BOUND``;
 on CPU tensors it runs the plain version, ``resident_nuts._run_nuts_plain``
 on ``mlp_dense.make_vg_dense``, with the same NUTS stream keyed by the global
 chain index, so it draws per chain what a staged run of the same seed draws.
@@ -49,6 +50,12 @@ from eeyore_tpu_torch.ops.resident_nuts import (
 
 KERNEL = "resident_nuts_dense"
 SUBLANES = 8
+# Launch bounds of one block of this many threads an SM (0: none), which cap
+# the registers: at 512, 128 registers, so a cluster of 16 blocks of 512
+# holds JAX's tuning group of 8192 chains. The fastest that
+# scripts/lane_sweep.py --kernels nuts_dense measured on the H100 (PERF.md,
+# section 6).
+NUTS_DENSE_BOUND = 512
 
 launch_counts = {KERNEL: 0}
 # {"accept_sums": [C], "divergent_sums": [C], "step": [C]} of the last call
@@ -72,17 +79,25 @@ def metric_source(inv_mass, mom_scale):
     return "\n".join(parts)
 
 
+def library_spec(model, x, y, max_depth, inv_mass=None):
+    """(name, source, defines, generated headers) of the dense NUTS build
+    for ``model``, the data, the depth and the metric at
+    ``NUTS_DENSE_BOUND``: the arguments of ``_build.load_library``."""
+    tag, defines = arch_defines(model)
+    im, msc = metric_arrays(inv_mass, model.num_params)
+    return (f"{KERNEL}_{tag}_d{int(max_depth)}_t{NUTS_DENSE_BOUND}", "resident_nuts_dense.cu",
+            tuple(defines) + (f"NUTS_DEPTH={int(max_depth)}",
+                              f"NUTS_DENSE_BOUND={NUTS_DENSE_BOUND}"),
+            {"dense_body.cuh": dense_source(model, x, y),
+             "nuts_metric.cuh": metric_source(im, msc)})
+
+
 def load_kernel(model, x, y, max_depth, inv_mass=None):
     """Build (at first use) and load the dense NUTS kernel for ``model``,
     the data ``(x, y)``, the metric and the depth, which it takes as
     constants."""
-    tag, defines = arch_defines(model)
-    im, msc = metric_arrays(inv_mass, model.num_params)
-    name = f"{KERNEL}_{tag}_d{int(max_depth)}"
-    lib = _build.load_library(
-        name, "resident_nuts_dense.cu", tuple(defines) + (f"NUTS_DEPTH={int(max_depth)}",),
-        generated={"dense_body.cuh": dense_source(model, x, y),
-                   "nuts_metric.cuh": metric_source(im, msc)})
+    name, *spec = library_spec(model, x, y, max_depth, inv_mass)
+    lib = _build.load_library(name, *spec)
     lib.resident_nuts_dense_launch.argtypes = (
         [ctypes.c_void_p, ctypes.POINTER(ResidentHMCParams), ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 6)

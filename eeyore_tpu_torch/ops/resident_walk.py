@@ -53,7 +53,10 @@ by the whole value-only forward pass on the same lanes.
   with extras the values are untempered and ``moved`` compares theta after
   the swaps with theta at the start of the iteration. Its plain version is
   ``_run_tempering_plain``, on ``kernel_prng.tempering_draws``; on the card
-  it is move 3 of the same library, in blocks that hold whole ladders.
+  it is move 3 of the same library, a chain on ``TEMPERING_LANES`` lanes of a
+  warp (``tempering_lanes``: fewer for a ladder too long for a block of
+  ``TEMPERING_BLOCK`` threads, one thread a chain on data of few rows), in
+  blocks that hold whole ladders (``ladder_threads``).
 """
 
 import ctypes
@@ -109,6 +112,14 @@ LANE_COUNTS = (8, 16, 32)
 # scripts/lane_sweep.py measured on the H100, PERF.md, section 6).
 WALK_LANES = 8
 WALK_MIN_BLOCKS = 2
+# The ladder move: lanes of a warp a chain (1, 2, 4 or 8) on data of at least
+# LANE_MIN_ROWS rows, halved for a ladder that a block of TEMPERING_BLOCK
+# threads does not hold (tempering_lanes), and the blocks of TEMPERING_BLOCK
+# threads an SM must hold at once, which caps the registers (the fastest
+# that scripts/lane_sweep.py measured on the H100, PERF.md, section 6).
+TEMPERING_LANES = 8
+TEMPERING_MIN_BLOCKS = 2
+TEMPERING_BLOCK = 256
 
 launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0, TEMPERING_KERNEL: 0}
 # What the last call of a Gibbs or tempering function returned as its accept
@@ -245,26 +256,49 @@ def chain_lanes(n_rows):
     return check_walk_lanes(WALK_LANES) if n_rows >= LANE_MIN_ROWS else 1
 
 
-def library_spec(model, node_subblock_size=None, n_rows=0, lanes=None):
+def tempering_lanes(n_rows, num_rungs, chain_block):
+    """Lanes a chain of the staged ladder move for ladders of ``num_rungs``
+    rungs in chain blocks of ``chain_block`` chains on ``n_rows`` staged
+    (padded) rows: ``TEMPERING_LANES``, halved until a block of at most
+    ``TEMPERING_BLOCK`` threads holds whole ladders and divides the chain
+    block's threads; 1 (one thread a chain, blocks of up to 1024 threads) on
+    fewer than ``LANE_MIN_ROWS`` rows, where a lane would get no rows to
+    split. So every ladder that ran on one thread a chain still runs, a
+    ladder of ``WALK_BLOCK`` rungs on one thread a chain."""
+    lanes = check_walk_lanes(TEMPERING_LANES)
+    if n_rows < LANE_MIN_ROWS:
+        return 1
+    while lanes > 1 and not _ladder_sizes(TEMPERING_BLOCK, chain_block, num_rungs, lanes):
+        lanes //= 2
+    return lanes
+
+
+def library_spec(model, node_subblock_size=None, n_rows=0, lanes=None, ladder_lanes=None):
     """(name, source, defines, generated headers) of the walk build that
     ``load_kernel`` loads for these arguments, at the module's settings: the
     arguments of ``_build.load_library``."""
     lanes = check_walk_lanes(WALK_LANES if lanes is None else lanes)
+    ladder_lanes = check_walk_lanes(TEMPERING_LANES if ladder_lanes is None else ladder_lanes)
     tag, defines = arch_defines(model)
-    return (f"{KERNEL}_{tag}_l{lanes}_b{WALK_MIN_BLOCKS}", "resident_walk.cu",
-            tuple(defines) + (f"WALK_LANES={lanes}", f"WALK_MIN_BLOCKS={WALK_MIN_BLOCKS}"),
+    return (f"{KERNEL}_{tag}_l{lanes}_b{WALK_MIN_BLOCKS}_t{ladder_lanes}_b{TEMPERING_MIN_BLOCKS}",
+            "resident_walk.cu",
+            tuple(defines) + (f"WALK_LANES={lanes}", f"WALK_MIN_BLOCKS={WALK_MIN_BLOCKS}",
+                              f"TEMPERING_LANES={ladder_lanes}",
+                              f"TEMPERING_MIN_BLOCKS={TEMPERING_MIN_BLOCKS}"),
             {"gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size, n_rows)})
 
 
-def load_kernel(model, node_subblock_size=None, n_rows=0, lanes=None):
+def load_kernel(model, node_subblock_size=None, n_rows=0, lanes=None, ladder_lanes=None):
     """Build (at first use) and load the walk kernels for ``model``'s
     architecture and the Gibbs blocking of ``node_subblock_size``, which
     they take as compile-time constants; the Gibbs move on ``GIBBS_LANES``
     lanes a chain, caching the rows' activations where ``gibbs_lane_plan``
     of ``n_rows`` padded rows says the cache fits (a library built for fewer
     rows than a launch gives refuses the launch); the MH and MALA moves on
-    ``lanes`` lanes a chain (``WALK_LANES``, or 1: ``chain_lanes``)."""
-    spec = library_spec(model, node_subblock_size, n_rows, lanes)
+    ``lanes`` lanes a chain (``WALK_LANES``, or 1: ``chain_lanes``), the
+    ladder move on ``ladder_lanes`` (``TEMPERING_LANES``, or fewer:
+    ``tempering_lanes``)."""
+    spec = library_spec(model, node_subblock_size, n_rows, lanes, ladder_lanes)
     lib = _build.load_library(*spec)
     lib.resident_walk_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 6
@@ -296,6 +330,11 @@ def load_kernel(model, node_subblock_size=None, n_rows=0, lanes=None):
     lib.resident_walk_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                              ctypes.POINTER(ctypes.c_int)]
     lib.resident_walk_max_blocks.restype = ctypes.c_int
+    lib.resident_walk_tempering_lanes.argtypes = []
+    lib.resident_walk_tempering_lanes.restype = ctypes.c_int
+    lib.resident_walk_tempering_max_blocks.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.resident_walk_tempering_max_blocks.restype = ctypes.c_int
     check_arch(lib.resident_walk_arch, model, spec[0])
     return lib
 
@@ -670,18 +709,35 @@ def set_ladder(params, rungs, between_step, move, value):
         params.half_inv_step = float(np.float32(0.5 / float(value)))
 
 
-def ladder_threads(max_threads, chain_block, num_rungs):
-    """Threads per block of a tempering launch: a multiple of 32 that the
-    build's registers allow (``max_threads``), that divides ``chain_block``
-    and holds whole ladders; the largest up to ``WALK_BLOCK``, else the
-    smallest above it."""
-    sizes = [t for t in range(min(max_threads, 1024) // 32 * 32, 31, -32)
-             if chain_block % t == 0 and t % num_rungs == 0]
-    small = [t for t in sizes if t <= WALK_BLOCK]
-    if small or sizes:
+def _ladder_sizes(max_threads, chain_block, num_rungs, lanes=1):
+    """Threads a block of a tempering launch can have, largest first:
+    multiples of 32 that the build allows (``max_threads``), that divide the
+    chain block's ``chain_block * lanes`` threads and hold whole ladders."""
+    return [t for t in range(min(max_threads, 1024) // 32 * 32, 31, -32)
+            if (chain_block * lanes) % t == 0 and t % (num_rungs * lanes) == 0]
+
+
+def ladder_threads(max_threads, chain_block, num_rungs, lanes=1, num_chains=None,
+                   sm_count=None):
+    """Threads per block of a tempering launch (``_ladder_sizes``). One
+    thread a chain: the largest up to ``WALK_BLOCK``, else the smallest
+    above it. On lanes: the largest whose blocks of ``num_chains`` chains
+    fill the card's ``sm_count`` SMs, else the smallest, so that a launch of
+    few ladders (a ladder's entry point runs one chain block) spreads its
+    chains' serial row loops over as many SMs as it can."""
+    sizes = _ladder_sizes(max_threads, chain_block, num_rungs, lanes)
+    if not sizes:
+        raise ValueError(f"a ladder of {num_rungs} rungs on {lanes} lanes a chain does not "
+                         f"fit a block of at most {max_threads} threads that divides "
+                         f"chain_block {chain_block}")
+    if lanes == 1:
+        small = [t for t in sizes if t <= WALK_BLOCK]
         return small[0] if small else sizes[-1]
-    raise ValueError(f"a ladder of {num_rungs} rungs does not fit a block of at most "
-                     f"{max_threads} threads that divides chain_block {chain_block}")
+    if num_chains is not None and sm_count is not None:
+        filling = [t for t in sizes if num_chains * lanes // t >= sm_count]
+        if filling:
+            return filling[0]
+    return sizes[-1]
 
 
 def _setup(params, chain_block, device):
@@ -726,7 +782,7 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
     vg = make_vg(model, x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature,
                  with_grad=move == "mala")
     n_rows = x_pad.shape[0]
-    lib, threads = None, None
+    lib, threads, ladder = None, None, None
     if device.type == "cuda":
         if rungs is None:
             if chain_block % 32 != 0:
@@ -735,9 +791,16 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
             lib = load_kernel(model, lanes=chain_lanes(n_rows))
             threads = walk_threads(lib, move, chain_block)
         else:
-            lib = load_kernel(model)
+            lanes = tempering_lanes(n_rows, len(rungs), chain_block)
+            lib = load_kernel(model, ladder_lanes=lanes)
             max_threads = kernel_resources(lib, f"tempering_{move}")["max_threads_per_block"]
-            threads = ladder_threads(max_threads, chain_block, len(rungs))
+            sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+            ladder_threads(max_threads, chain_block, len(rungs), lanes)  # raises if none fits
+
+            def ladder_block(C):
+                return ladder_threads(max_threads, chain_block, len(rungs), lanes, C, sm_count)
+
+            ladder = dict(lanes=lanes, sm_count=sm_count, threads=ladder_block)
     setup = _setup(params, chain_block, device)
 
     def run_plain(pr, theta_t):
@@ -754,7 +817,7 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
             samples, final, acc = resident_walk(lib, move, theta_t, *arrays, pr, threads)
         else:
             samples, final, acc = resident_walk_tempering(lib, move, theta_t, *arrays, rungs, pr,
-                                                          threads)
+                                                          ladder["threads"](pr.num_chains))
             acc = acc.T
         if rungs is not None:
             last_info[TEMPERING_KERNEL] = {"accept_counts": acc}
@@ -769,7 +832,25 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
     fn.walk_launch = lambda C, sm_count=None: (
         None if lib is None or rungs is not None
         else walk_launch(lib, move, C, chain_block, n_rows, sm_count))
+    fn.tempering_launch = lambda C: (
+        None if ladder is None else tempering_launch(lib, move, C, n_rows, record_extras, ladder))
     return fn
+
+
+def tempering_launch(lib, move, num_chains, n_rows, extras, ladder):
+    """The launch of the loaded ladder move for ``num_chains`` chains:
+    lanes, threads, blocks, the blocks an SM holds (the card's occupancy
+    calculator on the build) and the SMs the first wave covers at least."""
+    threads = ladder["threads"](num_chains)
+    out = ctypes.c_int(0)
+    raise_on(lib.resident_walk_tempering_max_blocks(int(move == "mala"), threads, n_rows,
+                                                    int(extras), ctypes.byref(out)),
+             lib.resident_walk_error_string, TEMPERING_KERNEL)
+    blocks = num_chains * ladder["lanes"] // threads
+    per_sm = out.value
+    return {"lanes": ladder["lanes"], "threads": threads, "blocks": blocks,
+            "blocks_per_sm": per_sm,
+            "sms_covered": min(ladder["sm_count"], -(-blocks // per_sm)) if per_sm else 0}
 
 
 def make_resident_gibbs(model, x, y, scales=1.0, node_subblock_size=None, num_iters=1000,

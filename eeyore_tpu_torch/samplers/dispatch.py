@@ -64,13 +64,10 @@ KERNEL_RECORD_KEYS = frozenset({"sample", "accepted", "target_val"})
 _DENSE_BLOCKS = (8192, 4096, 2048, 1024)
 _RESIDENT_BLOCKS = (4096, 2048, 1024, 512, 256, 128)
 MAX_DISPATCH_PARAMS = 256
-# Largest chain_block (a tuned run's tuning group, one CUDA block) that
-# dispatch picks on Hopper, from the registers of the kernel's builds on an
-# H100 (chip_smoke.py, build phase): iris MLP(4,3,3) takes 254 registers a
-# thread, so at most 256 threads a block; XOR MLP(2,2,1) takes 93, so at
-# most 640.
-HOPPER_BLOCK_CAP_WIDE = 256
-HOPPER_BLOCK_CAP_SMALL = 512
+# JAX's streamed-body block caps of the staged HMC and NUTS kernels: 256 on
+# data of at least SMALL_MODEL_ROWS rows, else 4096; on the card a tuned
+# group is also capped by what the build of its lanes holds (_hmc_group_cap,
+# _nuts_group_cap).
 SMALL_MODEL_ROWS = 32
 KERNEL_MAX_NUM_STEPS = 64
 # JAX's limit on the NUTS kernels' depth, from its TPU compile service (its
@@ -175,6 +172,30 @@ def _dense_group_cap(kernel, x, y):
     return _largest_group(_DENSE_BLOCKS, lambda cb: resident_hmc_dense.group_shape(lib, cb))
 
 
+def _jax_resident_cap(x):
+    """JAX's cap on the staged HMC and NUTS kernels' chain_block."""
+    return 256 if x.shape[0] >= SMALL_MODEL_ROWS else 4096
+
+
+def _hmc_group_cap(kernel, x, y, blocks):
+    """The largest of ``blocks`` that a tuned staged HMC run's tuning group
+    can be on this card: the build of its lanes a chain
+    (``resident_hmc.chain_lanes``) is asked, as ``_nuts_group_cap`` asks the
+    NUTS builds; None untuned or off the card."""
+    if kernel.tuner is None or not x.is_cuda:
+        return None
+    from eeyore_tpu_torch.ops import resident_hmc
+    from eeyore_tpu_torch.ops.mlp_math import prepare_data
+
+    n_rows = prepare_data(kernel.model, x.cpu().numpy(), y.cpu().numpy())[0].shape[0]
+
+    def group_shape(cb):
+        lib = resident_hmc.load_kernel(kernel.model, resident_hmc.chain_lanes(n_rows, cb, True))
+        return resident_hmc.launch_threads(lib, cb, n_rows, True)
+
+    return _largest_group(blocks, group_shape)
+
+
 def _nuts_group_cap(kernel, x, y, dense, inv_mass, blocks):
     """The largest of ``blocks`` that a tuned NUTS run's tuning group can be
     on this card (the NUTS kernel's build asked, as ``_dense_group_cap`` asks
@@ -222,7 +243,7 @@ def _nuts_plan(kernel, x, y, num_chains, common, want_dense):
         nuts_kw["inv_mass"] = np.asarray(frozen_metric)
     # the staged kernel: JAX's streamed-body cap, and on the card what a
     # tuning group can be
-    jax_cap = 256 if x.shape[0] >= SMALL_MODEL_ROWS else 4096
+    jax_cap = _jax_resident_cap(x)
     blocks = _DENSE_BLOCKS if want_dense else tuple(b for b in _RESIDENT_BLOCKS if b <= jax_cap)
     cap = _nuts_group_cap(kernel, x, y, want_dense, nuts_kw.get("inv_mass"), blocks)
     if want_dense:
@@ -345,10 +366,14 @@ def _sampler_plan(kernel, x, y, num_chains, num_iters, num_burnin_iters, record_
                      cb), None
     from eeyore_tpu_torch.ops.resident_hmc import make_resident_hmc
 
-    cap = HOPPER_BLOCK_CAP_WIDE if x.shape[0] >= SMALL_MODEL_ROWS else HOPPER_BLOCK_CAP_SMALL
-    cb = _pick_block(num_chains, _RESIDENT_BLOCKS, cap=cap)
+    # JAX's cap, and on the card what a tuning group can be
+    jax_cap = _jax_resident_cap(x)
+    cap = _hmc_group_cap(kernel, x, y, tuple(b for b in _RESIDENT_BLOCKS if b <= jax_cap))
+    cb = _pick_block(num_chains, _RESIDENT_BLOCKS,
+                     cap=jax_cap if cap is None else min(cap, jax_cap))
     if cb is None:
-        return None, "resident HMC needs chains divisible by 128"
+        return None, ("resident HMC needs chains divisible by 128"
+                      + _cap_note(cap if cap is not None and cap < jax_cap else None))
     return _Plan("resident", make_resident_hmc, dict(chain_block=cb, **hmc_kw), cb), None
 
 

@@ -5,11 +5,22 @@ move (iris MLP(4,3,2,3), ``Gibbs(scales=0.1)``), the staged iris NUTS kernel
 tuned in groups of 256) and the staged iris MH (scale 0.1) and MALA (step
 0.003) moves, each built at the modules' settings and at the other lanes a
 chain and occupancy targets of ``SWEEP``, held against its plain version and
-timed at its main path's shape.
+timed at its main path's shape; and the staged ladder move (iris MLP(4,3,3),
+ladders of 8 rungs at (i/8)^4, MALA step 0.003 and MH scale 0.1, swaps every
+10 iterations), timed at two shapes: its entry point's one chain block of 128
+chains (``PowerPosteriorSampler.run(backend="auto")``), where the one chain's
+serial row loop is the time, and 32768 chains in chain blocks of 4096; and
+the dense XOR NUTS kernel (MLP(2,2,1), ``HMCDATuner(d=0.8)``, one thread a
+chain) at the register caps of ``NUTS_DENSE_SWEEP``, at the three XOR
+NUTS main shapes: depth 3, step 0.1; the auto path's depth 2 at its probed
+step; and depth 2 at the probed step and frozen metric of the auto path with
+``mass_adapt`` (the plans of ``chip_smoke.py``'s phase 15, PERF.md), each
+in the tuning group that dispatch gives the build (JAX's 8192 chains where
+the card holds it).
 
 Run from the root of the repository on a machine with a card:
 
-    python3 scripts/lane_sweep.py [--seed 0] [--kernels gibbs,nuts,hmc,walk]
+    python3 scripts/lane_sweep.py [--seed 0] [--kernels gibbs,nuts,hmc,walk,tempering,nuts_dense]
 
 It prints the card's name and power limit, then one JSON line per build and
 move: the lanes a chain, the blocks an SM must hold (which caps the
@@ -18,17 +29,24 @@ card's occupancy, SMs covered), the share of chains that agree with the plain
 version (Gibbs: every unit split, 32768 chains x 20 iterations, extras;
 NUTS: untuned, 16384 chains x 5 iterations; HMC: untuned, 4096 chains x 20
 iterations of 8 leapfrog steps, extras, and tuned over a 5-iteration burn-in;
-MH and MALA: 4096 chains x 20 iterations, extras) and the kernel's time at
-the main path's shape (Gibbs, MH and MALA: 32768 chains x 2048 iterations,
-1024 burn-in; NUTS: 16384 chains x 2048 iterations, 1024 burn-in, tuning
-groups of 256; HMC: 32768 chains x 1500 iterations, 500 burn-in, the plan
-dispatch gives ``sample_chains``), the median of three launches after a
-warm-up. The modules' settings (``resident_walk.GIBBS_LANES`` and
-``GIBBS_MIN_BLOCKS``, ``resident_nuts.NUTS_LANES`` and ``NUTS_MIN_BLOCKS``,
+MH and MALA: 4096 chains x 20 iterations, extras; the ladder move: 4096
+chains x 20 iterations in chain blocks of 128, swaps every 5, extras, both
+count columns) and the kernel's time at the main path's shape (Gibbs, MH
+and MALA: 32768 chains x 2048 iterations, 1024 burn-in; NUTS: 16384 chains
+x 2048 iterations, 1024 burn-in, tuning groups of 256; HMC: 32768 chains x
+1500 iterations, 500 burn-in, the plan dispatch gives ``sample_chains``;
+the ladder move: 128 chains and 32768 chains x 2048 iterations, 1024
+burn-in; dense NUTS: 32768 chains x 2048 iterations, 1024 burn-in), the
+median of three launches after a warm-up; dense NUTS is held against its
+plain version untuned (16384 chains x 5 iterations) and tuned (3 burn-in
+iterations) at each shape. The modules' settings
+(``resident_walk.GIBBS_LANES`` and ``GIBBS_MIN_BLOCKS``,
+``resident_nuts.NUTS_LANES`` and ``NUTS_MIN_BLOCKS``,
 ``resident_hmc.HMC_LANES`` and ``HMC_MIN_BLOCKS``, ``resident_walk.WALK_LANES``
-and ``WALK_MIN_BLOCKS``) are the fastest of such a run; this script sets them
-in its own process only, build by build. It exits non-zero when a build
-disagrees with its plain version.
+and ``WALK_MIN_BLOCKS``, ``resident_walk.TEMPERING_LANES`` and
+``TEMPERING_MIN_BLOCKS``, ``resident_nuts_dense.NUTS_DENSE_BOUND``) are the
+fastest of such a run; this script sets them in its own process only, build
+by build. It exits non-zero when a build disagrees with its plain version.
 """
 
 import argparse
@@ -61,13 +79,27 @@ SWEEP = (("gibbs", 32, 1), ("gibbs", 32, 2), ("gibbs", 16, 2), ("gibbs", 8, 2),
          ("nuts", 8, 4), ("nuts", 8, 6), ("nuts", 16, 2), ("nuts", 32, 1),
          ("hmc", 1, 1), ("hmc", 2, 1), ("hmc", 4, 1), ("hmc", 8, 2), ("hmc", 8, 4),
          ("walk", 1, 1), ("walk", 2, 2), ("walk", 2, 4), ("walk", 4, 2), ("walk", 4, 3),
-         ("walk", 4, 4), ("walk", 8, 2), ("walk", 8, 4))
-KERNELS = ("gibbs", "nuts", "hmc", "walk")
+         ("walk", 4, 4), ("walk", 8, 2), ("walk", 8, 4),
+         ("tempering", 1, 1), ("tempering", 2, 2), ("tempering", 2, 4), ("tempering", 4, 2),
+         ("tempering", 4, 4), ("tempering", 8, 1), ("tempering", 8, 2), ("tempering", 8, 4))
+# dense NUTS, one thread a chain: the launch bound's threads a block (0:
+# none), which caps the registers
+NUTS_DENSE_SWEEP = tuple(("nuts_dense", 1, bound) for bound in (0, 512, 1024))
+KERNELS = ("gibbs", "nuts", "hmc", "walk", "tempering", "nuts_dense")
 # node sub-blocks that split every unit of iris MLP(4,3,2,3)
 SPLIT_UNITS = [3, 3, 3, 2, 2, 2, 2, 2]
 C_GIBBS, C_NUTS, ITERS, BURNIN, NUTS_DEPTH = 32768, 16384, 2048, 1024, 3
 C_HMC, HMC_ITERS, HMC_BURNIN, HMC_BLOCK = 32768, 1500, 500, 256
 C_CHECK, WALK_BLOCK = 4096, 4096
+# the ladder move: rungs, swap period, the entry point's chain block (one
+# block of ladders), the chain block at size, the check's swap period
+RUNGS, BETWEEN, LADDER_BLOCK, LADDER_SIZE_BLOCK, CHECK_BETWEEN = 8, 10, 128, 4096, 5
+# dense NUTS's main shapes: (name, depth, step, metric); the auto paths' steps
+# and metric as their probes found them (PERF.md, section 5)
+AUTO_METRIC = (0.8042, 0.8197, 1.0268, 0.8828, 0.8898, 0.8264, 0.7177, 0.6989, 0.5551)
+NUTS_DENSE_SHAPES = (("depth_3", 3, 0.1, None), ("auto_depth_2", 2, 0.66, None),
+                     ("auto_depth_2_mass_adapt", 2, 0.794, AUTO_METRIC))
+C_NUTS_DENSE, DENSE_GROUPS = 32768, (8192, 4096, 2048, 1024)
 
 
 def main(argv=None):
@@ -85,9 +117,16 @@ def main(argv=None):
 
     from eeyore_tpu_torch.datasets import XYDataset
     from eeyore_tpu_torch.models import MLP, loss_functions, mlp
-    from eeyore_tpu_torch.ops import _build, resident_hmc, resident_nuts, resident_walk
+    from eeyore_tpu_torch.ops import (
+        _build,
+        resident_hmc,
+        resident_nuts,
+        resident_nuts_dense,
+        resident_walk,
+    )
     from eeyore_tpu_torch.ops.fused_mlp import arch_defines
     from eeyore_tpu_torch.ops.mlp_math import prepare_data
+    from eeyore_tpu_torch.ops.resident_tempering import make_resident_tempering
     from eeyore_tpu_torch.samplers import HMC
     from eeyore_tpu_torch.samplers.dispatch import resolve_backend
     from eeyore_tpu_torch.tuners import HMCDATuner
@@ -103,13 +142,18 @@ def main(argv=None):
 
     gibbs_model = make_model([4, 3, 2, 3], [mlp.sigmoid, mlp.sigmoid, None])
     nuts_model = make_model([4, 3, 3], [mlp.sigmoid, None])
+    xor = XYDataset.from_eeyore("xor")
+    xor_model = MLP(loss=loss_functions["binary_classification"], dtype=torch.float32,
+                    device=device, hparams=mlp.Hyperparameters(dims=[2, 2, 1]))
     n_rows = prepare_data(gibbs_model, iris.x, iris.y)[0].shape[0]
     settings = {"gibbs": (resident_walk.GIBBS_LANES, resident_walk.GIBBS_MIN_BLOCKS),
                 "nuts": (resident_nuts.NUTS_LANES, resident_nuts.NUTS_MIN_BLOCKS),
                 "hmc": (resident_hmc.HMC_LANES, resident_hmc.HMC_MIN_BLOCKS),
-                "walk": (resident_walk.WALK_LANES, resident_walk.WALK_MIN_BLOCKS)}
+                "walk": (resident_walk.WALK_LANES, resident_walk.WALK_MIN_BLOCKS),
+                "tempering": (resident_walk.TEMPERING_LANES, resident_walk.TEMPERING_MIN_BLOCKS),
+                "nuts_dense": (1, resident_nuts_dense.NUTS_DENSE_BOUND)}
     runs = [(kernel, *settings[kernel]) for kernel in kernels]
-    runs += [run for run in SWEEP if run[0] in kernels and run not in runs]
+    runs += [run for run in SWEEP + NUTS_DENSE_SWEEP if run[0] in kernels and run not in runs]
 
     def use(kernel, lanes, min_blocks):
         if kernel == "gibbs":
@@ -118,8 +162,12 @@ def main(argv=None):
             resident_nuts.NUTS_LANES, resident_nuts.NUTS_MIN_BLOCKS = lanes, min_blocks
         elif kernel == "hmc":
             resident_hmc.HMC_LANES, resident_hmc.HMC_MIN_BLOCKS = lanes, min_blocks
-        else:
+        elif kernel == "walk":
             resident_walk.WALK_LANES, resident_walk.WALK_MIN_BLOCKS = lanes, min_blocks
+        elif kernel == "tempering":
+            resident_walk.TEMPERING_LANES, resident_walk.TEMPERING_MIN_BLOCKS = lanes, min_blocks
+        else:  # min_blocks: the launch bound's threads
+            resident_nuts_dense.NUTS_DENSE_BOUND = min_blocks
 
     # every build at once, under the names the makers load them by: the
     # settings go into the generated header or the defines before any build
@@ -137,8 +185,14 @@ def main(argv=None):
                                f"NUTS_MIN_BLOCKS={min_blocks}"), None))
         elif kernel == "hmc":
             builds.append(resident_hmc.library_spec(nuts_model, lanes) + (None,))
-        else:
+        elif kernel == "walk":
             builds.append(resident_walk.library_spec(nuts_model, lanes=lanes))
+        elif kernel == "tempering":
+            builds.append(resident_walk.library_spec(nuts_model, ladder_lanes=lanes))
+        else:
+            for _, depth, _, metric in NUTS_DENSE_SHAPES:
+                builds.append(resident_nuts_dense.library_spec(xor_model, xor.x, xor.y, depth,
+                                                               metric))
         use(kernel, *settings[kernel])
     with concurrent.futures.ThreadPoolExecutor(min(len(builds), 12)) as pool:
         for future in [pool.submit(_build.load_library, *b) for b in builds]:
@@ -151,7 +205,9 @@ def main(argv=None):
         "nuts": torch.as_tensor(0.1 * rng.normal(size=(C_NUTS, nuts_model.num_params)),
                                 dtype=torch.float32, device=device),
         "iris433": torch.as_tensor(0.1 * rng.normal(size=(C_HMC, nuts_model.num_params)),
-                                   dtype=torch.float32, device=device)}
+                                   dtype=torch.float32, device=device),
+        "xor": torch.as_tensor(rng.normal(size=(C_NUTS_DENSE, xor_model.num_params)),
+                               dtype=torch.float32, device=device)}
     hmc_tuned = dict(step=0.1, num_steps=10, tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64)
     ok = True
 
@@ -174,7 +230,44 @@ def main(argv=None):
         use(kernel, lanes, min_blocks)
         record = {"kernel": kernel, "lanes": lanes, "min_blocks": min_blocks,
                   "settings": (lanes, min_blocks) == settings[kernel]}
-        if kernel == "gibbs":
+        if kernel == "nuts_dense":
+            record.update(min_blocks=None, bound=min_blocks)
+            for shape, depth, step, metric in NUTS_DENSE_SHAPES:
+                lib = resident_nuts_dense.load_kernel(xor_model, xor.x, xor.y, depth, metric)
+                group = None
+                for cb in DENSE_GROUPS:  # dispatch's choice: the largest the card holds
+                    try:
+                        resident_nuts_dense.group_shape(lib, cb)
+                    except ValueError:
+                        continue
+                    group = cb
+                    break
+                if group is None:
+                    print(json.dumps(dict(record, shape=shape, group=None)), flush=True)
+                    continue
+
+                def dense(iters, burnin, tuned=True, C=C_NUTS_DENSE):
+                    return resident_nuts_dense.make_resident_nuts_dense(
+                        xor_model, xor.x, xor.y, step, depth, iters, burnin, chain_block=group,
+                        tuner=HMCDATuner(d=0.8) if tuned else None, inv_mass=metric,
+                        device=device), theta0s["xor"][:C]
+
+                tol = dict(atol=NUTS_ATOL, rtol=NUTS_RTOL)
+                checks = {}
+                for check_name, (held, theta) in (("untuned", dense(5, 0, False, C_NUTS)),
+                                                  ("tuned_burnin_3", dense(5, 3, True, C_NUTS))):
+                    checks[check_name] = agreement(held, theta, NUTS_MIN_AGREEING, (1, 0, 0, 0),
+                                                   tol)
+                fn, theta = dense(ITERS, BURNIN)
+                fn(args.seed, theta)
+                info = resident_nuts_dense.last_info[resident_nuts_dense.KERNEL]
+                accept_stat = (info["accept_sums"].sum() / (theta.shape[0] * (ITERS - BURNIN)))
+                report(dict(record, shape=shape, depth=depth, step=step, chain_block=group,
+                            resources=resident_nuts_dense.kernel_resources(lib),
+                            launch=fn.launch_shape, chains=theta.shape[0], iterations=ITERS,
+                            burnin=BURNIN, accept_stat=accept_stat.item()), fn, theta, checks)
+                del fn
+        elif kernel == "gibbs":
             fn = resident_walk.make_resident_gibbs(
                 gibbs_model, iris.x, iris.y, 0.1, None, num_iters=ITERS,
                 num_burnin_iters=BURNIN, chain_block=4096, device=device)
@@ -224,6 +317,32 @@ def main(argv=None):
                         launch=fn.hmc_launch(C_HMC, sm_count), chains=C_HMC,
                         iterations=HMC_ITERS, burnin=HMC_BURNIN, chain_block=plan.chain_block),
                    fn, theta0s["iris433"], checks)
+        elif kernel == "tempering":
+            temps = (np.arange(1, RUNGS + 1) / RUNGS) ** 4
+            for move, sampler, value in (("mh", "MetropolisHastings", 0.1),
+                                         ("mala", "MALA", 0.003)):
+                def ladder(C, chain_block, iters, burnin, between=BETWEEN, extras=False):
+                    fn = make_resident_tempering(
+                        nuts_model, iris.x, iris.y, RUNGS, value, sampler, temps, between,
+                        iters, burnin, chain_block, record_extras=extras, device=device)
+                    return fn, theta0s["iris433"][:C]
+
+                held, check_theta = ladder(C_CHECK, LADDER_BLOCK, 20, 0, CHECK_BETWEEN, True)
+                check_lanes = resident_walk.tempering_lanes(n_rows, RUNGS, LADDER_BLOCK)
+                resources = resident_walk.kernel_resources(
+                    resident_walk.load_kernel(nuts_model, ladder_lanes=check_lanes),
+                    f"tempering_{move}")
+                checks = {"untuned": agreement(held, check_theta, RESIDENT_LANE_MIN_AGREEING,
+                                               (1, 0, 0, 1, 1))}
+                for C, chain_block in ((LADDER_BLOCK, LADDER_BLOCK),
+                                       (C_HMC, LADDER_SIZE_BLOCK)):
+                    fn, theta = ladder(C, chain_block, ITERS, BURNIN)
+                    report(dict(record, kernel=f"tempering_{move}", resources=resources,
+                                launch=fn.tempering_launch(C), chains=C, chain_block=chain_block,
+                                iterations=ITERS, burnin=BURNIN, rungs=RUNGS,
+                                between_step=BETWEEN), fn, theta, checks)
+                    del fn
+                del held
         else:
             for move, maker, value in (("mh", resident_walk.make_resident_mh, 0.1),
                                        ("mala", resident_walk.make_resident_mala, 0.003)):

@@ -1,12 +1,14 @@
 // Host emulation of the CUDA primitives that the port's lane kernels use, for
 // tests/test_torch_lane_emulation.py: a kernel source of
 // eeyore_tpu_torch/ops/csrc compiles for the host with g++ against this header
-// (its shared memory made static by the test), every thread of a block runs
-// as a ucontext coroutine on one host thread, and warp shuffles, ballots,
-// __syncwarp and __syncthreads are barriers over the lanes of their mask or
-// over the block, at which a thread yields until every member has arrived.
-// Blocks run one after another; clusters are refused. Only the primitives the
-// kernels call are here.
+// (its shared memory taken from emu::block_smem and emu::shared_array by the
+// test), every thread of a thread-block cluster runs as a ucontext coroutine
+// on one host thread, and warp shuffles, ballots, __syncwarp, __syncthreads
+// and the cluster barrier are barriers over the lanes of their mask, over the
+// block or over the cluster, at which a thread yields until every member has
+// arrived. Each block of a cluster has its own shared memory, which
+// map_shared_rank reaches; clusters (a block without one is a cluster of one)
+// run one after another. Only the primitives the kernels call are here.
 #pragma once
 #include <ucontext.h>
 #include <math.h>
@@ -51,8 +53,31 @@ inline std::vector<ucontext_t> ctx;
 inline std::vector<char> done;
 inline ucontext_t main_ctx;
 inline int cur = 0;
-inline float vals[1024];
-inline unsigned bits[1024];
+constexpr int kMaxCluster = 16;
+inline int rank = 0;  // the current thread's block in its cluster
+inline int cluster_size = 1;
+inline float vals[kMaxCluster * 1024];
+inline unsigned bits[kMaxCluster * 1024];
+// Each block's shared memory: static arrays (shared_array), then the dynamic
+// shared memory (block_smem).
+constexpr size_t kStaticFloats = 4096;
+constexpr size_t kArenaFloats = kStaticFloats + (size_t{1} << 20);
+inline float arena[kMaxCluster][kArenaFloats];
+inline float* block_smem() { return arena[rank] + kStaticFloats; }
+inline float* shared_array(int id, size_t n) {
+  static std::map<int, size_t> offsets;
+  static size_t used = 0;
+  auto it = offsets.find(id);
+  if (it == offsets.end()) {
+    if (used + n > kStaticFloats) {
+      std::fprintf(stderr, "emulation: static shared memory exhausted\n");
+      std::abort();
+    }
+    it = offsets.emplace(id, used).first;
+    used += n;
+  }
+  return arena[rank] + it->second;
+}
 inline void yield() { swapcontext(&ctx[cur], &main_ctx); }
 inline void barrier(long key, unsigned mask, int count) {
   Bar& b = bars[{key, mask}];
@@ -64,8 +89,10 @@ inline void barrier(long key, unsigned mask, int count) {
     while (b.gen == g) yield();
   }
 }
-inline int warp() { return static_cast<int>(threadIdx.x) / 32; }
+// the warp's slot among the cluster's (barrier keys and the exchange arrays)
+inline int warp() { return rank * 32 + static_cast<int>(threadIdx.x) / 32; }
 inline int lane() { return static_cast<int>(threadIdx.x) % 32; }
+inline int me() { return rank * 1024 + static_cast<int>(threadIdx.x); }
 inline void warp_barrier(unsigned mask) { barrier(warp(), mask, __builtin_popcount(mask)); }
 inline std::function<void()> body;
 inline void entry() {
@@ -73,9 +100,12 @@ inline void entry() {
   done[cur] = 1;
   swapcontext(&ctx[cur], &main_ctx);
 }
-inline void run_block(int threads, std::function<void()> fn) {
+// Runs the blocks [first, first + blocks) of a launch as one cluster.
+inline void run_cluster(int first, int blocks, int threads_per_block, std::function<void()> fn) {
   static std::vector<std::vector<char>> stacks;
+  const int threads = blocks * threads_per_block;
   body = fn;
+  cluster_size = blocks;
   ctx.assign(threads, ucontext_t{});
   done.assign(threads, 0);
   stacks.resize(threads);
@@ -93,7 +123,9 @@ inline void run_block(int threads, std::function<void()> fn) {
     for (int t = 0; t < threads; ++t) {
       if (done[t]) continue;
       cur = t;
-      threadIdx = dim3(t);
+      rank = t / threads_per_block;
+      threadIdx = dim3(t % threads_per_block);
+      blockIdx = dim3(first + rank);
       swapcontext(&main_ctx, &ctx[t]);
       if (done[t]) --left;
     }
@@ -108,7 +140,7 @@ inline void run_block(int threads, std::function<void()> fn) {
 
 inline float __shfl_sync(unsigned mask, float v, int src, int width = 32) {
   const int l = emu::lane();
-  emu::vals[threadIdx.x] = v;
+  emu::vals[emu::me()] = v;
   emu::warp_barrier(mask);
   const int s = (l & ~(width - 1)) + (src & (width - 1));
   const float r = emu::vals[emu::warp() * 32 + s];
@@ -120,7 +152,7 @@ inline float __shfl_xor_sync(unsigned mask, float v, int o, int width = 32) {
   return __shfl_sync(mask, v, (l ^ o) & (width - 1), width);
 }
 inline unsigned __ballot_sync(unsigned mask, bool p) {
-  emu::bits[threadIdx.x] = p ? 1u : 0u;
+  emu::bits[emu::me()] = p ? 1u : 0u;
   emu::warp_barrier(mask);
   unsigned r = 0;
   for (int i = 0; i < 32; ++i) {
@@ -130,11 +162,13 @@ inline unsigned __ballot_sync(unsigned mask, bool p) {
   return r;
 }
 inline void __syncwarp(unsigned mask = 0xffffffffu) { emu::warp_barrier(mask); }
-inline void __syncthreads() { emu::barrier(-1, 0, static_cast<int>(blockDim.x)); }
+inline void __syncthreads() { emu::barrier(-1 - emu::rank, 0, static_cast<int>(blockDim.x)); }
 inline unsigned __activemask() { return 0xffffffffu; }
+inline bool __all_sync(unsigned mask, bool p) { return __ballot_sync(mask, !p) == 0u; }
+inline bool __any_sync(unsigned mask, bool p) { return __ballot_sync(mask, p) != 0u; }
 inline unsigned __reduce_add_sync(unsigned mask, unsigned v) {
   unsigned s = 0;
-  emu::bits[threadIdx.x] = v;
+  emu::bits[emu::me()] = v;
   emu::warp_barrier(mask);
   for (int i = 0; i < 32; ++i) if ((mask >> i) & 1u) s += emu::bits[emu::warp() * 32 + i];
   emu::warp_barrier(mask);
@@ -181,29 +215,33 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* o, F, int, size_t
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated error"; }
-inline float emu_smem[1 << 22];
 template <typename... Params, typename... Args>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Params...),
                                Args... args) {
-  for (unsigned i = 0; i < cfg->numAttrs; ++i) {
-    if (cfg->attrs[i].val.clusterDim.x > 1) {
-      std::fprintf(stderr, "emulation: no clusters\n");
-      return 1;
-    }
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i) cluster = cfg->attrs[i].val.clusterDim.x;
+  if (cluster < 1 || cluster > emu::kMaxCluster || cfg->gridDim.x % cluster != 0 ||
+      cfg->blockDim.x > 1024) {
+    return cudaErrorInvalidConfiguration;
   }
   gridDim = cfg->gridDim;
   blockDim = cfg->blockDim;
-  for (unsigned b = 0; b < cfg->gridDim.x; ++b) {
-    blockIdx = dim3(b);
-    emu::run_block(static_cast<int>(cfg->blockDim.x), [&]() { kernel(args...); });
+  for (unsigned b = 0; b < cfg->gridDim.x; b += cluster) {
+    emu::run_cluster(static_cast<int>(b), static_cast<int>(cluster),
+                     static_cast<int>(cfg->blockDim.x), [&]() { kernel(args...); });
   }
   return cudaSuccess;
 }
 
 namespace cooperative_groups {
 struct cluster_group {
-  void sync() {}
-  template <class T> T* map_shared_rank(T* p, unsigned) { return p; }
+  void sync() { emu::barrier(-100000, 0, emu::cluster_size * static_cast<int>(blockDim.x)); }
+  // the same shared-memory address in block r of the cluster
+  template <class T> T* map_shared_rank(T* p, unsigned r) {
+    const char* here = reinterpret_cast<const char*>(emu::arena[emu::rank]);
+    char* there = reinterpret_cast<char*>(emu::arena[r]);
+    return reinterpret_cast<T*>(there + (reinterpret_cast<const char*>(p) - here));
+  }
 };
 inline cluster_group this_cluster() { return {}; }
 }  // namespace cooperative_groups

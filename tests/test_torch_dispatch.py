@@ -61,10 +61,11 @@ def test_iris_resolves_resident_with_block_256():
     assert plan.chain_block == 256
 
 
-@pytest.mark.parametrize("chains,block", [(131072, 512), (8192, 512), (384, 128)])
+@pytest.mark.parametrize("chains,block", [(131072, 4096), (8192, 4096), (384, 128)])
 def test_xor_resolves_resident_under_the_small_model_cap(chains, block):
     """Asked for the resident kernel (``auto`` sends XOR to the dense one,
-    test_auto_sends_small_data_to_dense)."""
+    test_auto_sends_small_data_to_dense): JAX's small-model cap of 4096 (off
+    the card nothing else caps the group)."""
     plan, reason = resolve_backend(HMC(xor_model(), step=0.05, num_steps=10), XOR, chains, 256,
                                    platform="cuda", backend="resident")
     assert plan is not None, reason
@@ -620,6 +621,55 @@ def test_ladders_that_no_block_holds_get_a_reason(L, block, reason):
         assert plan is None and reason in why
         with pytest.raises(ValueError, match=reason):
             resolve_tempering(pp, XOR, 256, 64, platform="cuda", backend="resident")
+
+
+# The parent's routing of each ladder length (the ladder move's lanes changed
+# no decision): iris on the staged kernel in the smallest block of whole
+# ladders, XOR on the dense one (auto) or the staged one (resident); beyond
+# WALK_BLOCK rungs the generic ladder. And the lanes a chain of the staged
+# ladder on iris: fewer for a ladder a block of lane chains does not hold,
+# one thread a chain at 256 rungs; staged XOR one thread a chain.
+LADDER_ROUTES = [(2, ("resident", 128), ("dense", 1024), ("resident", 128), 8, 1),
+                 (8, ("resident", 128), ("dense", 1024), ("resident", 128), 8, 1),
+                 (64, ("resident", 128), ("dense", 1024), ("resident", 128), 4, 1),
+                 (256, ("resident", 256), ("dense", 2048), ("resident", 256), 1, 1),
+                 (257, None, None, None, None, None)]
+
+
+@pytest.mark.parametrize("L,iris,xor_auto,xor_resident,iris_lanes,xor_lanes", LADDER_ROUTES)
+def test_ladder_routing_and_lanes_by_ladder_length(monkeypatch, L, iris, xor_auto, xor_resident,
+                                                   iris_lanes, xor_lanes):
+    from eeyore_tpu_torch.ops.mlp_math import prepare_data
+
+    monkeypatch.setattr(resident_walk, "TEMPERING_LANES", 8)
+    for model, data, backend, want, lanes in (
+            (iris_model(), iris_data(), "auto", iris, iris_lanes),
+            (xor_model(), XOR, "auto", xor_auto, None),
+            (xor_model(), XOR, "resident", xor_resident, xor_lanes)):
+        pp = PowerPosteriorSampler(model, num_chains=L, swap_scheme="even_odd")
+        if want is None and backend == "resident":
+            with pytest.raises(ValueError, match="WALK_BLOCK"):
+                resolve_tempering(pp, data, 256, 64, platform="cuda", backend=backend)
+            continue
+        plan, reason = resolve_tempering(pp, data, 256, 64, platform="cuda", backend=backend)
+        if want is None:
+            assert plan is None and "WALK_BLOCK" in reason
+            continue
+        assert (plan.backend, plan.chain_block) == want, (backend, reason)
+        if lanes is not None:
+            n_rows = prepare_data(model, *data)[0].shape[0]
+            assert resident_walk.tempering_lanes(n_rows, L, plan.chain_block) == lanes
+
+
+@pytest.mark.parametrize("C,chain_block,L,lanes,want", [
+    (128, 128, 8, 8, 64),     # the iris ladder's entry point: 16 blocks, one ladder each
+    (32768, 128, 8, 8, 256),  # at size: blocks of 256 fill the card
+    (32768, 4096, 8, 8, 256), (1024, 1024, 64, 4, 256), (256, 256, 32, 8, 256),
+    (128, 128, 8, 1, 128), (256, 256, 256, 1, 256)])  # one thread a chain: as before
+def test_ladder_blocks_spread_a_small_launch(C, chain_block, L, lanes, want):
+    max_threads = 1024 if lanes == 1 else resident_walk.TEMPERING_BLOCK
+    got = resident_walk.ladder_threads(max_threads, chain_block, L, lanes, C, 132)
+    assert got == want and got % (L * lanes) == 0 and (C * lanes) % got == 0
 
 
 def test_run_auto_equals_scan_off_the_card():

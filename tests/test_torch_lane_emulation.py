@@ -1,15 +1,19 @@
 """Port, the lane kernels' sources on the host: ``csrc/resident_walk.cu`` (the
 staged Gibbs move, whose chains each take 8, 16 or 32 lanes of a warp, and
-the staged MH and MALA moves, on 1, 2, 4 or 8), ``csrc/resident_nuts.cu``
-(staged NUTS, on 1, 8, 16 or 32) and ``csrc/resident_hmc.cu`` (staged HMC, on
-1, 2, 4 or 8), written over the lanes a chain (``csrc/lane_eval.cuh``),
-compiled with g++ against ``tests/cuda_host_emulation.h``, which runs every
-thread of a block as a coroutine and the warp shuffles, ballots and barriers
-as barriers over their lanes. Their launch entry points, called through
+the staged MH, MALA and ladder moves, on 1, 2, 4 or 8),
+``csrc/resident_nuts.cu`` (staged NUTS, on 1, 8, 16 or 32),
+``csrc/resident_hmc.cu`` (staged HMC, on 1, 2, 4 or 8) and
+``csrc/resident_nuts_dense.cu`` (one thread a chain), written over the lanes
+a chain (``csrc/lane_eval.cuh``), compiled with g++ against
+``tests/cuda_host_emulation.h``, which runs every thread of a thread-block
+cluster as a coroutine, gives each block of it its own shared memory, and
+runs the warp shuffles, ballots and barriers and the cluster barrier as
+barriers over their members. Their launch entry points, called through
 ctypes on CPU tensors, are held against the plain versions (``fn.plain`` of
 the makers) per chain: the lane algebra (the row cache and its updates, the
 butterfly sums, the gradient's reduce-scatter, the draws spread over the
-lanes, the group mean of a tuned group, the record tile) computes the plain
+lanes, the group mean of a tuned group in a block or a cluster, the ladder's
+swap round through the chains' posts, the record tile) computes the plain
 versions' function. The card's own compiler and its timings are
 ``chip_smoke.py``'s."""
 
@@ -26,7 +30,7 @@ import torch
 
 from eeyore_tpu_torch.datasets import XYDataset
 from eeyore_tpu_torch.models import MLP, loss_functions, mlp
-from eeyore_tpu_torch.ops import resident_hmc, resident_nuts, resident_walk
+from eeyore_tpu_torch.ops import resident_hmc, resident_nuts, resident_nuts_dense, resident_walk
 from eeyore_tpu_torch.ops._build import CSRC
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
 from eeyore_tpu_torch.ops.mlp_math import prepare_data
@@ -42,7 +46,8 @@ XOR = (np.array([[0., 0.], [0., 1.], [1., 0.], [1., 1.]]), np.array([[0.], [1.],
 @pytest.fixture(scope="module")
 def build(tmp_path_factory):
     """build(source, defines, generated) -> the ctypes library of
-    ``csrc/<source>`` compiled for the host, its shared memory static."""
+    ``csrc/<source>`` compiled for the host, each block's shared memory
+    its own in its cluster (``emu::block_smem``, ``emu::shared_array``)."""
     root = tmp_path_factory.mktemp("lane_emulation")
     built = {}
 
@@ -53,10 +58,16 @@ def build(tmp_path_factory):
             return built[key]
         d = root / key
         d.mkdir()
+        arrays = iter(range(1 << 20))
         for f in CSRC.iterdir():
             text = f.read_text().replace("extern __shared__ float smem[];",
-                                         "float* smem = emu_smem;")
-            (d / f.name).write_text(re.sub(r"\b__shared__\b", "static", text))
+                                         "float* smem = emu::block_smem();")
+            # a block's static shared arrays, in its cluster rank's memory
+            text = re.sub(r"__shared__ float (\w+)\[([^\]]+)\];",
+                          lambda m: f"float* {m[1]} = emu::shared_array({next(arrays)}, {m[2]});",
+                          text)
+            assert "__shared__" not in re.sub(r"//.*", "", text), f.name
+            (d / f.name).write_text(text)
         for name, text in (generated or {}).items():
             (d / name).write_text(text)
         (d / "cuda_runtime.h").write_text(f'#include "{EMULATION}"\n')
@@ -89,11 +100,15 @@ def problem(name):
     return model_of([4, 3, 3], activations=[mlp.sigmoid, None]), (ds.x, ds.y)
 
 
-def walk_defines(model, lanes):
+def walk_defines(model, lanes, ladder_lanes=None):
     """The defines of a walk build: the architecture and the MH and MALA
-    moves' lanes a chain (the launch bounds are the card's only)."""
-    return tuple(arch_defines(model)[1]) + (f"WALK_LANES={lanes}",
-                                            f"WALK_MIN_BLOCKS={resident_walk.WALK_MIN_BLOCKS}")
+    moves' and the ladder move's lanes a chain (the launch bounds are the
+    card's only)."""
+    ladder_lanes = resident_walk.TEMPERING_LANES if ladder_lanes is None else ladder_lanes
+    return tuple(arch_defines(model)[1]) + (
+        f"WALK_LANES={lanes}", f"WALK_MIN_BLOCKS={resident_walk.WALK_MIN_BLOCKS}",
+        f"TEMPERING_LANES={ladder_lanes}",
+        f"TEMPERING_MIN_BLOCKS={resident_walk.TEMPERING_MIN_BLOCKS}")
 
 
 def closure(fn):
@@ -272,6 +287,43 @@ def test_hmc_on_lanes_equals_the_plain_version(build, name, lanes, kw):
     assert 0 < int(accepts.sum()) < C * pr.kept  # some accepted, some not
 
 
+@pytest.mark.parametrize("name,lanes,C,threads,cluster", [
+    ("xor", 1, 64, 32, 2), ("xor", 1, 128, 32, 4), ("iris_subset", 1, 64, 32, 2),
+    ("iris_subset", 8, 32, 128, 2)])
+def test_a_tuned_group_as_a_cluster_equals_the_plain_version(build, name, lanes, C, threads,
+                                                             cluster):
+    """A tuning group larger than a block is a cluster, on one thread a chain
+    (staged XOR takes JAX's 4096 chains as 8 blocks of 512 on the card) as
+    on lanes: the group mean adds the blocks' sums through the cluster's
+    shared memory, and every block applies the same step."""
+    model, (x, y) = problem(name)
+    lib = build("resident_hmc.cu", tuple(arch_defines(model)[1])
+                + (f"HMC_LANES={lanes}", f"HMC_MIN_BLOCKS={resident_hmc.HMC_MIN_BLOCKS}"))
+    lib.resident_hmc_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ResidentHMCParams), ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 5)
+    chain_block = threads * cluster // lanes
+    fn = resident_hmc.make_resident_hmc(model, x, y, num_iters=10, chain_block=chain_block,
+                                        device="cpu", **dict(HMC_TUNED, record_extras=True))
+    theta0s = torch.as_tensor(0.3 * np.random.default_rng(2).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    want, info = fn.plain(4, theta0s)
+    cells = closure(fn)
+    pr, theta = cells["setup"](4, theta0s)
+    P = model.num_params
+    samples, final, accepts = (torch.zeros((pr.kept, P + 2, C)), torch.zeros((P, C)),
+                               torch.zeros(C))
+    evaluations = torch.zeros((), dtype=torch.int64)
+    args = (theta.data_ptr(), *(a.data_ptr() for a in cells["arrays"]), ctypes.byref(pr))
+    outs = (samples.data_ptr(), final.data_ptr(), accepts.data_ptr(), evaluations.data_ptr(), None)
+    # the group must be the cluster: a block of it alone is refused
+    assert lib.resident_hmc_launch(*args, threads, 1, *outs) != 0
+    assert lib.resident_hmc_launch(*args, threads, cluster, *outs) == 0
+    got = unpack_outputs(samples, final, accepts, P, True)
+    assert max_err(got, want) < 2e-4
+    assert int(evaluations) == info["evaluations"]
+
+
 @pytest.mark.parametrize("name,lanes", [("iris_subset", 1), ("iris_subset", 2),
                                         ("iris_subset", 4), ("iris_subset", 8), ("xor", 4)])
 def test_walk_moves_on_lanes_equal_the_plain_version(build, name, lanes):
@@ -335,3 +387,155 @@ def test_lane_launches_refuse_chains_the_blocks_do_not_cover(build):
     assert walk.resident_walk_launch(0, *[None] * 6, ctypes.byref(wp), 64, *[None] * 4) != 0
     wp.num_chains = 32
     assert walk.resident_walk_launch(0, *[None] * 6, ctypes.byref(wp), 512, *[None] * 4) != 0
+
+
+# ---- the ladder move on 1, 2, 4 or 8 lanes a chain ----
+
+def tempering_library(build, model, lanes):
+    lib = build("resident_walk.cu", walk_defines(model, resident_walk.WALK_LANES, lanes),
+                {"gibbs_blocks.cuh": resident_walk.gibbs_blocks_source(model)})
+    lib.resident_walk_tempering_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7
+        + [ctypes.POINTER(resident_walk.ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
+    assert lib.resident_walk_tempering_lanes() == lanes
+    return lib
+
+
+def launch_tempering(lib, fn, move, seed, theta0s, threads):
+    """The kernel's outputs as the maker's ``fn`` returns them."""
+    cells = closure(fn)
+    pr, theta = cells["setup"](seed, theta0s)
+    C, P = theta0s.shape
+    rows = P + 2 if pr.record_extras else P
+    samples, final, accepts = (torch.zeros((pr.kept, rows, C)), torch.zeros((P, C)),
+                               torch.zeros((2, C)))
+    err = lib.resident_walk_tempering_launch(
+        int(move == "mala"), theta.data_ptr(), *(a.data_ptr() for a in cells["arrays"]),
+        cells["rungs"].data_ptr(), ctypes.byref(pr), threads, samples.data_ptr(),
+        final.data_ptr(), accepts.data_ptr(), None)
+    assert err == 0
+    return unpack_outputs(samples, final, accepts.T, P, pr.record_extras)
+
+
+# (problem, lanes, move, rungs, between_step, extras): iris on every lane
+# count (a ladder of 8 rungs spans two warps at 8 lanes, so the round's
+# barrier is the block's; of 4 rungs at 2 lanes a part of a warp), with and
+# without the start-of-iteration moved flag; XOR on one thread a chain (its
+# staged layout) and on 2 lanes (4 rows: 2 a lane)
+TEMPERING_CASES = [("iris_subset", 1, "mala", 8, 3, True), ("iris_subset", 2, "mh", 4, 2, True),
+                   ("iris_subset", 2, "mala", 8, 3, False), ("iris_subset", 4, "mala", 4, 3, True),
+                   ("iris_subset", 8, "mala", 8, 3, True), ("iris_subset", 8, "mh", 2, 1, True),
+                   ("xor", 1, "mh", 4, 2, True), ("xor", 2, "mala", 4, 3, True)]
+
+
+@pytest.mark.parametrize("name,lanes,move,L,between,extras", TEMPERING_CASES)
+def test_ladder_on_lanes_equals_the_plain_version(build, name, lanes, move, L, between, extras):
+    model, (x, y) = problem(name)
+    C = 64 if lanes == 1 else 32
+    iters, burnin = 12, 3  # four swap rounds of each parity at between_step 1
+    value = {"mala": 0.003 if name != "xor" else 0.3, "mh": 0.05 if name != "xor" else 0.5}[move]
+    fn = resident_walk._make_resident(model, x, y, iters, burnin, C, 1, move, value,
+                                      temperatures=np.linspace(0.1, 1.0, L) ** 2,
+                                      between_step=between, record_extras=extras, device="cpu")
+    theta0s = torch.as_tensor(0.3 * np.random.default_rng(5).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    want, _ = fn.plain(6, theta0s)
+    lib = tempering_library(build, model, lanes)
+    got = launch_tempering(lib, fn, move, 6, theta0s, max(32, C * lanes // 2))  # two blocks
+    assert max_err(got, want) < 2e-4
+    counts = got[2]
+    assert torch.equal(counts, want[2])  # within-rung and swap accepts, exact
+    assert int(counts[:, 0].sum()) > 0 and int(counts[:, 1].sum()) > 0
+    if extras:
+        assert torch.equal(got[4], want[4])  # the moved flags
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8])
+def test_ladder_swaps_follow_jaxs_lattice(build, lanes):
+    """With equal temperatures every eligible swap is taken, and with a
+    zero walk scale nothing else moves: each round then exchanges exactly
+    the pairs of JAX's masks (``ladder_lane_constants``: the (even, even +
+    1) pairs, then the (odd, odd + 1) pairs of each ladder, none across a
+    ladder's end), applied to theta as JAX's tests apply them, by rolls."""
+    from eeyore_tpu.ops.resident_tempering import ladder_lane_constants
+
+    model, (x, y) = problem("iris_subset")
+    C, L = 32, 4
+    fn = resident_walk._make_resident(model, x, y, 2, 0, C, 1, "mh", 0.0,
+                                      temperatures=np.ones(L), between_step=1, device="cpu")
+    theta0s = torch.as_tensor(np.random.default_rng(7).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    samples = launch_tempering(tempering_library(build, model, lanes), fn, "mh", 1, theta0s,
+                               max(32, C * lanes // 2))[0]
+    _, _, m_even, m_odd = ladder_lane_constants(L, C, np.ones(L))
+    theta = theta0s.numpy().T
+    for t, mask in enumerate((m_even, m_odd)):
+        lower = mask > 0.5
+        upper = np.roll(lower, 1, axis=1)
+        theta = np.where(lower, np.roll(theta, -1, axis=1),
+                         np.where(upper, np.roll(theta, 1, axis=1), theta))
+        np.testing.assert_array_equal(samples[t].numpy(), theta.T)
+
+
+def test_ladder_launch_refuses_blocks_that_split_a_ladder(build):
+    model, (x, y) = problem("iris_subset")
+    lib = tempering_library(build, model, 8)
+    pr = resident_walk.walk_params("mh", 0.1, 2, 0, 1, False, 32, n_rows=32)
+    resident_walk.set_ladder(pr, np.ones(8), 1, "mh", 0.1)
+    pr.num_chains = 32
+    args = (0, *[None] * 7, ctypes.byref(pr))
+    assert lib.resident_walk_tempering_launch(*args, 32, *[None] * 4) != 0  # half a ladder
+    assert lib.resident_walk_tempering_launch(*args, 512, *[None] * 4) != 0  # over 256 threads
+
+
+# ---- dense NUTS on one thread a chain ----
+
+# (launch bound, maker keywords): untuned with extras; tuned with a metric,
+# whose group of 1024 chains at the 512-thread bound is a cluster of two
+# blocks; a deeper tree
+DENSE_NUTS_CASES = [(0, dict(step=0.1, record_extras=True)),
+                    (512, dict(step=0.3, tuner=HMCDATuner(d=0.8), num_burnin_iters=3,
+                               inv_mass=np.linspace(0.5, 2.0, 9))),
+                    (512, dict(step=0.1, max_depth=4, tuner=HMCDATuner(d=0.8),
+                               num_burnin_iters=2, record_extras=True))]
+
+
+@pytest.mark.parametrize("bound,kw", DENSE_NUTS_CASES)
+def test_dense_nuts_equals_the_plain_version(build, monkeypatch, bound, kw):
+    """The dense kernel on the generated body and metric, its chains
+    sublane-strided over the blocks of a group."""
+    model, (x, y) = problem("xor")
+    kw = dict(kw)
+    depth = kw.pop("max_depth", 3)
+    monkeypatch.setattr(resident_nuts_dense, "NUTS_DENSE_BOUND", bound)
+    _, source, defines, generated = resident_nuts_dense.library_spec(
+        model, x, y, depth, kw.get("inv_mass"))
+    lib = build(source, defines, generated)
+    lib.resident_nuts_dense_launch.argtypes = (
+        [ctypes.c_void_p, ctypes.POINTER(ResidentHMCParams), ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 6)
+    C = chain_block = 1024
+    fn = resident_nuts_dense.make_resident_nuts_dense(model, x, y, max_depth=depth, num_iters=5,
+                                                      chain_block=chain_block, device="cpu",
+                                                      **kw)
+    theta0s = torch.as_tensor(0.5 * np.random.default_rng(1).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    want, info = fn.plain(3, theta0s)
+    pr, theta = closure(fn)["setup"](3, theta0s, False)
+    P = model.num_params
+    rows = P + 2 if pr.record_extras else P
+    out = (torch.zeros((pr.kept, rows, C)), torch.zeros((P, C)), torch.zeros(C), torch.zeros(C),
+           torch.zeros(C))
+    # a tuned group is a block of at most the bound's threads, or a cluster
+    # of such blocks; untuned chains in blocks of 256
+    group = chain_block if pr.tuned else 256
+    threads = min(group, bound or 1024)
+    err = lib.resident_nuts_dense_launch(theta.data_ptr(), ctypes.byref(pr), threads,
+                                         group // threads, *(t.data_ptr() for t in out), None)
+    assert err == 0
+    got = resident_nuts.unpack_nuts_outputs(*out[:4], P, pr.record_extras)
+    assert max_err(got, want) < 2e-4
+    assert (out[4] - info["step"]).abs().max().item() <= 1e-4 * info["step"].abs().max().item()
+    if bound:  # a block larger than the bound is refused
+        assert lib.resident_nuts_dense_launch(theta.data_ptr(), ctypes.byref(pr), 2 * bound, 1,
+                                              *(t.data_ptr() for t in out), None) != 0

@@ -497,10 +497,15 @@ def test_the_settings_name_the_builds():
     name, source, defines = resident_hmc.library_spec(iris433(), 2)
     assert source == "resident_hmc.cu" and name.endswith(f"_l2_b{resident_hmc.HMC_MIN_BLOCKS}")
     assert "HMC_LANES=2" in defines and f"HMC_MIN_BLOCKS={resident_hmc.HMC_MIN_BLOCKS}" in defines
-    name, source, defines, generated = resident_walk.library_spec(iris433(), lanes=8)
+    name, source, defines, generated = resident_walk.library_spec(iris433(), lanes=8,
+                                                                  ladder_lanes=4)
     assert source == "resident_walk.cu" and name.endswith(
-        f"_l8_b{resident_walk.WALK_MIN_BLOCKS}")
+        f"_l8_b{resident_walk.WALK_MIN_BLOCKS}_t4_b{resident_walk.TEMPERING_MIN_BLOCKS}")
     assert "WALK_LANES=8" in defines and "gibbs_blocks.cuh" in generated
+    assert "TEMPERING_LANES=4" in defines
+    assert (f"TEMPERING_MIN_BLOCKS={resident_walk.TEMPERING_MIN_BLOCKS}" in defines)
+    assert resident_walk.library_spec(iris433())[0] != resident_walk.library_spec(
+        iris433(), ladder_lanes=1)[0]
     assert resident_hmc.library_spec(iris433())[0] != resident_hmc.library_spec(iris433(), 1)[0]
 
 
@@ -531,3 +536,149 @@ def test_staged_xor_hmc_runs_one_thread_a_chain():
         assert plan is not None and plan.maker.__name__ == "make_resident_hmc", reason
         n_rows = prepare_data(xor221(), *XOR)[0].shape[0]
         assert resident_hmc.chain_lanes(n_rows, plan.chain_block, tuner is not None) == 1
+
+
+# ---- staged HMC tuning groups from the card ----
+
+class NoClusterLibrary(FakeLaneLibrary):
+    """A card that schedules no cluster of this build."""
+
+    def resident_hmc_max_clusters(self, threads, blocks, n_rows, out):
+        self.asked.append((threads, blocks))
+        out._obj.value = 0
+        return 0
+
+
+@pytest.mark.parametrize("registers,chain_block,want", [
+    (96, 512, (512, 1)), (96, 1024, (512, 2)), (96, 4096, (512, 8)), (254, 4096, (256, 16))])
+def test_a_one_thread_tuned_group_larger_than_a_block_is_a_cluster(registers, chain_block,
+                                                                    want):
+    """Staged XOR runs one thread a chain; its tuning group, beyond the
+    block its registers allow, is a cluster (JAX's 4096 chains: 8 blocks of
+    512 at 96 registers), and a group no cluster holds raises."""
+    lib = FakeLaneLibrary(1, registers, resident_hmc.block_threads(1))
+    assert resident_hmc.launch_threads(lib, chain_block, 8, True) == want
+    shape = resident_hmc.hmc_launch(lib, 131072, chain_block, 8, True, sm_count=H100_SMS)
+    assert (shape["threads"], shape["cluster_blocks"]) == want
+    assert shape["blocks"] * shape["threads"] == 131072
+    assert bool(lib.asked) == (want[1] > 1)
+    if want[1] > 1:
+        with pytest.raises(ValueError, match="does not fit one cluster"):
+            resident_hmc.launch_threads(NoClusterLibrary(1, registers, 1024), chain_block, 8,
+                                        True)
+
+
+class CudaData:
+    """Data that reads as lying on the card, for dispatch's questions to it."""
+
+    def __init__(self, t):
+        self.t = torch.as_tensor(t, dtype=torch.float32)
+        self.shape = self.t.shape
+        self.is_cuda = True
+
+    def cpu(self):
+        return self.t
+
+
+@pytest.mark.parametrize("name,library,C,want", [
+    ("xor", lambda lanes: FakeLaneLibrary(lanes, 96, resident_hmc.block_threads(lanes)), 131072,
+     4096),
+    ("xor", lambda lanes: NoClusterLibrary(lanes, 96, resident_hmc.block_threads(lanes)), 131072,
+     512),
+    ("iris", lambda lanes: FakeLaneLibrary(lanes, 128, resident_hmc.block_threads(lanes)), 32768,
+     256),
+    ("iris", lambda lanes: NoClusterLibrary(lanes, 254, resident_hmc.block_threads(lanes)),
+     32768, 128),
+])
+def test_dispatch_asks_the_card_for_the_staged_hmc_group(monkeypatch, name, library, C, want):
+    """A tuned staged HMC plan takes the largest block up to JAX's cap (4096
+    below 32 rows, else 256) whose group the build of its lanes holds, as
+    the card answers: JAX's 4096 on XOR where clusters of 8 blocks of 512
+    fit, and the largest single block where none does."""
+    from eeyore_tpu_torch.samplers import dispatch
+
+    loaded = []
+
+    def load_kernel(model, lanes=None):
+        loaded.append(lanes)
+        return library(lanes)
+
+    monkeypatch.setattr(resident_hmc, "load_kernel", load_kernel)
+    model, (x, y) = (xor221(), XOR) if name == "xor" else (iris433(), iris_data())
+    kernel = HMC(model, tuner=HMCDATuner(l=0.5), max_num_steps=64)
+    blocks = tuple(b for b in (4096, 2048, 1024, 512, 256, 128)
+                   if b <= dispatch._jax_resident_cap(CudaData(x)))
+    cap = dispatch._hmc_group_cap(kernel, CudaData(x), CudaData(y), blocks)
+    assert cap == want
+    assert set(loaded) == ({1} if name == "xor" else {resident_hmc.HMC_LANES})
+    # untuned chains share nothing: JAX's cap alone, the card not asked
+    assert dispatch._hmc_group_cap(HMC(model, step=0.05), CudaData(x), CudaData(y),
+                                   (4096,)) is None
+    monkeypatch.setattr(dispatch, "_hmc_group_cap", lambda *args: cap)
+    plan, reason = resolve_backend(kernel, (x, y), C, 256, 128, platform="cuda",
+                                   backend="resident")
+    assert plan is not None and plan.chain_block == want, reason
+
+
+def test_a_card_that_holds_no_staged_hmc_group_says_so(monkeypatch):
+    from eeyore_tpu_torch.samplers import dispatch
+
+    monkeypatch.setattr(dispatch, "_hmc_group_cap", lambda *args: 0)
+    kernel = HMC(xor221(), tuner=HMCDATuner(l=0.5), max_num_steps=64)
+    plan, reason = resolve_backend(kernel, XOR, 8192, 256, 128, platform="cuda")
+    assert plan is not None and plan.backend == "dense"  # auto: the dense kernel first
+    with pytest.raises(ValueError, match="this card holds no tuning group of this build"):
+        resolve_backend(kernel, XOR, 8192, 256, 128, platform="cuda", backend="resident")
+
+
+# ---- dense NUTS tuning groups ----
+
+class FakeDenseNutsLibrary:
+    """The calls of a loaded dense NUTS build that its launch helpers make,
+    answering as a build at ``registers`` registers under a launch bound of
+    ``bound`` threads (0: none) would on an H100."""
+
+    def __init__(self, registers, bound):
+        self.registers = registers
+        self.max_threads = min(bound or 1024, threads_for_registers(registers))
+
+    def resident_nuts_dense_resources(self, out):
+        out[0], out[1], out[2] = self.registers, 0, self.max_threads
+        return 0
+
+    def resident_nuts_dense_max_clusters(self, threads, blocks, out):
+        out._obj.value = 8  # a cluster of 16 blocks, one an SM
+        return 0
+
+    def resident_nuts_dense_error_string(self, code):
+        return b"refused"
+
+
+@pytest.mark.parametrize("registers,bound,want", [
+    (172, 0, {8192: None, 4096: (256, 16)}),        # the parent's build: 256 threads a block
+    (128, 512, {8192: (512, 16), 4096: (512, 8)}),  # 128 registers: JAX's 8192
+])
+def test_dense_nuts_groups_follow_the_registers(registers, bound, want):
+    """A tuned group is a block or a cluster of at most 16 blocks that the
+    build's registers allow: at 128 registers (launch bounds of one block of
+    512 an SM) a cluster holds JAX's 8192 chains, where the parent's 172
+    registers held 4096."""
+    from eeyore_tpu_torch.ops import resident_nuts_dense
+
+    lib = FakeDenseNutsLibrary(registers, bound)
+    for chain_block, shape in want.items():
+        if shape is None:
+            with pytest.raises(ValueError, match="does not fit one cluster"):
+                resident_nuts_dense.group_shape(lib, chain_block)
+        else:
+            assert resident_nuts_dense.group_shape(lib, chain_block) == shape
+
+
+def test_dense_nuts_bound_names_the_build():
+    from eeyore_tpu_torch.ops import resident_nuts_dense
+
+    assert resident_nuts_dense.NUTS_DENSE_BOUND == 512
+    name, source, defines, generated = resident_nuts_dense.library_spec(xor221(), *XOR, 3)
+    assert source == "resident_nuts_dense.cu" and name.endswith("_d3_t512")
+    assert {"NUTS_DEPTH=3", "NUTS_DENSE_BOUND=512"} <= set(defines)
+    assert set(generated) == {"dense_body.cuh", "nuts_metric.cuh"}

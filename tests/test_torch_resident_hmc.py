@@ -208,9 +208,13 @@ def test_argument_checks():
             make_resident_hmc(model, x, y, 0.1, 5, 10, device="cpu", **{knob: True})
     with pytest.raises(ValueError, match="l_rounding"):
         make_resident_hmc(model, x, y, 0.1, 5, 10, l_rounding="up", device="cpu")
-    with pytest.raises(ValueError, match="tuning group"):
-        make_resident_hmc(model, x, y, 0.1, 5, 10, chain_block=2048,
-                          tuner=HMCDATuner(l=0.5), device="cpu")
+    # JAX's default tuning group of 2048 chains: the plain version takes any
+    # group (on the card only a group no block or cluster holds raises)
+    tuned = make_resident_hmc(model, x, y, 0.1, 5, 10, 5, tuner=HMCDATuner(l=0.5), device="cpu")
+    samples, _, acc = tuned(0, torch.zeros(2048, model.num_params))
+    assert samples.shape == (5, 2048, model.num_params) and torch.all(acc <= 5)
+    with pytest.raises(ValueError, match="multiple of chain_block 2048"):
+        tuned(0, torch.zeros(1024, model.num_params))
     fn = make_resident_hmc(model, x, y, 0.1, 5, 10, chain_block=64, device="cpu")
     with pytest.raises(ValueError, match="multiple of chain_block"):
         fn(0, torch.zeros(100, model.num_params))
