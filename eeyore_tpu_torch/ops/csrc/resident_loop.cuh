@@ -526,15 +526,26 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
 
 // ---- host side ----
 
+// Raises kernel's dynamic shared memory limit to smem bytes where it is
+// lower, and never lowers it: an occupancy query (max_active_blocks,
+// max_active_clusters) then leaves a later launch the room it had.
+template <typename... Params>
+inline cudaError_t allow_smem(void (*kernel)(Params...), size_t smem) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess || static_cast<size_t>(attr.maxDynamicSharedSizeBytes) >= smem) {
+    return err;
+  }
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 // Launches kernel on blocks x threads with smem bytes of dynamic shared
-// memory, in clusters of cluster_blocks blocks when that is above 1. The
-// kernel's dynamic shared memory limit is set to smem at every launch: an
-// occupancy query (max_active_blocks, max_active_clusters) sets it to what
-// it asked about, which may be less than this launch takes.
+// memory, in clusters of cluster_blocks blocks when that is above 1.
 template <typename... Params, typename... Args>
 inline cudaError_t launch(void (*kernel)(Params...), int blocks, int threads, size_t smem,
                           int cluster_blocks, void* stream, Args... args) {
-  {
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -570,8 +581,7 @@ template <typename... Params>
 inline cudaError_t max_active_clusters(void (*kernel)(Params...), int threads,
                                        int cluster_blocks, size_t smem, int* out) {
   *out = 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   if (cluster_blocks > 8) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -598,8 +608,7 @@ template <typename... Params>
 inline cudaError_t max_active_blocks(void (*kernel)(Params...), int threads, size_t smem,
                                      int* out) {
   *out = 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, smem);
 }

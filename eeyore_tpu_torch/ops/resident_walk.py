@@ -54,8 +54,8 @@ by the whole value-only forward pass on the same lanes.
   the swaps with theta at the start of the iteration. Its plain version is
   ``_run_tempering_plain``, on ``kernel_prng.tempering_draws``; on the card
   it is move 3 of the same library, a chain on ``TEMPERING_LANES`` lanes of a
-  warp (``tempering_lanes``: fewer for a ladder too long for a block of
-  ``TEMPERING_BLOCK`` threads, one thread a chain on data of few rows), in
+  warp, or one thread a chain on data of few rows and for a ladder too long
+  for a block of ``TEMPERING_BLOCK`` lane threads (``tempering_lanes``), in
   blocks that hold whole ladders (``ladder_threads``).
 """
 
@@ -113,10 +113,11 @@ LANE_COUNTS = (8, 16, 32)
 WALK_LANES = 8
 WALK_MIN_BLOCKS = 2
 # The ladder move: lanes of a warp a chain (1, 2, 4 or 8) on data of at least
-# LANE_MIN_ROWS rows, halved for a ladder that a block of TEMPERING_BLOCK
-# threads does not hold (tempering_lanes), and the blocks of TEMPERING_BLOCK
-# threads an SM must hold at once, which caps the registers (the fastest
-# that scripts/lane_sweep.py measured on the H100, PERF.md, section 6).
+# LANE_MIN_ROWS rows where a block of TEMPERING_BLOCK threads holds whole
+# ladders, else one thread a chain (tempering_lanes), and the blocks of
+# TEMPERING_BLOCK threads an SM must hold at once, which caps the registers
+# (the fastest that scripts/lane_sweep.py measured on the H100, PERF.md,
+# section 6).
 TEMPERING_LANES = 8
 TEMPERING_MIN_BLOCKS = 2
 TEMPERING_BLOCK = 256
@@ -259,17 +260,16 @@ def chain_lanes(n_rows):
 def tempering_lanes(n_rows, num_rungs, chain_block):
     """Lanes a chain of the staged ladder move for ladders of ``num_rungs``
     rungs in chain blocks of ``chain_block`` chains on ``n_rows`` staged
-    (padded) rows: ``TEMPERING_LANES``, halved until a block of at most
+    (padded) rows: ``TEMPERING_LANES`` where a block of at most
     ``TEMPERING_BLOCK`` threads holds whole ladders and divides the chain
-    block's threads; 1 (one thread a chain, blocks of up to 1024 threads) on
-    fewer than ``LANE_MIN_ROWS`` rows, where a lane would get no rows to
-    split. So every ladder that ran on one thread a chain still runs, a
-    ladder of ``WALK_BLOCK`` rungs on one thread a chain."""
+    block's threads, else 1 (one thread a chain, blocks of up to 1024
+    threads); 1 on fewer than ``LANE_MIN_ROWS`` rows too, where a lane would
+    get no rows to split. So every ladder that ran on one thread a chain
+    still runs, a ladder of ``WALK_BLOCK`` rungs on one thread a chain."""
     lanes = check_walk_lanes(TEMPERING_LANES)
-    if n_rows < LANE_MIN_ROWS:
+    if n_rows < LANE_MIN_ROWS or not _ladder_sizes(TEMPERING_BLOCK, chain_block, num_rungs,
+                                                   lanes):
         return 1
-    while lanes > 1 and not _ladder_sizes(TEMPERING_BLOCK, chain_block, num_rungs, lanes):
-        lanes //= 2
     return lanes
 
 
@@ -609,14 +609,16 @@ def _run_gibbs_plain(init, updates, sub_blocks, pr, theta):
     return samples, theta, accepts, {"evaluations": C * (1 + pr.num_iters * len(sub_blocks))}
 
 
-def _run_tempering_plain(vg, arrays, pr, move, rungs, theta):
+def _run_tempering_plain(vg, arrays, pr, move, rungs, theta, margins=None):
     """The tempering kernels' computation in PyTorch, on [P, C] tensors:
     ``rungs`` [L] float32 holds each rung's temperature, chain c is rung c %
     L of its ladder. Same inputs as ``resident_walk_tempering``; returns
     (samples [kept, rows, C], final [P, C], accepts [2, C], {"evaluations": C
     * (1 + num_iters)}). A lower member's partner is chain c + 1, which the
     ladder-major layout keeps in the same ladder, so the swaps are rolls of
-    the chain axis by one."""
+    the chain axis by one. A list ``margins`` gets, per iteration, each
+    chain's closest accept test, the smallest |log rate - log u| [C] of its
+    within-rung test and (lower members) its swap test."""
     P, C = theta.shape
     f32 = dict(dtype=torch.float32, device=theta.device)
     chains = torch.arange(C, dtype=torch.int64, device=theta.device)
@@ -650,6 +652,7 @@ def _run_tempering_plain(vg, arrays, pr, move, rungs, theta):
             v_p = vg(prop, *arrays)[0]
             log_rate = temps * (v_p - val)
         accept = torch.log(u) < log_rate
+        closest = (log_rate - torch.log(u)).abs()
         theta = torch.where(accept, prop, theta)
         val = torch.where(accept, v_p, val)
         if mala:
@@ -663,6 +666,8 @@ def _run_tempering_plain(vg, arrays, pr, move, rungs, theta):
             swap_rate = (temps - temps_upper) * (torch.roll(val, -1) - val)
             take_upper = lower & (torch.log(u_swap) < swap_rate)  # the lower member's view
             take_lower = torch.roll(take_upper, 1)                # the upper member's view
+            closest = torch.where(lower, torch.minimum(closest, (swap_rate - torch.log(u_swap))
+                                                       .abs()), closest)
 
             def exchange(a):
                 return torch.where(take_upper, torch.roll(a, -1, dims=-1),
@@ -673,6 +678,8 @@ def _run_tempering_plain(vg, arrays, pr, move, rungs, theta):
                 grad = exchange(grad)
             if counting:
                 accepts[1] += take_upper.to(torch.float32)
+        if margins is not None:
+            margins.append(closest)
 
         since = t - pr.num_burnin_iters
         if since >= 0 and since % pr.record_thin == 0 and since // pr.record_thin < pr.kept:
@@ -719,25 +726,20 @@ def _ladder_sizes(max_threads, chain_block, num_rungs, lanes=1):
 
 def ladder_threads(max_threads, chain_block, num_rungs, lanes=1, num_chains=None,
                    sm_count=None):
-    """Threads per block of a tempering launch (``_ladder_sizes``). One
-    thread a chain: the largest up to ``WALK_BLOCK``, else the smallest
-    above it. On lanes: the largest whose blocks of ``num_chains`` chains
-    fill the card's ``sm_count`` SMs, else the smallest, so that a launch of
-    few ladders (a ladder's entry point runs one chain block) spreads its
-    chains' serial row loops over as many SMs as it can."""
+    """Threads per block of a tempering launch (``_ladder_sizes``): the
+    largest up to ``WALK_BLOCK`` whose blocks of ``num_chains`` chains fill
+    the card's ``sm_count`` SMs (without them, any up to ``WALK_BLOCK``),
+    else the smallest, so that a launch of few ladders (a ladder's entry
+    point runs one chain block) spreads its chains' serial loops over as
+    many SMs as it can."""
     sizes = _ladder_sizes(max_threads, chain_block, num_rungs, lanes)
     if not sizes:
         raise ValueError(f"a ladder of {num_rungs} rungs on {lanes} lanes a chain does not "
                          f"fit a block of at most {max_threads} threads that divides "
                          f"chain_block {chain_block}")
-    if lanes == 1:
-        small = [t for t in sizes if t <= WALK_BLOCK]
-        return small[0] if small else sizes[-1]
-    if num_chains is not None and sm_count is not None:
-        filling = [t for t in sizes if num_chains * lanes // t >= sm_count]
-        if filling:
-            return filling[0]
-    return sizes[-1]
+    fit = [t for t in sizes if t <= WALK_BLOCK
+           and (num_chains is None or num_chains * lanes // t >= sm_count)]
+    return fit[0] if fit else sizes[-1]
 
 
 def _setup(params, chain_block, device):
@@ -766,7 +768,9 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
     "mala" with step ``value``); with a ladder's ``temperatures`` [L] and
     ``between_step``, the tempering move with ``move`` within each rung,
     returning counts [C, 2]. ``fn.plain(seed, theta0s)`` runs the plain
-    version on the same tensors and also returns its info dict."""
+    version on the same tensors and also returns its info dict; a ladder's
+    also takes the ``dtype`` it computes in and the list of its accept
+    tests' ``margins`` (``_run_tempering_plain``)."""
     device = torch.device(device)
     rungs = None if temperatures is None else ladder_rungs(temperatures, chain_block)
     x_pad, y_pad, row_mask, loc, ivar, prior_const, temperature = prepare_data(model, x, y)
@@ -803,10 +807,12 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
             ladder = dict(lanes=lanes, sm_count=sm_count, threads=ladder_block)
     setup = _setup(params, chain_block, device)
 
-    def run_plain(pr, theta_t):
+    def run_plain(pr, theta_t, dtype=torch.float32, margins=None):
         if rungs is None:
             return _run_walk_plain(vg, arrays, pr, move, chain_block, theta_t)
-        samples, final, acc, info = _run_tempering_plain(vg, arrays, pr, move, rungs, theta_t)
+        samples, final, acc, info = _run_tempering_plain(
+            vg, [a.to(dtype) for a in arrays], pr, move, rungs.to(dtype), theta_t.to(dtype),
+            margins)
         return samples, final, acc.T, info
 
     def fn(seed, theta0s):
@@ -823,9 +829,9 @@ def _make_resident(model, x, y, num_iters, num_burnin_iters, chain_block, record
             last_info[TEMPERING_KERNEL] = {"accept_counts": acc}
         return unpack_outputs(samples, final, acc, P, record_extras)
 
-    def plain(seed, theta0s):
+    def plain(seed, theta0s, dtype=torch.float32, margins=None):
         pr, theta_t = setup(seed, theta0s)
-        samples, final, acc, info = run_plain(pr, theta_t)
+        samples, final, acc, info = run_plain(pr, theta_t, dtype, margins)
         return unpack_outputs(samples, final, acc, P, record_extras), info
 
     fn.plain = plain

@@ -26,27 +26,29 @@ It prints the card's name and power limit, then one JSON line per build and
 move: the lanes a chain, the blocks an SM must hold (which caps the
 registers), the build's registers and local bytes, the launch (blocks, the
 card's occupancy, SMs covered), the share of chains that agree with the plain
-version (Gibbs: every unit split, 32768 chains x 20 iterations, extras;
-NUTS: untuned, 16384 chains x 5 iterations; HMC: untuned, 4096 chains x 20
+version (Gibbs: every unit split, 32768 chains x 20 iterations, extras; NUTS:
+untuned, 16384 chains x 5 iterations; HMC: untuned, 4096 chains x 20
 iterations of 8 leapfrog steps, extras, and tuned over a 5-iteration burn-in;
-MH and MALA: 4096 chains x 20 iterations, extras; the ladder move: 4096
-chains x 20 iterations in chain blocks of 128, swaps every 5, extras, both
-count columns) and the kernel's time at the main path's shape (Gibbs, MH
-and MALA: 32768 chains x 2048 iterations, 1024 burn-in; NUTS: 16384 chains
-x 2048 iterations, 1024 burn-in, tuning groups of 256; HMC: 32768 chains x
-1500 iterations, 500 burn-in, the plan dispatch gives ``sample_chains``;
-the ladder move: 128 chains and 32768 chains x 2048 iterations, 1024
-burn-in; dense NUTS: 32768 chains x 2048 iterations, 1024 burn-in), the
-median of three launches after a warm-up; dense NUTS is held against its
-plain version untuned (16384 chains x 5 iterations) and tuned (3 burn-in
-iterations) at each shape. The modules' settings
+MH and MALA: 4096 chains x 20 iterations, extras; the ladder move: 4096 chains
+x 20 iterations in chain blocks of 128, swaps every 5, extras, both count
+columns, with the plain version's closest accept test in float64 in the
+ladders of the chains that disagree: ``ladder_witness``) and the kernel's time
+at the main path's shape (Gibbs, MH and MALA: 32768 chains x 2048 iterations,
+1024 burn-in; NUTS: 16384 chains x 2048 iterations, 1024 burn-in, tuning
+groups of 256; HMC: 32768 chains x 1500 iterations, 500 burn-in, the plan
+dispatch gives ``sample_chains``; the ladder move: 128 chains and 32768 chains
+x 2048 iterations, 1024 burn-in; dense NUTS: 32768 chains x 2048 iterations,
+1024 burn-in), the median of three launches after a warm-up; dense NUTS is
+held against its plain version untuned (16384 chains x 5 iterations) and tuned
+(3 burn-in iterations) at each shape. The modules' settings
 (``resident_walk.GIBBS_LANES`` and ``GIBBS_MIN_BLOCKS``,
 ``resident_nuts.NUTS_LANES`` and ``NUTS_MIN_BLOCKS``,
-``resident_hmc.HMC_LANES`` and ``HMC_MIN_BLOCKS``, ``resident_walk.WALK_LANES``
-and ``WALK_MIN_BLOCKS``, ``resident_walk.TEMPERING_LANES`` and
-``TEMPERING_MIN_BLOCKS``, ``resident_nuts_dense.NUTS_DENSE_BOUND``) are the
-fastest of such a run; this script sets them in its own process only, build
-by build. It exits non-zero when a build disagrees with its plain version.
+``resident_hmc.HMC_LANES`` and ``HMC_MIN_BLOCKS``,
+``resident_walk.WALK_LANES`` and ``WALK_MIN_BLOCKS``,
+``resident_walk.TEMPERING_LANES`` and ``TEMPERING_MIN_BLOCKS``,
+``resident_nuts_dense.NUTS_DENSE_BOUND``) are the fastest of such a run; this
+script sets them in its own process only, build by build. It exits non-zero
+when a build disagrees with its plain version.
 """
 
 import argparse
@@ -94,6 +96,9 @@ C_CHECK, WALK_BLOCK = 4096, 4096
 # the ladder move: rungs, swap period, the entry point's chain block (one
 # block of ladders), the chain block at size, the check's swap period
 RUNGS, BETWEEN, LADDER_BLOCK, LADDER_SIZE_BLOCK, CHECK_BETWEEN = 8, 10, 128, 4096, 5
+# the ladder check's witness: accept tests closer than this to their
+# threshold, about a float32 rounding of a log-target of order 100
+WITNESS_MARGIN = 1e-5
 # dense NUTS's main shapes: (name, depth, step, metric); the auto paths' steps
 # and metric as their probes found them (PERF.md, section 5)
 AUTO_METRIC = (0.8042, 0.8197, 1.0268, 0.8828, 0.8898, 0.8264, 0.7177, 0.6989, 0.5551)
@@ -211,14 +216,35 @@ def main(argv=None):
     hmc_tuned = dict(step=0.1, num_steps=10, tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64)
     ok = True
 
-    def agreement(held, theta, limit, chain_dims, tol=None):
+    def agreement(held, theta, limit, chain_dims, tol=None, rungs=None):
         agree = None
         for got, want, chain_dim in zip(held(args.seed, theta), held.plain(args.seed, theta)[0],
                                         chain_dims):
             chains_ok = chain_agreement(got, want, chain_dim, **(tol or {}))[0]
             agree = chains_ok if agree is None else agree & chains_ok
         share = agree.float().mean().item()
-        return {"share_agreeing_with_plain": share, "limit": limit, "ok": share >= limit}
+        out = {"share_agreeing_with_plain": share, "limit": limit, "ok": share >= limit}
+        if rungs is not None:
+            out.update(ladder_witness(held, theta, agree, rungs))
+        return out
+
+    def ladder_witness(held, theta, agree, rungs):
+        """Where a ladder's chains disagree with the plain version: which,
+        and the closest accept test (smallest |log rate - log u|, within-rung
+        or swap) of their ladders in the plain version run in float64, and
+        how many of all its tests lie within ``WITNESS_MARGIN``. A test a
+        float32 rounding away from its threshold can go either way; after it,
+        the ladder's swaps carry the difference to the other rungs."""
+        bad = torch.nonzero(~agree).flatten()
+        margins = []
+        held.plain(args.seed, theta, dtype=torch.float64, margins=margins)
+        margins = torch.stack(margins)  # [iterations, C]
+        ladders = torch.unique(bad // rungs)
+        closest = margins.view(margins.shape[0], -1, rungs)[:, ladders]
+        return {"disagreeing_chains": bad.tolist(),
+                "their_ladders_closest_test_f64": closest.min().item() if len(bad) else None,
+                "tests_within_margin_f64": int((margins < WITNESS_MARGIN).sum()),
+                "witness_margin": WITNESS_MARGIN}
 
     def report(record, fn, theta, checks):
         nonlocal ok
@@ -333,7 +359,7 @@ def main(argv=None):
                     resident_walk.load_kernel(nuts_model, ladder_lanes=check_lanes),
                     f"tempering_{move}")
                 checks = {"untuned": agreement(held, check_theta, RESIDENT_LANE_MIN_AGREEING,
-                                               (1, 0, 0, 1, 1))}
+                                               (1, 0, 0, 1, 1), rungs=RUNGS)}
                 for C, chain_block in ((LADDER_BLOCK, LADDER_BLOCK),
                                        (C_HMC, LADDER_SIZE_BLOCK)):
                     fn, theta = ladder(C, chain_block, ITERS, BURNIN)

@@ -195,13 +195,17 @@ struct cudaLaunchConfig_t {
   dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream;
   cudaLaunchAttribute* attrs; unsigned numAttrs;
 };
-struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; int maxThreadsPerBlock; };
+struct cudaFuncAttributes {
+  int numRegs; size_t localSizeBytes; int maxThreadsPerBlock; int maxDynamicSharedSizeBytes;
+};
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 template <class F> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
-  a->numRegs = 0; a->localSizeBytes = 0; a->maxThreadsPerBlock = 1024; return cudaSuccess;
+  a->numRegs = 0; a->localSizeBytes = 0; a->maxThreadsPerBlock = 1024;
+  a->maxDynamicSharedSizeBytes = 48 * 1024;
+  return cudaSuccess;
 }
 template <class F>
 cudaError_t cudaOccupancyMaxActiveClusters(int* o, F, const cudaLaunchConfig_t*) {

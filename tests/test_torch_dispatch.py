@@ -627,11 +627,11 @@ def test_ladders_that_no_block_holds_get_a_reason(L, block, reason):
 # no decision): iris on the staged kernel in the smallest block of whole
 # ladders, XOR on the dense one (auto) or the staged one (resident); beyond
 # WALK_BLOCK rungs the generic ladder. And the lanes a chain of the staged
-# ladder on iris: fewer for a ladder a block of lane chains does not hold,
-# one thread a chain at 256 rungs; staged XOR one thread a chain.
+# ladder on iris: one thread a chain for a ladder that a block of lane
+# chains does not hold (64 and 256 rungs); staged XOR one thread a chain.
 LADDER_ROUTES = [(2, ("resident", 128), ("dense", 1024), ("resident", 128), 8, 1),
                  (8, ("resident", 128), ("dense", 1024), ("resident", 128), 8, 1),
-                 (64, ("resident", 128), ("dense", 1024), ("resident", 128), 4, 1),
+                 (64, ("resident", 128), ("dense", 1024), ("resident", 128), 1, 1),
                  (256, ("resident", 256), ("dense", 2048), ("resident", 256), 1, 1),
                  (257, None, None, None, None, None)]
 
@@ -664,8 +664,11 @@ def test_ladder_routing_and_lanes_by_ladder_length(monkeypatch, L, iris, xor_aut
 @pytest.mark.parametrize("C,chain_block,L,lanes,want", [
     (128, 128, 8, 8, 64),     # the iris ladder's entry point: 16 blocks, one ladder each
     (32768, 128, 8, 8, 256),  # at size: blocks of 256 fill the card
-    (32768, 4096, 8, 8, 256), (1024, 1024, 64, 4, 256), (256, 256, 32, 8, 256),
-    (128, 128, 8, 1, 128), (256, 256, 256, 1, 256)])  # one thread a chain: as before
+    (32768, 4096, 8, 8, 256), (256, 256, 32, 8, 256),
+    # one thread a chain, by the same rule: a small launch in blocks of one
+    # ladder or of a warp, at size blocks that fill the card
+    (128, 128, 8, 1, 32), (1024, 1024, 64, 1, 64), (256, 256, 256, 1, 256),
+    (32768, 4096, 8, 1, 128)])
 def test_ladder_blocks_spread_a_small_launch(C, chain_block, L, lanes, want):
     max_threads = 1024 if lanes == 1 else resident_walk.TEMPERING_BLOCK
     got = resident_walk.ladder_threads(max_threads, chain_block, L, lanes, C, 132)

@@ -45,15 +45,17 @@ XOR = (np.array([[0., 0.], [0., 1.], [1., 0.], [1., 1.]]), np.array([[0.], [1.],
 
 @pytest.fixture(scope="module")
 def build(tmp_path_factory):
-    """build(source, defines, generated) -> the ctypes library of
-    ``csrc/<source>`` compiled for the host, each block's shared memory
-    its own in its cluster (``emu::block_smem``, ``emu::shared_array``)."""
+    """build(source, defines, generated, zero_bits) -> the ctypes library
+    of ``csrc/<source>`` compiled for the host, each block's shared memory
+    its own in its cluster (``emu::block_smem``, ``emu::shared_array``);
+    with ``zero_bits`` Threefry gives zero bits, the draws of Pallas's TPU
+    interpreter."""
     root = tmp_path_factory.mktemp("lane_emulation")
     built = {}
 
-    def compile_source(source, defines, generated=None):
-        key = hashlib.sha256(repr((source, defines, sorted((generated or {}).items())))
-                             .encode()).hexdigest()[:12]
+    def compile_source(source, defines, generated=None, zero_bits=False):
+        key = hashlib.sha256(repr((source, defines, sorted((generated or {}).items()),
+                                   zero_bits)).encode()).hexdigest()[:12]
         if key in built:
             return built[key]
         d = root / key
@@ -67,6 +69,9 @@ def build(tmp_path_factory):
                           lambda m: f"float* {m[1]} = emu::shared_array({next(arrays)}, {m[2]});",
                           text)
             assert "__shared__" not in re.sub(r"//.*", "", text), f.name
+            if zero_bits and f.name == "kernel_prng.cuh":  # Threefry gives zero bits
+                assert "return make_uint2(x0, x1);" in text
+                text = text.replace("return make_uint2(x0, x1);", "return make_uint2(0u, 0u);")
             (d / f.name).write_text(text)
         for name, text in (generated or {}).items():
             (d / name).write_text(text)
@@ -391,9 +396,9 @@ def test_lane_launches_refuse_chains_the_blocks_do_not_cover(build):
 
 # ---- the ladder move on 1, 2, 4 or 8 lanes a chain ----
 
-def tempering_library(build, model, lanes):
+def tempering_library(build, model, lanes, zero_bits=False):
     lib = build("resident_walk.cu", walk_defines(model, resident_walk.WALK_LANES, lanes),
-                {"gibbs_blocks.cuh": resident_walk.gibbs_blocks_source(model)})
+                {"gibbs_blocks.cuh": resident_walk.gibbs_blocks_source(model)}, zero_bits)
     lib.resident_walk_tempering_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 7
         + [ctypes.POINTER(resident_walk.ResidentWalkParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
@@ -475,6 +480,65 @@ def test_ladder_swaps_follow_jaxs_lattice(build, lanes):
         theta = np.where(lower, np.roll(theta, -1, axis=1),
                          np.where(upper, np.roll(theta, 1, axis=1), theta))
         np.testing.assert_array_equal(samples[t].numpy(), theta.T)
+
+
+def jax_ladder(x, y, sampler, value, temps, between, iters, burnin, C, seed, theta0s):
+    """The JAX package's tempering kernel (``eeyore_tpu/ops/resident_tempering.py``)
+    on iris MLP(4,3,3), run in Pallas's TPU interpret mode on the CPU, with
+    extras; its outputs as torch tensors."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from eeyore_tpu.models import MLP as JMLP
+    from eeyore_tpu.models import loss_functions as jloss_functions
+    from eeyore_tpu.models import mlp as jmlp
+    from eeyore_tpu.ops.resident_tempering import make_resident_tempering
+
+    model = JMLP(loss=jloss_functions["multiclass_classification"], dtype=jnp.float32,
+                 hparams=jmlp.Hyperparameters(dims=[4, 3, 3], activations=[jmlp.sigmoid, None]))
+    fn = make_resident_tempering(model, np.asarray(x, np.float32), np.asarray(y, np.float32),
+                                 len(temps), value, sampler, temps, between, iters, burnin, C,
+                                 record_extras=True)
+    with pltpu.force_tpu_interpret_mode():
+        out = fn(seed, theta0s.numpy())
+    return [torch.as_tensor(np.array(o, dtype=np.float32)) for o in out]
+
+
+# (lanes, move, step or scale): MALA on every lane count; MH, whose zero
+# normals propose no move, for the swaps alone
+JAX_LADDER_CASES = [(1, "mala", 0.003), (2, "mala", 0.003), (4, "mala", 0.003),
+                    (8, "mala", 0.003), (1, "mh", 0.1), (8, "mh", 0.1)]
+
+
+@pytest.mark.parametrize("lanes,move,value", JAX_LADDER_CASES)
+def test_ladder_equals_jaxs_kernel_on_the_interpreters_draws(build, lanes, move, value):
+    """Pallas's TPU interpreter gives zero bits for the core's generator, so
+    the JAX tempering kernel run there draws every normal 0 and every
+    uniform 1 (its bits-to-draws maps: 23 high bits under 1.0's exponent,
+    Box-Muller with the polynomial sincos). The lane kernel built with
+    Threefry giving zero bits maps them the same way, so both run the same
+    tempered accept tests (MALA's drift on T grad, accept when the log rate
+    is above 0) and the same swap rounds on the same draws: the same accept
+    counts (within-rung and swap) and moved flags, and the samples and
+    values within float32 rounding."""
+    model, (x, y) = problem("iris_subset")
+    C, temps, iters, burnin, between = 32, np.array([0.25, 0.5, 0.75, 1.0]), 12, 2, 2
+    theta0s = torch.as_tensor(np.random.default_rng(8).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    fn = resident_walk._make_resident(model, x, y, iters, burnin, C, 1, move, value,
+                                      temperatures=temps, between_step=between,
+                                      record_extras=True, device="cpu")
+    lib = tempering_library(build, model, lanes, zero_bits=True)
+    got = launch_tempering(lib, fn, move, 3, theta0s, max(32, C * lanes // 2))
+    want = jax_ladder(x, y, {"mala": "MALA", "mh": "MetropolisHastings"}[move], value, temps,
+                      between, iters, burnin, C, 3, theta0s)
+    assert torch.equal(got[2], want[2])  # within-rung and swap accepts
+    assert torch.equal(got[4].to(torch.float32), want[4])  # the moved flags
+    for i in (0, 1, 3):  # samples, final, values
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=2e-4)
+    within, swaps = got[2].sum(0).tolist()
+    assert 0 < swaps < (iters - burnin) // between * C // 2
+    assert (0 < within < (iters - burnin) * C) if move == "mala" else within == 0
 
 
 def test_ladder_launch_refuses_blocks_that_split_a_ladder(build):
