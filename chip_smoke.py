@@ -14,9 +14,14 @@ kernels are built for sm_90a). Phases, one JSON line each:
    a chain on ``GIBBS_LANES`` lanes caching its rows' activations) iris
    MLP(4,3,2,3), once more with every
    unit split, and XOR MLP(2,2,1) staged;
-   ``resident_walk_dense`` for XOR MLP(2,2,1) and MLP(2,3,2,1), and for
+   ``resident_walk_dense`` for XOR MLP(2,2,1) and MLP(2,3,2,1) at the lanes
+   a chain of each move (``WALK_DENSE_LANES``: MH one thread a chain, MALA
+   2 lanes, the ladder 4, a row a lane; Gibbs one thread in every build),
+   and on one thread a chain (the build of tuning groups that no cluster of
+   lane blocks holds), and for
    MLP(2,3,2,1) with one-coordinate Gibbs sub-blocks; ``resident_smc`` for
-   XOR MLP(2,2,1) BCE and iris MLP(4,3,3) CE; ``resident_smc_closure`` for
+   XOR MLP(2,2,1) BCE (one thread a particle: 8 padded rows) and iris
+   MLP(4,3,3) CE (``SMC_LANES`` lanes a particle); ``resident_smc_closure`` for
    the 2-d mixture of benchmarks/validate_smc_hard.py, its body generated
    from the closure (``ops/closure_trace.py``); ``resident_nuts`` for iris
    MLP(4,3,3) and ``resident_nuts_dense`` for XOR MLP(2,2,1), at tree depth
@@ -24,13 +29,15 @@ kernels are built for sm_90a). Phases, one JSON line each:
    ``NUTS_LANES`` lanes a chain, and on one thread a chain for XOR's tuning
    groups of 4096 chains). It reports the lane kernels' lanes, occupancy
    targets and the Gibbs cache's choice, the launches of the staged HMC, MH
-   and MALA kernels on the iris main paths (threads, blocks, cluster, blocks
-   an SM, SMs covered), each build's registers and
+   and MALA kernels on the iris main paths, of the dense MH and MALA moves
+   on configs 1 and 2 and of the SMC pass on iris (lanes, threads, blocks,
+   cluster, blocks an SM, SMs covered), each build's registers and
    local-memory (spill) bytes per thread, the Gibbs and
    tempering moves' too (iris MLP(4,3,3) MH and MALA on ``resident_walk``,
    XOR MLP(2,2,1) MH and MALA on ``resident_walk_dense``), the SMC mutation
    kernels' MH and MALA, and the thread-block cluster a population-tuned
-   dense run takes.
+   dense run takes (the dense walk's on lanes up to a group of 1024 chains,
+   on one thread a chain beyond).
 2. kernel vs plain: calls ``fused_mlp_vg``'s wrapper on the card at C =
    32768 and 131072 seeded random chains (the main paths' chain counts) and
    holds it against the plain PyTorch ``make_vg`` on the same inputs (rtol
@@ -51,7 +58,9 @@ kernels are built for sm_90a). Phases, one JSON line each:
    population groups of 8192 chains (a cluster) and per chain;
    ``resident_walk`` on iris MH (scale 0.1) and MALA (step 0.003), 32768
    chains, extras; ``resident_walk_dense`` on XOR MH MLP(2,2,1) (scale 0.1)
-   and MALA MLP(2,3,2,1) (step 0.01), untuned with extras and tuned; the
+   and MALA MLP(2,3,2,1) (step 0.01), untuned with extras (on lanes), tuned
+   in JAX's groups of 8192 and 4096 chains (one thread a chain) and of 1024
+   (a cluster of 16 lane blocks); the
    Gibbs moves on iris MLP(4,3,2,3) (scales 0.1, staged), XOR MLP(2,2,1)
    (scales 0.5, dense) and XOR MLP(2,3,2,1) with ``node_subblock_size=[1]*6``
    (dense), and staged on iris MLP(4,3,2,3) with every unit split into two
@@ -59,7 +68,7 @@ kernels are built for sm_90a). Phases, one JSON line each:
    per-sub-block counts, the lane kernels' launches (blocks, SMs covered); the
    tempering moves (ladders of 8 rungs at (i/8)^4, swaps every 5 iterations)
    on iris MALA (step 0.003) and MH (scale 0.1), staged, and XOR MLP(2,2,1)
-   MALA (step 0.05), dense, 32768 chains x 20 iterations, extras, both count
+   MALA (step 0.05) and MH (scale 0.5), dense, 32768 chains x 20 iterations, extras, both count
    columns, each at the chain block that dispatch gives phase 13's main path
    (128 staged, 1024 dense), so at its launch layout, and a staged ladder of
    ``WALK_BLOCK`` rungs (the longest on the kernel; one thread a chain); then the
@@ -68,7 +77,8 @@ kernels are built for sm_90a). Phases, one JSON line each:
    plain version's; at least 99% of chains must agree on the untuned runs and on
    the tuned runs with 5 burn-in iterations (an accept decision at u ~ rate
    may flip on f32 rounding and part a chain's path), and 99.9% on the
-   untuned iris HMC, MH and MALA runs, whose chains run on lanes; a tuned run with 20
+   untuned iris HMC, MH and MALA runs and the untuned dense MALA and
+   ladders, whose chains run on lanes; a tuned run with 20
    burn-in iterations, where early long steps make the dynamics chaotic, is
    held statistically instead (pooled means within 5 pooled standard
    errors, acceptance within 0.01). The HMC kernels' evaluation counters
@@ -81,7 +91,8 @@ kernels are built for sm_90a). Phases, one JSON line each:
    and MH step 0.05, against its plain version (the closure by batched
    autograd); a particle agrees when its final theta, pot and accept count
    do, at least 99% must, and the kernel's pot must be the split
-   log-likelihood of its own final particles (rtol 1e-4, atol 1e-3). Then
+   log-likelihood of its own final particles (rtol 1e-4, atol 1e-3); each
+   reports its launch (lanes a particle, blocks, SMs covered). Then
    ``resident_nuts`` (iris, step 0.02) and ``resident_nuts_dense`` (XOR, step
    0.1) at depth 3 on 16384 prior draws x 5 iterations, untuned, tuned (3
    burn-in iterations), with a metric and with extras, at the chain blocks
@@ -129,7 +140,10 @@ kernels are built for sm_90a). Phases, one JSON line each:
     chains x 2048 iterations, 1024 burn-in each. Each checks one launch of
     its kernel, finite samples, pooled means within 5 pooled standard errors
     of the generic path of the same configuration at 4096 chains, and finite
-    ``multi_rhat`` / ``multi_ess`` on the first 64 chains.
+    ``multi_rhat`` / ``multi_ess`` on the first 64 chains; configs 1 and 2
+    also post-burn-in acceptance within 0.02 of the one-thread builds'
+    (0.875 and 0.999 on the H100, PERF.md). Each reports its launch (lanes a chain,
+    blocks, SMs covered).
 12. main paths, Gibbs, sample_chains(backend="auto"): BASELINE.md config 4
     (``Gibbs(scales=0.1)``, MLP(4,3,2,3), iris) on ``resident_walk``'s Gibbs
     move and XOR MLP(2,2,1) with ``Gibbs(scales=0.5)`` on
@@ -205,8 +219,8 @@ kernels are built for sm_90a). Phases, one JSON line each:
     bound.
 16. kernels: each kernel's launches on the main paths, its error against its
     plain version, its time, the plain version's time and its bound, and
-    for ``resident_hmc`` and ``resident_walk`` the lanes a chain of each
-    build.
+    for ``resident_hmc``, ``resident_walk``, ``resident_walk_dense`` and
+    ``resident_smc`` the lanes a chain of each build.
 
 Then the card's name and power limit, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero; it also exits
@@ -292,7 +306,14 @@ RESIDENT_MIN_AGREEING = 0.99
 # least share of chains that agree
 RESIDENT_LANE_MIN_AGREEING = 0.999
 LANE_CASES = ("iris_untuned_extras", "iris_mh_extras", "iris_mala_extras",
-              "iris_tempering_mala_extras", "iris_tempering_mh_extras")
+              "iris_tempering_mala_extras", "iris_tempering_mh_extras",
+              "xor_mlp2321_mala_dense_extras", "xor_tempering_mala_dense_extras",
+              "xor_tempering_mh_dense_extras")
+# configs 1 and 2 (dense MH and MALA on XOR): post-burn-in acceptance of the
+# one-thread builds (H100, PERF.md section 5), which the lane builds
+# must keep within WALK_ACCEPTANCE_TOL
+WALK_ACCEPTANCE = {"config1_mh_xor": 0.875, "config2_mala_xor_mlp2321": 0.999}
+WALK_ACCEPTANCE_TOL = 0.02
 # config 3's tuning group on the card (dispatch's chain block for iris HMC)
 IRIS_HMC_BLOCK = 256
 
@@ -695,6 +716,15 @@ def main(argv=None):
 
     mixture = DistributionModel(mixture_log_pdf, 2, dtype=torch.float32, device=device)
 
+    # the lanes a chain of each dense move on XOR's rows, and that move's build
+    DENSE_MOVES = ("mh", "mala", "ladder")
+
+    def dense_lanes_of(move):
+        return resident_walk_dense.dense_lanes(len(xor.x), move)
+
+    def walk_dense_lib(name, move):
+        return walk_dense_libs[f"{name}_l{dense_lanes_of(move)}"]
+
     # 1. build, every library at once
     start = time.perf_counter()
     nuts_metric = {"iris": np.linspace(0.5, 2.0, iris_model.num_params),
@@ -720,13 +750,19 @@ def main(argv=None):
         gibbs_xor_future = pool.submit(resident_walk.load_kernel, xor_model, None, xor_rows)
         gibbs_sub_future = pool.submit(resident_walk_dense.load_kernel, xor2321_model, xor.x,
                                        xor.y, xor2321_subblocks)
-        walk_dense_futures = {name: pool.submit(resident_walk_dense.load_kernel, model, xor.x,
-                                                xor.y)
-                              for name, model in (("xor_mlp221_bce", xor_model),
-                                                  ("xor_mlp2321_bce", xor2321_model))}
-        smc_futures = {name: pool.submit(resident_smc.load_kernel, model)
-                       for name, model in (("xor_mlp221_bce", xor_model),
-                                           ("iris_mlp433_ce", iris_model))}
+        # the builds of each dense move's lanes (Gibbs on one thread a chain
+        # in every build) and of one thread a chain, which tuned groups beyond
+        # a cluster of lane blocks take
+        walk_dense_futures = {
+            f"{name}_l{lanes}": pool.submit(resident_walk_dense.load_kernel, model, xor.x, xor.y,
+                                            lanes=lanes)
+            for name, model in (("xor_mlp221_bce", xor_model),
+                                ("xor_mlp2321_bce", xor2321_model))
+            for lanes in sorted({1} | {dense_lanes_of(move) for move in DENSE_MOVES})}
+        smc_futures = {name: pool.submit(resident_smc.load_kernel, model,
+                                         resident_smc.smc_lanes(rows))
+                       for name, model, rows in (("xor_mlp221_bce", xor_model, xor_rows),
+                                                 ("iris_mlp433_ce", iris_model, iris_rows))}
         smc_futures["mixture_2d"] = pool.submit(
             lambda: resident_smc.load_closure_kernel(resident_smc.closure_programs(
                 mixture, *empty, mixture_base, device)))
@@ -761,14 +797,14 @@ def main(argv=None):
             dense_groups[cb] = str(err)
     walk_dense_resources, walk_dense_groups = {}, {}
     for name, lib in walk_dense_libs.items():
+        for move in ("mh", "mala", "tempering_mh", "tempering_mala"):
+            walk_dense_resources[f"{name}_{move}"] = dict(
+                resident_walk_dense.kernel_resources(lib, move),
+                lanes=lib.resident_walk_dense_lanes())
         for move in ("mh", "mala"):
-            res = resident_walk_dense.kernel_resources(lib, move)
-            walk_dense_resources[f"{name}_{move}"] = res
-            for cb in (8192, 4096):
+            for cb in (8192, 4096, 2048, 1024):
                 try:
-                    shape = resident_hmc_dense.launch_shape(
-                        res, lambda t, b: resident_walk_dense.max_active_clusters(lib, move, t, b),
-                        cb, grouped=True)
+                    shape = resident_walk_dense.walk_shape(lib, move, cb, grouped=True)
                 except ValueError as err:
                     shape = str(err)
                 walk_dense_groups[f"{name}_{move}_{cb}"] = shape
@@ -780,8 +816,8 @@ def main(argv=None):
             **resident_walk.gibbs_layout(gibbs_split_lib)),
         "xor_mlp221_bce_staged": dict(resident_walk.kernel_resources(gibbs_xor_lib, "gibbs"),
                                       **resident_walk.gibbs_layout(gibbs_xor_lib)),
-        "xor_mlp221_bce": resident_walk_dense.kernel_resources(walk_dense_libs["xor_mlp221_bce"],
-                                                               "gibbs"),
+        "xor_mlp221_bce": resident_walk_dense.kernel_resources(
+            walk_dense_lib("xor_mlp221_bce", "mh"), "gibbs"),
         "xor_mlp2321_bce_one_coordinate_sub_blocks": resident_walk_dense.kernel_resources(
             gibbs_sub_lib, "gibbs")}
     tempering_resources = {
@@ -795,8 +831,11 @@ def main(argv=None):
             lanes=long_ladder_lib.resident_walk_tempering_lanes())
         for move in ("mh", "mala")})
     tempering_resources.update({
-        f"xor_mlp221_bce_{move}": resident_walk_dense.kernel_resources(
-            walk_dense_libs["xor_mlp221_bce"], f"tempering_{move}") for move in ("mh", "mala")})
+        f"xor_mlp221_bce_{move}": dict(
+            resident_walk_dense.kernel_resources(walk_dense_lib("xor_mlp221_bce", "ladder"),
+                                                 f"tempering_{move}"),
+            lanes=walk_dense_lib("xor_mlp221_bce", "ladder").resident_walk_dense_lanes())
+        for move in ("mh", "mala")})
     nuts_resources = {
         name: (resident_nuts_dense if "dense" in name else resident_nuts).kernel_resources(lib)
         for name, lib in nuts_libs.items()}
@@ -825,6 +864,17 @@ def main(argv=None):
     lane_launches.update({
         f"{resident_walk.KERNEL}_iris_{move}_4096": resident_walk.walk_launch(
             walk_lib, move, 32768, 4096, iris_rows, sm_count) for move in ("mh", "mala")})
+    # configs 1 and 2 (dispatch's chain blocks of 8192) and the SMC pass on
+    # iris (16384 particles)
+    lane_launches.update({
+        f"{resident_walk_dense.KERNEL}_{name}_8192": resident_walk_dense.walk_launch(
+            walk_dense_lib(name, move), move, 32768, 8192, False, sm_count)
+        for name, move in (("xor_mlp221_bce", "mh"), ("xor_mlp2321_bce", "mala"))})
+    lane_launches.update({
+        f"{resident_smc.KERNEL}_{name}_{mutation}": resident_smc.smc_launch(
+            smc_libs[name], mutation, SMC_PARTICLES, rows, sm_count)
+        for name, rows in (("iris_mlp433_ce", iris_rows), ("xor_mlp221_bce", xor_rows))
+        for mutation in ("MALA", "MH")})
     emit({"phase": "build",
           "kernels": [fused_mlp.KERNEL, resident_hmc.KERNEL, resident_hmc_dense.KERNEL,
                       resident_walk.KERNEL, resident_walk_dense.KERNEL, resident_walk.GIBBS_KERNEL,
@@ -852,7 +902,14 @@ def main(argv=None):
               resident_walk.TEMPERING_KERNEL: {"lanes": resident_walk.TEMPERING_LANES,
                                                "min_blocks": resident_walk.TEMPERING_MIN_BLOCKS,
                                                "block": resident_walk.TEMPERING_BLOCK},
-              resident_nuts_dense.KERNEL: {"bound": resident_nuts_dense.NUTS_DENSE_BOUND}},
+              resident_nuts_dense.KERNEL: {"bound": resident_nuts_dense.NUTS_DENSE_BOUND},
+              resident_walk_dense.KERNEL: {"lanes": resident_walk_dense.WALK_DENSE_LANES,
+                                           "min_blocks": resident_walk_dense.WALK_DENSE_MIN_BLOCKS,
+                                           "block": resident_walk_dense.WALK_DENSE_BLOCK},
+              resident_smc.KERNEL: {"lanes": resident_smc.SMC_LANES,
+                                    "min_blocks": resident_smc.SMC_MIN_BLOCKS,
+                                    "block": resident_smc.SMC_LANE_BLOCK,
+                                    "lane_min_rows": resident_hmc.LANE_MIN_ROWS}},
           "lane_launches": lane_launches,
           "seconds": build_seconds,
           "resources": {fused_mlp.KERNEL: {name: fused_mlp.kernel_resources(lib)
@@ -872,7 +929,8 @@ def main(argv=None):
                         "gibbs_moves": gibbs_resources,
                         "tempering_moves": tempering_resources,
                         resident_smc.KERNEL: {
-                            f"{name}_{mutation}": resident_smc.kernel_resources(lib, mutation)
+                            f"{name}_{mutation}": dict(resident_smc.kernel_resources(lib, mutation),
+                                                       lanes=lib.resident_smc_lanes())
                             for name, lib in smc_libs.items() if name != "mixture_2d"
                             for mutation in ("MH", "MALA")},
                         resident_smc.CLOSURE_KERNEL: {
@@ -1089,6 +1147,10 @@ def main(argv=None):
         ("xor_mlp2321_mala_dense_tuned_burnin_20", True, walk_case(
             xor2321_model, xor, 32768, "mala", 0.01, 40, 20, dense=True, chain_block=4096,
             tuner=HMCDATuner(d=0.574))),
+        # JAX's smallest dense group, 1024 chains: a cluster of 16 lane blocks
+        ("xor_mlp2321_mala_dense_tuned_group_1024_burnin_5", False, walk_case(
+            xor2321_model, xor, 32768, "mala", 0.01, 10, 5, dense=True, chain_block=1024,
+            tuner=HMCDATuner(d=0.574))),
         ("iris4323_gibbs_extras", False, gibbs_case(iris4323_model, iris, 32768, 0.1, 20,
                                                     extras=True, chain_block=4096)),
         ("iris4323_gibbs_split_units_extras", False, gibbs_case(
@@ -1112,6 +1174,9 @@ def main(argv=None):
             chain_block=long_ladder)),
         ("xor_tempering_mala_dense_extras", False, tempering_case(
             xor_model, xor, 32768, "MALA", 0.05, 20, extras=True, dense=True,
+            chain_block=xor_ladder_block)),
+        ("xor_tempering_mh_dense_extras", False, tempering_case(
+            xor_model, xor, 32768, "MetropolisHastings", 0.5, 20, extras=True, dense=True,
             chain_block=xor_ladder_block)),
     ]
     kernel_err = {}
@@ -1164,6 +1229,20 @@ def main(argv=None):
             moved = torch.nextafter(theta0s, torch.full_like(theta0s, math.inf))
             plain_self_share = agreement(fn.plain(args.seed, moved)[0],
                                          plain_out)[0].float().mean().item()
+        witness = None
+        if kernel_name.endswith("_tempering") and share < 1.0:
+            # the closest accept test of the disagreeing chains' ladders in
+            # the plain version run in float64: a near-tie that float32
+            # rounding flips, carried along its ladder by the swaps
+            margins = []
+            fn.plain(args.seed, theta0s, dtype=torch.float64, margins=margins)
+            margins = torch.stack(margins)
+            rungs = long_ladder if f"_{long_ladder}_rungs" in name else LADDER_RUNGS
+            ladders = torch.unique(torch.nonzero(~agree).flatten().cpu() // rungs)
+            witness = {"disagreeing_chains": int((~agree).sum()),
+                       "their_ladders_closest_test_f64": margins.view(
+                           margins.shape[0], -1, rungs)[:, ladders.to(margins.device)].min().item()}
+            del margins
         ms, ms_runs = event_times(lambda: fn(args.seed, theta0s))
         b_ms, b_by = bound_ms(work(counted if counted is not None else evaluations), sm_count)
         resident_timings[name] = (ms, plain_ms, b_ms, b_by)
@@ -1175,7 +1254,8 @@ def main(argv=None):
               "kernel_evaluations_per_chain": None if counted is None else counted / C,
               "share_agreeing": share, "limit": limit, "atol": RESIDENT_ATOL,
               "rtol": RESIDENT_RTOL, "max_abs_err_agreeing": err,
-              "plain_self_share_one_ulp": plain_self_share, "max_abs_z_pooled_mean": z,
+              "plain_self_share_one_ulp": plain_self_share, "ladder_witness": witness,
+              "max_abs_z_pooled_mean": z,
               "acceptance_difference": acc_diff, "ms": ms, "ms_runs": ms_runs,
               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "card": card})
         if chaotic:
@@ -1394,6 +1474,7 @@ def main(argv=None):
                   "case": f"{name}_step_{step}_beta_{beta}", "particles": SMC_PARTICLES,
                   "steps": SMC_STEPS, "chain_block": chain_block,
                   "launch_threads": fn.launch_threads,
+                  "launch": fn.smc_launch(SMC_PARTICLES, sm_count),
                   "evaluations_per_particle": info["evaluations"] / SMC_PARTICLES,
                   "share_agreeing": share, "limit": RESIDENT_MIN_AGREEING,
                   "atol": RESIDENT_ATOL, "rtol": RESIDENT_RTOL, "max_abs_err_agreeing": err,
@@ -1712,12 +1793,16 @@ def main(argv=None):
         check(plan is not None and plan.backend == want,
               f"{name}: dispatch chose {plan and plan.backend} ({reason}), not {want}")
         reset_counts()
+        kernel = sampler()
         start = time.perf_counter()
-        chains = sample_chains(sampler(), gen, theta0s, data, walk_iters, walk_burnin,
+        chains = sample_chains(kernel, gen, theta0s, data, walk_iters, walk_burnin,
                                backend="auto")
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         walk_walls[name] = wall
+        ((_, walk_fn),) = kernel._backend_cache.items()
+        walk_launch = lane_launch_of(walk_fn, C_walk)
+        del kernel, walk_fn
         counts = read_counts()
         main_launches[module.KERNEL][name] = counts[module.KERNEL]
         check(counts == {**dict.fromkeys(counts, 0), module.KERNEL: 1},
@@ -1746,7 +1831,8 @@ def main(argv=None):
                                                                           plan.chain_block],
               "chains": C_walk, "iterations": walk_iters, "burnin": walk_burnin,
               "seconds": wall, "samples_per_s": C_walk * walk_iters / wall,
-              "acceptance_post_burnin": acc, "kernel_launches": counts,
+              "acceptance_post_burnin": acc, "kernel_launches": counts, "launch": walk_launch,
+              "acceptance_reference": WALK_ACCEPTANCE.get(name),
               "generic_chains": C_generic, "generic_seconds": generic_wall,
               "generic_samples_per_s": C_generic * walk_iters / generic_wall,
               "generic_acceptance_post_burnin": generic_acc,
@@ -1755,6 +1841,9 @@ def main(argv=None):
               "card": card})
         check(z <= 5.0, f"{name}: pooled means differ from the generic path's by {z} SEs")
         check(0.0 < acc <= 1.0, f"{name}: acceptance {acc}")
+        if name in WALK_ACCEPTANCE:
+            check(abs(acc - WALK_ACCEPTANCE[name]) <= WALK_ACCEPTANCE_TOL,
+                  f"{name}: acceptance {acc}, the one-thread build's {WALK_ACCEPTANCE[name]}")
         check(math.isfinite(rhat) and all(math.isfinite(e) for e in ess),
               f"{name}: multi_rhat {rhat} or multi_ess {ess[:4]}... not finite")
         del generic
@@ -2059,6 +2148,11 @@ def main(argv=None):
             "kernel_device_ms_per_run": kernel_device_ms,
             "kernel_device_ms_per_launch": kernel_device_ms / max(1, len(profile_diags["beta"])),
             "card": card}
+        if kernel == resident_smc.KERNEL:  # the launch of this path's build
+            rows = iris_rows if sampler.model is iris_model else xor_rows
+            record["launch"] = resident_smc.smc_launch(
+                resident_smc.load_kernel(sampler.model, resident_smc.smc_lanes(rows)),
+                sampler.mutation, sampler.num_particles, rows, sm_count)
         if name == "xor_adaptive_mala":
             for r in runs:
                 betas = r["diags"]["beta"].numpy()
@@ -2334,7 +2428,7 @@ def main(argv=None):
                       iris_model, iris, C_walk, "mala", 0.003, walk_iters, walk_burnin,
                       chain_block=4096)),
                   resident_walk_dense.KERNEL: ("config 1, MH scale 0.1 on XOR", walk_case(
-                      xor_model, xor, C_walk, "mh", 0.1, walk_iters, walk_burnin))}
+                      xor_model, xor, C_walk, "mh", 0.1, walk_iters, walk_burnin, dense=True))}
     for kernel_name, (_, (_, _, fn, _, P, _, _, work)) in walk_timed.items():
         main_timings[kernel_name] = timed_at_main(fn, walk_theta0s[P], work)
         torch.cuda.empty_cache()
@@ -2345,10 +2439,12 @@ def main(argv=None):
                 iris_model, iris, C_walk, "mh", 0.1, walk_iters, walk_burnin,
                 chain_block=4096)),
             (resident_walk_dense.KERNEL, "config 2, MALA step 0.01 on XOR MLP(2,3,2,1)",
-             walk_case(xor2321_model, xor, C_walk, "mala", 0.01, walk_iters, walk_burnin))):
+             walk_case(xor2321_model, xor, C_walk, "mala", 0.01, walk_iters, walk_burnin,
+                       dense=True))):
         ms_ = event_times(lambda: fn(args.seed, walk_theta0s[P]))[0]
         b_ms_, b_by_ = bound_ms(work(None), sm_count)
-        other_walks[kernel_name] = {"timed_at": label, "ms": ms_, "bound_ms": b_ms_,
+        other_walks[kernel_name] = {"timed_at": label, "launch": lane_launch_of(fn, C_walk),
+                                    "ms": ms_, "bound_ms": b_ms_,
                                     "bound_by": b_by_}
         torch.cuda.empty_cache()
 
@@ -2419,8 +2515,10 @@ def main(argv=None):
                     if n in main_launches[kernel]}}
 
     smc_entries = [
-        smc_entry(resident_smc.KERNEL, SMC_SOURCE, SMC_REPLACES, "xor_mala",
-                  "config 5's shape: XOR MLP(2,2,1), MALA step 0.05"),
+        dict(smc_entry(resident_smc.KERNEL, SMC_SOURCE, SMC_REPLACES, "xor_mala",
+                       "config 5's shape: XOR MLP(2,2,1), MALA step 0.05"),
+             lanes={name: lib.resident_smc_lanes() for name, lib in smc_libs.items()
+                    if name != "mixture_2d"}),
         smc_entry(resident_smc.CLOSURE_KERNEL, SMC_CLOSURE_SOURCE, SMC_CLOSURE_REPLACES,
                   "mixture_mala", "the 2-d mixture's main path: MALA step 0.05")]
 
@@ -2462,7 +2560,8 @@ def main(argv=None):
              lanes={"iris_mh_mala": walk_lib.resident_walk_lanes()}),
         dict(whole_loop_entry(resident_walk_dense, WALK_DENSE_SOURCE, WALK_DENSE_REPLACES,
                               f"{walk_timed[resident_walk_dense.KERNEL][0]}, {walk_at}"),
-             other_path=other_walks[resident_walk_dense.KERNEL]),
+             other_path=other_walks[resident_walk_dense.KERNEL],
+             lanes={move: dense_lanes_of(move) for move in DENSE_MOVES}),
         gibbs_entry(resident_walk, WALK_SOURCE, GIBBS_REPLACES, "iris4323_gibbs_extras"),
         gibbs_entry(resident_walk_dense, WALK_DENSE_SOURCE, GIBBS_DENSE_REPLACES,
                     "xor_gibbs_dense_extras"),

@@ -1,13 +1,16 @@
 // A chain owned by a group of lanes of one warp: the evaluators of the staged
 // Gibbs move (resident_walk.cu, move 2), of the staged NUTS kernel
-// (resident_nuts.cu) and of the staged HMC kernel and MH, MALA and ladder
-// moves (resident_hmc.cu, resident_walk.cu moves 0-1 and 3), and the
-// fixed-budget NUTS, HMC, MH, MALA and power-posterior ladder loops, each
+// (resident_nuts.cu), of the staged HMC kernel and MH, MALA and ladder
+// moves (resident_hmc.cu, resident_walk.cu moves 0-1 and 3), of the dense
+// MH, MALA and ladder moves (LaneDenseEval: resident_walk_dense.cu moves 0-1
+// and 3, on a generated body of the lane's own rows) and of the SMC
+// mutation pass (LaneSplitEval: resident_smc.cu); and the fixed-budget NUTS,
+// HMC, MH, MALA, power-posterior ladder and SMC mutation loops, each
 // written once over the lanes a chain (nuts_chain, hmc_chain, walk_chain,
-// tempering_chain: Lanes<1>, one thread a chain, is the dense kernels'
-// layout, and the staged kernels' on data of few rows, for tuning groups
-// larger than a cluster of lane blocks holds, or for ladders longer than a
-// block of lane chains holds).
+// tempering_chain, smc_chain: Lanes<1>, one thread a chain, is the layout of
+// dense HMC and NUTS and of the SMC closure pass, and the other kernels' on
+// data of few rows, for tuning groups larger than a cluster of lane blocks
+// holds, or for ladders longer than a block of lane chains holds).
 //
 // Layout. kLanes consecutive lanes of a warp (1, 2, 4, 8, 16 or 32, a
 // compile-time constant) own one chain; chain c is threads [c kLanes, (c + 1)
@@ -88,9 +91,11 @@
 // that scripts/lane_sweep.py measured on the H100 (PERF.md, section 6).
 //
 // Recording. Samples stay chain-minor [kept, rows, C]. With a chain spread
-// over lanes a warp's direct stores would fall on kLanes-strided rows, so a
-// recorded state goes through a shared-memory tile of the block's chains
-// (record_slot), and every kRecordBatch records (kWalkRecordBatch for HMC, MH
+// over 8 lanes or more a warp's direct stores would fall on runs of fewer
+// than 8 chains of a row, under a 32-byte sector, so a recorded state goes
+// through a shared-memory tile of the block's chains (record_slot; on at
+// most 4 lanes the HMC, walk and ladder loops store directly,
+// record_lanes), and every kRecordBatch records (kWalkRecordBatch for HMC, MH
 // and MALA, whose blocks hold up to 256 chains) the block writes the batch
 // out row by row, coalesced, a block's chains being consecutive
 // (flush_records): one barrier a batch.
@@ -191,6 +196,21 @@ __device__ __forceinline__ float prior_term(const mlp_vg::Data& d, int p, float 
   return -0.5f * diff * diff * d.ivar[p];
 }
 
+// theta whole in every lane (full), from the owned coordinates th of the
+// chain's lanes, through the chain's slot of kP floats in shared memory.
+template <class L>
+__device__ __forceinline__ void gather(const L& ln, float* slot, const float (&th)[L::kPer],
+                                       float (&full)[kP]) {
+  __syncwarp(ln.mask);  // every lane has read the slot of the last call
+#pragma unroll
+  for (int k = 0; k < L::kPer; ++k) {
+    if (ln.coord(k) < kP) slot[ln.coord(k)] = th[k];
+  }
+  __syncwarp(ln.mask);
+#pragma unroll
+  for (int p = 0; p < kP; ++p) full[p] = slot[p];
+}
+
 // ---- NUTS: value and gradient at a theta spread over the lanes ----
 
 template <class L>
@@ -205,18 +225,10 @@ struct LaneStagedEval {
   // The tempered log-posterior at the theta whose owned coordinates are th;
   // its gradient's owned coordinates into g. The same value in every lane.
   __device__ __forceinline__ float vg(const float (&th)[kPer], float (&g)[kPer]) const {
-    __syncwarp(ln.mask);  // every lane has read the slot of the last call
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (ln.coord(k) < kP) slot[ln.coord(k)] = th[k];
-    }
-    __syncwarp(ln.mask);
     float full[kP], gp[kP];
+    gather(ln, slot, th, full);
 #pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      full[p] = slot[p];
-      gp[p] = 0.0f;
-    }
+    for (int p = 0; p < kP; ++p) gp[p] = 0.0f;
     float part = 0.0f;
 #pragma unroll 2  // two rows in flight
     for (int r = ln.lane; r < n_rows; r += L::kLanes) {
@@ -240,15 +252,8 @@ struct LaneStagedEval {
   // The tempered log-posterior alone (MH): the forward pass on the lane's
   // rows and the prior terms of its coordinates, summed over the lanes.
   __device__ __forceinline__ float v(const float (&th)[kPer]) const {
-    __syncwarp(ln.mask);
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (ln.coord(k) < kP) slot[ln.coord(k)] = th[k];
-    }
-    __syncwarp(ln.mask);
     float full[kP], unused[kP];
-#pragma unroll
-    for (int p = 0; p < kP; ++p) full[p] = slot[p];
+    gather(ln, slot, th, full);
     float part = 0.0f;
 #pragma unroll 2
     for (int r = ln.lane; r < n_rows; r += L::kLanes) {
@@ -260,6 +265,128 @@ struct LaneStagedEval {
       if (p < kP) part += prior_term(d, p, th[k]);
     }
     return temperature * (ln.sum(part) + prior_const);
+  }
+};
+
+// ---- dense data: the generated body on the lane's own rows ----
+
+// The dense kernels' evaluator on a group of lanes (resident_walk_dense.cu's
+// MH, MALA and ladder moves). Body is the generated dense_body::LaneBody
+// (ops/mlp_dense.py::dense_lane_source): Body::v and Body::vg run the dense
+// body on the lane's rows l, l + kLanes, ..., whose inputs and labels
+// (Body::Rows) are registers that the constructor loads once from the lane's
+// constants (everything else folded as in the one-thread body), so every
+// lane runs the same code.
+// As LaneStagedEval: theta is posted to the chain's slot and read back whole,
+// the value summed over the lanes, the gradient reduce-scattered onto the
+// owners, and the prior taken on the coordinates each lane owns (their
+// locations and precisions in registers too).
+template <class L, class Body>
+struct LaneDenseEval {
+  static constexpr int kPer = L::kPer;
+  L ln;
+  float* slot;  // this chain's theta, [kP] in shared memory
+  typename Body::Rows rows;
+  float loc[kPer];
+  float ivar[kPer];
+  __device__ __forceinline__ LaneDenseEval(const L& lanes, float* chain_slot)
+      : ln(lanes), slot(chain_slot), rows(Body::rows(lanes.lane)) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int p = ln.coord(k);
+      loc[k] = p < kP ? Body::loc(p) : 0.0f;
+      ivar[k] = p < kP ? Body::ivar(p) : 0.0f;
+    }
+  }
+  __device__ __forceinline__ float vg(const float (&th)[kPer], float (&g)[kPer]) const {
+    float full[kP], gp[kP];
+    gather(ln, slot, th, full);
+    float part = Body::vg(full, rows, gp);
+    float own[kPer];
+    reduce_scatter(ln, gp, own);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const float diff = th[k] - loc[k];
+      part += -0.5f * diff * diff * ivar[k];
+      g[k] = ln.coord(k) < kP ? Body::kTemperature * (own[k] - diff * ivar[k]) : 0.0f;
+    }
+    return Body::kTemperature * (ln.sum(part) + Body::kPriorConst);
+  }
+  __device__ __forceinline__ float v(const float (&th)[kPer]) const {
+    float full[kP];
+    gather(ln, slot, th, full);
+    float part = Body::v(full, rows);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const float diff = th[k] - loc[k];
+      part += -0.5f * diff * diff * ivar[k];
+    }
+    return Body::kTemperature * (ln.sum(part) + Body::kPriorConst);
+  }
+};
+
+// ---- SMC: the split evaluation on the lane's staged rows ----
+
+// resident_loop.cuh::SplitEval's contract on a group of lanes (the SMC
+// mutation pass, smc_chain): the target lp + beta ll, beta taken at run time,
+// with the untempered log-likelihood ll, summed over the lanes, into ll and
+// (vg) the combined gradient beta d ll + d lp of the owned coordinates into
+// g. The rows are the block's staged rows, lane l taking l, l + kLanes, ...
+// (mlp_vg.cuh::row_log_lik), as LaneStagedEval's; the prior is taken on the
+// coordinates each lane owns; padding coordinates add no prior term and
+// take a zero gradient.
+template <class L>
+struct LaneSplitEval {
+  static constexpr int kPer = L::kPer;
+  mlp_vg::Data d;
+  float prior_const;
+  float beta;
+  int n_rows;
+  L ln;
+  float* slot;  // this chain's theta, [kP] in shared memory
+  __device__ __forceinline__ float vg(const float (&th)[kPer], float (&g)[kPer], float& ll) const {
+    float full[kP], gp[kP];
+    gather(ln, slot, th, full);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) gp[p] = 0.0f;
+    float part = 0.0f;
+#pragma unroll 2  // two rows in flight
+    for (int r = ln.lane; r < n_rows; r += L::kLanes) {
+      mlp_vg::row_log_lik<true>(full, d, r, part, gp);
+    }
+    float own[kPer];
+    reduce_scatter(ln, gp, own);
+    float prior = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int p = ln.coord(k);
+      if (p < kP) {
+        const float diff = th[k] - d.loc[p];
+        prior += -0.5f * diff * diff * d.ivar[p];
+        g[k] = -diff * d.ivar[p] + beta * own[k];
+      } else {
+        g[k] = 0.0f;
+      }
+    }
+    ll = ln.sum(part);
+    return (ln.sum(prior) + prior_const) + beta * ll;
+  }
+  __device__ __forceinline__ float v(const float (&th)[kPer], float& ll) const {
+    float full[kP], unused[kP];
+    gather(ln, slot, th, full);
+    float part = 0.0f;
+#pragma unroll 2
+    for (int r = ln.lane; r < n_rows; r += L::kLanes) {
+      mlp_vg::row_log_lik<false>(full, d, r, part, unused);
+    }
+    float prior = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int p = ln.coord(k);
+      if (p < kP) prior += prior_term(d, p, th[k]);
+    }
+    ll = ln.sum(part);
+    return (ln.sum(prior) + prior_const) + beta * ll;
   }
 };
 
@@ -580,16 +707,20 @@ __device__ __forceinline__ float* record_slot(float* tile, int k, int rows) {
 }
 
 // Flushes the batch that record k ends, if it ends one (of kept records).
-// Every thread of the block calls it at the same records.
+// Every thread of the block calls it at the same records, with the block's
+// first chain: a block's chains are consecutive (staged kernels: block by
+// block; dense kernels: a launch's blocks of chains divide the sublane
+// row's chain_block / 8, resident_loop.cuh::chain_index), so a thread
+// passes its own chain less its slot.
 template <int kLanes, int kBatch = kRecordBatch>
 __device__ __forceinline__ void flush_records(float* __restrict__ samples, const float* tile,
-                                              int k, int kept, int rows, int C) {
+                                              int k, int kept, int rows, int C, int first) {
   const int j = k % kBatch;
   if (j != kBatch - 1 && k != kept - 1) return;
   const int nb = blockDim.x / kLanes;
   const int per = rows * nb;
   const float* batch = tile + static_cast<size_t>((k / kBatch) & 1) * kBatch * per;
-  float* out = samples + static_cast<size_t>(k - j) * rows * C + blockIdx.x * nb;
+  float* out = samples + static_cast<size_t>(k - j) * rows * C + first;
   __syncthreads();
   for (int i = threadIdx.x; i < (j + 1) * per; i += blockDim.x) {
     const int rec = i / per;
@@ -668,7 +799,7 @@ struct LaneGibbsLayout {
   // Stages theta (whole in every lane), the value and the moved flag of
   // record k of kept, and flushes its batch when it ends one. Every thread
   // of the block calls it at the same iteration.
-  __device__ __forceinline__ void record(float* __restrict__ samples, int k, int kept, int C, int,
+  __device__ __forceinline__ void record(float* __restrict__ samples, int k, int kept, int C, int c,
                                          bool extras, const float (&th)[kP], float val,
                                          bool moved) const {
     const int rows = extras ? kP + 2 : kP;
@@ -682,7 +813,8 @@ struct LaneGibbsLayout {
       slot[kP * nb] = val;
       slot[(kP + 1) * nb] = moved ? 1.0f : 0.0f;
     }
-    flush_records<kLanes>(samples, tile, k, kept, rows, C);
+    flush_records<kLanes>(samples, tile, k, kept, rows, C,
+                          c - static_cast<int>(threadIdx.x) / kLanes);
   }
 
   template <int kB>
@@ -1086,7 +1218,7 @@ __device__ __forceinline__ void nuts_chain(const Eval& ev, const L& ln, const Me
           slot[kP * nb] = pv;
           slot[(kP + 1) * nb] = moved ? 1.0f : 0.0f;
         }
-        flush_records<kLanes>(samples, buf, rec, pr.kept, rows, C);
+        flush_records<kLanes>(samples, buf, rec, pr.kept, rows, C, c - me / kLanes);
       }
     }
   }
@@ -1104,10 +1236,22 @@ __device__ __forceinline__ void nuts_chain(const Eval& ev, const L& ln, const Me
 
 // ---- HMC, MH and MALA ----
 
-// Records of the HMC and walk loops on lanes go through the tile one at a
-// time: a tuned HMC block holds a whole tuning group (256 chains at 4 lanes),
-// whose tile of kRecordBatch records would not fit shared memory.
+// Records of the HMC, walk and ladder loops on lanes. On at most 4 lanes a
+// chain, a warp's 32 / kLanes >= 8 chains are consecutive and start at a
+// multiple of 8, so the warp's stores of one coordinate row cover whole
+// 32-byte sectors of the samples: each lane stores its owned coordinates
+// directly, with no tile and no barrier. On 8 lanes the runs are shorter than
+// a sector, and records go through the tile one at a time: a tuned HMC block
+// holds a whole tuning group, whose tile of kRecordBatch records would not
+// fit shared memory.
 constexpr int kWalkRecordBatch = 1;
+__host__ __device__ constexpr bool direct_records(int lanes) { return lanes <= 4; }
+
+// Floats of shared memory of the walk loops' record tile for a block of
+// threads threads (none where the lanes store directly).
+__host__ __device__ constexpr size_t walk_tile_floats(int lanes, int threads) {
+  return direct_records(lanes) ? 0 : tile_floats(lanes, threads, kWalkRecordBatch);
+}
 
 // The words of one iteration of the HMC and walk streams (key (k0, k1),
 // counter (ctr, j)) on a chain's lanes: the kPairs normal pairs, then the
@@ -1153,16 +1297,29 @@ struct WalkWords {
   }
 };
 
-// Stages the owned coordinates of th (and with extras the value and the
-// moved flag) as record k of kept in the tile, and flushes its batch. Every
-// thread of the block calls it at the same records.
+// Writes the owned coordinates of th (and with extras the value and the
+// moved flag) as record k of kept: directly on at most 4 lanes, else staged
+// in the tile, whose batch it flushes. Every thread of the block calls it at
+// the same records.
 template <class L>
 __device__ __forceinline__ void record_lanes(const L& ln, float* __restrict__ samples,
-                                             float* tile, int k, int kept, int C, bool extras,
-                                             const float (&th)[L::kPer], float val,
+                                             float* tile, int k, int kept, int C, int c,
+                                             bool extras, const float (&th)[L::kPer], float val,
                                              bool moved) {
   constexpr int kLanes = L::kLanes;
   const int rows = extras ? kP + 2 : kP;
+  if constexpr (direct_records(kLanes)) {
+    float* out = samples + static_cast<size_t>(k) * rows * C;
+#pragma unroll
+    for (int j = 0; j < L::kPer; ++j) {
+      if (ln.coord(j) < kP) out[static_cast<size_t>(ln.coord(j)) * C + c] = th[j];
+    }
+    if (extras && ln.lane == 0) {
+      out[static_cast<size_t>(kP) * C + c] = val;
+      out[static_cast<size_t>(kP + 1) * C + c] = moved ? 1.0f : 0.0f;
+    }
+    return;
+  }
   const int nb = blockDim.x / kLanes;
   float* slot = record_slot<kLanes, kWalkRecordBatch>(tile, k, rows);
 #pragma unroll
@@ -1173,7 +1330,8 @@ __device__ __forceinline__ void record_lanes(const L& ln, float* __restrict__ sa
     slot[kP * nb] = val;
     slot[(kP + 1) * nb] = moved ? 1.0f : 0.0f;
   }
-  flush_records<kLanes, kWalkRecordBatch>(samples, tile, k, kept, rows, C);
+  flush_records<kLanes, kWalkRecordBatch>(samples, tile, k, kept, rows, C,
+                                          c - static_cast<int>(threadIdx.x) / kLanes);
 }
 
 // One chain's whole HMC run, on the lanes ln (Lanes<1>: one thread): per
@@ -1345,7 +1503,7 @@ __device__ __forceinline__ void hmc_chain(const Eval& ev, const L& ln,
     } else {
       const int since = t - pr.num_burnin_iters;
       if (since >= 0 && since % pr.record_thin == 0 && since / pr.record_thin < pr.kept) {
-        record_lanes(ln, samples, buf, since / pr.record_thin, pr.kept, C,
+        record_lanes(ln, samples, buf, since / pr.record_thin, pr.kept, C, c,
                      pr.record_extras != 0, reg_th, cur_val, moved);
       }
     }
@@ -1530,7 +1688,7 @@ __device__ __forceinline__ void walk_chain(const Eval& ev, const L& ln,
     } else {
       const int since = t - pr.num_burnin_iters;
       if (since >= 0 && since % pr.record_thin == 0 && since / pr.record_thin < pr.kept) {
-        record_lanes(ln, samples, buf, since / pr.record_thin, pr.kept, C,
+        record_lanes(ln, samples, buf, since / pr.record_thin, pr.kept, C, c,
                      pr.record_extras != 0, reg_th, val, moved);
       }
     }
@@ -1555,7 +1713,7 @@ __host__ __device__ constexpr size_t tempering_lane_floats(bool mala, bool extra
                                                            int threads) {
   return lanes == 1 ? resident_loop::tempering_floats(mala, extras, threads)
                     : ((mala ? 2 : 1) * static_cast<size_t>(kP) + 2) * (threads / lanes) +
-                          tile_floats(lanes, threads, kWalkRecordBatch);
+                          walk_tile_floats(lanes, threads);
 }
 
 // One chain's whole power-posterior run, on the lanes ln (Lanes<1>: one
@@ -1835,8 +1993,8 @@ __device__ __forceinline__ void tempering_chain(const Eval& ev, const L& ln,
       resident_loop::record(samples, t, pr.num_burnin_iters, pr.record_thin, pr.kept,
                             pr.record_extras, C, c, acc_th, val, moved);
     } else if (since >= 0 && since % pr.record_thin == 0 && since / pr.record_thin < pr.kept) {
-      record_lanes(ln, samples, tile, since / pr.record_thin, pr.kept, C, pr.record_extras != 0,
-                   reg_th, val, moved);
+      record_lanes(ln, samples, tile, since / pr.record_thin, pr.kept, C, c,
+                   pr.record_extras != 0, reg_th, val, moved);
     }
   }
 
@@ -1848,6 +2006,146 @@ __device__ __forceinline__ void tempering_chain(const Eval& ev, const L& ln,
   if (ln.lane == 0) {
     accepts[c] = n_within;
     accepts[static_cast<size_t>(C) + c] = n_swaps;
+  }
+}
+
+// ---- the SMC mutation pass ----
+
+// One particle's SMC mutation pass, on the lanes ln (Lanes<1>: one thread):
+// num_steps MH or MALA moves at the target v = lp + beta ll (ev: a
+// SplitEval, a LaneSplitEval, or the closure kernel's evaluator; beta is the
+// evaluator's), from theta0, with walk_chain's draws (the walk stream: key
+// (stage seed, particle), counter (step, j): the normal pairs, then the
+// accept uniform at word ceil(P/2)) and accept algebra. With s = sqrt(step):
+//   MH:   prop = theta + s z; log_rate = v(prop) - v(theta).
+//   MALA: prop = theta + (step/2) grad + s z;
+//         log_rate = v(prop) - v(theta) - |theta - prop - (step/2) grad(prop)|^2 / (2 step)
+//                    + |z|^2 / 2,
+// grad the target's combined gradient. Records nothing: writes the final
+// theta, pot (the accepted state's untempered log-likelihood, the next
+// stage's reweighting potential) and the accept count. Layouts as
+// walk_chain's: one thread keeps the accepted theta (and gradient, MALA) in
+// buf, [P][blockDim] of shared memory; a group of lanes keeps them in
+// registers, spread over the lanes, with the iteration's words spread over
+// the lanes and |z|^2, the reverse-proposal norm, the value and ll reduced
+// over the lanes, so every lane takes the same accept decision (buf unused).
+template <bool kMALA, class L, class Eval>
+__device__ __forceinline__ void smc_chain(const Eval& ev, const L& ln,
+                                          const ResidentSMCParams& pr, int c,
+                                          const float* __restrict__ theta0,
+                                          float* __restrict__ final_theta,
+                                          float* __restrict__ pot, float* __restrict__ accepts,
+                                          float* buf) {
+  constexpr int kN = L::kPer;
+  constexpr bool kThread = L::kLanes == 1;
+  constexpr int kPairs = resident_loop::kPairs;
+  const int bd = blockDim.x;
+  const int me = threadIdx.x;
+  const int N = pr.num_particles;
+  const unsigned key0 = static_cast<unsigned>(pr.seed);
+  const unsigned key1 = static_cast<unsigned>(c);
+  float* acc_th = buf;           // one thread: the accepted theta, [P][bd]
+  float* acc_g = buf + kP * bd;  // one thread, MALA: its gradient, [P][bd]
+  float reg_th[kThread ? 1 : kN];
+  float reg_g[kThread || !kMALA ? 1 : kN];
+  auto at = [&](int k) -> float& {
+    if constexpr (kThread) {
+      return acc_th[k * bd + me];
+    } else {
+      return reg_th[k];
+    }
+  };
+  auto ag = [&](int k) -> float& {
+    if constexpr (kThread) {
+      return acc_g[k * bd + me];
+    } else if constexpr (kMALA) {
+      return reg_g[k];
+    } else {
+      return reg_g[0];
+    }
+  };
+
+  float val;
+  float ll;
+  {
+    float th[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const int p = ln.coord(k);
+      th[k] = p < kP ? theta0[static_cast<size_t>(p) * N + c] : 0.0f;
+    }
+    if constexpr (kMALA) {
+      float g[kN];
+      val = ev.vg(th, g, ll);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) ag(k) = g[k];
+    } else {
+      val = ev.v(th, ll);
+    }
+#pragma unroll
+    for (int k = 0; k < kN; ++k) at(k) = th[k];
+  }
+
+  float n_accepts = 0.0f;
+  for (int s = 0; s < pr.num_steps; ++s) {
+    const unsigned ctr = static_cast<unsigned>(s);
+    float z[kN];
+    float u;
+    if constexpr (kThread) {
+      kernel_prng::normals(key0, key1, ctr, z);
+      u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
+    } else {
+      const WalkWords<L> words(ln, key0, key1, ctr);
+      words.normals(ln, z);
+      u = words.uniform(ln);
+    }
+    float prop[kN];
+    float v_p;
+    float ll_p;
+    float log_rate;
+    float gp[kMALA ? kN : 1];
+    if constexpr (kMALA) {
+      float z_sq = z[0] * z[0];
+#pragma unroll
+      for (int k = 1; k < kN; ++k) z_sq = z_sq + z[k] * z[k];
+      z_sq = ln.sum(z_sq);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) prop[k] = (at(k) + pr.half_step * ag(k)) + pr.sqrt_step * z[k];
+      v_p = ev.vg(prop, gp, ll_p);
+      float rev_sq = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        const float dp = at(k) - (prop[k] + pr.half_step * gp[k]);
+        rev_sq = rev_sq + dp * dp;
+      }
+      rev_sq = ln.sum(rev_sq);
+      log_rate = ((v_p - val) - pr.half_inv_step * rev_sq) + 0.5f * z_sq;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kN; ++k) prop[k] = at(k) + pr.sqrt_step * z[k];
+      v_p = ev.v(prop, ll_p);
+      log_rate = v_p - val;
+    }
+    if (logf(u) < log_rate) {
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        at(k) = prop[k];
+        if constexpr (kMALA) ag(k) = gp[k];
+      }
+      val = v_p;
+      ll = ll_p;
+      n_accepts += 1.0f;
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const int p = ln.coord(k);
+    if (p < kP) final_theta[static_cast<size_t>(p) * N + c] = at(k);
+  }
+  if (ln.lane == 0) {
+    pot[c] = ll;
+    accepts[c] = n_accepts;
   }
 }
 

@@ -134,7 +134,7 @@ size_t smem_bytes(int threads, int n_rows) {
   const size_t chain_floats =
       kLanes == 1 ? 2 * static_cast<size_t>(kP) * threads
                   : static_cast<size_t>(kP) * (threads / kLanes) +
-                        lane_eval::tile_floats(kLanes, threads, lane_eval::kWalkRecordBatch);
+                        lane_eval::walk_tile_floats(kLanes, threads);
   return sizeof(float) * (data_floats(n_rows) + chain_floats);
 }
 

@@ -14,16 +14,17 @@
 // lane_eval.cuh's evaluators read them a group of lanes a chain (the staged
 // HMC, MH, MALA and Gibbs moves and NUTS); the dense kernels' evaluator
 // calls the code generated for one dataset (ops/mlp_dense.py::dense_source,
-// gibbs_dense_source). smc_mutation_chain is one particle's SMC mutation
-// pass (resident_smc.cu), on SplitEval, the staged rows with the
-// likelihood-tempered target.
+// gibbs_dense_source). SplitEval is the staged rows with the
+// likelihood-tempered target of the SMC mutation pass (resident_smc.cu, on
+// one thread a particle; lane_eval.cuh::smc_chain is the pass, written once
+// over the lanes a particle).
 //
-// Layout and state. One thread owns one chain in the dense kernels and the
-// SMC mutation pass (and in the staged HMC, MH, MALA, tempering and NUTS
-// kernels when the data has few rows, a tuning group is larger than a
-// cluster of lane blocks holds or a ladder longer than a block of lane
-// chains); a group of lanes of a warp owns it in the staged kernels
-// otherwise (lane_eval.cuh). On one thread the accepted
+// Layout and state. One thread owns one chain in the dense HMC, NUTS and
+// Gibbs kernels and the SMC closure pass (and in the staged kernels, the
+// dense MH, MALA and ladder moves and the SMC mutation pass when the data has
+// few rows, a tuning group is larger than a cluster of lane blocks holds or
+// a ladder longer than a block of lane chains); a group of lanes of a warp
+// owns it otherwise (lane_eval.cuh). On one thread the accepted
 // theta (and its gradient, for HMC and MALA), touched once per iteration,
 // live in shared memory at [P][blockDim]; the proposal and its gradient live
 // in registers (Gibbs keeps theta in registers and saves only the sub-block
@@ -176,15 +177,20 @@ struct SplitEval {
   }
 };
 
-// The chain of this thread. Staged (sublanes 1): consecutive, block by
-// block. Dense (sublanes 8): the blocks of a group (chain_block /
-// blockDim.x of them, in order) hold its chains s*(C/8) + i*lb + j in the
-// order (s, j), so a warp's chains are consecutive (lb is a multiple of 128).
-__device__ __forceinline__ int chain_index(int sublanes, int chain_block, int num_chains) {
-  if (sublanes == 1) return blockIdx.x * blockDim.x + threadIdx.x;
-  const int blocks_per_group = chain_block / blockDim.x;
+// The chain of this thread, whose chain takes lanes consecutive threads (a
+// block holding nb = blockDim.x / lanes chains). Staged (sublanes 1):
+// consecutive, block by block. Dense (sublanes 8): the blocks of a group
+// (chain_block / nb of them, in order) hold its chains s*(C/8) + i*lb + j in
+// the order (s, j), so a warp's chains are consecutive (lb is a multiple of
+// 128), and a block's too where nb divides lb, as the dense launches take it.
+__device__ __forceinline__ int chain_index(int sublanes, int chain_block, int num_chains,
+                                           int lanes = 1) {
+  const int nb = blockDim.x / lanes;
+  const int slot = threadIdx.x / lanes;
+  if (sublanes == 1) return blockIdx.x * nb + slot;
+  const int blocks_per_group = chain_block / nb;
   const int group = blockIdx.x / blocks_per_group;
-  const int q = (blockIdx.x % blocks_per_group) * blockDim.x + threadIdx.x;
+  const int q = (blockIdx.x % blocks_per_group) * nb + slot;
   const int lb = chain_block / sublanes;
   return (q / lb) * (num_chains / sublanes) + group * lb + q % lb;
 }
@@ -256,99 +262,6 @@ __device__ __forceinline__ float dual_average(float stat, int t, int num_burnin_
   loge = loge > log_eub ? log_eub : loge;  // NaN stays NaN
   logbare = e_w * loge + (1.0f - e_w) * logbare;
   return t == num_burnin_iters - 1 ? expf(logbare) : expf(loge);
-}
-
-// One particle's SMC mutation pass: num_steps MH or MALA moves at the
-// target v = lp + beta * ll (ev, a SplitEval), from theta0, with the draws
-// of the walk stream (key (stage seed, particle), counter (step, j)). With s
-// = pr.sqrt_step:
-//   MH:   prop = theta + s z; log_rate = v(prop) - v(theta).
-//   MALA: prop = theta + (step/2) grad + s z;
-//         log_rate = v(prop) - v(theta) - |theta - prop - (step/2) grad(prop)|^2 / (2 step)
-//                    + |z|^2 / 2,
-// grad the target's combined gradient. Records nothing: writes the final
-// theta, pot (the accepted state's untempered log-likelihood, the next
-// stage's reweighting potential) and the accept count.
-template <class Eval, bool kMALA>
-__device__ __forceinline__ void smc_mutation_chain(const Eval& ev, const ResidentSMCParams& pr,
-                                                   int c, const float* __restrict__ theta0,
-                                                   float* __restrict__ final_theta,
-                                                   float* __restrict__ pot,
-                                                   float* __restrict__ accepts, float* acc_th,
-                                                   float* acc_g) {
-  const int bd = blockDim.x;
-  const int me = threadIdx.x;
-  const int N = pr.num_particles;
-  const unsigned key0 = static_cast<unsigned>(pr.seed);
-  const unsigned key1 = static_cast<unsigned>(c);
-
-  float val;
-  float ll;
-  {
-    float th[kP];
-#pragma unroll
-    for (int p = 0; p < kP; ++p) th[p] = theta0[static_cast<size_t>(p) * N + c];
-    if constexpr (kMALA) {
-      float g[kP];
-      val = ev.vg(th, g, ll);
-#pragma unroll
-      for (int p = 0; p < kP; ++p) acc_g[p * bd + me] = g[p];
-    } else {
-      val = ev.v(th, ll);
-    }
-#pragma unroll
-    for (int p = 0; p < kP; ++p) acc_th[p * bd + me] = th[p];
-  }
-
-  float n_accepts = 0.0f;
-  for (int s = 0; s < pr.num_steps; ++s) {
-    const unsigned ctr = static_cast<unsigned>(s);
-    float z[kP];
-    kernel_prng::normals(key0, key1, ctr, z);
-    float prop[kP];
-    float v_p;
-    float ll_p;
-    float log_rate;
-    float gp[kMALA ? kP : 1];
-    if constexpr (kMALA) {
-      float z_sq = z[0] * z[0];
-#pragma unroll
-      for (int p = 1; p < kP; ++p) z_sq = z_sq + z[p] * z[p];
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        prop[p] = (acc_th[p * bd + me] + pr.half_step * acc_g[p * bd + me]) + pr.sqrt_step * z[p];
-      }
-      v_p = ev.vg(prop, gp, ll_p);
-      float rev_sq = 0.0f;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        const float dp = acc_th[p * bd + me] - (prop[p] + pr.half_step * gp[p]);
-        rev_sq = rev_sq + dp * dp;
-      }
-      log_rate = ((v_p - val) - pr.half_inv_step * rev_sq) + 0.5f * z_sq;
-    } else {
-#pragma unroll
-      for (int p = 0; p < kP; ++p) prop[p] = acc_th[p * bd + me] + pr.sqrt_step * z[p];
-      v_p = ev.v(prop, ll_p);
-      log_rate = v_p - val;
-    }
-    const float u = kernel_prng::uniform_at(key0, key1, ctr, kPairs);
-    if (logf(u) < log_rate) {
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        acc_th[p * bd + me] = prop[p];
-        if constexpr (kMALA) acc_g[p * bd + me] = gp[p];
-      }
-      val = v_p;
-      ll = ll_p;
-      n_accepts += 1.0f;
-    }
-  }
-
-#pragma unroll
-  for (int p = 0; p < kP; ++p) final_theta[static_cast<size_t>(p) * N + c] = acc_th[p * bd + me];
-  pot[c] = ll;
-  accepts[c] = n_accepts;
 }
 
 // Floats of shared memory that lane_eval.cuh::tempering_chain takes on one

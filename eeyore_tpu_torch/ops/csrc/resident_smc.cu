@@ -20,13 +20,25 @@
 // proposal normals, j = ceil(P/2) the accept uniform. The runner seeds stage
 // k with seed + 7919 k (mod 2^32).
 //
-// Design. One thread per particle (resident_loop.cuh::smc_mutation_chain on
-// the split evaluation mlp_vg.cuh::chain_eval_split); the data rows and the
-// prior staged once per block in shared memory; the accepted theta (and,
-// for MALA, the combined gradient beta * gll + glp) in shared memory at
-// [P][blockDim], the proposal in registers. Particles share nothing, so a
-// block is any multiple of 32 threads: 128, so that the 16384 particles of
-// BASELINE.md config 5 make 128 blocks on the 132 SMs.
+// Design. SMC_LANES lanes of a warp a particle (lane_eval.cuh::smc_chain on
+// LaneSplitEval, the loop written once over the lanes, walk_chain's draws and
+// accept algebra at the likelihood-tempered target): lane l evaluates the
+// staged rows l, l + SMC_LANES, ... (mlp_vg.cuh::row_log_lik), the
+// log-likelihood and the prior reduce by xor butterflies and the gradient is
+// reduce-scattered onto the lanes that own its coordinates, so every lane
+// takes the same accept decision; the accepted theta and gradient live in
+// registers, spread over the lanes, and the step's Threefry words are spread
+// too. The data rows and the prior are staged once per block in shared
+// memory, beside a theta slot per particle. Particles share nothing, so a
+// block is 256 threads, of which SMC_MIN_BLOCKS must fit an SM (the launch
+// bounds that cap the registers: the pass is bound by latency, and one
+// thread a particle walked iris's 150 rows serially with 4 warps an SM),
+// and the launch covers the particles exactly. SMC_LANES = 1 is one thread a
+// particle (ops/resident_smc.py::smc_lanes takes it on fewer than
+// resident_hmc.LANE_MIN_ROWS padded rows, XOR's 8): smc_chain on
+// resident_loop.cuh::SplitEval, the accepted theta (and the combined
+// gradient beta * gll + glp, MALA) in shared memory at [P][blockDim], blocks
+// of SMC_BLOCK threads, no launch bounds.
 //
 // Bound. Per particle 1 + num_steps evaluations (value and gradient for
 // MALA, value only for MH), per step ceil(P/2) + 1 Threefry calls and
@@ -34,37 +46,60 @@
 // pot and counts written once. The evaluations dominate: bound by
 // operations (the special-function unit on iris).
 
-#include "resident_loop.cuh"
+#include "lane_eval.cuh"
+
+#if !defined(SMC_LANES) || !defined(SMC_MIN_BLOCKS)
+#error "SMC_LANES (lanes a particle) and SMC_MIN_BLOCKS must be defined"
+#endif
 
 using namespace mlp_vg;
 using resident_loop::kMaxThreads;
 
 namespace {
 
+constexpr int kSmcLanes = SMC_LANES;
+using SmcLanes = lane_eval::Lanes<kSmcLanes>;
+// Threads a block may have: one thread a particle kMaxThreads, on lanes 256.
+constexpr int kSmcThreads = kSmcLanes == 1 ? kMaxThreads : 256;
+
+#if SMC_LANES == 1
+#define SMC_LAUNCH_BOUNDS
+#else
+#define SMC_LAUNCH_BOUNDS __launch_bounds__(kSmcThreads, SMC_MIN_BLOCKS)
+#endif
+
 template <bool kMALA>
-__global__ void resident_smc_kernel(const float* __restrict__ theta0,  // [P, N]
-                                    const float* __restrict__ x, const float* __restrict__ y,
-                                    const float* __restrict__ mask,
-                                    const float* __restrict__ loc,
-                                    const float* __restrict__ ivar, const ResidentSMCParams pr,
-                                    float* __restrict__ final_theta,  // [P, N]
-                                    float* __restrict__ pot,          // [N]
-                                    float* __restrict__ accepts) {    // [N]
+__global__ void SMC_LAUNCH_BOUNDS
+    resident_smc_kernel(const float* __restrict__ theta0,  // [P, N]
+                        const float* __restrict__ x, const float* __restrict__ y,
+                        const float* __restrict__ mask, const float* __restrict__ loc,
+                        const float* __restrict__ ivar, const ResidentSMCParams pr,
+                        float* __restrict__ final_theta,  // [P, N]
+                        float* __restrict__ pot,          // [N]
+                        float* __restrict__ accepts) {    // [N]
   extern __shared__ float smem[];
   const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
-  float* acc_th = smem + data_floats(pr.n_rows);  // accepted theta, [P][bd]
-  float* acc_g = acc_th + kP * blockDim.x;        // its combined gradient (MALA), [P][bd]
+  float* buf = smem + data_floats(pr.n_rows);
+#if SMC_LANES == 1  // buf: the accepted theta and its combined gradient (MALA), [P][bd] each
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= pr.num_particles) return;  // no block barrier follows
   const resident_loop::SplitEval ev{d, pr.prior_const, pr.beta, pr.n_rows};
-  resident_loop::smc_mutation_chain<resident_loop::SplitEval, kMALA>(ev, pr, c, theta0,
-                                                                     final_theta, pot, accepts,
-                                                                     acc_th, acc_g);
+  lane_eval::smc_chain<kMALA>(ev, SmcLanes{}, pr, c, theta0, final_theta, pot, accepts, buf);
+#else  // buf: a theta slot [P] per particle
+  // the launch covers the particles exactly
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kSmcLanes;
+  const SmcLanes ln;
+  const lane_eval::LaneSplitEval<SmcLanes> ev{d, pr.prior_const, pr.beta, pr.n_rows, ln,
+                                              buf + kP * (threadIdx.x / kSmcLanes)};
+  lane_eval::smc_chain<kMALA>(ev, ln, pr, c, theta0, final_theta, pot, accepts, nullptr);
+#endif
 }
 
 size_t smem_bytes(bool mala, int n_rows, int threads) {
-  return sizeof(float) *
-         (data_floats(n_rows) + (mala ? 2 : 1) * static_cast<size_t>(kP) * threads);
+  const size_t chain_floats = kSmcLanes == 1
+                                  ? (mala ? 2 : 1) * static_cast<size_t>(kP) * threads
+                                  : static_cast<size_t>(kP) * (threads / kSmcLanes);
+  return sizeof(float) * (data_floats(n_rows) + chain_floats);
 }
 
 }  // namespace
@@ -80,10 +115,23 @@ extern "C" int resident_smc_arch(int* out) {
   return 0;
 }
 
+// Lanes a particle.
+extern "C" int resident_smc_lanes() { return kSmcLanes; }
+
 // move: 0 MH, 1 MALA.
 extern "C" int resident_smc_resources(int move, int* out) {
   return static_cast<int>(move == 1 ? resident_loop::resources(resident_smc_kernel<true>, out)
                                     : resident_loop::resources(resident_smc_kernel<false>, out));
+}
+
+// Blocks of threads threads of the MH (move 0) or MALA (1) pass an SM holds
+// at once, for n_rows staged rows.
+extern "C" int resident_smc_max_blocks(int move, int threads, int n_rows, int* out) {
+  const size_t smem = smem_bytes(move == 1, n_rows, threads);
+  return static_cast<int>(
+      move == 1 ? resident_loop::max_active_blocks(resident_smc_kernel<true>, threads, smem, out)
+                : resident_loop::max_active_blocks(resident_smc_kernel<false>, threads, smem,
+                                                   out));
 }
 
 extern "C" const char* resident_smc_error_string(int code) {
@@ -95,12 +143,13 @@ extern "C" int resident_smc_launch(int mala, const float* theta0, const float* x
                                    const ResidentSMCParams* params, int threads,
                                    float* final_theta, float* pot, float* accepts, void* stream) {
   const ResidentSMCParams pr = *params;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || pr.num_particles < 1 ||
-      pr.num_steps < 0) {
+  const long long lanes = static_cast<long long>(pr.num_particles) * kSmcLanes;
+  if (threads < 32 || threads > kSmcThreads || threads % 32 != 0 || pr.num_particles < 1 ||
+      pr.num_steps < 0 || (kSmcLanes > 1 && lanes % threads != 0)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const size_t smem = smem_bytes(mala != 0, pr.n_rows, threads);
-  const int blocks = (pr.num_particles + threads - 1) / threads;
+  const int blocks = static_cast<int>((lanes + threads - 1) / threads);
   const cudaError_t err =
       mala ? resident_loop::launch(resident_smc_kernel<true>, blocks, threads, smem, 1, stream,
                                    theta0, x, y, mask, loc, ivar, pr, final_theta, pot, accepts)

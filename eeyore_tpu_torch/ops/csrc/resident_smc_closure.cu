@@ -7,7 +7,7 @@
 // which interprets the closure's traced jaxpr inside the kernel); the plain
 // PyTorch version is eeyore_tpu_torch/ops/resident_smc.py::
 // _run_mutation_plain on make_generic_vg (the closure by batched autograd).
-// The loop is resident_smc.cu's (resident_loop.cuh::smc_mutation_chain: the
+// The loop is resident_smc.cu's (lane_eval.cuh::smc_chain at Lanes<1>: the
 // same moves, stream and step constants, one particle a thread); what
 // differs is the evaluation:
 // - closure_body.cuh, which ops/closure_trace.py generates from the
@@ -19,7 +19,7 @@
 // - No data are staged: a block's shared memory holds only the accepted
 //   theta and, for MALA, its combined gradient beta * gll + glp, at
 //   [P][blockDim].
-// resident_loop.cuh takes the parameter count from mlp_vg.cuh's architecture
+// lane_eval.cuh takes the parameter count from mlp_vg.cuh's architecture
 // macros: the build gives it a one-layer net without bias of P parameters
 // (FMV_DIMS = in | out << 8, in * out = P), of which nothing else is used.
 //
@@ -28,7 +28,7 @@
 // and Box-Muller work per step; bytes: theta read once, final, pot and
 // counts written once. Bound by operations.
 
-#include "resident_loop.cuh"
+#include "lane_eval.cuh"
 #include "closure_body.cuh"
 
 using mlp_vg::kP;
@@ -65,13 +65,12 @@ __global__ void resident_smc_closure_kernel(const float* __restrict__ theta0,  /
                                             float* __restrict__ pot,          // [N]
                                             float* __restrict__ accepts) {    // [N]
   extern __shared__ float smem[];
-  float* acc_th = smem;                     // accepted theta, [P][bd]
-  float* acc_g = acc_th + kP * blockDim.x;  // its combined gradient (MALA), [P][bd]
+  // smem: the accepted theta and its combined gradient (MALA), [P][bd] each
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= pr.num_particles) return;  // no block barrier follows
   const ClosureEval ev{pr.beta};
-  resident_loop::smc_mutation_chain<ClosureEval, kMALA>(ev, pr, c, theta0, final_theta, pot,
-                                                        accepts, acc_th, acc_g);
+  lane_eval::smc_chain<kMALA>(ev, lane_eval::Lanes<1>{}, pr, c, theta0, final_theta, pot,
+                              accepts, smem);
 }
 
 size_t smem_bytes(bool mala, int threads) {

@@ -215,7 +215,7 @@ size_t smem_bytes(int move, int n_rows, int threads) {
   if (kWalkLanes > 1) {  // a theta slot per chain, the record tile
     return sizeof(float) *
            (data_floats(n_rows) + static_cast<size_t>(kP) * (threads / kWalkLanes) +
-            lane_eval::tile_floats(kWalkLanes, threads, lane_eval::kWalkRecordBatch));
+            lane_eval::walk_tile_floats(kWalkLanes, threads));
   }
   const int theta_copies = move == 1 ? 2 : 1;
   return sizeof(float) *

@@ -80,33 +80,32 @@ class _Body:
     def b_idx(self, l, j):
         return self.layer_offsets[l][1] + j
 
-    def unit_z(self, theta, prev, l, j, d):
-        """Pre-activation of unit j of layer l at point d; ``prev`` holds
-        layer l's input activations at d (the data's constants for l = 0)."""
+    def unit_z(self, theta, prev, l, j, xrow):
+        """Pre-activation of unit j of layer l at a point whose inputs are
+        ``xrow`` (constants, folded, or values of the lane body); ``prev``
+        holds layer l's input activations there."""
         acc = theta[self.b_idx(l, j)] if self.bias[l] else None
         for i in range(self.dims[l]):
             if l == 0:
-                c = float(self.x[d, i])
-                if c == 0.0:
+                term = _times(xrow[i], theta[self.w_idx(0, j, i)])
+                if term is None:
                     continue
-                term = theta[self.w_idx(0, j, i)]
-                if c != 1.0:
-                    term = _f32(c) * term
             else:
                 term = prev[i] * theta[self.w_idx(l, j, i)]
             acc = term if acc is None else acc + term
         return self.zeros if acc is None else acc
 
-    def bce_point(self, z, j, d):
-        """(y z - softplus(z), exp(-|z|)) of output unit j at point d; the
-        sigmoid of the gradient reuses the exp."""
-        ll = fma_const(None, float(self.y[d, j]), z)
+    def bce_point(self, z, yv):
+        """(y z - softplus(z), exp(-|z|)) of an output unit whose label is
+        ``yv``; the sigmoid of the gradient reuses the exp."""
+        ll = fma_const(None, yv, z)
         e = self.ops.exp(-self.ops.abs(z))
         sp = self.ops.max0(z) + self.ops.log1p(e)
         return (-sp if ll is None else ll - sp), e
 
-    def ce_point(self, zs, d):
-        """(log-likelihood, log-sum-exp) of the logits ``zs`` at point d."""
+    def ce_point(self, zs, yrow):
+        """(log-likelihood, log-sum-exp) of the logits ``zs`` at a point
+        whose one-hot labels are ``yrow``."""
         ops = self.ops
         zmax = zs[0]
         for j in range(1, self.k_out):
@@ -118,7 +117,7 @@ class _Body:
         lse = zmax + ops.log(sumexp)
         picked = None
         for j in range(self.k_out):
-            picked = fma_const(picked, float(self.y[d, j]), zs[j])
+            picked = fma_const(picked, yrow[j], zs[j])
         return (picked if picked is not None else self.zeros) - lse, lse
 
     def finish(self, theta, log_lik):
@@ -132,32 +131,52 @@ class _Body:
         return (val + lp) if temp == 1.0 else _f32(temp) * (val + lp)
 
 
+def _times(c, tile):
+    """c * tile with a constant c folded: None for 0, tile for 1; a value of
+    the lane body (a ``_Sym``) is a register operand, multiplied."""
+    if isinstance(c, _Sym):
+        return c * tile
+    c = float(c)
+    if c == 0.0:
+        return None
+    return tile if c == 1.0 else _f32(c) * tile
+
+
+def _value(c):
+    """A data constant as its float32 value, or a lane body's operand."""
+    return c if isinstance(c, _Sym) else _f32(float(c))
+
+
 def fma_const(acc, c, tile):
     """acc + c * tile with the constant folded (None: nothing yet)."""
-    if c == 0.0:
+    scaled = _times(c, tile)
+    if scaled is None:
         return acc
-    if c == 1.0:
-        return tile if acc is None else acc + tile
-    scaled = _f32(c) * tile
     return scaled if acc is None else acc + scaled
 
 
-def _program(model, x, y, with_grad, theta, ops):
-    """The dense body over ``theta`` (P values): ``val``, or ``(val, grads)``
-    with ``with_grad``."""
-    body = _Body(model, x, y, ops)
-    dims, bias, num_layers, k_out, P = body.dims, body.bias, body.num_layers, body.k_out, body.P
+def _data_terms(body, theta, rows, with_grad):
+    """The log-likelihood of ``rows`` and (``with_grad``) its gradient, a
+    list of P terms (None where no row reaches a coordinate), in the order of
+    ``eeyore_tpu/ops/mlp_dense.py:77-211``. A row is (inputs, labels, mask):
+    the dataset's constants with mask None, or a lane body's operands, whose
+    mask (None on a slot that every lane fills) multiplies the row's terms."""
+    ops = body.ops
+    dims, bias, num_layers, k_out = body.dims, body.bias, body.num_layers, body.k_out
     log_lik = None
-    g = [None] * P  # the data term's gradient; the prior's is added at the end
+    g = [None] * body.P
 
     def g_add(p, term):
         g[p] = term if g[p] is None else g[p] + term
 
-    for d in range(body.n):
+    def masked(term, m):
+        return term if m is None else term * m
+
+    for xrow, yrow, m in rows:
         acts = []  # hidden activations per layer
         prev = None
         for l in range(num_layers):
-            z_l = [body.unit_z(theta, prev, l, j, d) for j in range(dims[l + 1])]
+            z_l = [body.unit_z(theta, prev, l, j, xrow) for j in range(dims[l + 1])]
             if l < num_layers - 1:
                 prev = [ops.sigmoid(z) for z in z_l]
                 acts.append(prev)
@@ -166,17 +185,19 @@ def _program(model, x, y, with_grad, theta, ops):
         if body.loss_kind == "bce":
             deltas = []
             for j in range(k_out):
-                ll_j, e = body.bce_point(zs_out[j], j, d)
+                ll_j, e = body.bce_point(zs_out[j], yrow[j])
+                ll_j = masked(ll_j, m)
                 log_lik = ll_j if log_lik is None else log_lik + ll_j
                 if with_grad:
                     inv = 1.0 / (1.0 + e)
                     sig = ops.where_nonneg(zs_out[j], inv, e * inv)
-                    deltas.append(_f32(float(body.y[d, j])) - sig)
+                    deltas.append(masked(_value(yrow[j]) - sig, m))
         else:
-            ll_d, lse = body.ce_point(zs_out, d)
+            ll_d, lse = body.ce_point(zs_out, yrow)
+            ll_d = masked(ll_d, m)
             log_lik = ll_d if log_lik is None else log_lik + ll_d
             if with_grad:
-                deltas = [_f32(float(body.y[d, j])) - ops.exp(zs_out[j] - lse)
+                deltas = [masked(_value(yrow[j]) - ops.exp(zs_out[j] - lse), m)
                           for j in range(k_out)]
 
         if not with_grad:
@@ -186,10 +207,9 @@ def _program(model, x, y, with_grad, theta, ops):
             for j in range(dims[l + 1]):
                 if l == 0:
                     for i in range(dims[0]):
-                        c = float(body.x[d, i])
-                        if c == 0.0:
-                            continue
-                        g_add(body.w_idx(0, j, i), deltas[j] if c == 1.0 else _f32(c) * deltas[j])
+                        term = _times(xrow[i], deltas[j])
+                        if term is not None:
+                            g_add(body.w_idx(0, j, i), term)
                 else:
                     for i in range(dims[l]):
                         g_add(body.w_idx(l, j, i), deltas[j] * acts[l - 1][i])
@@ -205,14 +225,22 @@ def _program(model, x, y, with_grad, theta, ops):
                     a = acts[l - 1][i]
                     new_deltas.append(s * (a * (1.0 - a)))
                 deltas = new_deltas
+    return log_lik, g
 
+
+def _program(model, x, y, with_grad, theta, ops):
+    """The dense body over ``theta`` (P values): ``val``, or ``(val, grads)``
+    with ``with_grad``."""
+    body = _Body(model, x, y, ops)
+    log_lik, g = _data_terms(body, theta, [(body.x[d], body.y[d], None) for d in range(body.n)],
+                             with_grad)
     val = body.finish(theta, log_lik)
     if not with_grad:
         return val
 
     temp = float(body.temperature)
     grads = []
-    for p in range(P):
+    for p in range(body.P):
         diff = theta[p] - _f32(body.loc[p]) if body.loc[p] != 0.0 else theta[p]
         gp = -_f32(body.ivar[p]) * diff
         if g[p] is not None:
@@ -252,7 +280,7 @@ def _gibbs_program(model, x, y, ops):
                     log_lik = term if log_lik is None else log_lik + term
             else:
                 term = body.ce_point([cache[key_pos[("z", j, d)]] for j in range(body.k_out)],
-                                     d)[0]
+                                     body.y[d])[0]
                 log_lik = term if log_lik is None else log_lik + term
         return body.finish(theta, log_lik)
 
@@ -263,11 +291,11 @@ def _gibbs_program(model, x, y, ops):
                 for d in range(n):
                     prev = (None if l == 0
                             else [cache[key_pos[("a", l - 1, i, d)]] for i in range(dims[l])])
-                    z = body.unit_z(theta, prev, l, j, d)
+                    z = body.unit_z(theta, prev, l, j, body.x[d])
                     if l < num_layers - 1:
                         cache[key_pos[("a", l, j, d)]] = ops.sigmoid(z)
                     elif body.loss_kind == "bce":
-                        cache[key_pos[("ll", j, d)]] = body.bce_point(z, j, d)[0]
+                        cache[key_pos[("ll", j, d)]] = body.bce_point(z, body.y[d, j])[0]
                     else:
                         cache[key_pos[("z", j, d)]] = z
         return tuple(cache)
@@ -498,6 +526,105 @@ def dense_work(model, x, y, with_grad):
     the emitted body, counted from the code."""
     em, _ = _emit(model, x, y, with_grad)
     return em.ops, em.sfu
+
+
+def lane_rows(n, lanes):
+    """(slots, full): the rows a lane of ``lanes`` takes of ``n`` (lane l
+    takes rows l, l + lanes, ...), and the slots that every lane fills; a
+    later slot is a row on some lanes only, and the lane body masks it."""
+    return -(-n // lanes), n // lanes
+
+
+def _emit_lane(model, x, y, lanes, with_grad):
+    """The data terms of one lane's rows as code: (emitter, log-likelihood,
+    gradient terms), the rows' inputs, labels and masks read from the
+    operand ``r`` (``LaneRows``)."""
+    em = _Emitter()
+    body = _Body(model, x, y, _SymOps(em))
+    slots, full = lane_rows(body.n, lanes)
+    theta = tuple(_Sym(em, f"th[{p}]") for p in range(body.P))
+    rows = [([_Sym(em, f"r.x[{q}][{i}]") for i in range(body.dims[0])],
+             [_Sym(em, f"r.y[{q}][{j}]") for j in range(body.k_out)],
+             None if q < full else _Sym(em, f"r.m[{q}]")) for q in range(slots)]
+    log_lik, g = _data_terms(body, theta, rows, with_grad)
+    return em, (log_lik if log_lik is not None else body.zeros), g
+
+
+def _array(values):
+    """A nested C initializer of float32 literals."""
+    if isinstance(values, (list, tuple, np.ndarray)):
+        return "{" + ", ".join(_array(v) for v in values) + "}"
+    return _literal(values)
+
+
+def dense_lane_source(model, x, y, lanes):
+    """The text of ``dense_lanes.cuh`` for ``model``, the data ``(x, y)`` and
+    ``lanes`` lanes a chain: ``dense_body::lane_v(th, r)`` and
+    ``lane_vg(th, r, g)``, the partial log-likelihood (and its gradient
+    into ``g``) of one lane's rows, lane l taking rows l, l + lanes, ...
+    (``lane_rows``). The rows' inputs and labels are the operand ``r``, a
+    ``LaneRows`` that the kernel loads into registers once, from the
+    constants of the lane (``LaneBody::rows``), so the code is the same on
+    every lane and a warp does not diverge; everything else is folded as in
+    ``dense_source`` (the activations, the loss form, the shapes, no padding
+    rows: a slot that is a row on some lanes only is masked). ``LaneBody``
+    also carries the prior's constants, which ``lane_eval.cuh::
+    LaneDenseEval`` applies to the coordinates each lane owns."""
+    x, y, loc, ivar, prior_const, temperature = prepare_dense(model, x, y)
+    n, P = x.shape[0], model.num_params
+    if int(lanes) not in (1, 2, 4, 8, 16, 32) or lanes > n:
+        raise ValueError(f"a chain takes 1, 2, 4, 8, 16 or 32 lanes and no more than the "
+                         f"{n} data rows, not {lanes}")
+    slots, _ = lane_rows(n, lanes)
+    k_in, k_out = x.shape[1], y.shape[1]
+
+    def lane_data(a, width):
+        return [[a[l + q * lanes] if l + q * lanes < n else np.zeros(width)
+                 for q in range(slots)] for l in range(lanes)]
+
+    mask = [[1.0 if l + q * lanes < n else 0.0 for q in range(slots)] for l in range(lanes)]
+    th = f"const float (&th)[{P}]"
+    parts = ["// Generated by eeyore_tpu_torch/ops/mlp_dense.py::dense_lane_source for one",
+             "// model, dataset and lane count; the data are constants of the code. Do not edit.",
+             "#pragma once", "", "namespace dense_body {", "",
+             f"constexpr int kLanes = {lanes};  // lanes a chain",
+             f"constexpr int kSlots = {slots};  // rows a lane: lane l takes l, l + kLanes, ...",
+             "",
+             "// each lane's rows (inputs, labels, 1 where the slot holds a row) and the",
+             "// prior's location and precision of each coordinate",
+             f"__constant__ float kLaneX[{lanes}][{slots}][{k_in}] = {_array(lane_data(x, k_in))};",
+             f"__constant__ float kLaneY[{lanes}][{slots}][{k_out}] = "
+             f"{_array(lane_data(y, k_out))};",
+             f"__constant__ float kLaneM[{lanes}][{slots}] = {_array(mask)};",
+             f"__constant__ float kLoc[{P}] = {_array(loc)};",
+             f"__constant__ float kIvar[{P}] = {_array(ivar)};", "",
+             "struct LaneRows {", f"  float x[kSlots][{k_in}];", f"  float y[kSlots][{k_out}];",
+             "  float m[kSlots];", "};", ""]
+    em, val, _ = _emit_lane(model, x, y, lanes, with_grad=False)
+    parts += [f"__device__ __forceinline__ float lane_v({th}, const LaneRows& r) {{", *em.lines,
+              f"  return {_expr(val)};", "}", ""]
+    em, val, g = _emit_lane(model, x, y, lanes, with_grad=True)
+    parts += [f"__device__ __forceinline__ float lane_vg({th}, const LaneRows& r, "
+              f"float (&g)[{P}]) {{", *em.lines,
+              *(f"  g[{p}] = {'0.0f' if gp is None else _expr(gp)};" for p, gp in enumerate(g)),
+              f"  return {_expr(val)};", "}", "",
+              "// the interface of lane_eval.cuh::LaneDenseEval",
+              "struct LaneBody {", "  using Rows = LaneRows;",
+              f"  static constexpr float kPriorConst = {_literal(prior_const)};",
+              f"  static constexpr float kTemperature = {_literal(temperature)};",
+              "  static __device__ __forceinline__ Rows rows(int lane) {", "    Rows r;",
+              "    for (int q = 0; q < kSlots; ++q) {",
+              f"      for (int i = 0; i < {k_in}; ++i) r.x[q][i] = kLaneX[lane][q][i];",
+              f"      for (int j = 0; j < {k_out}; ++j) r.y[q][j] = kLaneY[lane][q][j];",
+              "      r.m[q] = kLaneM[lane][q];", "    }", "    return r;", "  }",
+              "  static __device__ __forceinline__ float loc(int p) { return kLoc[p]; }",
+              "  static __device__ __forceinline__ float ivar(int p) { return kIvar[p]; }",
+              f"  static __device__ __forceinline__ float v({th}, const Rows& r) {{",
+              "    return lane_v(th, r);", "  }",
+              f"  static __device__ __forceinline__ float vg({th}, const Rows& r, "
+              f"float (&g)[{P}]) {{", "    return lane_vg(th, r, g);", "  }", "};", "",
+              "}  // namespace dense_body", ""]
+    return "\n".join(parts)
 
 
 def _emit_gibbs(model, x, y):

@@ -89,7 +89,7 @@ def block_sizes(chain_block, max_threads):
     return [t for t in range(top, 31, -32) if chain_block % t == 0]
 
 
-def launch_shape(resources, max_clusters, chain_block, grouped):
+def launch_shape(resources, max_clusters, chain_block, grouped, fits=None):
     """(threads per block, blocks per cluster) of a launch. A run whose
     chains share nothing (untuned or per-chain) takes blocks of at most
     ``UNGROUPED_BLOCK`` threads and no cluster. A population-tuned run needs
@@ -97,8 +97,10 @@ def launch_shape(resources, max_clusters, chain_block, grouped):
     kernels pass chains x lanes) in one block, or in one cluster of
     at most ``MAX_CLUSTER`` blocks that ``max_clusters(threads, blocks)``
     says the card can hold; the largest block that works is taken, and
-    none raises."""
-    sizes = block_sizes(chain_block, resources["max_threads_per_block"])
+    none raises. ``fits(threads)``, if given, also has to hold of a block
+    (the dense lane kernels': its chains divide a sublane row)."""
+    sizes = [t for t in block_sizes(chain_block, resources["max_threads_per_block"])
+             if fits is None or fits(t)]
     if not grouped:
         return next(t for t in sizes if t <= UNGROUPED_BLOCK), 1
     for threads in sizes:
@@ -113,7 +115,7 @@ def launch_shape(resources, max_clusters, chain_block, grouped):
 
 
 def lane_launch(num_chains, lanes, resources, chain_block, max_blocks, max_clusters=None,
-                grouped=False, sm_count=None):
+                grouped=False, sm_count=None, fits=None):
     """The launch of ``num_chains`` chains of ``lanes`` threads each (the
     staged Gibbs move and NUTS kernel): ``launch_shape`` of a group of
     ``chain_block`` chains (``chain_block * lanes`` threads), its blocks,
@@ -122,8 +124,9 @@ def lane_launch(num_chains, lanes, resources, chain_block, max_blocks, max_clust
     the launch's shared memory) and, for a cluster, ``max_clusters(threads,
     blocks)`` clusters the card holds at once. With the card's ``sm_count``
     also the blocks resident at once, the waves, and the SMs the first wave
-    covers at least (no SM holds more than ``blocks_per_sm`` of them)."""
-    threads, cluster = launch_shape(resources, max_clusters, chain_block * lanes, grouped)
+    covers at least (no SM holds more than ``blocks_per_sm`` of them).
+    ``fits``: as ``launch_shape``'s."""
+    threads, cluster = launch_shape(resources, max_clusters, chain_block * lanes, grouped, fits)
     blocks = num_chains * lanes // threads
     per_sm = max_blocks(threads)
     out = {"lanes": lanes, "threads": threads, "blocks": blocks, "cluster_blocks": cluster,

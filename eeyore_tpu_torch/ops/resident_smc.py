@@ -14,10 +14,14 @@ every stage. On CPU tensors it runs the plain version ``_run_mutation_plain``
 on the same stream (``kernel_prng.walk_draws``: key (stage seed, particle),
 counter (mutation step, j)), which ``fn.plain`` runs on any device. The MH
 proposal is ``sqrt(step) z``: in SMC the step is a variance for both moves.
-The kernel runs one thread a particle in blocks of ``SMC_BLOCK``, the data
-staged in shared memory; its bound is the 1 + num_mutation_steps
-evaluations a particle (operations; the special-function unit on iris), as
-``csrc/resident_smc.cu`` sets out.
+The kernel gives a particle ``SMC_LANES`` lanes of a warp on data of at least
+``resident_hmc.LANE_MIN_ROWS`` padded rows, each lane evaluating its own
+staged rows (``csrc/lane_eval.cuh::smc_chain``), in blocks of
+``SMC_LANE_BLOCK`` threads of which ``SMC_MIN_BLOCKS`` fit an SM; on fewer
+rows one thread a particle in blocks of ``SMC_BLOCK`` (``smc_lanes``, a rule
+of the rows). Its bound is the 1 + num_mutation_steps evaluations a particle
+(operations; the special-function unit on iris), as ``csrc/resident_smc.cu``
+sets out.
 
 A ``DistributionModel`` target with ``base_log_pdf`` (the geometric path:
 ``ll = log target - log base``, ``lp = log base``) runs the same pass on
@@ -54,7 +58,13 @@ import torch
 from eeyore_tpu_torch.ops import _build, closure_trace, kernel_prng
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
 from eeyore_tpu_torch.ops.mlp_math import make_vg, prepare_data
-from eeyore_tpu_torch.ops.resident_hmc import MAX_BLOCK, check_arch, raise_on, read_resources
+from eeyore_tpu_torch.ops.resident_hmc import (
+    LANE_MIN_ROWS,
+    MAX_BLOCK,
+    check_arch,
+    raise_on,
+    read_resources,
+)
 from eeyore_tpu_torch.ops.resident_walk import check_tensors
 from eeyore_tpu_torch.samplers.smc import (
     log_ess,
@@ -67,9 +77,17 @@ from eeyore_tpu_torch.samplers.smc import (
 KERNEL = "resident_smc"
 CLOSURE_KERNEL = "resident_smc_closure"
 MOVES = {"MH": 0, "MALA": 1}
-# Threads per block: particles share nothing; 128 lets config 5's 16384
-# particles fill 128 of the 132 SMs.
+# Threads per block of the build of one thread a particle: particles share
+# nothing; 128 lets config 5's 16384 particles fill 128 of the 132 SMs.
 SMC_BLOCK = 128
+# The build on lanes: lanes of a warp a particle (1, 2, 4 or 8) on data of at
+# least LANE_MIN_ROWS padded rows, its threads a block, and the blocks of
+# that size an SM must hold at once, which caps the registers (the fastest
+# that scripts/lane_sweep.py measured on the H100, PERF.md, section 6).
+SMC_LANES = 8
+SMC_LANE_BLOCK = 256
+SMC_MIN_BLOCKS = 2
+LANE_COUNTS = (1, 2, 4, 8)
 STAGE_SEED_STRIDE = 7919
 
 launch_counts = {KERNEL: 0, CLOSURE_KERNEL: 0}
@@ -104,11 +122,38 @@ def stage_seed(seed, stage):
     return s - (1 << 32) if s >= 1 << 31 else s
 
 
-def load_kernel(model):
-    """Build (at first use) and load the mutation kernel for ``model``'s
-    architecture, which it takes as compile-time constants."""
+def check_lanes(lanes):
+    """``lanes`` as an int, if a particle of the mutation kernel takes that
+    many lanes (1, 2, 4 or 8): else ValueError."""
+    if int(lanes) not in LANE_COUNTS:
+        raise ValueError(f"a particle of the SMC mutation kernel takes 1, 2, 4 or 8 lanes, "
+                         f"not {lanes}")
+    return int(lanes)
+
+
+def smc_lanes(n_rows):
+    """Lanes a particle of the mutation kernel on ``n_rows`` staged (padded)
+    rows: ``SMC_LANES``, or 1 (one thread a particle) on fewer than
+    ``LANE_MIN_ROWS`` rows, where a lane would get next to no rows."""
+    return check_lanes(SMC_LANES) if n_rows >= LANE_MIN_ROWS else 1
+
+
+def library_spec(model, lanes=None):
+    """(name, source, defines) of the mutation kernel's build for
+    ``model``'s architecture on ``lanes`` lanes a particle (``SMC_LANES`` by
+    default) at ``SMC_MIN_BLOCKS``: the arguments of ``_build.load_library``."""
+    lanes = check_lanes(SMC_LANES if lanes is None else lanes)
     tag, defines = arch_defines(model)
-    lib = _build.load_library(f"{KERNEL}_{tag}", "resident_smc.cu", defines)
+    return (f"{KERNEL}_{tag}_l{lanes}_b{SMC_MIN_BLOCKS}", "resident_smc.cu",
+            tuple(defines) + (f"SMC_LANES={lanes}", f"SMC_MIN_BLOCKS={SMC_MIN_BLOCKS}"))
+
+
+def load_kernel(model, lanes=None):
+    """Build (at first use) and load the mutation kernel for ``model``'s
+    architecture and ``lanes`` lanes a particle (``library_spec``), which
+    it takes as compile-time constants."""
+    name, source, defines = library_spec(model, lanes)
+    lib = _build.load_library(name, source, defines)
     lib.resident_smc_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 6
         + [ctypes.POINTER(ResidentSMCParams), ctypes.c_int] + [ctypes.c_void_p] * 4)
@@ -119,8 +164,48 @@ def load_kernel(model):
     lib.resident_smc_arch.restype = ctypes.c_int
     lib.resident_smc_resources.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.resident_smc_resources.restype = ctypes.c_int
-    check_arch(lib.resident_smc_arch, model, f"{KERNEL}_{tag}")
+    lib.resident_smc_lanes.argtypes = []
+    lib.resident_smc_lanes.restype = ctypes.c_int
+    lib.resident_smc_max_blocks.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.resident_smc_max_blocks.restype = ctypes.c_int
+    check_arch(lib.resident_smc_arch, model, name)
     return lib
+
+
+def smc_threads(lanes, max_threads, num_particles):
+    """Threads a block of a mutation launch: on one thread a particle
+    ``SMC_BLOCK`` (a ragged last block is fine); on lanes the largest
+    multiple of 32 up to ``SMC_LANE_BLOCK`` that the build allows and that
+    divides the particles' threads, so that the launch covers them exactly."""
+    top = min(max_threads, MAX_BLOCK) // 32 * 32
+    if lanes == 1:
+        return min(SMC_BLOCK, top)
+    for threads in range(min(SMC_LANE_BLOCK, top), 31, -32):
+        if (num_particles * lanes) % threads == 0:
+            return threads
+    raise ValueError(f"{num_particles} particles on {lanes} lanes fill no block of a multiple "
+                     f"of 32 threads")
+
+
+def smc_launch(lib, mutation, num_particles, n_rows, sm_count=None):
+    """The mutation launch of the loaded build for ``num_particles``
+    particles on ``n_rows`` staged rows: lanes, threads, blocks, the blocks
+    an SM holds (the card's occupancy calculator on the build) and, with the
+    card's ``sm_count``, the waves and the SMs the first wave covers."""
+    lanes = lib.resident_smc_lanes()
+    threads = smc_threads(lanes, kernel_resources(lib, mutation)["max_threads_per_block"],
+                          num_particles)
+    out = ctypes.c_int(0)
+    raise_on(lib.resident_smc_max_blocks(MOVES[mutation], threads, n_rows, ctypes.byref(out)),
+             lib.resident_smc_error_string, KERNEL)
+    blocks = -(-num_particles * lanes // threads)
+    per_sm = out.value
+    launch = {"lanes": lanes, "threads": threads, "blocks": blocks, "blocks_per_sm": per_sm,
+              "waves": None, "sms_covered": None}
+    if sm_count is not None and per_sm:
+        launch.update(waves=-(-blocks // (per_sm * sm_count)),
+                      sms_covered=min(sm_count, -(-blocks // per_sm)))
+    return launch
 
 
 def closure_programs(model, x, y, base_log_pdf, device="cpu"):
@@ -301,11 +386,12 @@ def make_resident_smc_mutation(model, x, y, step, num_mutation_steps, chain_bloc
     acc_counts [N])``: ``num_mutation_steps`` MALA or MH moves of every
     particle at the target prior * lik^beta, ``pot`` the final untempered
     log-likelihood. N must be a multiple of ``chain_block`` (the TPU
-    kernel's grid block; the CUDA kernel's blocks are ``SMC_BLOCK``
-    threads). ``fn.transposed(seed, beta, theta [P, N])`` takes and returns
-    the particles ``[P, N]`` (the runner's layout); ``fn.plain(seed, beta,
+    kernel's grid block; the CUDA kernel's blocks are ``smc_threads``).
+    ``fn.transposed(seed, beta, theta [P, N])`` takes and returns the
+    particles ``[P, N]`` (the runner's layout); ``fn.plain(seed, beta,
     theta0s)`` runs the plain version on any device and also returns its
-    info dict.
+    info dict; ``fn.smc_launch(N, sm_count)`` reports the launch
+    (``smc_launch``) of the MLP kernel.
 
     ``base_log_pdf``: for a ``DistributionModel`` target, the base of the
     geometric path; CUDA tensors then launch the closure kernel, built from
@@ -318,7 +404,7 @@ def make_resident_smc_mutation(model, x, y, step, num_mutation_steps, chain_bloc
     device = torch.device(device)
     mala = mutation == "MALA"
     closure = base_log_pdf is not None
-    lib, threads, eval_work = None, None, None
+    lib, eval_work = None, None
     if closure:
         vg = make_generic_vg(model, x, y, base_log_pdf, mala, device)
         params = smc_params(step, num_mutation_steps)
@@ -341,11 +427,15 @@ def make_resident_smc_mutation(model, x, y, step, num_mutation_steps, chain_bloc
             return split_vg(theta, *arrays)
 
         if device.type == "cuda":
-            lib = load_kernel(model)
+            lib = load_kernel(model, smc_lanes(x_pad.shape[0]))
+    max_threads, lanes = None, 1
     if lib is not None:
         max_threads = kernel_resources(lib, mutation, CLOSURE_KERNEL if closure else KERNEL)[
             "max_threads_per_block"]
-        threads = min(SMC_BLOCK, max_threads // 32 * 32)
+        lanes = 1 if closure else lib.resident_smc_lanes()
+
+    def launch_threads(N):
+        return smc_threads(lanes, max_threads, N)
 
     def setup(seed, beta, theta):
         if theta.device.type != device.type:
@@ -362,6 +452,7 @@ def make_resident_smc_mutation(model, x, y, step, num_mutation_steps, chain_bloc
         pr, theta = setup(seed, beta, theta)
         if lib is None:
             return _run_mutation_plain(vg, pr, mutation, theta)[:3]
+        threads = launch_threads(pr.num_particles)
         if closure:
             return resident_smc_closure(lib, mutation, theta, pr, threads)
         return resident_smc(lib, mutation, theta, *arrays, pr, threads)
@@ -377,7 +468,10 @@ def make_resident_smc_mutation(model, x, y, step, num_mutation_steps, chain_bloc
 
     fn.transposed = transposed
     fn.plain = plain
-    fn.launch_threads = threads
+    fn.launch_threads = None if lib is None else launch_threads(chain_block)
+    fn.smc_launch = lambda N, sm_count=None: (
+        None if lib is None or closure else smc_launch(lib, mutation, N, x_pad.shape[0],
+                                                       sm_count))
     fn.eval_work = eval_work
     return fn
 

@@ -716,23 +716,26 @@ def set_ladder(params, rungs, between_step, move, value):
         params.half_inv_step = float(np.float32(0.5 / float(value)))
 
 
-def _ladder_sizes(max_threads, chain_block, num_rungs, lanes=1):
+def _ladder_sizes(max_threads, chain_block, num_rungs, lanes=1, sublanes=1):
     """Threads a block of a tempering launch can have, largest first:
     multiples of 32 that the build allows (``max_threads``), that divide the
-    chain block's ``chain_block * lanes`` threads and hold whole ladders."""
+    chain block's ``chain_block * lanes`` threads and hold whole ladders; on
+    lanes a block's chains also divide the ``chain_block / sublanes`` chains
+    of a sublane row (the dense layout's 8), so that they are consecutive."""
     return [t for t in range(min(max_threads, 1024) // 32 * 32, 31, -32)
-            if (chain_block * lanes) % t == 0 and t % (num_rungs * lanes) == 0]
+            if (chain_block * lanes) % t == 0 and t % (num_rungs * lanes) == 0
+            and (lanes == 1 or (chain_block // sublanes) % (t // lanes) == 0)]
 
 
 def ladder_threads(max_threads, chain_block, num_rungs, lanes=1, num_chains=None,
-                   sm_count=None):
+                   sm_count=None, sublanes=1):
     """Threads per block of a tempering launch (``_ladder_sizes``): the
     largest up to ``WALK_BLOCK`` whose blocks of ``num_chains`` chains fill
     the card's ``sm_count`` SMs (without them, any up to ``WALK_BLOCK``),
     else the smallest, so that a launch of few ladders (a ladder's entry
     point runs one chain block) spreads its chains' serial loops over as
     many SMs as it can."""
-    sizes = _ladder_sizes(max_threads, chain_block, num_rungs, lanes)
+    sizes = _ladder_sizes(max_threads, chain_block, num_rungs, lanes, sublanes)
     if not sizes:
         raise ValueError(f"a ladder of {num_rungs} rungs on {lanes} lanes a chain does not "
                          f"fit a block of at most {max_threads} threads that divides "

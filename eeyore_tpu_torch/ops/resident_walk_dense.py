@@ -38,6 +38,20 @@ rate of each tuning group, the TPU kernel's sublane-strided grid block of
 rates have no NaN guard: one chain's NaN rate stops its group's tuning. On
 the card a group larger than a block is a thread-block cluster, as in
 ``resident_hmc_dense``.
+
+On the card the MH, MALA and ladder moves give a chain the lanes of a warp
+that ``WALK_DENSE_LANES`` sets for each move, never more than the data has
+rows (``dense_lanes``): lane l evaluates the generated lane body
+(``mlp_dense.dense_lane_source``) on rows l, l + lanes, ..., whose inputs and
+labels it holds in registers, and the lanes sum the value and reduce-scatter
+the gradient (``csrc/lane_eval.cuh``); a setting of 1 is one thread a chain.
+A tuning group keeps its ``chain_block`` chains in a block or a cluster of
+at most 16 blocks of ``WALK_DENSE_BLOCK`` threads; a group that none holds
+on lanes, a ladder too long for such a block or in chain blocks large
+enough to fill the card on one thread a chain, and data of one row take
+the build of one thread a chain (``walk_dense_lanes``,
+``dense_tempering_lanes``: rules decided before the launch). The Gibbs
+move runs one thread a chain.
 """
 
 import ctypes
@@ -47,16 +61,30 @@ import torch
 from eeyore_tpu_torch.ops import _build
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
 from eeyore_tpu_torch.ops.mlp_dense import (
+    dense_lane_source,
     dense_source,
     gibbs_dense_source,
     make_incremental_gibbs_dense,
+    prepare_dense,
 )
-from eeyore_tpu_torch.ops.resident_hmc import check_arch, raise_on, read_resources, unpack_outputs
-from eeyore_tpu_torch.ops.resident_hmc_dense import SUBLANES, dense_plain_vg, launch_shape
+from eeyore_tpu_torch.ops.resident_hmc import (
+    MAX_CLUSTER,
+    check_arch,
+    raise_on,
+    read_resources,
+    unpack_outputs,
+)
+from eeyore_tpu_torch.ops.resident_hmc_dense import (
+    SUBLANES,
+    dense_plain_vg,
+    lane_launch,
+    launch_shape,
+)
 from eeyore_tpu_torch.ops.resident_walk import (
     MOVES,
     RESOURCE_CODES,
     ResidentWalkParams,
+    _ladder_sizes,
     _run_gibbs_plain,
     _run_tempering_plain,
     _run_walk_plain,
@@ -74,6 +102,20 @@ KERNEL = "resident_walk_dense"
 GIBBS_KERNEL = "resident_walk_dense_gibbs"  # the Gibbs move of the same library, counted apart
 TEMPERING_KERNEL = "resident_walk_dense_tempering"  # the tempering move, counted apart
 
+# Lanes of a warp a chain of the MH, MALA and ladder moves (1, 2, 4, 8, 16 or
+# 32; on data of fewer rows, the largest power of two not above the rows),
+# the most threads a block of a lane build may have, and the blocks of that
+# size an SM must hold at once, which caps the registers: the fastest that
+# scripts/lane_sweep.py measured on the H100 (PERF.md, section 6) for
+# BASELINE.md config 1 (MH on XOR, where one thread a chain, whose six
+# Threefry words and four rows run side by side, issues fewer instructions
+# than any split), config 2 (MALA) and the XOR ladder at its entry point's
+# one chain block (1024 chains, which one thread a chain puts on 32 SMs).
+WALK_DENSE_LANES = {"mh": 1, "mala": 2, "ladder": 4}
+WALK_DENSE_BLOCK = 256
+WALK_DENSE_MIN_BLOCKS = 2
+LANE_COUNTS = (1, 2, 4, 8, 16, 32)
+
 launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0, TEMPERING_KERNEL: 0}
 # What the last call of a Gibbs or tempering function returned as its accept
 # counts ({"accept_counts": [C, B]} per sub-block, or [C, 2]: within-rung and
@@ -81,16 +123,83 @@ launch_counts = {KERNEL: 0, GIBBS_KERNEL: 0, TEMPERING_KERNEL: 0}
 last_info = {GIBBS_KERNEL: None, TEMPERING_KERNEL: None}
 
 
-def load_kernel(model, x, y, node_subblock_size=None):
+def check_dense_lanes(lanes, n_rows):
+    """``lanes`` as an int, if a chain of the dense MH, MALA and ladder
+    moves can take that many lanes on data of ``n_rows`` rows (a divisor of
+    a warp, and no more lanes than rows): else ValueError."""
+    if int(lanes) not in LANE_COUNTS or int(lanes) > n_rows:
+        raise ValueError(f"a chain of the dense walk takes 1, 2, 4, 8, 16 or 32 lanes and no "
+                         f"more than the {n_rows} data rows, not {lanes}")
+    return int(lanes)
+
+
+def dense_lanes(n_rows, move):
+    """Lanes a chain of the dense ``move`` ("mh", "mala" or "ladder") on
+    ``n_rows`` data rows: ``WALK_DENSE_LANES[move]``, or on fewer rows the
+    largest power of two not above them, so that no lane goes without a
+    row."""
+    lanes = check_dense_lanes(WALK_DENSE_LANES[move], LANE_COUNTS[-1])
+    while lanes > max(int(n_rows), 1):
+        lanes //= 2
+    return check_dense_lanes(lanes, n_rows)
+
+
+def walk_dense_lanes(n_rows, chain_block, tuned, move):
+    """Lanes a chain of a dense MH or MALA run (``move``): ``dense_lanes``,
+    or 1 (one thread a chain) for a tuning group of ``chain_block`` chains
+    that no cluster of ``MAX_CLUSTER`` blocks of ``WALK_DENSE_BLOCK`` threads
+    holds on those lanes, so that the group stays JAX's."""
+    lanes = dense_lanes(n_rows, move)
+    if lanes > 1 and tuned and chain_block * lanes > MAX_CLUSTER * WALK_DENSE_BLOCK:
+        return 1
+    return lanes
+
+
+def dense_tempering_lanes(n_rows, num_rungs, chain_block, sm_count=None):
+    """Lanes a chain of a dense ladder of ``num_rungs`` rungs in chain
+    blocks of ``chain_block``: ``dense_lanes``, where a block of at most
+    ``WALK_DENSE_BLOCK`` threads holds whole ladders of consecutive chains
+    along a sublane row and one chain block on one thread a chain would give
+    fewer warps than the card's ``sm_count`` SMs (the entry point's launch:
+    ``PowerPosteriorSampler.run`` runs one chain block), else 1 (one thread
+    a chain, blocks of up to 1024 threads): on XOR one thread a chain ran
+    the ladder faster where its warps cover the card (PERF.md, section 6)."""
+    lanes = dense_lanes(n_rows, "ladder")
+    if sm_count is not None and chain_block // 32 >= sm_count:
+        return 1
+    if lanes > 1 and not _ladder_sizes(WALK_DENSE_BLOCK, chain_block, num_rungs, lanes,
+                                       SUBLANES):
+        return 1
+    return lanes
+
+
+def library_spec(model, x, y, node_subblock_size=None, lanes=None):
+    """(name, source, defines, generated headers) of the dense walk build
+    for ``model``, the data ``(x, y)``, the Gibbs blocking of
+    ``node_subblock_size`` and ``lanes`` lanes a chain of the MH, MALA and
+    ladder moves (by default the MH move's ``dense_lanes``: the Gibbs move
+    runs one thread a chain in every build) at ``WALK_DENSE_MIN_BLOCKS``:
+    the arguments of ``_build.load_library``."""
+    n_rows = prepare_dense(model, x, y)[0].shape[0]
+    lanes = check_dense_lanes(dense_lanes(n_rows, "mh") if lanes is None else lanes, n_rows)
+    tag, defines = arch_defines(model)
+    generated = {"dense_body.cuh": dense_source(model, x, y),
+                 "dense_gibbs.cuh": gibbs_dense_source(model, x, y),
+                 "gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size)}
+    if lanes > 1:
+        generated["dense_lanes.cuh"] = dense_lane_source(model, x, y, lanes)
+    return (f"{KERNEL}_{tag}_l{lanes}_b{WALK_DENSE_MIN_BLOCKS}", "resident_walk_dense.cu",
+            tuple(defines) + (f"WALK_DENSE_LANES={lanes}",
+                              f"WALK_DENSE_MIN_BLOCKS={WALK_DENSE_MIN_BLOCKS}"), generated)
+
+
+def load_kernel(model, x, y, node_subblock_size=None, lanes=None):
     """Build (at first use) and load the dense walk kernels for ``model``,
     the data ``(x, y)`` and the Gibbs blocking of ``node_subblock_size``,
-    which they take as constants."""
-    tag, defines = arch_defines(model)
-    lib = _build.load_library(
-        f"{KERNEL}_{tag}", "resident_walk_dense.cu", defines,
-        generated={"dense_body.cuh": dense_source(model, x, y),
-                   "dense_gibbs.cuh": gibbs_dense_source(model, x, y),
-                   "gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size)})
+    which they take as constants, the MH, MALA and ladder moves on
+    ``lanes`` lanes a chain (``library_spec``)."""
+    spec = library_spec(model, x, y, node_subblock_size, lanes)
+    lib = _build.load_library(*spec)
     lib.resident_walk_dense_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ResidentWalkParams), ctypes.c_int,
          ctypes.c_int] + [ctypes.c_void_p] * 4)
@@ -114,7 +223,12 @@ def load_kernel(model, x, y, node_subblock_size=None):
         [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ResidentWalkParams),
                                                    ctypes.c_int] + [ctypes.c_void_p] * 4)
     lib.resident_walk_dense_tempering_launch.restype = ctypes.c_int
-    check_arch(lib.resident_walk_dense_arch, model, f"{KERNEL}_{tag}")
+    lib.resident_walk_dense_lanes.argtypes = []
+    lib.resident_walk_dense_lanes.restype = ctypes.c_int
+    lib.resident_walk_dense_max_blocks.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.resident_walk_dense_max_blocks.restype = ctypes.c_int
+    check_arch(lib.resident_walk_dense_arch, model, spec[0])
     return lib
 
 
@@ -132,6 +246,57 @@ def max_active_clusters(lib, move, threads, blocks):
                                                   ctypes.byref(out)),
              lib.resident_walk_dense_error_string, KERNEL)
     return out.value
+
+
+def max_active_blocks(lib, move, threads, extras=False):
+    """Blocks of ``threads`` threads of the loaded ``move`` kernel (a key of
+    ``resident_walk.RESOURCE_CODES`` but "gibbs") an SM holds at once."""
+    out = ctypes.c_int(0)
+    raise_on(lib.resident_walk_dense_max_blocks(RESOURCE_CODES[move], threads, int(extras),
+                                                ctypes.byref(out)),
+             lib.resident_walk_dense_error_string, KERNEL)
+    return out.value
+
+
+def consecutive(lanes, chain_block):
+    """``fits(threads)`` of a dense lane launch: a block's chains divide the
+    ``chain_block / 8`` chains of a sublane row, so they are consecutive
+    (None on one thread a chain, whose blocks need not)."""
+    if lanes == 1:
+        return None
+    return lambda threads: (chain_block // SUBLANES) % (threads // lanes) == 0
+
+
+def walk_shape(lib, move, chain_block, grouped):
+    """(threads, blocks per cluster) of a dense MH or MALA launch of the
+    loaded build for chain blocks (tuning groups) of ``chain_block``."""
+    lanes = lib.resident_walk_dense_lanes()
+    return launch_shape(kernel_resources(lib, move),
+                        lambda t, b: max_active_clusters(lib, move, t, b), chain_block * lanes,
+                        grouped, consecutive(lanes, chain_block))
+
+
+def walk_launch(lib, move, num_chains, chain_block, grouped, sm_count=None):
+    """``lane_launch`` of the loaded MH or MALA move for ``num_chains``
+    chains in chain blocks of ``chain_block``: lanes, threads, blocks,
+    cluster, the card's occupancy and the SMs covered."""
+    lanes = lib.resident_walk_dense_lanes()
+    return lane_launch(num_chains, lanes, kernel_resources(lib, move), chain_block,
+                       lambda t: max_active_blocks(lib, move, t),
+                       lambda t, b: max_active_clusters(lib, move, t, b), grouped, sm_count,
+                       consecutive(lanes, chain_block))
+
+
+def tempering_launch(lib, move, num_chains, extras, ladder):
+    """The launch of the loaded ladder move for ``num_chains`` chains:
+    lanes, threads, blocks, the blocks an SM holds (the card's occupancy
+    calculator on the build) and the SMs the first wave covers at least."""
+    threads = ladder["threads"](num_chains)
+    per_sm = max_active_blocks(lib, f"tempering_{move}", threads, extras)
+    blocks = num_chains * ladder["lanes"] // threads
+    return {"lanes": ladder["lanes"], "threads": threads, "blocks": blocks,
+            "blocks_per_sm": per_sm,
+            "sms_covered": min(ladder["sm_count"], -(-blocks // per_sm)) if per_sm else 0}
 
 
 def resident_walk_dense(lib, move, theta0, params, threads, cluster_blocks):
@@ -214,7 +379,11 @@ def _make_resident_dense(model, x, y, num_iters, num_burnin_iters, chain_block, 
     ladders along the ``chain_block / 8`` lanes of a sublane row) and
     ``between_step``, the tempering move with ``move`` within each rung,
     returning counts [C, 2]. ``fn.plain(seed, theta0s)`` runs the plain
-    version on the same tensors and also returns its info dict."""
+    version on the same tensors and also returns its info dict; a ladder's
+    also takes the ``dtype`` it computes in and the list of its accept
+    tests' ``margins`` (``resident_walk._run_tempering_plain``).
+    ``fn.walk_launch(C, sm_count)`` and ``fn.tempering_launch(C)`` report
+    the launch on the card (None off it)."""
     _check_chain_block(chain_block)
     device = torch.device(device)
     rungs = (None if temperatures is None
@@ -222,28 +391,39 @@ def _make_resident_dense(model, x, y, num_iters, num_burnin_iters, chain_block, 
     if rungs is not None and tuner is not None:
         raise ValueError("the tempering move has no tuner")
     P = model.num_params
+    n_rows = prepare_dense(model, x, y)[0].shape[0]
     vg = dense_plain_vg(model, x, y, with_grad=move == "mala")
     params = walk_params(move, value, num_iters, num_burnin_iters, record_thin, record_extras,
                          chain_block, tuner=tuner, sublanes=SUBLANES)
     if rungs is not None:
         set_ladder(params, rungs, between_step, move, value)
         rungs = torch.as_tensor(rungs, device=device)
-    lib, shape = None, None
+    lib, shape, ladder = None, None, None
     if device.type == "cuda":
-        lib = load_kernel(model, x, y)
         if rungs is None:
-            shape = launch_shape(kernel_resources(lib, move),
-                                 lambda t, b: max_active_clusters(lib, move, t, b), chain_block,
-                                 grouped=tuner is not None)
+            lib = load_kernel(model, x, y, lanes=walk_dense_lanes(n_rows, chain_block,
+                                                                 tuner is not None, move))
+            shape = walk_shape(lib, move, chain_block, grouped=tuner is not None)
         else:
+            sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+            lanes = dense_tempering_lanes(n_rows, len(rungs), chain_block, sm_count)
+            lib = load_kernel(model, x, y, lanes=lanes)
             max_threads = kernel_resources(lib, f"tempering_{move}")["max_threads_per_block"]
-            shape = ladder_threads(max_threads, chain_block, len(rungs)), 1
+            # raises if no block fits
+            ladder_threads(max_threads, chain_block, len(rungs), lanes, sublanes=SUBLANES)
+
+            def ladder_block(C):
+                return ladder_threads(max_threads, chain_block, len(rungs), lanes, C, sm_count,
+                                      SUBLANES)
+
+            ladder = dict(lanes=lanes, sm_count=sm_count, threads=ladder_block)
     setup = _setup(params, chain_block, device)
 
-    def run_plain(pr, theta_t):
+    def run_plain(pr, theta_t, dtype=torch.float32, margins=None):
         if rungs is None:
             return _run_walk_plain(vg, (), pr, move, chain_block, theta_t)
-        samples, final, acc, info = _run_tempering_plain(vg, (), pr, move, rungs, theta_t)
+        samples, final, acc, info = _run_tempering_plain(vg, (), pr, move, rungs.to(dtype),
+                                                         theta_t.to(dtype), margins)
         return samples, final, acc.T, info
 
     def fn(seed, theta0s):
@@ -254,19 +434,24 @@ def _make_resident_dense(model, x, y, num_iters, num_burnin_iters, chain_block, 
             samples, final, acc = resident_walk_dense(lib, move, theta_t, pr, *shape)
         else:
             samples, final, acc = resident_walk_dense_tempering(lib, move, theta_t, rungs, pr,
-                                                                shape[0])
+                                                                ladder["threads"](pr.num_chains))
             acc = acc.T
         if rungs is not None:
             last_info[TEMPERING_KERNEL] = {"accept_counts": acc}
         return unpack_outputs(samples, final, acc, P, record_extras)
 
-    def plain(seed, theta0s):
+    def plain(seed, theta0s, dtype=torch.float32, margins=None):
         pr, theta_t = setup(seed, theta0s)
-        samples, final, acc, info = run_plain(pr, theta_t)
+        samples, final, acc, info = run_plain(pr, theta_t, dtype, margins)
         return unpack_outputs(samples, final, acc, P, record_extras), info
 
     fn.plain = plain
     fn.launch_shape = shape
+    fn.walk_launch = lambda C, sm_count=None: (
+        None if shape is None else walk_launch(lib, move, C, chain_block, tuner is not None,
+                                               sm_count))
+    fn.tempering_launch = lambda C: (
+        None if ladder is None else tempering_launch(lib, move, C, record_extras, ladder))
     return fn
 
 

@@ -16,11 +16,20 @@ NUTS main shapes: depth 3, step 0.1; the auto path's depth 2 at its probed
 step; and depth 2 at the probed step and frozen metric of the auto path with
 ``mass_adapt`` (the plans of ``chip_smoke.py``'s phase 15, PERF.md), each
 in the tuning group that dispatch gives the build (JAX's 8192 chains where
-the card holds it).
+the card holds it); the dense MH, MALA and ladder moves (``walk_dense``) on
+XOR at ``WALK_DENSE_SWEEP``'s lanes a chain and occupancy targets, at
+BASELINE.md config 1 (MH scale 0.1, MLP(2,2,1)) and config 2 (MALA step
+0.01, MLP(2,3,2,1)), 32768 chains x 2048 iterations, 1024 burn-in, in chain
+blocks of 8192, and the XOR ladder (MLP(2,2,1), 8 rungs at (i/8)^4, MALA step
+0.05, swaps every 10) at its entry point's 1024 chains and at 32768; and the
+SMC mutation pass (``smc``) on iris MLP(4,3,3) at ``SMC_SWEEP``'s lanes a
+particle and occupancy targets, MALA step 0.003 and MH step 0.01, 16384
+prior draws x 5 steps at beta 0.3.
 
 Run from the root of the repository on a machine with a card:
 
-    python3 scripts/lane_sweep.py [--seed 0] [--kernels gibbs,nuts,hmc,walk,tempering,nuts_dense]
+    python3 scripts/lane_sweep.py [--seed 0]
+        [--kernels gibbs,nuts,hmc,walk,tempering,nuts_dense,walk_dense,smc]
 
 It prints the card's name and power limit, then one JSON line per build and
 move: the lanes a chain, the blocks an SM must hold (which caps the
@@ -40,13 +49,18 @@ dispatch gives ``sample_chains``; the ladder move: 128 chains and 32768 chains
 x 2048 iterations, 1024 burn-in; dense NUTS: 32768 chains x 2048 iterations,
 1024 burn-in), the median of three launches after a warm-up; dense NUTS is
 held against its plain version untuned (16384 chains x 5 iterations) and tuned
-(3 burn-in iterations) at each shape. The modules' settings
+(3 burn-in iterations) at each shape; the dense walks against theirs on 4096
+chains x 20 iterations, extras (the ladder in a chain block of 1024, swaps
+every 5, with ``ladder_witness``); the SMC pass on its 16384 particles
+(final theta, pot and counts). The modules' settings
 (``resident_walk.GIBBS_LANES`` and ``GIBBS_MIN_BLOCKS``,
 ``resident_nuts.NUTS_LANES`` and ``NUTS_MIN_BLOCKS``,
 ``resident_hmc.HMC_LANES`` and ``HMC_MIN_BLOCKS``,
 ``resident_walk.WALK_LANES`` and ``WALK_MIN_BLOCKS``,
 ``resident_walk.TEMPERING_LANES`` and ``TEMPERING_MIN_BLOCKS``,
-``resident_nuts_dense.NUTS_DENSE_BOUND``) are the fastest of such a run; this
+``resident_nuts_dense.NUTS_DENSE_BOUND``,
+``resident_walk_dense.WALK_DENSE_LANES`` and ``WALK_DENSE_MIN_BLOCKS``,
+``resident_smc.SMC_LANES`` and ``SMC_MIN_BLOCKS``) are the fastest of such a run; this
 script sets them in its own process only, build by build. It exits non-zero
 when a build disagrees with its plain version.
 """
@@ -87,7 +101,13 @@ SWEEP = (("gibbs", 32, 1), ("gibbs", 32, 2), ("gibbs", 16, 2), ("gibbs", 8, 2),
 # dense NUTS, one thread a chain: the launch bound's threads a block (0:
 # none), which caps the registers
 NUTS_DENSE_SWEEP = tuple(("nuts_dense", 1, bound) for bound in (0, 512, 1024))
-KERNELS = ("gibbs", "nuts", "hmc", "walk", "tempering", "nuts_dense")
+# the dense walks on XOR (at most 4 lanes: 4 rows) and the SMC pass on iris
+WALK_DENSE_SWEEP = (("walk_dense", 1, 1), ("walk_dense", 2, 2), ("walk_dense", 2, 3),
+                    ("walk_dense", 2, 4), ("walk_dense", 4, 2), ("walk_dense", 4, 3),
+                    ("walk_dense", 4, 4))
+SMC_SWEEP = (("smc", 1, 1), ("smc", 4, 2), ("smc", 4, 3), ("smc", 4, 4), ("smc", 8, 1),
+             ("smc", 8, 2), ("smc", 8, 3))
+KERNELS = ("gibbs", "nuts", "hmc", "walk", "tempering", "nuts_dense", "walk_dense", "smc")
 # node sub-blocks that split every unit of iris MLP(4,3,2,3)
 SPLIT_UNITS = [3, 3, 3, 2, 2, 2, 2, 2]
 C_GIBBS, C_NUTS, ITERS, BURNIN, NUTS_DEPTH = 32768, 16384, 2048, 1024, 3
@@ -105,6 +125,9 @@ AUTO_METRIC = (0.8042, 0.8197, 1.0268, 0.8828, 0.8898, 0.8264, 0.7177, 0.6989, 0
 NUTS_DENSE_SHAPES = (("depth_3", 3, 0.1, None), ("auto_depth_2", 2, 0.66, None),
                      ("auto_depth_2_mass_adapt", 2, 0.794, AUTO_METRIC))
 C_NUTS_DENSE, DENSE_GROUPS = 32768, (8192, 4096, 2048, 1024)
+# the dense walks' main chain block, the XOR ladder's entry point (one chain
+# block), the SMC pass's particles, steps and temperature
+WALK_DENSE_BLOCK, XOR_LADDER_BLOCK, C_SMC, SMC_STEPS, SMC_BETA = 8192, 1024, 16384, 5, 0.3
 
 
 def main(argv=None):
@@ -127,11 +150,14 @@ def main(argv=None):
         resident_hmc,
         resident_nuts,
         resident_nuts_dense,
+        resident_smc,
         resident_walk,
+        resident_walk_dense,
     )
     from eeyore_tpu_torch.ops.fused_mlp import arch_defines
     from eeyore_tpu_torch.ops.mlp_math import prepare_data
     from eeyore_tpu_torch.ops.resident_tempering import make_resident_tempering
+    from eeyore_tpu_torch.ops.resident_tempering_dense import make_resident_tempering_dense
     from eeyore_tpu_torch.samplers import HMC
     from eeyore_tpu_torch.samplers.dispatch import resolve_backend
     from eeyore_tpu_torch.tuners import HMCDATuner
@@ -150,15 +176,23 @@ def main(argv=None):
     xor = XYDataset.from_eeyore("xor")
     xor_model = MLP(loss=loss_functions["binary_classification"], dtype=torch.float32,
                     device=device, hparams=mlp.Hyperparameters(dims=[2, 2, 1]))
+    xor2321_model = MLP(loss=loss_functions["binary_classification"], dtype=torch.float32,
+                        device=device, hparams=mlp.Hyperparameters(dims=[2, 3, 2, 1]))
     n_rows = prepare_data(gibbs_model, iris.x, iris.y)[0].shape[0]
     settings = {"gibbs": (resident_walk.GIBBS_LANES, resident_walk.GIBBS_MIN_BLOCKS),
                 "nuts": (resident_nuts.NUTS_LANES, resident_nuts.NUTS_MIN_BLOCKS),
                 "hmc": (resident_hmc.HMC_LANES, resident_hmc.HMC_MIN_BLOCKS),
                 "walk": (resident_walk.WALK_LANES, resident_walk.WALK_MIN_BLOCKS),
                 "tempering": (resident_walk.TEMPERING_LANES, resident_walk.TEMPERING_MIN_BLOCKS),
-                "nuts_dense": (1, resident_nuts_dense.NUTS_DENSE_BOUND)}
-    runs = [(kernel, *settings[kernel]) for kernel in kernels]
-    runs += [run for run in SWEEP + NUTS_DENSE_SWEEP if run[0] in kernels and run not in runs]
+                "nuts_dense": (1, resident_nuts_dense.NUTS_DENSE_BOUND),
+                "smc": (resident_smc.SMC_LANES, resident_smc.SMC_MIN_BLOCKS)}
+    dense_settings = dict(resident_walk_dense.WALK_DENSE_LANES)
+    # lanes None: the module's lanes of each dense move
+    settings["walk_dense"] = (None, resident_walk_dense.WALK_DENSE_MIN_BLOCKS)
+    # the dense walks' runs cover every lane count, the settings' among them
+    runs = [(kernel, *settings[kernel]) for kernel in kernels if kernel != "walk_dense"]
+    runs += [run for run in SWEEP + NUTS_DENSE_SWEEP + WALK_DENSE_SWEEP + SMC_SWEEP
+             if run[0] in kernels and run not in runs]
 
     def use(kernel, lanes, min_blocks):
         if kernel == "gibbs":
@@ -171,6 +205,12 @@ def main(argv=None):
             resident_walk.WALK_LANES, resident_walk.WALK_MIN_BLOCKS = lanes, min_blocks
         elif kernel == "tempering":
             resident_walk.TEMPERING_LANES, resident_walk.TEMPERING_MIN_BLOCKS = lanes, min_blocks
+        elif kernel == "walk_dense":
+            resident_walk_dense.WALK_DENSE_LANES = (
+                dense_settings if lanes is None else dict.fromkeys(dense_settings, lanes))
+            resident_walk_dense.WALK_DENSE_MIN_BLOCKS = min_blocks
+        elif kernel == "smc":
+            resident_smc.SMC_LANES, resident_smc.SMC_MIN_BLOCKS = lanes, min_blocks
         else:  # min_blocks: the launch bound's threads
             resident_nuts_dense.NUTS_DENSE_BOUND = min_blocks
 
@@ -194,6 +234,11 @@ def main(argv=None):
             builds.append(resident_walk.library_spec(nuts_model, lanes=lanes))
         elif kernel == "tempering":
             builds.append(resident_walk.library_spec(nuts_model, ladder_lanes=lanes))
+        elif kernel == "walk_dense":
+            for model in (xor_model, xor2321_model):
+                builds.append(resident_walk_dense.library_spec(model, xor.x, xor.y, lanes=lanes))
+        elif kernel == "smc":
+            builds.append(resident_smc.library_spec(nuts_model, lanes) + (None,))
         else:
             for _, depth, _, metric in NUTS_DENSE_SHAPES:
                 builds.append(resident_nuts_dense.library_spec(xor_model, xor.x, xor.y, depth,
@@ -212,7 +257,13 @@ def main(argv=None):
         "iris433": torch.as_tensor(0.1 * rng.normal(size=(C_HMC, nuts_model.num_params)),
                                    dtype=torch.float32, device=device),
         "xor": torch.as_tensor(rng.normal(size=(C_NUTS_DENSE, xor_model.num_params)),
-                               dtype=torch.float32, device=device)}
+                               dtype=torch.float32, device=device),
+        "xor_walk": torch.as_tensor(0.1 * rng.normal(size=(C_HMC, xor_model.num_params)),
+                                    dtype=torch.float32, device=device),
+        "xor2321_walk": torch.as_tensor(0.1 * rng.normal(size=(C_HMC, xor2321_model.num_params)),
+                                        dtype=torch.float32, device=device),
+        "smc": nuts_model.prior.sample(torch.Generator(device=device).manual_seed(args.seed),
+                                       (C_SMC,))}
     hmc_tuned = dict(step=0.1, num_steps=10, tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64)
     ok = True
 
@@ -292,6 +343,74 @@ def main(argv=None):
                             resources=resident_nuts_dense.kernel_resources(lib),
                             launch=fn.launch_shape, chains=theta.shape[0], iterations=ITERS,
                             burnin=BURNIN, accept_stat=accept_stat.item()), fn, theta, checks)
+                del fn
+        elif kernel == "walk_dense":
+            for move, model, maker, value, theta in (
+                    ("mh", xor_model, resident_walk_dense.make_resident_mh_dense, 0.1,
+                     theta0s["xor_walk"]),
+                    ("mala", xor2321_model, resident_walk_dense.make_resident_mala_dense, 0.01,
+                     theta0s["xor2321_walk"])):
+                fn = maker(model, xor.x, xor.y, value, ITERS, BURNIN, chain_block=WALK_DENSE_BLOCK,
+                           device=device)
+                held = maker(model, xor.x, xor.y, value, 20, chain_block=C_CHECK,
+                             record_extras=True, device=device)
+                lib = resident_walk_dense.load_kernel(model, xor.x, xor.y, lanes=lanes)
+                checks = {"untuned": agreement(held, theta[:C_CHECK], RESIDENT_LANE_MIN_AGREEING,
+                                               (1, 0, 0, 1, 1))}
+                report(dict(record, kernel=f"walk_dense_{move}",
+                            settings=(lanes, min_blocks) == (dense_settings[move],
+                                                             settings[kernel][1]),
+                            resources=resident_walk_dense.kernel_resources(lib, move),
+                            launch=fn.walk_launch(C_HMC, sm_count), chains=C_HMC,
+                            chain_block=WALK_DENSE_BLOCK, iterations=ITERS, burnin=BURNIN),
+                       fn, theta, checks)
+                del fn, held
+            temps = (np.arange(1, RUNGS + 1) / RUNGS) ** 4
+
+            def dense_ladder(iters, burnin, between=BETWEEN, extras=False):
+                return make_resident_tempering_dense(
+                    xor_model, xor.x, xor.y, RUNGS, 0.05, "MALA", temps, between, iters, burnin,
+                    XOR_LADDER_BLOCK, record_extras=extras, device=device)
+
+            lib = resident_walk_dense.load_kernel(xor_model, xor.x, xor.y, lanes=lanes)
+            checks = {"untuned": agreement(dense_ladder(20, 0, CHECK_BETWEEN, True),
+                                           theta0s["xor_walk"][:C_CHECK],
+                                           RESIDENT_LANE_MIN_AGREEING, (1, 0, 0, 1, 1),
+                                           rungs=RUNGS)}
+            fn = dense_ladder(ITERS, BURNIN)
+            for C in (XOR_LADDER_BLOCK, C_HMC):
+                report(dict(record, kernel="walk_dense_tempering_mala",
+                            settings=(lanes, min_blocks) == (dense_settings["ladder"],
+                                                             settings[kernel][1]),
+                            resources=resident_walk_dense.kernel_resources(lib, "tempering_mala"),
+                            launch=fn.tempering_launch(C), chains=C,
+                            chain_block=XOR_LADDER_BLOCK, iterations=ITERS, burnin=BURNIN,
+                            rungs=RUNGS, between_step=BETWEEN),
+                       fn, theta0s["xor_walk"][:C], checks)
+            del fn
+        elif kernel == "smc":
+            lib = resident_smc.load_kernel(nuts_model, lanes)
+            for mutation, step in (("MALA", 0.003), ("MH", 0.01)):
+                fn = resident_smc.make_resident_smc_mutation(
+                    nuts_model, iris.x, iris.y, step, SMC_STEPS, chain_block=1024,
+                    mutation=mutation, device=device)
+                theta = theta0s["smc"]
+                agree = None
+                for got, want in zip(fn(args.seed, SMC_BETA, theta),
+                                     fn.plain(args.seed, SMC_BETA, theta)[0]):
+                    chains_ok = chain_agreement(got, want, 0)[0]
+                    agree = chains_ok if agree is None else agree & chains_ok
+                share = agree.float().mean().item()
+                checks = {"untuned": {"share_agreeing_with_plain": share,
+                                      "limit": RESIDENT_MIN_AGREEING,
+                                      "ok": share >= RESIDENT_MIN_AGREEING}}
+                ms, ms_runs = event_times(lambda: fn(args.seed, SMC_BETA, theta))
+                ok = ok and checks["untuned"]["ok"]
+                print(json.dumps(dict(
+                    record, kernel=f"smc_{mutation.lower()}",
+                    resources=resident_smc.kernel_resources(lib, mutation),
+                    launch=fn.smc_launch(C_SMC, sm_count), particles=C_SMC, steps=SMC_STEPS,
+                    beta=SMC_BETA, ms=ms, ms_runs=ms_runs, checks=checks)), flush=True)
                 del fn
         elif kernel == "gibbs":
             fn = resident_walk.make_resident_gibbs(

@@ -20,6 +20,7 @@
 #include <cstring>
 #include <functional>
 #include <map>
+#include <memory>
 #include <utility>
 #include <vector>
 
@@ -28,6 +29,7 @@
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
+#define __constant__
 #define __launch_bounds__(...)
 
 struct dim3 {
@@ -102,18 +104,21 @@ inline void entry() {
 }
 // Runs the blocks [first, first + blocks) of a launch as one cluster.
 inline void run_cluster(int first, int blocks, int threads_per_block, std::function<void()> fn) {
-  static std::vector<std::vector<char>> stacks;
+  // each thread's stack, left uninitialised so that only the pages a thread
+  // uses are ever touched (a cluster may hold thousands of threads)
+  constexpr size_t kStack = size_t{1} << 20;
+  static std::vector<std::unique_ptr<char[]>> stacks;
   const int threads = blocks * threads_per_block;
   body = fn;
   cluster_size = blocks;
   ctx.assign(threads, ucontext_t{});
   done.assign(threads, 0);
-  stacks.resize(threads);
+  if (stacks.size() < static_cast<size_t>(threads)) stacks.resize(threads);
   for (int t = 0; t < threads; ++t) {
-    stacks[t].resize(1 << 20);
+    if (!stacks[t]) stacks[t].reset(new char[kStack]);
     getcontext(&ctx[t]);
-    ctx[t].uc_stack.ss_sp = stacks[t].data();
-    ctx[t].uc_stack.ss_size = stacks[t].size();
+    ctx[t].uc_stack.ss_sp = stacks[t].get();
+    ctx[t].uc_stack.ss_size = kStack;
     ctx[t].uc_link = nullptr;
     makecontext(&ctx[t], entry, 0);
   }

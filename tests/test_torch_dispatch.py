@@ -1020,3 +1020,52 @@ def test_nuts_slice_runs_the_plain_kernel_into_chainlists(record_keys):
     assert info["divergent_sums"].shape == (C,) and info["accept_counts"].shape == (C,)
     assert 0.0 < float(info["accept_counts"].mean()) / info["kept"] <= 1.0
     assert float(info["divergent_sums"].max()) <= iters - burnin
+
+
+# ---- the lane builds of the dense walk, the dense ladder and the SMC pass ----
+
+def xor2321_model():
+    return MLP(loss=loss_functions["binary_classification"], dtype=torch.float32, device="cpu",
+               hparams=mlp.Hyperparameters(dims=[2, 3, 2, 1]))
+
+
+@pytest.mark.parametrize("name,want", [
+    ("config1_mh", ("dense", "make_resident_mh_dense", 8192)),
+    ("config2_mala", ("dense", "make_resident_mala_dense", 8192)),
+    ("xor_ladder", ("dense", "make_resident_tempering_dense", 1024)),
+    ("iris_smc_mala", ("resident", "make_resident_smc", 1024)),
+    ("iris_smc_mh", ("resident", "make_resident_smc", 1024))])
+def test_lane_builds_leave_the_routes_unchanged(name, want):
+    """Lanes a chain are decided inside the makers (the rows, the group, the
+    ladder), so dispatch sends BASELINE.md configs 1 and 2 (32768 chains),
+    the XOR ladder of 8 rungs and iris SMC (16384 particles) to the same
+    kernels and chain blocks as before; iris SMC's chain block is JAX's."""
+    from eeyore_tpu.models import MLP as JMLP
+    from eeyore_tpu.models import loss_functions as jloss_functions
+    from eeyore_tpu.models import mlp as jmlp
+    from eeyore_tpu.samplers import SMCSampler as JSMCSampler
+    from eeyore_tpu.samplers.dispatch import resolve_smc as jresolve_smc
+
+    if name == "config1_mh":
+        plan, reason = resolve_backend(MetropolisHastings(xor_model(), scale=0.1), XOR, 32768,
+                                       2048, 1024, platform="cuda")
+    elif name == "config2_mala":
+        plan, reason = resolve_backend(MALA(xor2321_model(), step=0.01), XOR, 32768, 2048, 1024,
+                                       platform="cuda")
+    elif name == "xor_ladder":
+        pp = PowerPosteriorSampler(xor_model(), num_chains=8, sampler="MALA",
+                                   sampler_kwargs={"step": 0.05}, between_step=10,
+                                   swap_scheme="even_odd")
+        plan, reason = resolve_tempering(pp, XOR, 2048, 1024, platform="cuda")
+    else:
+        mutation = "MALA" if name == "iris_smc_mala" else "MH"
+        plan, reason = dispatch.resolve_smc(SMCSampler(iris_model(), 16384, mutation=mutation),
+                                            iris_data(), platform="cuda")
+        jmodel = JMLP(loss=jloss_functions["multiclass_classification"],
+                      hparams=jmlp.Hyperparameters(dims=[4, 3, 3],
+                                                   activations=[jmlp.sigmoid, None]))
+        cb, _ = jresolve_smc(JSMCSampler(jmodel, 16384, mutation=mutation), iris_data(),
+                             platform="tpu")
+        assert cb == want[2]
+    assert plan is not None, reason
+    assert (plan.backend, plan.maker.__name__, plan.chain_block) == want

@@ -2,9 +2,12 @@
 staged Gibbs move, whose chains each take 8, 16 or 32 lanes of a warp, and
 the staged MH, MALA and ladder moves, on 1, 2, 4 or 8),
 ``csrc/resident_nuts.cu`` (staged NUTS, on 1, 8, 16 or 32),
-``csrc/resident_hmc.cu`` (staged HMC, on 1, 2, 4 or 8) and
-``csrc/resident_nuts_dense.cu`` (one thread a chain), written over the lanes
-a chain (``csrc/lane_eval.cuh``), compiled with g++ against
+``csrc/resident_hmc.cu`` (staged HMC, on 1, 2, 4 or 8),
+``csrc/resident_nuts_dense.cu`` (one thread a chain),
+``csrc/resident_walk_dense.cu`` (the dense MH, MALA and ladder moves on 1, 2
+or 4, each lane on the generated body of its own rows) and
+``csrc/resident_smc.cu`` (the SMC mutation pass, on 1, 4 or 8), written over
+the lanes a chain (``csrc/lane_eval.cuh``), compiled with g++ against
 ``tests/cuda_host_emulation.h``, which runs every thread of a thread-block
 cluster as a coroutine, gives each block of it its own shared memory, and
 runs the warp shuffles, ballots and barriers and the cluster barrier as
@@ -30,11 +33,19 @@ import torch
 
 from eeyore_tpu_torch.datasets import XYDataset
 from eeyore_tpu_torch.models import MLP, loss_functions, mlp
-from eeyore_tpu_torch.ops import resident_hmc, resident_nuts, resident_nuts_dense, resident_walk
+from eeyore_tpu_torch.ops import (
+    resident_hmc,
+    resident_nuts,
+    resident_nuts_dense,
+    resident_smc,
+    resident_walk,
+    resident_walk_dense,
+)
 from eeyore_tpu_torch.ops._build import CSRC
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
 from eeyore_tpu_torch.ops.mlp_math import prepare_data
 from eeyore_tpu_torch.ops.resident_hmc import ResidentHMCParams, unpack_outputs
+from eeyore_tpu_torch.ops.resident_tempering_dense import make_resident_tempering_dense
 from eeyore_tpu_torch.tuners import HMCDATuner
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
@@ -603,3 +614,184 @@ def test_dense_nuts_equals_the_plain_version(build, monkeypatch, bound, kw):
     if bound:  # a block larger than the bound is refused
         assert lib.resident_nuts_dense_launch(theta.data_ptr(), ctypes.byref(pr), 2 * bound, 1,
                                               *(t.data_ptr() for t in out), None) != 0
+
+
+# ---- the dense MH, MALA and ladder moves on 1, 2 or 4 lanes a chain ----
+
+XOR2321 = "xor2321"
+XOR3 = "xor3"  # three of XOR's rows: on 2 lanes, lane 1 lacks a row in its second slot
+
+
+def dense_problem(name):
+    if name == XOR2321:
+        return model_of([2, 3, 2, 1], "binary_classification"), XOR
+    if name == XOR3:
+        return model_of([2, 2, 1], "binary_classification"), (XOR[0][:3], XOR[1][:3])
+    return problem(name)
+
+
+def dense_walk_library(build, model, x, y, lanes):
+    """The dense walk build on ``lanes`` lanes a chain of the MH, MALA and
+    ladder moves, compiled for the host."""
+    _, source, defines, generated = resident_walk_dense.library_spec(model, x, y, None, lanes)
+    lib = build(source, defines, generated)
+    lib.resident_walk_dense_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(resident_walk.ResidentWalkParams),
+         ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
+    lib.resident_walk_dense_tempering_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 2
+        + [ctypes.POINTER(resident_walk.ResidentWalkParams), ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    assert lib.resident_walk_dense_lanes() == lanes
+    return lib
+
+
+def launch_dense_walk(lib, fn, move, seed, theta0s, threads, cluster=1):
+    """The dense walk kernel's outputs as the maker's ``fn`` returns them."""
+    pr, theta = closure(fn)["setup"](seed, theta0s)
+    C, P = theta0s.shape
+    rows = P + 2 if pr.record_extras else P
+    samples, final, accepts = (torch.zeros((pr.kept, rows, C)), torch.zeros((P, C)),
+                               torch.zeros(C))
+    err = lib.resident_walk_dense_launch(
+        resident_walk.MOVES[move], theta.data_ptr(), ctypes.byref(pr), threads, cluster,
+        samples.data_ptr(), final.data_ptr(), accepts.data_ptr(), None)
+    assert err == 0
+    return unpack_outputs(samples, final, accepts, P, pr.record_extras)
+
+
+@pytest.mark.parametrize("name,lanes", [("xor", 1), ("xor", 2), ("xor", 4), (XOR2321, 1),
+                                        (XOR2321, 2), (XOR2321, 4), (XOR3, 2)])
+def test_dense_walk_moves_on_lanes_equal_the_plain_version(build, name, lanes):
+    """The dense MH and MALA moves on the generated lane body, each lane on
+    its own XOR rows (4 rows: 4, 2 or 1 a lane; 3 rows on 2 lanes: the slot
+    lane 1 lacks is masked), the chains sublane-strided over blocks of 256
+    threads, held per chain against the plain version on the folded body."""
+    model, (x, y) = dense_problem(name)
+    C, iters, burnin = 1024, 9, 2
+    lib = dense_walk_library(build, model, x, y, lanes)
+    theta0s = torch.as_tensor(0.5 * np.random.default_rng(1).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    for move, maker, value in (("mh", resident_walk_dense.make_resident_mh_dense, 0.3),
+                               ("mala", resident_walk_dense.make_resident_mala_dense, 0.05)):
+        fn = maker(model, x, y, value, iters, burnin, chain_block=C, record_extras=True,
+                   device="cpu")
+        want, _ = fn.plain(3, theta0s)
+        got = launch_dense_walk(lib, fn, move, 3, theta0s, 256)
+        assert max_err(got, want) < 2e-4, move
+        assert 0 < int(got[2].sum()) < C * (iters - burnin), move
+
+
+@pytest.mark.parametrize("lanes,threads,cluster", [(1, 1024, 1), (2, 256, 8), (4, 256, 16)])
+def test_dense_tuned_group_on_lanes_equals_the_plain_version(build, lanes, threads, cluster):
+    """A tuned dense MALA group of JAX's 1024 chains over a 5-iteration
+    burn-in: one block of one thread a chain, and on lanes a cluster of
+    blocks of 256 threads (the group mean counts each chain once and adds
+    the blocks' sums through the cluster's shared memory); a block of the
+    group alone is refused."""
+    model, (x, y) = dense_problem(XOR2321)
+    C = 1024
+    lib = dense_walk_library(build, model, x, y, lanes)
+    fn = resident_walk_dense.make_resident_mala_dense(
+        model, x, y, 0.05, 10, 5, chain_block=C, tuner=HMCDATuner(d=0.574), record_extras=True,
+        device="cpu")
+    theta0s = torch.as_tensor(0.5 * np.random.default_rng(2).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    want, _ = fn.plain(4, theta0s)
+    got = launch_dense_walk(lib, fn, "mala", 4, theta0s, threads, cluster)
+    assert max_err(got, want) < 2e-4
+    if cluster > 1:
+        pr, theta = closure(fn)["setup"](4, theta0s)
+        assert lib.resident_walk_dense_launch(1, theta.data_ptr(), ctypes.byref(pr), threads, 1,
+                                              *[None] * 4) != 0
+
+
+def test_dense_lane_launches_refuse_blocks_of_scattered_chains(build):
+    """On lanes a block's chains must divide a sublane row (chain_block / 8),
+    so that the record tile's chains are consecutive."""
+    model, (x, y) = dense_problem("xor")
+    lib = dense_walk_library(build, model, x, y, 4)
+    pr = resident_walk.walk_params("mh", 0.1, 2, 0, 1, False, 1024, sublanes=8)
+    pr.num_chains = 1024
+    args = (0, None, ctypes.byref(pr))
+    assert lib.resident_walk_dense_launch(*args, 1024, 1, *[None] * 4) != 0  # over 256 threads
+    pr.chain_block = pr.num_chains = 256  # a sublane row of 32 chains: blocks of 64 split it
+    assert lib.resident_walk_dense_launch(*args, 256, 1, *[None] * 4) != 0
+
+
+def launch_dense_tempering(lib, fn, move, seed, theta0s, threads):
+    cells = closure(fn)
+    pr, theta = cells["setup"](seed, theta0s)
+    C, P = theta0s.shape
+    rows = P + 2 if pr.record_extras else P
+    samples, final, accepts = (torch.zeros((pr.kept, rows, C)), torch.zeros((P, C)),
+                               torch.zeros((2, C)))
+    err = lib.resident_walk_dense_tempering_launch(
+        int(move == "mala"), theta.data_ptr(), cells["rungs"].data_ptr(), ctypes.byref(pr),
+        threads, samples.data_ptr(), final.data_ptr(), accepts.data_ptr(), None)
+    assert err == 0
+    return unpack_outputs(samples, final, accepts.T, P, pr.record_extras)
+
+
+@pytest.mark.parametrize("lanes,threads", [(1, 256), (4, 64)])
+@pytest.mark.parametrize("move", ["mh", "mala"])
+def test_dense_ladder_on_lanes_equals_the_plain_version(build, move, lanes, threads):
+    """Ladders of 8 rungs along the sublane rows of a chain block of 1024
+    XOR chains: on 4 lanes a block of 64 threads holds two ladders, whose
+    pairs swap through their posts; within-rung and swap counts exact."""
+    model, (x, y) = dense_problem("xor")
+    C, L = 1024, 8
+    fn = make_resident_tempering_dense(model, x, y, L, {"mh": 0.5, "mala": 0.1}[move],
+                                       {"mh": "MetropolisHastings", "mala": "MALA"}[move],
+                                       temperatures=np.linspace(0.1, 1.0, L) ** 2,
+                                       between_step=2, num_iters=12, num_burnin_iters=3,
+                                       chain_block=C, record_extras=True, device="cpu")
+    theta0s = torch.as_tensor(0.5 * np.random.default_rng(5).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    want, _ = fn.plain(6, theta0s)
+    got = launch_dense_tempering(dense_walk_library(build, model, x, y, lanes), fn, move, 6,
+                                 theta0s, threads)
+    assert max_err(got, want) < 2e-4
+    assert torch.equal(got[2], want[2])  # within-rung and swap accepts, exact
+    assert int(got[2][:, 0].sum()) > 0 and int(got[2][:, 1].sum()) > 0
+    assert torch.equal(got[4], want[4])  # the moved flags
+
+
+# ---- the SMC mutation pass on 1, 4 or 8 lanes a particle ----
+
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+@pytest.mark.parametrize("mutation,step", [("MALA", 0.003), ("MH", 0.01)])
+def test_smc_pass_on_lanes_equals_the_plain_version(build, mutation, step, lanes):
+    """Two mutation steps of 64 particles on iris (150 rows, staged), each
+    particle on 1, 4 or 8 lanes: final theta, pot (the untempered
+    log-likelihood of the accepted state) and counts against the plain
+    pass."""
+    model, (x, y) = problem("iris")
+    N = 64
+    lib = build(*resident_smc.library_spec(model, lanes)[1:])
+    lib.resident_smc_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.POINTER(resident_smc.ResidentSMCParams), ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    assert lib.resident_smc_lanes() == lanes
+    fn = resident_smc.make_resident_smc_mutation(model, x, y, step, 2, chain_block=N,
+                                                 mutation=mutation, device="cpu")
+    theta0s = torch.as_tensor(0.3 * np.random.default_rng(9).normal(size=(N, model.num_params)),
+                              dtype=torch.float32)
+    want, _ = fn.plain(11, 0.3, theta0s)
+    cells = closure(fn.transposed)
+    pr, theta = cells["setup"](11, 0.3, theta0s.T)
+    P = model.num_params
+    final, pot, accepts = torch.zeros((P, N)), torch.zeros(N), torch.zeros(N)
+    threads = resident_smc.smc_threads(lanes, 1024, N) // 2  # two blocks
+    err = lib.resident_smc_launch(
+        resident_smc.MOVES[mutation], theta.data_ptr(), *(a.data_ptr() for a in cells["arrays"]),
+        ctypes.byref(pr), threads, final.data_ptr(), pot.data_ptr(), accepts.data_ptr(), None)
+    assert err == 0
+    assert max_err((final.T, pot), want[:2]) < 2e-4
+    assert torch.equal(accepts, want[2])
+    assert 0 < int(accepts.sum()) < 2 * N
+    if lanes > 1:  # a launch that does not cover the particles exactly is refused
+        pr.num_particles = N - 1
+        assert lib.resident_smc_launch(0, *[None] * 6, ctypes.byref(pr), threads,
+                                       *[None] * 4) != 0

@@ -1,7 +1,9 @@
 """Port, the lane layout of the staged Gibbs move and the staged NUTS kernel
 (``csrc/lane_eval.cuh``): a chain on 8, 16 or 32 lanes of a warp; and of the
-staged HMC kernel and the staged MH and MALA moves, on 1, 2, 4 or 8. The host
-side is tested here: the launch shape (threads, blocks, cluster, SMs
+staged HMC kernel and the staged MH and MALA moves, on 1, 2, 4 or 8; and of
+the dense MH, MALA and ladder moves (lanes by move, rows, group and chain
+block) and the SMC mutation pass (lanes by rows). The host side is tested
+here: the launch shape (threads, blocks, cluster, SMs
 covered) from register counts and the occupancy the card reports, the rule that decides whether the Gibbs move
 caches the rows' activations and the generated header that carries it, the
 makers' and wrappers' refusals, and that dispatch routes the Gibbs and NUTS
@@ -682,3 +684,200 @@ def test_dense_nuts_bound_names_the_build():
     assert source == "resident_nuts_dense.cu" and name.endswith("_d3_t512")
     assert {"NUTS_DEPTH=3", "NUTS_DENSE_BOUND=512"} <= set(defines)
     assert set(generated) == {"dense_body.cuh", "nuts_metric.cuh"}
+
+
+# ---- the dense MH, MALA and ladder moves, and the SMC pass, on lanes ----
+
+class FakeDenseWalkLibrary:
+    """What the launch code reads of a dense walk build on ``lanes`` lanes
+    a chain at ``registers`` (blocks of at most ``bound`` threads)."""
+
+    def __init__(self, lanes, registers, bound):
+        self.lanes, self.registers = lanes, registers
+        self.max_threads = min(bound, threads_for_registers(registers))
+        self.blocks = occupancy(registers)
+
+    def resident_walk_dense_lanes(self):
+        return self.lanes
+
+    def resident_walk_dense_error_string(self, code):
+        return b"refused"
+
+    def resident_walk_dense_resources(self, move, out):
+        out[0], out[1], out[2] = self.registers, 0, self.max_threads
+        return 0
+
+    def resident_walk_dense_max_blocks(self, move, threads, extras, out):
+        out._obj.value = self.blocks(threads)
+        return 0
+
+    def resident_walk_dense_max_clusters(self, move, threads, blocks, out):
+        out._obj.value = 8
+        return 0
+
+
+def test_the_dense_lane_count_follows_the_rows(monkeypatch):
+    """Each dense move's setting (the sweep's fastest: config 1's MH on one
+    thread a chain, config 2's MALA on 2 lanes, the XOR ladder on 4, a row a
+    lane); fewer rows take the largest power of two not above them, never
+    more lanes than rows; a build's default lanes are the MH move's."""
+    from eeyore_tpu_torch.ops import resident_walk_dense as wd
+
+    assert wd.WALK_DENSE_LANES == {"mh": 1, "mala": 2, "ladder": 4}
+    assert [wd.dense_lanes(n, "ladder") for n in (1, 2, 3, 4, 5, 32)] == [1, 2, 2, 4, 4, 4]
+    assert [wd.dense_lanes(n, "mala") for n in (1, 2, 3, 4)] == [1, 2, 2, 2]
+    assert wd.dense_lanes(4, "mh") == 1
+    monkeypatch.setattr(wd, "WALK_DENSE_LANES", dict.fromkeys(("mh", "mala", "ladder"), 8))
+    assert [wd.dense_lanes(n, "mh") for n in (4, 7, 8, 32)] == [4, 4, 8, 8]
+    assert wd.library_spec(xor221(), *XOR)[2][-2] == "WALK_DENSE_LANES=4"
+
+
+@pytest.mark.parametrize("lanes,n_rows", [(0, 4), (3, 4), (12, 32), (64, 32), (8, 4), (2, 1)])
+def test_dense_lane_counts_outside_a_warps_divisors_or_above_the_rows_raise(monkeypatch, lanes,
+                                                                           n_rows):
+    from eeyore_tpu_torch.ops import mlp_dense
+    from eeyore_tpu_torch.ops import resident_walk_dense as wd
+
+    with pytest.raises(ValueError, match="lanes"):
+        wd.check_dense_lanes(lanes, n_rows)
+    monkeypatch.setattr(wd, "WALK_DENSE_LANES", {"mh": lanes, "mala": lanes, "ladder": lanes})
+    if lanes not in wd.LANE_COUNTS:
+        with pytest.raises(ValueError, match="lanes"):
+            wd.dense_lanes(n_rows, "mala")
+    if n_rows == 4:
+        with pytest.raises(ValueError, match="lanes"):
+            wd.library_spec(xor221(), *XOR, lanes=lanes)
+        with pytest.raises(ValueError, match="lanes"):
+            mlp_dense.dense_lane_source(xor221(), *XOR, lanes)
+
+
+@pytest.mark.parametrize("lanes,chain_block,tuned,want", [
+    (4, 1024, True, 4), (4, 2048, True, 1), (4, 8192, True, 1), (4, 8192, False, 4),
+    (2, 2048, True, 2), (2, 4096, True, 1), (2, 8192, False, 2), (1, 8192, True, 1)])
+def test_a_tuned_dense_group_beyond_a_cluster_of_lane_blocks_takes_one_thread_a_chain(
+        monkeypatch, lanes, chain_block, tuned, want):
+    """A tuning group is a block or a cluster of at most 16 blocks of 256
+    threads: at 4 lanes JAX's 1024 chains fit (16 blocks), at 2 lanes 2048;
+    larger groups take the build of one thread a chain, decided before the
+    launch."""
+    from eeyore_tpu_torch.ops import resident_walk_dense as wd
+
+    monkeypatch.setattr(wd, "WALK_DENSE_LANES", {"mh": lanes, "mala": lanes, "ladder": 4})
+    for move in ("mh", "mala"):
+        assert wd.walk_dense_lanes(4, chain_block, tuned, move) == want
+
+
+@pytest.mark.parametrize("lanes,registers,chain_block,want", [
+    (4, 128, 1024, (256, 16)), (2, 128, 1024, (256, 8)), (1, 64, 8192, (1024, 8)),
+    (1, 153, 4096, (256, 16))])
+def test_a_tuned_dense_group_keeps_jaxs_chain_block(lanes, registers, chain_block, want):
+    """The group's chain_block chains are exactly the block or the cluster
+    (threads x blocks = chains x lanes), whatever the lanes."""
+    from eeyore_tpu_torch.ops import resident_walk_dense as wd
+
+    lib = FakeDenseWalkLibrary(lanes, registers, 1024 if lanes == 1 else wd.WALK_DENSE_BLOCK)
+    assert wd.walk_shape(lib, "mala", chain_block, True) == want
+    assert want[0] * want[1] == chain_block * lanes
+
+
+@pytest.mark.parametrize("lanes,registers,want", [
+    (4, 128, dict(threads=256, blocks=512, blocks_per_sm=2, sms_covered=132)),
+    (2, 128, dict(threads=256, blocks=256, blocks_per_sm=2, sms_covered=128)),
+    (1, 153, dict(threads=256, blocks=128, blocks_per_sm=1, sms_covered=128)),
+])
+def test_untuned_dense_walks_spread_over_the_sms(lanes, registers, want):
+    """Configs 1 and 2 (32768 chains in chain blocks of 8192): on 4 lanes
+    512 blocks of 256 threads, 4096 warps, where one thread a chain had 128
+    blocks; a block's chains divide a sublane row."""
+    from eeyore_tpu_torch.ops import resident_walk_dense as wd
+
+    lib = FakeDenseWalkLibrary(lanes, registers, 1024 if lanes == 1 else wd.WALK_DENSE_BLOCK)
+    for move in ("mh", "mala"):
+        shape = wd.walk_launch(lib, move, 32768, 8192, False, sm_count=H100_SMS)
+        assert {k: shape[k] for k in want} == want
+        assert shape["lanes"] == lanes and shape["cluster_blocks"] == 1
+        assert shape["blocks"] * shape["threads"] == 32768 * lanes
+        assert (8192 // 8) % (shape["threads"] // lanes) == 0
+        assert wd.walk_shape(lib, move, 8192, False) == (want["threads"], 1)
+
+
+def test_the_xor_ladder_entry_point_covers_128_sms():
+    """The XOR ladder's entry point runs one chain block of 1024 chains, 128
+    ladders of 8 rungs: on 4 lanes 128 blocks of one ladder (32 threads),
+    where one thread a chain took 32 blocks of 32 threads; more chains fill
+    the card in blocks of 256; a ladder too long for a block of 256 lane
+    threads, or a chain block that one thread a chain spreads over the card,
+    takes one thread a chain."""
+    from eeyore_tpu_torch.ops import resident_walk_dense as wd
+    from eeyore_tpu_torch.ops.resident_hmc_dense import SUBLANES
+
+    assert wd.dense_tempering_lanes(4, 8, 1024) == 4
+    lib = FakeDenseWalkLibrary(4, 128, wd.WALK_DENSE_BLOCK)
+    ladder = dict(lanes=4, sm_count=H100_SMS, threads=lambda C: resident_walk.ladder_threads(
+        wd.WALK_DENSE_BLOCK, 1024, 8, 4, C, H100_SMS, SUBLANES))
+    launch = wd.tempering_launch(lib, "mala", 1024, False, ladder)
+    assert (launch["lanes"], launch["threads"], launch["blocks"]) == (4, 32, 128)
+    assert wd.tempering_launch(lib, "mala", 32768, False, ladder)["threads"] == 256
+    assert resident_walk.ladder_threads(1024, 1024, 8, 1, 1024, H100_SMS, SUBLANES) == 32
+    assert wd.dense_tempering_lanes(4, 64, 1024) == 4
+    assert wd.dense_tempering_lanes(4, 128, 2048) == 1
+    # a chain block that one thread a chain spreads over the card: 8192
+    # chains are 256 warps for 132 SMs (the ladder at size), 1024 are 32
+    assert wd.dense_tempering_lanes(4, 8, 1024, H100_SMS) == 4
+    assert wd.dense_tempering_lanes(4, 8, 8192, H100_SMS) == 1
+    assert wd.dense_tempering_lanes(4, 8, 8192) == 4
+    for L, chain_block in ((8, 1024), (64, 1024)):
+        for t in resident_walk._ladder_sizes(wd.WALK_DENSE_BLOCK, chain_block, L, 4, SUBLANES):
+            assert t % (4 * L) == 0 and (chain_block // SUBLANES) % (t // 4) == 0
+
+
+def test_smc_lanes_follow_the_rows(monkeypatch):
+    """Iris (152 padded rows) takes SMC_LANES lanes a particle, XOR (8) one
+    thread; lane counts other than 1, 2, 4 or 8 raise."""
+    from eeyore_tpu_torch.ops import resident_smc
+
+    assert resident_smc.smc_lanes(152) == resident_smc.SMC_LANES > 1
+    assert resident_smc.smc_lanes(8) == 1 and resident_smc.smc_lanes(31) == 1
+    monkeypatch.setattr(resident_smc, "SMC_LANES", 4)
+    assert resident_smc.smc_lanes(32) == 4
+    for lanes in (0, 3, 16):
+        monkeypatch.setattr(resident_smc, "SMC_LANES", lanes)
+        with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+            resident_smc.smc_lanes(152)
+        with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+            resident_smc.library_spec(iris433())
+
+
+@pytest.mark.parametrize("lanes,N,want", [(8, 16384, (256, 512)), (4, 16384, (256, 256)),
+                                          (1, 16384, (128, 128)), (8, 1024, (256, 32)),
+                                          (1, 1000, (128, 8))])
+def test_smc_blocks_cover_the_particles(lanes, N, want):
+    """On lanes a launch covers the particles exactly in blocks of a multiple
+    of 32 threads (16384 particles on 8 lanes: 512 blocks of 256); one
+    thread a particle keeps blocks of SMC_BLOCK and a ragged last one."""
+    from eeyore_tpu_torch.ops import resident_smc
+
+    threads = resident_smc.smc_threads(lanes, 1024, N)
+    assert (threads, -(-N * lanes // threads)) == want
+    assert threads % 32 == 0 and (lanes == 1 or (N * lanes) % threads == 0)
+
+
+def test_dense_walk_and_smc_settings_name_the_builds():
+    from eeyore_tpu_torch.ops import resident_smc
+    from eeyore_tpu_torch.ops import resident_walk_dense as wd
+
+    name, source, defines, generated = wd.library_spec(xor221(), *XOR)
+    assert source == "resident_walk_dense.cu"
+    assert name.endswith(f"_l{wd.WALK_DENSE_LANES['mh']}_b{wd.WALK_DENSE_MIN_BLOCKS}")
+    assert f"WALK_DENSE_MIN_BLOCKS={wd.WALK_DENSE_MIN_BLOCKS}" in defines
+    assert "dense_lanes.cuh" not in generated  # one thread a chain: the one-thread body
+    name, source, defines, generated = wd.library_spec(xor221(), *XOR, lanes=4)
+    assert name.endswith(f"_l4_b{wd.WALK_DENSE_MIN_BLOCKS}") and "WALK_DENSE_LANES=4" in defines
+    assert set(generated) == {"dense_body.cuh", "dense_gibbs.cuh", "gibbs_blocks.cuh",
+                              "dense_lanes.cuh"}
+    assert wd.library_spec(xor221(), *XOR, lanes=2)[0] != name
+    name, source, defines = resident_smc.library_spec(iris433())
+    assert source == "resident_smc.cu"
+    assert name.endswith(f"_l{resident_smc.SMC_LANES}_b{resident_smc.SMC_MIN_BLOCKS}")
+    assert f"SMC_LANES={resident_smc.SMC_LANES}" in defines
+    assert resident_smc.library_spec(iris433(), 1)[0] != name

@@ -4,10 +4,12 @@ same float32 tiles (rtol 2e-5, atol 2e-4, as tests/test_mlp_dense.py holds
 the JAX body to autograd; the two differ only in the exp/log rounding of the
 two libraries); the CUDA text ``dense_source`` emits, read back by a small
 numpy interpreter, against ``make_vg_dense`` (the same operations in the same
-order: 1e-6 relative); ``stack_chains``/``unstack_chains`` exact against the
+order: 1e-6 relative), and its lane body ``dense_lane_source``, summed over
+the lanes, too; ``stack_chains``/``unstack_chains`` exact against the
 JAX layout; more than 32 rows raise."""
 
 import re
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -84,12 +86,13 @@ def test_make_vg_dense_matches_jax(name, with_grad):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-4)
 
 
-def _interpret(source, fn, th):
-    """Evaluate the emitted C++ function ``fn`` ("v" or "vg") on float32
-    arrays ``th`` (a list of P [C] arrays) with numpy: (value, grads)."""
+def _interpret(source, fn, th, r=None):
+    """Evaluate the emitted C++ function ``fn`` ("v", "vg", "lane_v" or
+    "lane_vg") on float32 arrays ``th`` (a list of P [C] arrays), with a lane
+    body's rows ``r``, with numpy: (value, grads)."""
     body = source.split(f"float {fn}(")[1].split("\n}")[0].splitlines()[1:]
     f32 = np.float32
-    env = {"th": th, "g": [None] * len(th), "np": np, "f32": f32}
+    env = {"th": th, "g": [None] * len(th), "np": np, "f32": f32, "r": r}
 
     def translate(expr):
         m = re.fullmatch(r"(\S+) >= 0\.0f \? (\S+) : (\S+)", expr)
@@ -150,6 +153,61 @@ def test_dense_source_drops_zero_inputs_and_counts_its_work():
     # (exp, log1p); the gradient adds the output sigmoid's reciprocal
     assert sfu_v == 4 * (4 + 2) and sfu_vg == sfu_v + 4
     assert 0 < ops_v < ops_vg
+
+
+def _constant(source, name):
+    """The initializer of the emitted ``__constant__`` array ``name`` as a
+    float32 numpy array."""
+    text = re.search(rf"__constant__ float {name}(?:\[\d+\])+ = (.*);", source).group(1)
+    text = re.sub(r"\(?(-?)(0x[0-9a-f.]+p[+-]\d+)f\)?", r"\1float.fromhex('\2')", text)
+    return np.asarray(eval(text.replace("{", "[").replace("}", "]")), dtype=np.float32)
+
+
+@pytest.mark.parametrize("name,rows,lanes", [
+    ("xor_mlp221", 4, 4), ("xor_mlp221", 4, 2), ("xor_mlp2321", 4, 4), ("xor_mlp2321", 3, 2),
+    ("iris30_mlp433_ce", 30, 4), ("iris30_mlp433_ce", 30, 8)])
+def test_dense_lane_source_sums_to_the_program(name, rows, lanes):
+    """The lane body that the dense MH, MALA and ladder kernels compile, read
+    back with numpy: each lane's partial log-likelihood and gradient on its
+    rows l, l + lanes, ... (the inputs, labels and masks of its generated
+    constants; a lane without a row in a slot masks it), summed over the
+    lanes and with the prior on every coordinate, equals ``make_vg_dense``
+    (1e-5 relative: the sums run in another order)."""
+    port, _, x, y = models(name)
+    x, y = x[:rows], y[:rows]
+    P = port.num_params
+    th = thetas(64, P, seed=3)
+    source = mlp_dense.dense_lane_source(port, x, y, lanes)
+    slots, full = mlp_dense.lane_rows(rows, lanes)
+    assert f"constexpr int kSlots = {slots};" in source
+    masked = re.findall(r"r\.m\[(\d+)\]", source)  # the slots some lane lacks
+    assert sorted({int(q) for q in masked}) == list(range(full, slots))
+    lane_x, lane_y, lane_m = (_constant(source, k) for k in ("kLaneX", "kLaneY", "kLaneM"))
+    for lane in range(lanes):
+        for q in range(slots):
+            row = lane + q * lanes
+            assert lane_m[lane, q] == (1.0 if row < rows else 0.0)
+            if row < rows:
+                np.testing.assert_array_equal(lane_x[lane, q], np.float32(x[row]))
+                np.testing.assert_array_equal(lane_y[lane, q], np.float32(y[row]))
+    ll, g_ll = 0.0, np.zeros((P, th.shape[0]))
+    cols = [th[:, p] for p in range(P)]
+    for lane in range(lanes):
+        r = SimpleNamespace(x=lane_x[lane], y=lane_y[lane], m=lane_m[lane])
+        v_lane, _ = _interpret(source, "lane_v", cols, r)
+        vg_lane, g_lane = _interpret(source, "lane_vg", cols, r)
+        np.testing.assert_allclose(v_lane, vg_lane, rtol=1e-6, atol=1e-6)
+        ll, g_ll = ll + vg_lane.astype(np.float64), g_ll + np.stack(g_lane)
+    _, _, loc, ivar, prior_const, temperature = mlp_dense.prepare_dense(port, x, y)
+    loc, ivar = _constant(source, "kLoc"), _constant(source, "kIvar")
+    diff = th.T.astype(np.float64) - loc[:, None]
+    val = temperature * (ll + np.sum(-0.5 * diff * diff * ivar[:, None], axis=0) + prior_const)
+    grad = temperature * (g_ll - diff * ivar[:, None])
+    want_val, want_grads = mlp_dense.make_vg_dense(port, x, y)(
+        tuple(torch.as_tensor(c) for c in cols))
+    np.testing.assert_allclose(val, want_val.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(grad, np.stack([g.numpy() for g in want_grads]), rtol=1e-5,
+                               atol=1e-4)
 
 
 def test_stack_and_unstack_are_exact_and_match_jax():
