@@ -218,8 +218,12 @@ kernels are built for sm_90a). Phases, one JSON line each:
     CUDA-event time), the divergence rate and the kernel's time beside its
     bound.
 16. kernels: each kernel's launches on the main paths, its error against its
-    plain version, its time, the plain version's time and its bound, and
-    for ``resident_hmc``, ``resident_walk``, ``resident_walk_dense`` and
+    plain version, its time, the plain version's time and its bound (the
+    largest of its bytes at the memory rate, its f32 operations at the f32
+    rate, its special-function operations at that unit's rate and its
+    Threefry words' integer instructions at the integer pipe's rate), and
+    for ``resident_hmc``, ``resident_hmc_dense``, ``resident_walk``,
+    ``resident_walk_dense`` (each move, and the Gibbs move's) and
     ``resident_smc`` the lanes a chain of each build.
 
 Then the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -246,6 +250,10 @@ F32_OPS_PER_S = 67e12
 # instruction throughput), at the H100 SXM boost clock of 1.98 GHz.
 SFU_PER_CLOCK_PER_SM = 16
 BOOST_CLOCK_HZ = 1.98e9
+# The integer (ALU) pipe, which runs the Threefry words' IADD3, LOP3 and
+# SHF: 64 results per clock per SM on compute capability 9.0 (the same table:
+# 32-bit integer add, shift and logical operations).
+INT_PER_CLOCK_PER_SM = 64
 
 FUSED_SOURCE = "eeyore_tpu_torch/ops/csrc/fused_mlp_vg.cu"
 FUSED_REPLACES = "eeyore_tpu/ops/fused_mlp.py:63"
@@ -414,10 +422,16 @@ def vg_work(dims, bias, ce, n_rows, C, with_grad=True):
     return n_bytes, C * (n_rows * ops + prior_ops), C * n_rows * sfu
 
 
-# Per Threefry-2x32 call: 20 rounds of add, rotate and xor, and 5 key
-# injections of 3 adds; counted as operations at the f32 rate, which no
-# integer rate of the card exceeds.
-THREEFRY_OPS = 20 * 3 + 5 * 3 + 2
+# Per Threefry-2x32 call (the Threefry words of every kernel): its SASS
+# instructions, as scripts/threefry_probe.py counted them in nvcc's code for
+# sm_90a on an H100 (the difference of a loop of 16 calls and one of 8): 20
+# SHF, 20 LOP3 (less the one that folds a call's words into the probe's
+# word) and 6 IADD3 on the ALU pipe; 19 IMAD.IADD and 5 VIADD off it. The
+# probe ran at 97% of the rate its 47 ALU instructions allow at 64 a clock
+# an SM, so the ALU pipe's count is the fourth term of each bound, at
+# INT_PER_CLOCK_PER_SM (the VIADDs cannot share that pipe: at 52 ALU
+# instructions the probe would have run faster than the pipe allows).
+THREEFRY_OPS = 20 + 20 + 6
 # Per Box-Muller pair: two uniforms (shift, or, subtract, subtract), the
 # sincos polynomials and quadrant selection (about 40), log's and sqrt's
 # scaling (3) and two products; log and sqrt on the special-function unit.
@@ -426,50 +440,50 @@ BOX_MULLER_OPS, BOX_MULLER_SFU = 2 * 4 + 40 + 3 + 2, 2
 
 def resident_work(dims, bias, ce, n_rows, C, evaluations, num_iters, kept, extras,
                   eval_work=None):
-    """(bytes, operations, special-function operations) that ``resident_hmc``
-    (and ``resident_hmc_dense``) needs: ``evaluations`` single-chain
-    value-and-gradient evaluations (the initial one and one per leapfrog
-    step, as this run's trajectories needed: the kernel counts them), per
-    leapfrog step the position and momentum updates (4P), per iteration
-    ceil(P/2) + 1 Threefry calls, ceil(P/2) Box-Muller pairs, the energies
-    (4P + 4) and the accept (exp: 1 special-function operation); bytes:
-    theta0 read, the data once (none when it is part of the code), the
-    samples (kept x (P or P+2) x C), the final theta and the accept counts
-    written once. ``eval_work``: (operations, special-function operations)
-    of one evaluation, where the dense body's own count replaces
-    ``vg_work``'s."""
+    """(bytes, operations, special-function operations, integer operations) that
+    ``resident_hmc`` (and ``resident_hmc_dense``) needs: ``evaluations``
+    single-chain value-and-gradient evaluations (the initial one and one per
+    leapfrog step, as this run's trajectories needed: the kernel counts them),
+    per leapfrog step the position and momentum updates (4P), per iteration
+    ceil(P/2) + 1 Threefry calls, ceil(P/2) Box-Muller pairs, the energies (4P
+    + 4) and the accept (exp: 1 special-function operation); bytes: theta0
+    read, the data once (none when it is part of the code), the samples (kept
+    x (P or P+2) x C), the final theta and the accept counts written once.
+    ``eval_work``: (operations, special-function operations) of one
+    evaluation, where the dense body's own count replaces ``vg_work``'s."""
     P = sum(dims[l] * dims[l + 1] + (dims[l + 1] if bias[l] else 0)
             for l in range(len(dims) - 1))
     vg_ops, vg_sfu = eval_work or vg_work(dims, bias, ce, n_rows, 1)[1:]
     pairs = (P + 1) // 2
-    per_iter_ops = (pairs + 1) * THREEFRY_OPS + pairs * BOX_MULLER_OPS + 4 * P + 4
+    per_iter_ops = pairs * BOX_MULLER_OPS + 4 * P + 4
     ops = evaluations * (vg_ops + 4 * P) + C * num_iters * per_iter_ops
     sfu = evaluations * vg_sfu + C * num_iters * (pairs * BOX_MULLER_SFU + 1)
     rows = P + 2 if extras else P
     data = 0 if eval_work else n_rows * (dims[0] + dims[-1] + 1) + 2 * P
     n_bytes = 4 * (P * C + data + kept * rows * C + P * C + C)
-    return n_bytes, ops, sfu
+    return n_bytes, ops, sfu, C * num_iters * (pairs + 1) * THREEFRY_OPS
 
 
 def walk_work(P, C, num_iters, kept, extras, mala, eval_work, data_floats):
-    """(bytes, operations, special-function operations) that a walk kernel
-    needs: C * (1 + num_iters) evaluations (value only for MH, value and
-    gradient for MALA) of ``eval_work`` = (operations, special-function
-    operations) each, per iteration ceil(P/2) + 1 Threefry calls, ceil(P/2)
-    Box-Muller pairs, the proposal (MH: 2P; MALA: the drift, the reverse
-    distance and |z|^2, 11P + 5) and the accept (log: 1 special-function
-    operation); bytes: theta0 read, ``data_floats`` of data read once, the
-    samples, the final theta and the accept counts written once."""
+    """(bytes, operations, special-function operations, integer operations) that
+    a walk kernel needs: C * (1 + num_iters) evaluations (value only for MH,
+    value and gradient for MALA) of ``eval_work`` = (operations,
+    special-function operations) each, per iteration ceil(P/2) + 1 Threefry
+    calls, ceil(P/2) Box-Muller pairs, the proposal (MH: 2P; MALA: the drift,
+    the reverse distance and |z|^2, 11P + 5) and the accept (log: 1
+    special-function operation); bytes: theta0 read, ``data_floats`` of data
+    read once, the samples, the final theta and the accept counts written
+    once."""
     ev_ops, ev_sfu = eval_work
     pairs = (P + 1) // 2
     move_ops = 11 * P + 5 if mala else 2 * P + 1
-    per_iter_ops = (pairs + 1) * THREEFRY_OPS + pairs * BOX_MULLER_OPS + move_ops + 1
+    per_iter_ops = pairs * BOX_MULLER_OPS + move_ops + 1
     evaluations = C * (1 + num_iters)
     ops = evaluations * ev_ops + C * num_iters * per_iter_ops
     sfu = evaluations * ev_sfu + C * num_iters * (pairs * BOX_MULLER_SFU + 1)
     rows = P + 2 if extras else P
     n_bytes = 4 * (P * C + data_floats + kept * rows * C + P * C + C)
-    return n_bytes, ops, sfu
+    return n_bytes, ops, sfu, C * num_iters * (pairs + 1) * THREEFRY_OPS
 
 
 def gibbs_unit_work(dims, bias, ce, n_rows, l):
@@ -504,25 +518,26 @@ def gibbs_unit_work(dims, bias, ce, n_rows, l):
 
 
 def gibbs_work(P, C, num_iters, kept, extras, sweep, init_work, data_floats):
-    """(bytes, operations, special-function operations) that a Gibbs kernel
-    needs: one value-only evaluation per chain (``init_work``), then per
-    iteration, for each sub-block of ``sweep`` = [(width, (operations,
-    special-function operations) of its incremental update)], the update,
-    ceil(w/2) + 1 Threefry calls, ceil(w/2) Box-Muller pairs, the proposal
-    (2w) and the accept (a subtraction, a compare; log: 1 special-function
-    operation); bytes: theta0 read, ``data_floats`` of data and the scales
-    read once, the samples, the final theta and the [B, C] accept counts
-    written once."""
-    ops = sfu = 0
+    """(bytes, operations, special-function operations, integer operations) that
+    a Gibbs kernel needs: one value-only evaluation per chain (``init_work``),
+    then per iteration, for each sub-block of ``sweep`` = [(width,
+    (operations, special-function operations) of its incremental update)], the
+    update, ceil(w/2) + 1 Threefry calls, ceil(w/2) Box-Muller pairs, the
+    proposal (2w) and the accept (a subtraction, a compare; log: 1
+    special-function operation); bytes: theta0 read, ``data_floats`` of data
+    and the scales read once, the samples, the final theta and the [B, C]
+    accept counts written once."""
+    ops = sfu = words = 0
     for width, (u_ops, u_sfu) in sweep:
         pairs = (width + 1) // 2
-        ops += u_ops + (pairs + 1) * THREEFRY_OPS + pairs * BOX_MULLER_OPS + 2 * width + 2
+        ops += u_ops + pairs * BOX_MULLER_OPS + 2 * width + 2
         sfu += u_sfu + pairs * BOX_MULLER_SFU + 1
+        words += pairs + 1
     B = len(sweep)
     rows = P + 2 if extras else P
     n_bytes = 4 * (P * C + data_floats + B + kept * rows * C + P * C + B * C)
     return (n_bytes, C * (init_work[0] + num_iters * ops),
-            C * (init_work[1] + num_iters * sfu))
+            C * (init_work[1] + num_iters * sfu), C * num_iters * words * THREEFRY_OPS)
 
 
 def swap_rounds(num_rungs, num_iters, between_step, first=0):
@@ -535,72 +550,84 @@ def swap_rounds(num_rungs, num_iters, between_step, first=0):
 
 def tempering_work(P, C, num_iters, kept, extras, mala, eval_work, data_floats, num_rungs,
                    between_step):
-    """(bytes, operations, special-function operations) that a tempering
-    kernel needs: ``walk_work`` of its within-rung moves, plus the
+    """(bytes, operations, special-function operations, integer operations) that
+    a tempering kernel needs: ``walk_work`` of its within-rung moves, plus the
     temperature at each accept test (MALA: the tempered drift and reverse
     drift, 2P + 1; MH: 1), and per lower member of a swap round one Threefry
-    call, the swap log-rate and test (4 operations and a log); bytes: the
-    rung temperatures and the second count row."""
-    n_bytes, ops, sfu = walk_work(P, C, num_iters, kept, extras, mala, eval_work, data_floats)
+    call, the swap log-rate and test (4 operations and a log); bytes: the rung
+    temperatures and the second count row."""
+    n_bytes, ops, sfu, int_ops = walk_work(P, C, num_iters, kept, extras, mala, eval_work,
+                                           data_floats)
     lower = C // num_rungs * sum(swap_rounds(num_rungs, num_iters, between_step).values())
-    ops += C * num_iters * (2 * P + 1 if mala else 1) + lower * (THREEFRY_OPS + 4)
-    return n_bytes + 4 * (num_rungs + C), ops, sfu + lower
+    ops += C * num_iters * (2 * P + 1 if mala else 1) + lower * 4
+    return n_bytes + 4 * (num_rungs + C), ops, sfu + lower, int_ops + lower * THREEFRY_OPS
 
 
 def smc_work(P, N, num_steps, mala, eval_work, data_floats):
-    """(bytes, operations, special-function operations) that the SMC
-    mutation kernel needs: N * (1 + num_steps) split evaluations of
+    """(bytes, operations, special-function operations, integer operations) that
+    the SMC mutation kernel needs: N * (1 + num_steps) split evaluations of
     ``eval_work`` each (value and combined gradient for MALA, value only for
     MH) and the target lp + beta ll (2 operations), per step ceil(P/2) + 1
-    Threefry calls, ceil(P/2) Box-Muller pairs, the proposal and the accept
-    as ``walk_work`` counts them; bytes: theta read once, ``data_floats`` of
-    data read once, the final theta, pot and accept counts written once."""
+    Threefry calls, ceil(P/2) Box-Muller pairs, the proposal and the accept as
+    ``walk_work`` counts them; bytes: theta read once, ``data_floats`` of data
+    read once, the final theta, pot and accept counts written once."""
     ev_ops, ev_sfu = eval_work
     pairs = (P + 1) // 2
     move_ops = 11 * P + 5 if mala else 2 * P + 1
-    per_step_ops = (pairs + 1) * THREEFRY_OPS + pairs * BOX_MULLER_OPS + move_ops + 1
+    per_step_ops = pairs * BOX_MULLER_OPS + move_ops + 1
     evaluations = N * (1 + num_steps)
     ops = evaluations * (ev_ops + 2) + N * num_steps * per_step_ops
     sfu = evaluations * ev_sfu + N * num_steps * (pairs * BOX_MULLER_SFU + 1)
     n_bytes = 4 * (P * N + data_floats + P * N + 2 * N)
-    return n_bytes, ops, sfu
+    return n_bytes, ops, sfu, N * num_steps * (pairs + 1) * THREEFRY_OPS
 
 
 def nuts_work(P, C, num_iters, kept, extras, depth, eval_work, data_floats):
-    """(bytes, operations, special-function operations) that a fixed-budget
-    NUTS kernel needs. Every leaf runs, so the evaluations are exact: C (1 +
-    num_iters (2^D - 1)) of ``eval_work`` = (operations, special-function
-    operations) each. Per leaf the leapfrog (7P), the kinetic energy (3P),
-    the weight, statistic, logaddexp and multinomial test (10 operations;
-    exp, exp, log1p, log); per iteration the U-turn checks (2^d - 1 inside
-    the subtree of depth d, and the whole trajectory's once a depth, 7P
-    each), per depth the merge (10 operations; exp, log1p, log), ceil(P/2)
+    """(bytes, operations, special-function operations, integer operations) that
+    a fixed-budget NUTS kernel needs. Every leaf runs, so the evaluations are
+    exact: C (1 + num_iters (2^D - 1)) of ``eval_work`` = (operations,
+    special-function operations) each. Per leaf the leapfrog (7P), the kinetic
+    energy (3P), the weight, statistic, logaddexp and multinomial test (10
+    operations; exp, exp, log1p, log); per iteration the U-turn checks (2^d -
+    1 inside the subtree of depth d, and the whole trajectory's once a depth,
+    7P each), per depth the merge (10 operations; exp, log1p, log), ceil(P/2)
     Box-Muller pairs and ceil(P/2) + 2^D - 1 + 2D Threefry words, the momenta
-    and logp0 (4P + 2). Bytes: theta0, ``data_floats`` of data and the
-    metric (2P) read once; the samples, the final theta and the two [C] sums
-    written once."""
+    and logp0 (4P + 2). Bytes: theta0, ``data_floats`` of data and the metric
+    (2P) read once; the samples, the final theta and the two [C] sums written
+    once."""
     ev_ops, ev_sfu = eval_work
     leaves = 2 ** depth - 1
     checks = sum(2 ** d - 1 for d in range(depth)) + depth
     pairs = (P + 1) // 2
     words = pairs + leaves + 2 * depth
     evaluations = C * (1 + num_iters * leaves)
-    per_iter_ops = (words * THREEFRY_OPS + pairs * BOX_MULLER_OPS + 4 * P + 2
-                    + leaves * (10 * P + 10) + checks * 7 * P + depth * 10)
+    per_iter_ops = (pairs * BOX_MULLER_OPS + 4 * P + 2 + leaves * (10 * P + 10)
+                    + checks * 7 * P + depth * 10)
     per_iter_sfu = pairs * BOX_MULLER_SFU + leaves * 4 + depth * 3
     ops = evaluations * ev_ops + C * num_iters * per_iter_ops
     sfu = evaluations * ev_sfu + C * num_iters * per_iter_sfu
     rows = P + 2 if extras else P
     n_bytes = 4 * (P * C + data_floats + 2 * P + kept * rows * C + P * C + 2 * C)
-    return n_bytes, ops, sfu
+    return n_bytes, ops, sfu, C * num_iters * words * THREEFRY_OPS
+
+
+def bound_times(work, sm_count):
+    """The four times of a kernel's bound, in ms: its bytes at the memory
+    rate, its f32 operations at the f32 rate, its special-function
+    operations at that unit's rate and its integer operations (the Threefry
+    words; none for a kernel without draws) at the integer rate."""
+    n_bytes, ops, sfu, *int_ops = work
+    clock = sm_count * BOOST_CLOCK_HZ
+    return {"bytes": 1e3 * n_bytes / HBM_BYTES_PER_S, "ops": 1e3 * ops / F32_OPS_PER_S,
+            "sfu": 1e3 * sfu / (clock * SFU_PER_CLOCK_PER_SM),
+            "int": 1e3 * sum(int_ops) / (clock * INT_PER_CLOCK_PER_SM)}
 
 
 def bound_ms(work, sm_count):
-    n_bytes, ops, sfu = work
-    times = {"bytes": n_bytes / HBM_BYTES_PER_S, "ops": ops / F32_OPS_PER_S,
-             "sfu": sfu / (sm_count * SFU_PER_CLOCK_PER_SM * BOOST_CLOCK_HZ)}
+    """(the largest of ``bound_times``, "bytes" or "operations")."""
+    times = bound_times(work, sm_count)
     worst = max(times, key=times.get)
-    return 1e3 * times[worst], "bytes" if worst == "bytes" else "operations"
+    return times[worst], "bytes" if worst == "bytes" else "operations"
 
 
 def pooled_summary(samples):
@@ -1244,7 +1271,8 @@ def main(argv=None):
                            margins.shape[0], -1, rungs)[:, ladders.to(margins.device)].min().item()}
             del margins
         ms, ms_runs = event_times(lambda: fn(args.seed, theta0s))
-        b_ms, b_by = bound_ms(work(counted if counted is not None else evaluations), sm_count)
+        b_work = work(counted if counted is not None else evaluations)
+        b_ms, b_by = bound_ms(b_work, sm_count)
         resident_timings[name] = (ms, plain_ms, b_ms, b_by)
         emit({"phase": "resident_vs_plain", "kernel": kernel_name, "case": name,
               "chains": C, "iterations": iters, "burnin": burnin,
@@ -1257,7 +1285,8 @@ def main(argv=None):
               "plain_self_share_one_ulp": plain_self_share, "ladder_witness": witness,
               "max_abs_z_pooled_mean": z,
               "acceptance_difference": acc_diff, "ms": ms, "ms_runs": ms_runs,
-              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "card": card})
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "bound_terms_ms": bound_times(b_work, sm_count), "card": card})
         if chaotic:
             check(z <= 5.0 and acc_diff <= 0.01, f"{name}: pooled means {z} SEs apart, "
                   f"acceptance {acc_diff} apart")
@@ -1895,6 +1924,7 @@ def main(argv=None):
                                                 chain_block=plan.chain_block)
         gibbs_ms, gibbs_runs = event_times(lambda: fn(args.seed, theta0s))
         b_ms, b_by = bound_ms(work(None), sm_count)
+        b_terms = bound_times(work(None), sm_count)
         # the record's share of the kernel: the same run keeping one iteration
         one_kept = gibbs_case(model, dataset, C_walk, scales, walk_iters, walk_iters - 1,
                               dense=want == "dense", chain_block=plan.chain_block)[2]
@@ -1903,6 +1933,7 @@ def main(argv=None):
         lane = fn.gibbs_launch(C_walk, sm_count) if hasattr(fn, "gibbs_launch") else None
         gibbs_main[module.GIBBS_KERNEL] = {"case": name, "ms": gibbs_ms, "ms_runs": gibbs_runs,
                                            "bound_ms": b_ms, "bound_by": b_by,
+                                           "bound_terms_ms": b_terms,
                                            "ms_keeping_one_iteration": one_kept_ms,
                                            "lane_launch": lane}
         torch.cuda.empty_cache()
@@ -2400,7 +2431,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - start)
         ms = event_times(lambda: fn(args.seed, theta0s))[0]
-        return ms, plain_ms, *bound_ms(work(int(info["evaluations"])), sm_count)
+        b_work = work(int(info["evaluations"]))
+        return ms, plain_ms, *bound_ms(b_work, sm_count), bound_times(b_work, sm_count)
 
     C = xor_theta0s.shape[0]
     xor_dims = dims_of[id(xor_model)]
@@ -2449,12 +2481,13 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     def whole_loop_entry(module, source, replaces, timed_at):
-        ms_, plain_ms_, b_ms_, b_by_ = main_timings[module.KERNEL]
+        ms_, plain_ms_, b_ms_, b_by_, terms_ = main_timings[module.KERNEL]
         return {"name": module.KERNEL, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(main_launches[module.KERNEL].values()),
                 "launches_by_path": main_launches[module.KERNEL],
                 "max_abs_err": kernel_err[module.KERNEL], "ms": ms_, "plain_ms": plain_ms_,
-                "bound_ms": b_ms_, "bound_by": b_by_, "library_ms": None, "timed_at": timed_at}
+                "bound_ms": b_ms_, "bound_by": b_by_, "bound_terms_ms": terms_,
+                "library_ms": None, "timed_at": timed_at}
 
     xor_timed_at = "XOR MLP(2,2,1), step 0.05, 10 leapfrog steps, 131072 chains x 256"
     ms, plain_ms, b_ms, b_by = timings[("iris_mlp433_ce", 32768)]
@@ -2553,7 +2586,8 @@ def main(argv=None):
          "event_ms": fused_event_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None, "timed_at": "iris MLP(4,3,3), 32768 chains"},
         resident_entry,
-        whole_loop_entry(resident_hmc_dense, DENSE_SOURCE, DENSE_REPLACES, xor_timed_at),
+        dict(whole_loop_entry(resident_hmc_dense, DENSE_SOURCE, DENSE_REPLACES, xor_timed_at),
+             lanes=1),  # one thread a chain
         dict(whole_loop_entry(resident_walk, WALK_SOURCE, WALK_REPLACES,
                               f"{walk_timed[resident_walk.KERNEL][0]}, {walk_at}"),
              other_path=other_walks[resident_walk.KERNEL],
@@ -2563,8 +2597,8 @@ def main(argv=None):
              other_path=other_walks[resident_walk_dense.KERNEL],
              lanes={move: dense_lanes_of(move) for move in DENSE_MOVES}),
         gibbs_entry(resident_walk, WALK_SOURCE, GIBBS_REPLACES, "iris4323_gibbs_extras"),
-        gibbs_entry(resident_walk_dense, WALK_DENSE_SOURCE, GIBBS_DENSE_REPLACES,
-                    "xor_gibbs_dense_extras"),
+        dict(gibbs_entry(resident_walk_dense, WALK_DENSE_SOURCE, GIBBS_DENSE_REPLACES,
+                         "xor_gibbs_dense_extras"), lanes=1),  # one thread a chain
         tempering_entry(resident_walk, WALK_SOURCE, TEMPERING_REPLACES,
                         "iris_tempering_mala_extras"),
         tempering_entry(resident_walk_dense, WALK_DENSE_SOURCE, TEMPERING_DENSE_REPLACES,

@@ -1,8 +1,8 @@
 """Host walls of main paths on a CUDA card, first call and steady: the iris
 paths of the staged HMC, MH and MALA kernels and of the staged ladder move,
-XOR NUTS at depth 3 on the dense NUTS kernel, BASELINE.md configs 1 and 2
-and the XOR ladder on the dense walk kernels, and iris SMC MALA on the SMC
-mutation kernel.
+XOR NUTS at depth 3 on the dense NUTS kernel, BASELINE.md configs 1 and 2, the
+XOR ladder and XOR Gibbs on the dense walk kernels, bench.py's XOR HMC problem
+on the dense HMC kernel, and iris SMC MALA on the SMC mutation kernel.
 
     python3 scripts/main_path_walls.py [--root DIR] [--seed 0] [--paths a,b] [--calls 4]
 
@@ -14,25 +14,30 @@ at (i/8)^4, MALA step 0.003 within them, swaps every 10 iterations, 2048 x
 1024 burn-in: one chain block of 128 chains) through
 ``PowerPosteriorSampler.run(backend="auto", all_ladders=True)``, and
 fixed-budget XOR NUTS (MLP(2,2,1), depth 3, step 0.1, ``HMCDATuner(d=0.8)``,
-32768 x 2048, 1024 burn-in) through ``sample_chains(backend="auto")``;
-config 1 (MH scale 0.1 on XOR MLP(2,2,1)) and config 2 (MALA step 0.01 on
-XOR MLP(2,3,2,1)), 32768 x 2048, 1024 burn-in, through
-``sample_chains(backend="auto")``; the XOR ladder (MLP(2,2,1), 8 rungs,
-MALA step 0.05, swaps every 10, 2048 x 1024 burn-in: one chain block of 1024
+32768 x 2048, 1024 burn-in) through ``sample_chains(backend="auto")``; config
+1 (MH scale 0.1 on XOR MLP(2,2,1)) and config 2 (MALA step 0.01 on XOR
+MLP(2,3,2,1)), 32768 x 2048, 1024 burn-in, through
+``sample_chains(backend="auto")``; the XOR ladder (MLP(2,2,1), 8 rungs, MALA
+step 0.05, swaps every 10, 2048 x 1024 burn-in: one chain block of 1024
 chains) through ``PowerPosteriorSampler.run(backend="auto",
-all_ladders=True)``; and iris SMC MALA (MLP(4,3,3), 16384 particles, betas
-(i/20)^4, step 0.003, 5 steps) through ``SMCSampler.run(backend="auto")``;
-``--calls`` times each (4 by default), every call ended by
-``torch.cuda.synchronize()``: the first call builds the kernel's function
-(dispatch's cache), the others reuse it. It prints the card's name and power
-limit, then one JSON line a path: the first call's wall, the steady walls
-and their median, samples/s
-(SMC: particle-stage-mutations/s) at that median, the launches the calls
-made, and the kernel's CUDA-event time (the median of three calls of the
-cached function after a warm-up; SMC: of one mutation launch at the path's
-shape, its 16384 prior draws at beta 0.3). ``--root`` imports
-``eeyore_tpu_torch`` from another checkout (a ``git archive`` of another
-commit), so that two versions compare on one card in one call.
+all_ladders=True)``; bench.py's problem (``xor_hmc``: ``HMC(step=0.05,
+num_steps=10)`` on XOR MLP(2,2,1), 131072 chains x 256, no burn-in; and
+``xor_hmc_staged``, the same through ``backend="resident"``, on the staged HMC
+kernel's build of one thread a chain) and XOR Gibbs (``xor_gibbs``:
+``Gibbs(scales=0.5)`` on MLP(2,2,1), 32768 x 2048, 1024 burn-in) through
+``sample_chains(backend="auto")``; and iris SMC MALA (MLP(4,3,3), 16384
+particles, betas (i/20)^4, step 0.003, 5 steps) through
+``SMCSampler.run(backend="auto")``; ``--calls`` times each (4 by default),
+every call ended by ``torch.cuda.synchronize()``: the first call builds the
+kernel's function (dispatch's cache), the others reuse it. It prints the
+card's name and power limit, then one JSON line a path: the first call's wall,
+the steady walls and their median, samples/s (SMC: particle-stage-mutations/s)
+at that median, the launches the calls made, and the kernel's CUDA-event time
+(the median of three calls of the cached function after a warm-up; SMC: of one
+mutation launch at the path's shape, its 16384 prior draws at beta 0.3).
+``--root`` imports ``eeyore_tpu_torch`` from another checkout (a ``git
+archive`` of another commit), so that two versions compare on one card in one
+call.
 """
 
 import argparse
@@ -43,7 +48,8 @@ import time
 from pathlib import Path
 
 PATHS = ("config3_hmc", "iris_mh", "iris_mala", "iris_ladder", "xor_nuts_depth_3", "config1_mh",
-         "config2_mala", "xor_ladder", "iris_smc_mala")
+         "config2_mala", "xor_ladder", "iris_smc_mala", "xor_hmc", "xor_hmc_staged",
+         "xor_gibbs")
 
 
 def main(argv=None):
@@ -72,6 +78,7 @@ def main(argv=None):
     from eeyore_tpu_torch.models import MLP, loss_functions, mlp
     from eeyore_tpu_torch.ops import (
         resident_hmc,
+        resident_hmc_dense,
         resident_nuts_dense,
         resident_smc,
         resident_walk,
@@ -81,6 +88,7 @@ def main(argv=None):
         HMC,
         MALA,
         NUTS,
+        Gibbs,
         MetropolisHastings,
         PowerPosteriorSampler,
         SMCSampler,
@@ -113,6 +121,8 @@ def main(argv=None):
                             device=device)
     xor_rungs = torch.as_tensor(0.1 * rng.normal(size=(8, xor_model.num_params)),
                                 dtype=torch.float32, device=device)
+    bench_theta0s = torch.as_tensor(0.1 * rng.normal(size=(131072, xor_model.num_params)),
+                                    dtype=torch.float32, device=device)
     ladders = {
         "iris_ladder": (PowerPosteriorSampler(model, num_chains=8, sampler="MALA",
                                               sampler_kwargs={"step": 0.003}, between_step=10,
@@ -123,9 +133,9 @@ def main(argv=None):
     smc = SMCSampler(model, 16384, betas=[(i / 20) ** 4 for i in range(21)], mutation="MALA",
                      mutation_step=0.003, num_mutation_steps=5)
 
-    def chains_call(kernel, theta0s, data, iters, burnin):
+    def chains_call(kernel, theta0s, data, iters, burnin, backend="auto"):
         return lambda gen: sample_chains(kernel, gen, theta0s, data, iters, burnin,
-                                         backend="auto")
+                                         backend=backend)
 
     paths = {
         "config3_hmc": (HMC(model, tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64),
@@ -142,9 +152,14 @@ def main(argv=None):
         "config2_mala": (MALA(xor2321_model, step=0.01), xor2321_theta0s, (xor.x, xor.y), 2048,
                          1024),
         "xor_ladder": (ladders["xor_ladder"][0], None, (xor.x, xor.y), 2048, 1024),
-        "iris_smc_mala": (smc, None, (iris.x, iris.y), 20, 0)}
-    modules = (resident_hmc, resident_walk, resident_nuts_dense, resident_walk_dense,
-               resident_smc)
+        "iris_smc_mala": (smc, None, (iris.x, iris.y), 20, 0),
+        "xor_hmc": (HMC(xor_model, step=0.05, num_steps=10), bench_theta0s, (xor.x, xor.y),
+                    256, 0),
+        "xor_hmc_staged": (HMC(xor_model, step=0.05, num_steps=10), bench_theta0s,
+                           (xor.x, xor.y), 256, 0),
+        "xor_gibbs": (Gibbs(xor_model, scales=0.5), xor_theta0s, (xor.x, xor.y), 2048, 1024)}
+    modules = (resident_hmc, resident_hmc_dense, resident_walk, resident_nuts_dense,
+               resident_walk_dense, resident_smc)
     for name in wanted:
         kernel, theta0s, data, iters, burnin = paths[name]
         if name in ladders:
@@ -156,7 +171,8 @@ def main(argv=None):
             def call(gen, data=data):
                 return smc.run(gen, data, backend="auto")
         else:
-            call = chains_call(kernel, theta0s, data, iters, burnin)
+            call = chains_call(kernel, theta0s, data, iters, burnin,
+                               "resident" if name == "xor_hmc_staged" else "auto")
         gen = torch.Generator(device=device).manual_seed(args.seed + 1)
         for module in modules:
             for key in module.launch_counts:

@@ -1069,3 +1069,86 @@ def test_lane_builds_leave_the_routes_unchanged(name, want):
         assert cb == want[2]
     assert plan is not None, reason
     assert (plan.backend, plan.maker.__name__, plan.chain_block) == want
+
+
+# ---- dense XOR HMC and the dense Gibbs move: routes and the group cap ----
+
+def jax_plan(kernel_name, num_chains, iters, burnin):
+    """JAX's ``resolve_backend`` on XOR at platform "tpu": (backend, maker,
+    chain_block)."""
+    from eeyore_tpu.models import MLP as JMLP
+    from eeyore_tpu.models import loss_functions as jloss_functions
+    from eeyore_tpu.models import mlp as jmlp
+    from eeyore_tpu.samplers import HMC as JHMC
+    from eeyore_tpu.samplers import Gibbs as JGibbs
+    from eeyore_tpu.samplers.dispatch import resolve_backend as jresolve_backend
+    from eeyore_tpu.tuners.dual_averaging import HMCDATuner as JHMCDATuner
+
+    jmodel = JMLP(loss=jloss_functions["binary_classification"],
+                  hparams=jmlp.Hyperparameters(dims=[2, 2, 1]))
+    jkernel = {"bench_hmc": lambda: JHMC(jmodel, step=0.05, num_steps=10),
+               "tuned_hmc": lambda: JHMC(jmodel, step=0.1, num_steps=10,
+                                         tuner=JHMCDATuner(l=0.5)),
+               "gibbs": lambda: JGibbs(jmodel, scales=0.5)}[kernel_name]()
+    plan, reason = jresolve_backend(jkernel, XOR, num_chains, iters, burnin, platform="tpu")
+    assert plan is not None, reason
+    return plan.backend, plan.maker.__name__, plan.chain_block
+
+
+@pytest.mark.parametrize("name,num_chains,iters,burnin", [
+    ("bench_hmc", 131072, 256, 0), ("tuned_hmc", 131072, 256, 128),
+    ("gibbs", 32768, 2048, 1024)])
+def test_dense_hmc_and_gibbs_builds_leave_the_routes_unchanged(name, num_chains, iters, burnin):
+    """Dispatch sends bench.py's problem, a tuned XOR HMC run and XOR Gibbs
+    to the dense kernels and the chain blocks JAX's dispatch gives them (a
+    tuned group keeps JAX's 8192 chains)."""
+    kernel = {"bench_hmc": lambda: HMC(xor_model(), step=0.05, num_steps=10),
+              "tuned_hmc": lambda: HMC(xor_model(), step=0.1, num_steps=10,
+                                       tuner=HMCDATuner(l=0.5)),
+              "gibbs": lambda: Gibbs(xor_model(), scales=0.5)}[name]()
+    plan, reason = resolve_backend(kernel, XOR, num_chains, iters, burnin, platform="cuda")
+    assert plan is not None, reason
+    assert (plan.backend, plan.maker.__name__, plan.chain_block) == jax_plan(
+        name, num_chains, iters, burnin)
+    assert plan.chain_block == 8192
+
+
+class _HostArray:
+    """A stand-in for a CUDA tensor of ``_dense_group_cap``: it asks only
+    ``is_cuda`` and the host copy."""
+
+    is_cuda = True
+
+    def __init__(self, a):
+        self.a = a
+
+    def cpu(self):
+        return self
+
+    def numpy(self):
+        return self.a
+
+
+@pytest.mark.parametrize("largest_held,want_cap", [(8192, 8192), (2048, 2048)])
+def test_the_dense_group_cap_asks_the_build_that_runs_the_group(monkeypatch, largest_held,
+                                                                want_cap):
+    """Dispatch loads the dense HMC build for the model and data once and
+    asks it for the largest tuning group the card holds as one block or
+    cluster: JAX's 8192 where it holds it."""
+    asked = []
+
+    def load_kernel(model, x, y):
+        asked.append((model.num_params, x.shape[0]))
+        return "dense build"
+
+    def group_shape(lib, chain_block):
+        assert lib == "dense build"
+        if chain_block > largest_held:
+            raise ValueError("no cluster holds it")
+        return 512, chain_block // 512
+
+    monkeypatch.setattr(resident_hmc_dense, "load_kernel", load_kernel)
+    monkeypatch.setattr(resident_hmc_dense, "group_shape", group_shape)
+    kernel = HMC(xor_model(), step=0.1, num_steps=10, tuner=HMCDATuner(l=0.5))
+    cap = dispatch._dense_group_cap(kernel, _HostArray(XOR[0]), _HostArray(XOR[1]))
+    assert (cap, asked) == (want_cap, [(kernel.model.num_params, XOR[0].shape[0])])

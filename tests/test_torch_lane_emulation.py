@@ -5,8 +5,9 @@ the staged MH, MALA and ladder moves, on 1, 2, 4 or 8),
 ``csrc/resident_hmc.cu`` (staged HMC, on 1, 2, 4 or 8),
 ``csrc/resident_nuts_dense.cu`` (one thread a chain),
 ``csrc/resident_walk_dense.cu`` (the dense MH, MALA and ladder moves on 1, 2
-or 4, each lane on the generated body of its own rows) and
-``csrc/resident_smc.cu`` (the SMC mutation pass, on 1, 4 or 8), written over
+or 4, each lane on the generated body of its own rows, and the dense Gibbs
+move on one thread a chain), ``csrc/resident_hmc_dense.cu`` (one thread a
+chain) and ``csrc/resident_smc.cu`` (the SMC mutation pass, on 1, 4 or 8), written over
 the lanes a chain (``csrc/lane_eval.cuh``), compiled with g++ against
 ``tests/cuda_host_emulation.h``, which runs every thread of a thread-block
 cluster as a coroutine, gives each block of it its own shared memory, and
@@ -35,6 +36,7 @@ from eeyore_tpu_torch.datasets import XYDataset
 from eeyore_tpu_torch.models import MLP, loss_functions, mlp
 from eeyore_tpu_torch.ops import (
     resident_hmc,
+    resident_hmc_dense,
     resident_nuts,
     resident_nuts_dense,
     resident_smc,
@@ -43,6 +45,7 @@ from eeyore_tpu_torch.ops import (
 )
 from eeyore_tpu_torch.ops._build import CSRC
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
+from eeyore_tpu_torch.ops.mlp_dense import dense_source
 from eeyore_tpu_torch.ops.mlp_math import prepare_data
 from eeyore_tpu_torch.ops.resident_hmc import ResidentHMCParams, unpack_outputs
 from eeyore_tpu_torch.ops.resident_tempering_dense import make_resident_tempering_dense
@@ -755,6 +758,134 @@ def test_dense_ladder_on_lanes_equals_the_plain_version(build, move, lanes, thre
     assert torch.equal(got[2], want[2])  # within-rung and swap accepts, exact
     assert int(got[2][:, 0].sum()) > 0 and int(got[2][:, 1].sum()) > 0
     assert torch.equal(got[4], want[4])  # the moved flags
+
+
+# ---- dense HMC: one thread a chain ----
+
+def dense_hmc_library(build, model, x, y):
+    """The dense HMC build for ``model`` and the data ``(x, y)``, compiled
+    for the host."""
+    lib = build("resident_hmc_dense.cu", arch_defines(model)[1],
+                {"dense_body.cuh": dense_source(model, x, y)})
+    lib.resident_hmc_dense_launch.argtypes = (
+        [ctypes.c_void_p, ctypes.POINTER(ResidentHMCParams), ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 5)
+    return lib
+
+
+def launch_dense_hmc(lib, fn, seed, theta0s, threads, cluster=1):
+    """The dense HMC kernel's outputs as the maker's ``fn`` returns them, and
+    its evaluation count; asserts that the launch was taken."""
+    pr, theta = closure(fn)["setup"](seed, theta0s, False)
+    C, P = theta0s.shape
+    rows = P + 2 if pr.record_extras else P
+    samples, final, accepts = (torch.zeros((pr.kept, rows, C)), torch.zeros((P, C)),
+                               torch.zeros(C))
+    evaluations = torch.zeros((), dtype=torch.int64)
+    err = lib.resident_hmc_dense_launch(
+        theta.data_ptr(), ctypes.byref(pr), threads, cluster, samples.data_ptr(), final.data_ptr(),
+        accepts.data_ptr(), evaluations.data_ptr(), None)
+    assert err == 0
+    return unpack_outputs(samples, final, accepts, P, pr.record_extras), int(evaluations)
+
+
+DENSE_HMC_KW = {
+    "untuned_extras": dict(step=0.1, num_steps=3, record_extras=True),
+    "per_chain": dict(step=0.05, num_steps=3, tuner=HMCDATuner(l=0.15), tuner_mode="per_chain",
+                      num_burnin_iters=5, max_num_steps=8, l_rounding="stochastic",
+                      record_extras=True)}
+
+
+@pytest.mark.parametrize("kind", list(DENSE_HMC_KW))
+def test_dense_hmc_equals_the_plain_version(build, kind):
+    """The dense HMC kernel on XOR, one thread a chain (the accepted theta
+    and gradient in shared memory), untuned with extras and tuned per chain
+    (each chain's own step and
+    l-rule trajectory, stochastic rounding at the hand-off), the chains
+    sublane-strided over blocks of 256 threads, held per chain against the
+    plain version on the folded body; the evaluations are counted once a
+    chain. Per chain, each chain's own dual averaging feeds float32 rounding
+    (libm's expf on the host against torch's exp) back into its step, so the
+    tuned runs agree within the card's check (1e-3 absolute plus 1e-3
+    relative, chip_smoke.py), the untuned ones to 2e-4; the accept counts
+    and moved flags exactly."""
+    model, (x, y) = problem("xor")
+    C = 1024
+    lib = dense_hmc_library(build, model, x, y)
+    fn = resident_hmc_dense.make_resident_hmc_dense(model, x, y, num_iters=10, chain_block=C,
+                                                    device="cpu", **DENSE_HMC_KW[kind])
+    theta0s = torch.as_tensor(0.5 * np.random.default_rng(1).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    want, info = fn.plain(3, theta0s)
+    got, evaluations = launch_dense_hmc(lib, fn, 3, theta0s, 256)
+    if kind == "untuned_extras":
+        assert max_err(got, want) < 2e-4
+    else:
+        for a, b in zip(got, want):
+            assert torch.allclose(a.double(), b.double(), rtol=1e-3, atol=1e-3)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[4], want[4])
+    assert evaluations == info["evaluations"]
+    kept = got[0].shape[1]
+    assert 0 < int(got[2].sum()) < C * kept  # some accepted, some not
+
+
+@pytest.mark.parametrize("threads,cluster", [(256, 4), (512, 2)])
+def test_dense_hmc_population_group_as_a_cluster_equals_the_plain_version(build, threads,
+                                                                          cluster):
+    """A population-tuned group of JAX's smallest dense block, 1024 chains,
+    over a 5-iteration burn-in (the l-rule), as a cluster of 4 blocks of 256
+    threads or 2 of 512: the group mean adds the blocks' sums through the
+    cluster's shared memory."""
+    model, (x, y) = problem("xor")
+    C = 1024
+    lib = dense_hmc_library(build, model, x, y)
+    fn = resident_hmc_dense.make_resident_hmc_dense(
+        model, x, y, step=0.1, num_steps=3, num_iters=10, num_burnin_iters=5, chain_block=C,
+        tuner=HMCDATuner(l=0.3), max_num_steps=8, record_extras=True, device="cpu")
+    theta0s = torch.as_tensor(0.5 * np.random.default_rng(2).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    want, info = fn.plain(4, theta0s)
+    got, evaluations = launch_dense_hmc(lib, fn, 4, theta0s, threads, cluster)
+    assert max_err(got, want) < 2e-4
+    assert evaluations == info["evaluations"]
+
+
+# ---- the dense Gibbs move: one thread a chain ----
+
+@pytest.mark.parametrize("name,one_coordinate", [("xor", False), (XOR2321, True), (XOR3, False)])
+def test_dense_gibbs_equals_the_plain_version(build, name, one_coordinate):
+    """The dense Gibbs move on one thread a chain (its cache of activations
+    and output terms in registers, each sub-block's words drawn where it
+    uses them), the chains sublane-strided over blocks of 256 threads, on
+    XOR MLP(2,2,1), MLP(2,3,2,1) with one-coordinate sub-blocks and three of
+    XOR's rows: samples, values, moved flags and per-sub-block counts held
+    per chain against the plain version."""
+    model, (x, y) = dense_problem(name)
+    subblocks = [1] * model.num_par_blocks() if one_coordinate else None
+    _, source, defines, generated = resident_walk_dense.library_spec(model, x, y, subblocks)
+    lib = build(source, defines, generated)
+    lib.resident_walk_dense_gibbs_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.POINTER(resident_walk.ResidentWalkParams), ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    C, iters, burnin = 1024, 9, 2
+    fn = resident_walk_dense.make_resident_gibbs_dense(
+        model, x, y, 0.5, subblocks, num_iters=iters, num_burnin_iters=burnin, chain_block=C,
+        record_extras=True, device="cpu")
+    theta0s = torch.as_tensor(0.5 * np.random.default_rng(7).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    want, _ = fn.plain(3, theta0s)
+    cells = closure(fn)
+    pr, theta = cells["setup"](3, theta0s)
+    P, B = model.num_params, cells["scale_t"].numel()
+    samples, final, accepts = (torch.zeros((iters - burnin, P + 2, C)), torch.zeros((P, C)),
+                               torch.zeros((B, C)))
+    err = lib.resident_walk_dense_gibbs_launch(
+        theta.data_ptr(), cells["scale_t"].data_ptr(), ctypes.byref(pr), 256, samples.data_ptr(),
+        final.data_ptr(), accepts.data_ptr(), None)
+    assert err == 0
+    got = unpack_outputs(samples, final, accepts.T, P, True)
+    assert max_err(got, want) < 2e-4
+    assert int(got[-1].sum()) > 0 and int(got[2].sum()) < C * B * (iters - burnin)
 
 
 # ---- the SMC mutation pass on 1, 4 or 8 lanes a particle ----

@@ -881,3 +881,54 @@ def test_dense_walk_and_smc_settings_name_the_builds():
     assert name.endswith(f"_l{resident_smc.SMC_LANES}_b{resident_smc.SMC_MIN_BLOCKS}")
     assert f"SMC_LANES={resident_smc.SMC_LANES}" in defines
     assert resident_smc.library_spec(iris433(), 1)[0] != name
+
+
+# ---- dense XOR HMC: one thread a chain ----
+
+class FakeDenseHMCLibrary:
+    """What the launch code reads of a dense HMC build at ``registers``."""
+
+    def __init__(self, registers):
+        self.registers = registers
+        self.max_threads = threads_for_registers(registers)
+
+    def resident_hmc_dense_error_string(self, code):
+        return b"refused"
+
+    def resident_hmc_dense_resources(self, out):
+        out[0], out[1], out[2] = self.registers, 0, self.max_threads
+        return 0
+
+    def resident_hmc_dense_max_clusters(self, threads, blocks, out):
+        out._obj.value = 8
+        return 0
+
+
+@pytest.mark.parametrize("registers,want", [
+    (64, dict(threads=256, blocks=512, blocks_per_sm=4, waves=1, sms_covered=128)),
+    (80, dict(threads=256, blocks=512, blocks_per_sm=3, waves=2, sms_covered=132)),
+    (88, dict(threads=256, blocks=512, blocks_per_sm=2, waves=2, sms_covered=132))])
+def test_bench_problem_on_dense_hmc_waves(registers, want):
+    """bench.py's problem, 131072 chains in dispatch's chain blocks of 8192,
+    untuned, one thread a chain in blocks of 256: at the kernel's 88
+    registers, or 80, the run takes two waves; only at 64 (4 blocks an SM)
+    one, on 128 SMs."""
+    from eeyore_tpu_torch.ops import resident_hmc_dense as hd
+
+    shape = hd.lane_launch(131072, 1, resources(registers), 8192, occupancy(registers),
+                           sm_count=H100_SMS)
+    assert {k: shape[k] for k in want} == want
+    assert shape["cluster_blocks"] == 1 and shape["blocks"] * shape["threads"] == 131072
+
+
+@pytest.mark.parametrize("registers,chain_block,want", [
+    (88, 8192, (512, 16)), (64, 8192, (1024, 8)), (88, 4096, (512, 8)), (64, 4096, (1024, 4)),
+    (88, 1024, (512, 2)), (64, 1024, (1024, 1))])
+def test_a_population_group_of_dense_hmc_is_a_block_or_a_cluster(registers, chain_block, want):
+    """A tuning group's chain_block threads are exactly the block or the
+    cluster: JAX's 8192 as 16 blocks of 512 at 88 registers, 8 of 1024 at
+    64; a group of 1024 one block of 1024 only at 64."""
+    from eeyore_tpu_torch.ops import resident_hmc_dense as hd
+
+    assert hd.group_shape(FakeDenseHMCLibrary(registers), chain_block) == want
+    assert want[0] * want[1] == chain_block
