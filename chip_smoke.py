@@ -6,7 +6,9 @@ Run from the repository root on a machine with a CUDA card (Hopper: the
 kernels are built for sm_90a). Phases, one JSON line each:
 
 1. build: builds, all at once from ``eeyore_tpu_torch/ops/csrc/``, the fused
-   log-posterior kernel ``fused_mlp_vg`` for the three architectures below;
+   log-posterior kernel ``fused_mlp_vg`` for the three architectures below
+   (iris a chain on ``FUSED_LANES`` lanes of a warp, the two small cases one
+   thread a chain: ``fused_mlp.fused_lanes``);
    ``resident_hmc`` for iris MLP(4,3,3) CE (a chain on ``HMC_LANES`` lanes of
    a warp) and XOR MLP(2,2,1) BCE (one thread a chain: 8 padded rows);
    ``resident_hmc_dense`` for XOR MLP(2,2,1); ``resident_walk`` (MH and MALA,
@@ -23,14 +25,18 @@ kernels are built for sm_90a). Phases, one JSON line each:
    XOR MLP(2,2,1) BCE (one thread a particle: 8 padded rows) and iris
    MLP(4,3,3) CE (``SMC_LANES`` lanes a particle); ``resident_smc_closure`` for
    the 2-d mixture of benchmarks/validate_smc_hard.py, its body generated
-   from the closure (``ops/closure_trace.py``); ``resident_nuts`` for iris
+   from the closure (``ops/closure_trace.py``), one thread a particle
+   drawing each step's words during the step before; ``resident_nuts`` for
+   iris
    MLP(4,3,3) and ``resident_nuts_dense`` for XOR MLP(2,2,1), at tree depth
    3, the dense one also with a diagonal metric (the staged one on
    ``NUTS_LANES`` lanes a chain, and on one thread a chain for XOR's tuning
    groups of 4096 chains). It reports the lane kernels' lanes, occupancy
-   targets and the Gibbs cache's choice, the launches of the staged HMC, MH
-   and MALA kernels on the iris main paths, of the dense MH and MALA moves
-   on configs 1 and 2 and of the SMC pass on iris (lanes, threads, blocks,
+   targets and the Gibbs cache's choice, the launches of the fused kernel at
+   32768 and 131072 chains, of the staged HMC, MH and MALA kernels on the
+   iris main paths, of the dense MH and MALA moves on configs 1 and 2 and of
+   the SMC pass on iris and the closure pass on the mixture (lanes, threads,
+   blocks,
    cluster, blocks an SM, SMs covered), each build's registers and
    local-memory (spill) bytes per thread, the Gibbs and
    tempering moves' too (iris MLP(4,3,3) MH and MALA on ``resident_walk``,
@@ -44,8 +50,11 @@ kernels are built for sm_90a). Phases, one JSON line each:
    2e-5, atol 1e-4; 3e-4 on the 150-row iris case, as tests/test_ops.py::
    compare), for iris MLP(4,3,3) CE, XOR MLP(2,2,1) BCE and MLP(3,4,2,1)
    without biases on layers 0 and 2, a (0.5, 2.0) prior and temperature
-   0.3; and times both (the kernel by its device time in ``torch.profiler``,
-   and by CUDA events around a launch, which hold the host's launch path).
+   0.3, the chains ``[C, P]`` as ``make_fused_log_target_vg``'s caller holds
+   them; and times both (the kernel by its device time in
+   ``torch.profiler``, and by CUDA events around a launch, which hold the
+   host's launch path), and the device time of one whole call of
+   ``make_fused_log_target_vg``'s function on the same chains.
 3. resident vs plain: each whole-loop kernel against its plain version (same
    seed, same inputs, on the card), at its main path's chain count:
    ``resident_hmc`` on untuned iris (step 0.02, 8 leapfrog steps, 20
@@ -223,8 +232,11 @@ kernels are built for sm_90a). Phases, one JSON line each:
     rate, its special-function operations at that unit's rate and its
     Threefry words' integer instructions at the integer pipe's rate), and
     for ``resident_hmc``, ``resident_hmc_dense``, ``resident_walk``,
-    ``resident_walk_dense`` (each move, and the Gibbs move's) and
-    ``resident_smc`` the lanes a chain of each build.
+    ``resident_walk_dense`` (each move, and the Gibbs move's),
+    ``resident_smc``, ``fused_mlp_vg`` and ``resident_smc_closure`` the lanes
+    a chain of each build; beside the closure pass the device time of an
+    empty kernel at its launch's blocks and threads (a reading of the launch
+    floor, not part of the bound).
 
 Then the card's name and power limit, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero; it also exits
@@ -233,11 +245,13 @@ non-zero, printing no result, when no CUDA device is available.
 
 import argparse
 import concurrent.futures
+import ctypes
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -254,6 +268,19 @@ BOOST_CLOCK_HZ = 1.98e9
 # SHF: 64 results per clock per SM on compute capability 9.0 (the same table:
 # 32-bit integer add, shift and logical operations).
 INT_PER_CLOCK_PER_SM = 64
+
+# The launch floor, a reading beside a kernel's device time: an empty kernel
+# launched at that kernel's blocks and threads. Built by this script alone,
+# into the port's build directory, with nvcc for sm_90a.
+LAUNCH_FLOOR_SOURCE = r"""
+__global__ void launch_floor_empty_kernel() {}
+
+extern "C" int launch_floor_launch(int blocks, int threads, void* stream) {
+  launch_floor_empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+LAUNCH_FLOOR_KERNEL = "launch_floor_empty_kernel"
 
 FUSED_SOURCE = "eeyore_tpu_torch/ops/csrc/fused_mlp_vg.cu"
 FUSED_REPLACES = "eeyore_tpu/ops/fused_mlp.py:63"
@@ -326,6 +353,46 @@ WALK_ACCEPTANCE_TOL = 0.02
 IRIS_HMC_BLOCK = 256
 
 
+# the 2-d mixture of the SMC closure kernel's main path
+MIX_MU, MIX_S, MIX_BASE = 3.0, 0.25, 3.0  # benchmarks/validate_smc_hard.py:177-201
+
+
+def mixture_log_pdf(t, x, y):
+    """Equal-weight normalized 2-d mixture of N((+-mu, 0), s^2 I)."""
+    c = -math.log(2 * math.pi * MIX_S ** 2) - math.log(2.0)
+    centre = torch.tensor([MIX_MU, 0.0], dtype=t.dtype, device=t.device)
+    d1, d2 = ((t - centre) ** 2).sum(-1), ((t + centre) ** 2).sum(-1)
+    return torch.logaddexp(c - 0.5 * d1 / MIX_S ** 2, c - 0.5 * d2 / MIX_S ** 2)
+
+
+def mixture_base(t):
+    """The base of the mixture's geometric path: N(0, MIX_BASE^2 I)."""
+    return -math.log(2 * math.pi * MIX_BASE ** 2) - 0.5 * (t * t).sum(-1) / MIX_BASE ** 2
+
+
+def mixture_init(g, n):
+    """n draws of the base from generator g."""
+    return MIX_BASE * torch.randn((n, 2), generator=g, device=g.device)
+
+
+def build_launch_floor():
+    """Compile ``LAUNCH_FLOOR_SOURCE`` and load it with ctypes."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    build = Path(__file__).resolve().parent / "eeyore_tpu_torch" / "ops" / "_build"
+    build = build / "launch_floor"
+    build.mkdir(parents=True, exist_ok=True)
+    source, library = build / "launch_floor.cu", build / "launch_floor.so"
+    source.write_text(LAUNCH_FLOOR_SOURCE)
+    subprocess.run([str(Path(CUDA_HOME) / "bin" / "nvcc"), "-O3", "-std=c++17",
+                    "-gencode=arch=compute_90a,code=sm_90a", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", str(library), str(source)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(library))
+    lib.launch_floor_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.launch_floor_launch.restype = ctypes.c_int
+    return lib
+
+
 def check(ok, message):
     if not ok:
         raise RuntimeError(message)
@@ -341,29 +408,71 @@ def card_line():
     return out.stdout.strip()
 
 
-def profiled(fn):
-    """Run ``fn()`` under torch.profiler and return (its result, {kernel name:
-    device ms}), the summed durations of the device work it launched."""
+def traced_kernels(fn):
+    """Run ``fn()`` under torch.profiler and return (its result, {kernel
+    name: [launches traced, their summed device ms]})."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         result = fn()
         torch.cuda.synchronize()
-    by_kernel = {}
+    traced = {}
     for event in prof.events():
         if event.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[event.name] = by_kernel.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
-    return result, by_kernel
+            entry = traced.setdefault(event.name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += event.time_range.elapsed_us() / 1e3
+    return result, traced
+
+
+def profiled(fn):
+    """Run ``fn()`` under torch.profiler and return (its result, {kernel name:
+    device ms}), the summed durations of the device work it launched. A
+    launch the trace dropped counts as no time."""
+    result, traced = traced_kernels(fn)
+    return result, {name: ms for name, (_, ms) in traced.items()}
+
+
+def device_times(fn, reps, warmup=2):
+    """Device time per call of ``fn()``: for each kernel it launches, the
+    mean duration of its launches in a trace of ``reps`` calls after
+    ``warmup`` calls, times its launches a call (the most of one traced call's
+    and of the long trace's share a call). Unlike CUDA events around a loop
+    of calls, this leaves out the gaps in which the device waits for the
+    host to launch the next call; unlike a sum over the trace, it stays
+    right when the profiler drops launches. Returns {"ms", "launches_traced",
+    "launches_made" (reps times the launches a call), "by_kernel" (ms a
+    call)}: fewer traced than made says the trace dropped some."""
+    for _ in range(warmup):
+        fn()
+    _, once = traced_kernels(fn)
+    _, traced = traced_kernels(lambda: [fn() for _ in range(reps)])
+    by_kernel, made = {}, 0
+    for name in once.keys() | traced.keys():
+        count, total = traced.get(name, (0, 0.0))
+        per_call = max(once.get(name, (0,))[0], -(-count // reps))
+        made += reps * per_call
+        by_kernel[name] = per_call * (total / count if count else float("nan"))
+    return {"ms": sum(by_kernel.values()),
+            "launches_traced": sum(count for count, _ in traced.values()),
+            "launches_made": made, "by_kernel": by_kernel}
 
 
 def device_ms(fn, reps, warmup=2):
-    """Device time per call of ``fn()``: the durations of the kernels it
-    launches, traced over ``reps`` calls after ``warmup`` calls. Unlike CUDA
-    events around a loop of calls, this leaves out the gaps in which the
-    device waits for the host to launch the next call."""
+    """``device_times``' device ms per call of ``fn()``."""
+    return device_times(fn, reps, warmup)["ms"]
+
+
+def launch_device_ms(fn, name, reps, warmup=2):
+    """(mean device ms of the launches of kernels whose name holds ``name``,
+    their count) over ``reps`` calls of ``fn()`` traced after ``warmup``
+    calls: the mean of the launches the trace holds, which stays right when
+    the profiler drops some of them (the count says so)."""
     for _ in range(warmup):
         fn()
-    _, by_kernel = profiled(lambda: [fn() for _ in range(reps)])
-    return sum(by_kernel.values()) / reps
+    _, traced = traced_kernels(lambda: [fn() for _ in range(reps)])
+    hits = [v for k, v in traced.items() if name in k]
+    count, total = sum(c for c, _ in hits), sum(ms for _, ms in hits)
+    return (total / count if count else float("nan")), count
 
 
 def event_times(fn, reps=3, warmup=1):
@@ -726,21 +835,6 @@ def main(argv=None):
              ("mlp3421_nobias_prior_temp", deep_model, deep_x, deep_y, 1e-4)]
     resident_cases = [("iris_mlp433_ce", iris_model), ("xor_mlp221_bce", xor_model)]
     empty = (np.zeros((1, 0)), np.zeros((1, 0)))
-    mix_mu, mix_s, mix_base = 3.0, 0.25, 3.0  # benchmarks/validate_smc_hard.py:177-201
-
-    def mixture_log_pdf(t, x, y):
-        """Equal-weight normalized 2-d mixture of N((+-mu, 0), s^2 I)."""
-        c = -math.log(2 * math.pi * mix_s ** 2) - math.log(2.0)
-        centre = torch.tensor([mix_mu, 0.0], dtype=t.dtype, device=t.device)
-        d1, d2 = ((t - centre) ** 2).sum(-1), ((t + centre) ** 2).sum(-1)
-        return torch.logaddexp(c - 0.5 * d1 / mix_s ** 2, c - 0.5 * d2 / mix_s ** 2)
-
-    def mixture_base(t):
-        return -math.log(2 * math.pi * mix_base ** 2) - 0.5 * (t * t).sum(-1) / mix_base ** 2
-
-    def mixture_init(g, n):
-        return mix_base * torch.randn((n, 2), generator=g, device=g.device)
-
     mixture = DistributionModel(mixture_log_pdf, 2, dtype=torch.float32, device=device)
 
     # the lanes a chain of each dense move on XOR's rows, and that move's build
@@ -758,8 +852,11 @@ def main(argv=None):
                    "xor": np.linspace(0.5, 2.0, xor_model.num_params)}
     iris_rows = prepare_data(iris_model, iris.x, iris.y)[0].shape[0]
     xor_rows = prepare_data(xor_model, xor.x, xor.y)[0].shape[0]
-    with concurrent.futures.ThreadPoolExecutor(len(cases) + 18) as pool:
-        futures = [pool.submit(fused_mlp.load_kernel, model) for _, model, _, _, _ in cases]
+    case_rows = [prepare_data(model, x, y)[0].shape[0] for _, model, x, y, _ in cases]
+    with concurrent.futures.ThreadPoolExecutor(len(cases) + 19) as pool:
+        floor_future = pool.submit(build_launch_floor)
+        futures = [pool.submit(fused_mlp.load_kernel, model, fused_mlp.fused_lanes(rows))
+                   for (_, model, _, _, _), rows in zip(cases, case_rows)]
         resident_futures = [pool.submit(resident_hmc.load_kernel, model,
                                         resident_hmc.chain_lanes(rows, IRIS_HMC_BLOCK, True))
                             for (_, model), rows in zip(resident_cases, (iris_rows, xor_rows))]
@@ -815,6 +912,7 @@ def main(argv=None):
         walk_dense_libs = {name: f.result() for name, f in walk_dense_futures.items()}
         smc_libs = {name: f.result() for name, f in smc_futures.items()}
         nuts_libs = {name: f.result() for name, f in nuts_futures.items()}
+        floor_lib = floor_future.result()
     build_seconds = time.perf_counter() - start
     dense_groups = {}
     for cb in (8192, 4096, 2048, 1024):
@@ -902,6 +1000,15 @@ def main(argv=None):
             smc_libs[name], mutation, SMC_PARTICLES, rows, sm_count)
         for name, rows in (("iris_mlp433_ce", iris_rows), ("xor_mlp221_bce", xor_rows))
         for mutation in ("MALA", "MH")})
+    # the fused kernel at the main paths' chain counts, the closure pass on
+    # the mixture's particles
+    lane_launches.update({
+        f"{fused_mlp.KERNEL}_{name}_{C}": fused_mlp.fused_launch(lib, C, rows, sm_count)
+        for (name, *_), lib, rows in zip(cases, libs, case_rows) for C in (32768, 131072)})
+    lane_launches.update({
+        f"{resident_smc.CLOSURE_KERNEL}_mixture_2d_{mutation}": resident_smc.closure_launch(
+            smc_libs["mixture_2d"], mutation, SMC_PARTICLES, sm_count)
+        for mutation in ("MALA", "MH")})
     emit({"phase": "build",
           "kernels": [fused_mlp.KERNEL, resident_hmc.KERNEL, resident_hmc_dense.KERNEL,
                       resident_walk.KERNEL, resident_walk_dense.KERNEL, resident_walk.GIBBS_KERNEL,
@@ -914,6 +1021,10 @@ def main(argv=None):
                       NUTS_DENSE_SOURCE],
           "nuts_depth": NUTS_DEPTH,
           "lane_settings": {
+              fused_mlp.KERNEL: {"lanes": fused_mlp.FUSED_LANES,
+                                 "min_blocks": fused_mlp.FUSED_MIN_BLOCKS,
+                                 "lane_min_rows": resident_hmc.LANE_MIN_ROWS},
+              resident_smc.CLOSURE_KERNEL: {"lanes": 1},
               resident_walk.GIBBS_KERNEL: {"lanes": resident_walk.GIBBS_LANES,
                                            "min_blocks": resident_walk.GIBBS_MIN_BLOCKS,
                                            "cache_budget": resident_walk.GIBBS_CACHE_BUDGET},
@@ -939,7 +1050,8 @@ def main(argv=None):
                                     "lane_min_rows": resident_hmc.LANE_MIN_ROWS}},
           "lane_launches": lane_launches,
           "seconds": build_seconds,
-          "resources": {fused_mlp.KERNEL: {name: fused_mlp.kernel_resources(lib)
+          "resources": {fused_mlp.KERNEL: {name: dict(fused_mlp.kernel_resources(lib),
+                                                      lanes=lib.fused_mlp_vg_lanes())
                                            for (name, *_), lib in zip(cases, libs)},
                         resident_hmc.KERNEL: {name: dict(resident_hmc.kernel_resources(lib),
                                                          lanes=lib.resident_hmc_lanes())
@@ -961,8 +1073,9 @@ def main(argv=None):
                             for name, lib in smc_libs.items() if name != "mixture_2d"
                             for mutation in ("MH", "MALA")},
                         resident_smc.CLOSURE_KERNEL: {
-                            f"mixture_2d_{mutation}": resident_smc.kernel_resources(
-                                smc_libs["mixture_2d"], mutation, resident_smc.CLOSURE_KERNEL)
+                            f"mixture_2d_{mutation}": dict(resident_smc.kernel_resources(
+                                smc_libs["mixture_2d"], mutation, resident_smc.CLOSURE_KERNEL),
+                                lanes=1)
                             for mutation in ("MH", "MALA")},
                         "nuts_depth_3": nuts_resources},
           "tuned_group_threads_and_cluster_blocks": {
@@ -973,38 +1086,52 @@ def main(argv=None):
     # 2. fused kernel vs plain, on the same inputs on the card, at the main
     #    paths' chain counts (iris runs 32768 chains, XOR 131072)
     max_abs_err = 0.0
-    timings, fused_event_times = {}, {}
-    for (name, model, x, y, atol), lib in zip(cases, libs):
+    timings, fused_event_times, fused_fn_times = {}, {}, {}
+    for (name, model, x, y, atol), lib, rows in zip(cases, libs, case_rows):
         arrays = prepare_data(model, x, y)
         tensors = [torch.as_tensor(a, device=device) for a in arrays[:5]]
-        prior_const, temperature = arrays[5], arrays[6]
+        data = fused_mlp.fused_data(*tensors, arrays[5], arrays[6])
         plain = make_vg(model, *arrays)
+        fused_fn = fused_mlp.make_fused_log_target_vg(model, x, y, device=device)
         dims, bias, loss_kind, _ = extract_arch(model)
         gen = torch.Generator(device=device).manual_seed(args.seed)
         for C in (32768, 131072):
-            theta = torch.randn((model.num_params, C), generator=gen, device=device)
-            val, grad = fused_mlp.fused_mlp_vg(lib, theta, *tensors, prior_const, temperature)
-            pval, pgrad = plain(theta, *tensors)
+            theta = torch.randn((C, model.num_params), generator=gen, device=device)
+            threads = fused_mlp.fused_launch(lib, C, rows, sm_count)["threads"]
+            val, grad = fused_mlp.fused_mlp_vg(lib, theta, data, threads)
+            pval, pgrad = plain(theta.T.contiguous(), *tensors)
+            pval, pgrad = pval[0], pgrad.T
+            fn_val, fn_grad = fused_fn(theta)
             torch.cuda.synchronize()
+            check(torch.equal(fn_val, val) and torch.equal(fn_grad, grad)
+                  and fn_grad.is_contiguous(), f"{name}, C={C}: make_fused_log_target_vg's "
+                  "function and the kernel's wrapper disagree")
             err = max((val - pval).abs().max().item(), (grad - pgrad).abs().max().item())
             for got, want in ((val, pval), (grad, pgrad)):
                 bad = ((got - want).abs() > atol + 2e-5 * want.abs()) | ~torch.isfinite(got)
                 check(not bool(bad.any()), f"{name}, C={C}: kernel disagrees with make_vg at "
                       f"{int(bad.sum())} entries, max abs err {err}")
             max_abs_err = max(max_abs_err, err)
-            ms = device_ms(lambda: fused_mlp.fused_mlp_vg(lib, theta, *tensors, prior_const,
-                                                          temperature), 50)
+            ms, traced = launch_device_ms(
+                lambda: fused_mlp.fused_mlp_vg(lib, theta, data, threads), fused_mlp.KERNEL, 50)
             # CUDA events around one launch hold the host's launch path too
-            event_ms = event_times(lambda: fused_mlp.fused_mlp_vg(
-                lib, theta, *tensors, prior_const, temperature), reps=5)[0]
-            plain_ms = device_ms(lambda: plain(theta, *tensors), 5)
+            event_ms = event_times(lambda: fused_mlp.fused_mlp_vg(lib, theta, data, threads),
+                                   reps=5)[0]
+            # the whole call of the user's function: whatever it launches
+            fn_times = device_times(lambda: fused_fn(theta), 50)
+            fn_ms = fn_times["ms"]
+            plain_ms = device_ms(lambda: plain(theta.T.contiguous(), *tensors), 5)
             b_ms, b_by = bound_ms(vg_work(dims, bias, loss_kind == "ce", len(x), C), sm_count)
             timings[(name, C)] = (ms, plain_ms, b_ms, b_by)
             fused_event_times[(name, C)] = event_ms
+            fused_fn_times[(name, C)] = fn_ms
             emit({"phase": "kernel_vs_plain", "case": name, "chains": C, "max_abs_err": err,
                   "rtol": 2e-5, "atol": atol, "ms": ms, "ms_is": "torch.profiler device time",
-                  "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                  "bound_by": b_by, "card": card})
+                  "launches_traced": traced, "launches_made": 50, "event_ms": event_ms,
+                  "fn_device_ms": fn_ms, "fn_launches_traced": fn_times["launches_traced"],
+                  "fn_launches_made": fn_times["launches_made"],
+                  "launch": fused_mlp.fused_launch(lib, C, rows, sm_count),
+                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "card": card})
 
     # 3. each whole-loop kernel vs its plain version, same seed and inputs, on
     #    the card. A tuned run is chaotic while early burn-in tries long
@@ -2159,9 +2286,11 @@ def main(argv=None):
         wall = walls[len(walls) // 2]
         stages = [len(r["diags"]["beta"]) for r in runs]
         g = torch.Generator(device=device).manual_seed(1000 * index + SMC_SEEDS)
-        (_, profile_diags), by_kernel = profiled(lambda: sampler.run(g, data, backend="auto"))
-        busy = sum(by_kernel.values()) / 1e3
-        kernel_device_ms = sum(ms for k, ms in by_kernel.items() if kernel in k)
+        (_, profile_diags), traced = traced_kernels(lambda: sampler.run(g, data, backend="auto"))
+        busy = sum(ms for _, ms in traced.values()) / 1e3
+        # the mutation kernel's launches in the trace, against the run's one a stage
+        kernel_traced = sum(n for k, (n, _) in traced.items() if kernel in k)
+        kernel_device_ms = sum(ms for k, (_, ms) in traced.items() if kernel in k)
         record = {
             "phase": "main_smc", "case": name, "plan": [plan.backend, plan.chain_block],
             "particles": sampler.num_particles, "mutation": sampler.mutation,
@@ -2177,13 +2306,18 @@ def main(argv=None):
             "kernel_launches_first_run": runs[0]["counts"],
             "device_busy_share": busy / wall,
             "kernel_device_ms_per_run": kernel_device_ms,
-            "kernel_device_ms_per_launch": kernel_device_ms / max(1, len(profile_diags["beta"])),
+            "kernel_device_ms_per_launch": kernel_device_ms / max(1, kernel_traced),
+            "kernel_launches_traced": kernel_traced,
+            "kernel_launches_made": len(profile_diags["beta"]),
             "card": card}
         if kernel == resident_smc.KERNEL:  # the launch of this path's build
             rows = iris_rows if sampler.model is iris_model else xor_rows
             record["launch"] = resident_smc.smc_launch(
                 resident_smc.load_kernel(sampler.model, resident_smc.smc_lanes(rows)),
                 sampler.mutation, sampler.num_particles, rows, sm_count)
+        else:
+            record["launch"] = resident_smc.closure_launch(
+                smc_libs["mixture_2d"], sampler.mutation, sampler.num_particles, sm_count)
         if name == "xor_adaptive_mala":
             for r in runs:
                 betas = r["diags"]["beta"].numpy()
@@ -2547,13 +2681,26 @@ def main(argv=None):
                     n: r["kernel_device_ms_per_launch"] for n, r in smc_main.items()
                     if n in main_launches[kernel]}}
 
+    # the launch floor beside the closure pass: the empty kernel at the
+    # mixture's MALA launch (blocks and threads), its device time
+    mixture_launch = resident_smc.closure_launch(smc_libs["mixture_2d"], "MALA", SMC_PARTICLES,
+                                                 sm_count)
+
+    def empty_launch():
+        err = floor_lib.launch_floor_launch(mixture_launch["blocks"], mixture_launch["threads"],
+                                            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the empty kernel did not launch: {err}")
+
     smc_entries = [
         dict(smc_entry(resident_smc.KERNEL, SMC_SOURCE, SMC_REPLACES, "xor_mala",
                        "config 5's shape: XOR MLP(2,2,1), MALA step 0.05"),
              lanes={name: lib.resident_smc_lanes() for name, lib in smc_libs.items()
                     if name != "mixture_2d"}),
-        smc_entry(resident_smc.CLOSURE_KERNEL, SMC_CLOSURE_SOURCE, SMC_CLOSURE_REPLACES,
-                  "mixture_mala", "the 2-d mixture's main path: MALA step 0.05")]
+        dict(smc_entry(resident_smc.CLOSURE_KERNEL, SMC_CLOSURE_SOURCE, SMC_CLOSURE_REPLACES,
+                       "mixture_mala", "the 2-d mixture's main path: MALA step 0.05"),
+             lanes=1, launch=mixture_launch,
+             empty_kernel_device_ms_at_launch=launch_device_ms(
+                 empty_launch, LAUNCH_FLOOR_KERNEL, 50)[0])]
 
     def nuts_entry(module, source, replaces, case, main_paths):
         ms_, plain_ms_, b_ms_, b_by_ = nuts_timings[case]
@@ -2584,7 +2731,12 @@ def main(argv=None):
          "launches_by_path": launches, "max_abs_err": max_abs_err, "ms": ms,
          "ms_is": "torch.profiler device time a launch",
          "event_ms": fused_event_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-         "library_ms": None, "timed_at": "iris MLP(4,3,3), 32768 chains"},
+         "library_ms": None, "timed_at": "iris MLP(4,3,3), 32768 chains",
+         "fn_device_ms": fused_fn_times[("iris_mlp433_ce", 32768)],
+         "lanes": {name: lib.fused_mlp_vg_lanes() for (name, *_), lib in zip(cases, libs)},
+         "cases": {f"{name}_{C}": {"ms": t[0], "fn_device_ms": fused_fn_times[(name, C)],
+                                   "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
+                   for (name, C), t in timings.items()}},
         resident_entry,
         dict(whole_loop_entry(resident_hmc_dense, DENSE_SOURCE, DENSE_REPLACES, xor_timed_at),
              lanes=1),  # one thread a chain

@@ -3,14 +3,15 @@
 // (resident_nuts.cu), of the staged HMC kernel and MH, MALA and ladder
 // moves (resident_hmc.cu, resident_walk.cu moves 0-1 and 3), of the dense
 // MH, MALA and ladder moves (LaneDenseEval: resident_walk_dense.cu moves 0-1
-// and 3, on a generated body of the lane's own rows) and of the SMC
-// mutation pass (LaneSplitEval: resident_smc.cu); and the fixed-budget NUTS,
-// HMC, MH, MALA, power-posterior ladder and SMC mutation loops, each
-// written once over the lanes a chain (nuts_chain, hmc_chain, walk_chain,
-// tempering_chain, smc_chain: Lanes<1>, one thread a chain, is the layout of
-// dense HMC and NUTS and of the SMC closure pass, and the other kernels' on
-// data of few rows, for tuning groups larger than a cluster of lane blocks
-// holds, or for ladders longer than a block of lane chains holds).
+// and 3, on a generated body of the lane's own rows), of the SMC mutation
+// pass (LaneSplitEval: resident_smc.cu) and of the fused log-posterior
+// (LaneStagedEval: fused_mlp_vg.cu); and the fixed-budget NUTS, HMC, MH,
+// MALA, power-posterior ladder and SMC mutation loops, each written once over
+// the lanes a chain (nuts_chain, hmc_chain, walk_chain, tempering_chain,
+// smc_chain: Lanes<1>, one thread a chain, is the layout of dense HMC and
+// NUTS and of the SMC closure pass, and the other kernels' on data of few
+// rows, for tuning groups larger than a cluster of lane blocks holds, or for
+// ladders longer than a block of lane chains holds).
 //
 // Layout. kLanes consecutive lanes of a warp (1, 2, 4, 8, 16 or 32, a
 // compile-time constant) own one chain; chain c is threads [c kLanes, (c + 1)

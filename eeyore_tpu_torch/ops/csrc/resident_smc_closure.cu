@@ -7,21 +7,30 @@
 // which interprets the closure's traced jaxpr inside the kernel); the plain
 // PyTorch version is eeyore_tpu_torch/ops/resident_smc.py::
 // _run_mutation_plain on make_generic_vg (the closure by batched autograd).
-// The loop is resident_smc.cu's (lane_eval.cuh::smc_chain at Lanes<1>: the
-// same moves, stream and step constants, one particle a thread); what
-// differs is the evaluation:
+// The loop is resident_smc.cu's (lane_eval.cuh::smc_chain: the same moves,
+// stream and step constants); what differs is the evaluation:
 // - closure_body.cuh, which ops/closure_trace.py generates from the
 //   closure's value and gradient traced for one particle (the build's name
 //   carries its hash): straight-line f32 code, v(th) -> (ll, lp) and
 //   vg(th, gll, glp) -> (ll, lp), with ll = log target - log base and lp =
 //   log base, the geometric path of tempered SMC. The constants the closure
 //   captures are literals of the code, as the dense kernels hold their data.
-// - No data are staged: a block's shared memory holds only the accepted
-//   theta and, for MALA, its combined gradient beta * gll + glp, at
-//   [P][blockDim].
+// - No data are staged.
 // lane_eval.cuh takes the parameter count from mlp_vg.cuh's architecture
 // macros: the build gives it a one-layer net without bias of P parameters
 // (FMV_DIMS = in | out << 8, in * out = P), of which nothing else is used.
+//
+// Design. One thread a particle (lane_eval.cuh::smc_chain at Lanes<1> on
+// ClosureEval): the accepted theta and, for MALA, its combined gradient beta
+// * gll + glp in shared memory at [P][blockDim], blocks of SMC_BLOCK threads
+// (ops/resident_smc.py), no launch bounds: the body of a small closure needs
+// few registers. A particle's pass is a chain of dependent latencies (the
+// step's Threefry words, Box-Muller, the body's exp and log, the accept
+// test), with 4 warps an SM on 16384 particles. A particle on a group of
+// lanes, every lane running the whole body with the step's words spread
+// over the lanes, ran 16% (2 lanes) and 31% (4) slower; drawing each step's
+// words during the step before gained 2%, too little for a second one-thread
+// path through smc_chain (PERF.md, section 6).
 //
 // Bound. Per particle 1 + num_steps evaluations of the generated body
 // (closure_trace.work counts its operations), and the walk stream's Threefry
@@ -38,8 +47,8 @@ static_assert(closure_body::kP == kP, "generated body and parameter count disagr
 
 namespace {
 
-// The closure's SMC target lp + beta * ll, beta taken at run time (the
-// interface of resident_loop::SplitEval).
+// The closure's SMC target lp + beta * ll on one thread, beta taken at run
+// time (the interface of resident_loop::SplitEval).
 struct ClosureEval {
   float beta;
   __device__ __forceinline__ float vg(const float (&th)[kP], float (&g)[kP], float& ll) const {
@@ -92,6 +101,17 @@ extern "C" int resident_smc_closure_resources(int move, int* out) {
   return static_cast<int>(move == 1
                               ? resident_loop::resources(resident_smc_closure_kernel<true>, out)
                               : resident_loop::resources(resident_smc_closure_kernel<false>, out));
+}
+
+// Blocks of threads threads of the MH (move 0) or MALA (1) pass an SM holds
+// at once.
+extern "C" int resident_smc_closure_max_blocks(int move, int threads, int* out) {
+  const size_t smem = smem_bytes(move == 1, threads);
+  return static_cast<int>(
+      move == 1
+          ? resident_loop::max_active_blocks(resident_smc_closure_kernel<true>, threads, smem, out)
+          : resident_loop::max_active_blocks(resident_smc_closure_kernel<false>, threads, smem,
+                                             out));
 }
 
 extern "C" const char* resident_smc_closure_error_string(int code) {

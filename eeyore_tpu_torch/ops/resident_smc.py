@@ -198,8 +198,22 @@ def smc_launch(lib, mutation, num_particles, n_rows, sm_count=None):
     out = ctypes.c_int(0)
     raise_on(lib.resident_smc_max_blocks(MOVES[mutation], threads, n_rows, ctypes.byref(out)),
              lib.resident_smc_error_string, KERNEL)
+    return _launch_shape(lanes, threads, num_particles, out.value, sm_count)
+
+
+def closure_launch(lib, mutation, num_particles, sm_count=None):
+    """``smc_launch`` of a loaded closure build: one thread a particle, no
+    staged rows."""
+    threads = smc_threads(1, kernel_resources(lib, mutation, CLOSURE_KERNEL)[
+        "max_threads_per_block"], num_particles)
+    out = ctypes.c_int(0)
+    raise_on(lib.resident_smc_closure_max_blocks(MOVES[mutation], threads, ctypes.byref(out)),
+             lib.resident_smc_closure_error_string, CLOSURE_KERNEL)
+    return _launch_shape(1, threads, num_particles, out.value, sm_count)
+
+
+def _launch_shape(lanes, threads, num_particles, per_sm, sm_count):
     blocks = -(-num_particles * lanes // threads)
-    per_sm = out.value
     launch = {"lanes": lanes, "threads": threads, "blocks": blocks, "blocks_per_sm": per_sm,
               "waves": None, "sms_covered": None}
     if sm_count is not None and per_sm:
@@ -226,16 +240,20 @@ def _closure_dims(P):
     raise ValueError(f"the closure kernel takes at most 255 * 255 parameters, got {P}")
 
 
-def load_closure_kernel(programs):
-    """Build (at first use) and load the closure kernel for the
-    ``closure_programs`` of one target, whose body it takes as code."""
+def closure_library_spec(programs):
+    """(name, source, defines, generated) of the closure kernel's build for
+    the ``closure_programs`` of one target: the arguments of
+    ``_build.load_library``."""
     prog_v, prog_vg = programs
     P = prog_v.num_params
     d_in, d_out = _closure_dims(P)
     defines = ("FMV_NUM_LAYERS=1", f"FMV_DIMS={d_in | d_out << 8:#x}", "FMV_BIAS=0", "FMV_CE=0")
-    lib = _build.load_library(f"{CLOSURE_KERNEL}_p{P}", "resident_smc_closure.cu", defines,
-                              generated={"closure_body.cuh":
-                                         closure_trace.cuda_source(prog_v, prog_vg)})
+    return (f"{CLOSURE_KERNEL}_p{P}", "resident_smc_closure.cu", defines,
+            {"closure_body.cuh": closure_trace.cuda_source(prog_v, prog_vg)})
+
+
+def bind_closure(lib):
+    """Declare the C interface of a closure build to ctypes; returns ``lib``."""
     lib.resident_smc_closure_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ResidentSMCParams), ctypes.c_int]
         + [ctypes.c_void_p] * 4)
@@ -246,6 +264,17 @@ def load_closure_kernel(programs):
     lib.resident_smc_closure_arch.restype = ctypes.c_int
     lib.resident_smc_closure_resources.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.resident_smc_closure_resources.restype = ctypes.c_int
+    lib.resident_smc_closure_max_blocks.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)])
+    lib.resident_smc_closure_max_blocks.restype = ctypes.c_int
+    return lib
+
+
+def load_closure_kernel(programs):
+    """Build (at first use) and load the closure kernel for the
+    ``closure_programs`` of one target, whose body it takes as code."""
+    P = programs[0].num_params
+    lib = bind_closure(_build.load_library(*closure_library_spec(programs)))
     arch = (ctypes.c_int * 2)()
     lib.resident_smc_closure_arch(arch)
     if list(arch) != [P, MAX_BLOCK]:
@@ -391,7 +420,7 @@ def make_resident_smc_mutation(model, x, y, step, num_mutation_steps, chain_bloc
     particles ``[P, N]`` (the runner's layout); ``fn.plain(seed, beta,
     theta0s)`` runs the plain version on any device and also returns its
     info dict; ``fn.smc_launch(N, sm_count)`` reports the launch
-    (``smc_launch``) of the MLP kernel.
+    (``smc_launch``, or ``closure_launch``).
 
     ``base_log_pdf``: for a ``DistributionModel`` target, the base of the
     geometric path; CUDA tensors then launch the closure kernel, built from
@@ -470,8 +499,9 @@ def make_resident_smc_mutation(model, x, y, step, num_mutation_steps, chain_bloc
     fn.plain = plain
     fn.launch_threads = None if lib is None else launch_threads(chain_block)
     fn.smc_launch = lambda N, sm_count=None: (
-        None if lib is None or closure else smc_launch(lib, mutation, N, x_pad.shape[0],
-                                                       sm_count))
+        None if lib is None
+        else closure_launch(lib, mutation, N, sm_count) if closure
+        else smc_launch(lib, mutation, N, x_pad.shape[0], sm_count))
     fn.eval_work = eval_work
     return fn
 

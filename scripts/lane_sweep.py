@@ -24,12 +24,17 @@ blocks of 8192, and the XOR ladder (MLP(2,2,1), 8 rungs at (i/8)^4, MALA step
 0.05, swaps every 10) at its entry point's 1024 chains and at 32768; and the
 SMC mutation pass (``smc``) on iris MLP(4,3,3) at ``SMC_SWEEP``'s lanes a
 particle and occupancy targets, MALA step 0.003 and MH step 0.01, 16384
-prior draws x 5 steps at beta 0.3.
+prior draws x 5 steps at beta 0.3; the fused log-posterior (``fused``) on
+iris MLP(4,3,3) at ``FUSED_SWEEP``'s lanes a chain and occupancy targets, at
+32768 and 131072 chains (``FusedHMC``'s main paths); and the SMC closure
+pass (``smc_closure``) on the 2-d mixture of chip_smoke.py, one thread a
+particle, MALA and MH step 0.05, 16384 base draws x 5 steps at beta 0.3.
 
 Run from the root of the repository on a machine with a card:
 
     python3 scripts/lane_sweep.py [--seed 0]
-        [--kernels gibbs,nuts,hmc,walk,tempering,nuts_dense,walk_dense,smc]
+        [--kernels gibbs,nuts,hmc,walk,tempering,nuts_dense,walk_dense,smc,fused,
+                   smc_closure]
 
 It prints the card's name and power limit, then one JSON line per build and
 move: the lanes a chain, the blocks an SM must hold (which caps the
@@ -52,7 +57,12 @@ held against its plain version untuned (16384 chains x 5 iterations) and tuned
 (3 burn-in iterations) at each shape; the dense walks against theirs on 4096
 chains x 20 iterations, extras (the ladder in a chain block of 1024, swaps
 every 5, with ``ladder_witness``); the SMC pass on its 16384 particles
-(final theta, pot and counts). The modules' settings
+(final theta, pot and counts); the fused kernel at each chain count against
+``make_vg`` (rtol 2e-5, atol 3e-4, chip_smoke.py's gates), timed by its
+device time a launch in ``torch.profiler`` (50 launches), with the launch
+``fused_threads`` gives it; the closure pass on its particles against its
+plain version (final theta, pot and counts), timed by its device time a
+launch (50 launches, the call's copies apart). The modules' settings
 (``resident_walk.GIBBS_LANES`` and ``GIBBS_MIN_BLOCKS``,
 ``resident_nuts.NUTS_LANES`` and ``NUTS_MIN_BLOCKS``,
 ``resident_hmc.HMC_LANES`` and ``HMC_MIN_BLOCKS``,
@@ -60,7 +70,8 @@ every 5, with ``ladder_witness``); the SMC pass on its 16384 particles
 ``resident_walk.TEMPERING_LANES`` and ``TEMPERING_MIN_BLOCKS``,
 ``resident_nuts_dense.NUTS_DENSE_BOUND``,
 ``resident_walk_dense.WALK_DENSE_LANES`` and ``WALK_DENSE_MIN_BLOCKS``,
-``resident_smc.SMC_LANES`` and ``SMC_MIN_BLOCKS``) are the fastest of such a run; this
+``resident_smc.SMC_LANES`` and ``SMC_MIN_BLOCKS``, ``fused_mlp.FUSED_LANES`` and
+``FUSED_MIN_BLOCKS``) are the fastest of such a run; this
 script sets them in its own process only, build by build. It exits non-zero
 when a build disagrees with its plain version.
 """
@@ -86,6 +97,10 @@ from chip_smoke import (  # noqa: E402
     card_line,
     chain_agreement,
     event_times,
+    launch_device_ms,
+    mixture_base,
+    mixture_init,
+    mixture_log_pdf,
 )
 
 # (kernel, lanes a chain, blocks an SM must hold); the modules' own settings
@@ -107,7 +122,11 @@ WALK_DENSE_SWEEP = (("walk_dense", 1, 1), ("walk_dense", 2, 2), ("walk_dense", 2
                     ("walk_dense", 4, 4))
 SMC_SWEEP = (("smc", 1, 1), ("smc", 4, 2), ("smc", 4, 3), ("smc", 4, 4), ("smc", 8, 1),
              ("smc", 8, 2), ("smc", 8, 3))
-KERNELS = ("gibbs", "nuts", "hmc", "walk", "tempering", "nuts_dense", "walk_dense", "smc")
+# the fused log-posterior on iris (one thread a chain: no launch bounds)
+FUSED_SWEEP = (("fused", 1, 1), ("fused", 2, 2), ("fused", 2, 3), ("fused", 4, 2),
+               ("fused", 4, 3), ("fused", 8, 2))
+KERNELS = ("gibbs", "nuts", "hmc", "walk", "tempering", "nuts_dense", "walk_dense", "smc",
+           "fused", "smc_closure")
 # node sub-blocks that split every unit of iris MLP(4,3,2,3)
 SPLIT_UNITS = [3, 3, 3, 2, 2, 2, 2, 2]
 C_GIBBS, C_NUTS, ITERS, BURNIN, NUTS_DEPTH = 32768, 16384, 2048, 1024, 3
@@ -128,6 +147,8 @@ C_NUTS_DENSE, DENSE_GROUPS = 32768, (8192, 4096, 2048, 1024)
 # the dense walks' main chain block, the XOR ladder's entry point (one chain
 # block), the SMC pass's particles, steps and temperature
 WALK_DENSE_BLOCK, XOR_LADDER_BLOCK, C_SMC, SMC_STEPS, SMC_BETA = 8192, 1024, 16384, 5, 0.3
+# the fused kernel's chain counts and gates; the closure pass's step
+C_FUSED, FUSED_ATOL, FUSED_RTOL, CLOSURE_STEP = (32768, 131072), 3e-4, 2e-5, 0.05
 
 
 def main(argv=None):
@@ -144,9 +165,10 @@ def main(argv=None):
         return 1
 
     from eeyore_tpu_torch.datasets import XYDataset
-    from eeyore_tpu_torch.models import MLP, loss_functions, mlp
+    from eeyore_tpu_torch.models import MLP, DistributionModel, loss_functions, mlp
     from eeyore_tpu_torch.ops import (
         _build,
+        fused_mlp,
         resident_hmc,
         resident_nuts,
         resident_nuts_dense,
@@ -155,7 +177,7 @@ def main(argv=None):
         resident_walk_dense,
     )
     from eeyore_tpu_torch.ops.fused_mlp import arch_defines
-    from eeyore_tpu_torch.ops.mlp_math import prepare_data
+    from eeyore_tpu_torch.ops.mlp_math import make_vg, prepare_data
     from eeyore_tpu_torch.ops.resident_tempering import make_resident_tempering
     from eeyore_tpu_torch.ops.resident_tempering_dense import make_resident_tempering_dense
     from eeyore_tpu_torch.samplers import HMC
@@ -185,14 +207,19 @@ def main(argv=None):
                 "walk": (resident_walk.WALK_LANES, resident_walk.WALK_MIN_BLOCKS),
                 "tempering": (resident_walk.TEMPERING_LANES, resident_walk.TEMPERING_MIN_BLOCKS),
                 "nuts_dense": (1, resident_nuts_dense.NUTS_DENSE_BOUND),
-                "smc": (resident_smc.SMC_LANES, resident_smc.SMC_MIN_BLOCKS)}
+                "smc": (resident_smc.SMC_LANES, resident_smc.SMC_MIN_BLOCKS),
+                "fused": (fused_mlp.FUSED_LANES, fused_mlp.FUSED_MIN_BLOCKS),
+                "smc_closure": (1, None)}
+    mixture = DistributionModel(mixture_log_pdf, 2, dtype=torch.float32, device=device)
+    empty = (np.zeros((1, 0)), np.zeros((1, 0)))
+    closure_programs = resident_smc.closure_programs(mixture, *empty, mixture_base, device)
     dense_settings = dict(resident_walk_dense.WALK_DENSE_LANES)
     # lanes None: the module's lanes of each dense move
     settings["walk_dense"] = (None, resident_walk_dense.WALK_DENSE_MIN_BLOCKS)
     # the dense walks' runs cover every lane count, the settings' among them
     runs = [(kernel, *settings[kernel]) for kernel in kernels if kernel != "walk_dense"]
     runs += [run for run in SWEEP + NUTS_DENSE_SWEEP + WALK_DENSE_SWEEP + SMC_SWEEP
-             if run[0] in kernels and run not in runs]
+             + FUSED_SWEEP if run[0] in kernels and run not in runs]
 
     def use(kernel, lanes, min_blocks):
         if kernel == "gibbs":
@@ -211,6 +238,10 @@ def main(argv=None):
             resident_walk_dense.WALK_DENSE_MIN_BLOCKS = min_blocks
         elif kernel == "smc":
             resident_smc.SMC_LANES, resident_smc.SMC_MIN_BLOCKS = lanes, min_blocks
+        elif kernel == "fused":
+            fused_mlp.FUSED_LANES, fused_mlp.FUSED_MIN_BLOCKS = lanes, min_blocks
+        elif kernel == "smc_closure":  # one build: nothing to set
+            pass
         else:  # min_blocks: the launch bound's threads
             resident_nuts_dense.NUTS_DENSE_BOUND = min_blocks
 
@@ -239,6 +270,12 @@ def main(argv=None):
                 builds.append(resident_walk_dense.library_spec(model, xor.x, xor.y, lanes=lanes))
         elif kernel == "smc":
             builds.append(resident_smc.library_spec(nuts_model, lanes) + (None,))
+        elif kernel == "fused":
+            builds.append(fused_mlp.library_spec(nuts_model, lanes) + (None,))
+            if lanes == 1:
+                builds.append(fused_mlp.library_spec(xor_model, 1) + (None,))
+        elif kernel == "smc_closure":
+            builds.append(resident_smc.closure_library_spec(closure_programs))
         else:
             for _, depth, _, metric in NUTS_DENSE_SHAPES:
                 builds.append(resident_nuts_dense.library_spec(xor_model, xor.x, xor.y, depth,
@@ -263,7 +300,8 @@ def main(argv=None):
         "xor2321_walk": torch.as_tensor(0.1 * rng.normal(size=(C_HMC, xor2321_model.num_params)),
                                         dtype=torch.float32, device=device),
         "smc": nuts_model.prior.sample(torch.Generator(device=device).manual_seed(args.seed),
-                                       (C_SMC,))}
+                                       (C_SMC,)),
+        "closure": mixture_init(torch.Generator(device=device).manual_seed(args.seed), C_SMC)}
     hmc_tuned = dict(step=0.1, num_steps=10, tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64)
     ok = True
 
@@ -388,6 +426,64 @@ def main(argv=None):
                             rungs=RUNGS, between_step=BETWEEN),
                        fn, theta0s["xor_walk"][:C], checks)
             del fn
+        elif kernel == "fused":
+            cases = [("iris", nuts_model, iris, C) for C in C_FUSED]
+            if lanes == 1:  # XOR's build, one thread a chain, at its main shape
+                cases.append(("xor", xor_model, xor, max(C_FUSED)))
+            for case, model, dataset, C in cases:
+                lib = fused_mlp.load_kernel(model, lanes)
+                arrays = prepare_data(model, dataset.x, dataset.y)
+                tensors = [torch.as_tensor(a, device=device) for a in arrays[:5]]
+                data = fused_mlp.fused_data(*tensors, arrays[5], arrays[6])
+                theta = torch.as_tensor(rng.normal(size=(C, model.num_params)),
+                                        dtype=torch.float32, device=device)
+                launch = fused_mlp.fused_launch(lib, C, arrays[0].shape[0], sm_count)
+                vals, grads = fused_mlp.fused_mlp_vg(lib, theta, data, launch["threads"])
+                pvals, pgrads = make_vg(model, *arrays)(theta.T.contiguous(), *tensors)
+                bad = 0
+                for got, want in ((vals, pvals[0]), (grads, pgrads.T)):
+                    bad += int((((got - want).abs() > FUSED_ATOL + FUSED_RTOL * want.abs())
+                                | ~torch.isfinite(got)).sum())
+                checks = {"vs_plain": {"entries_outside": bad, "atol": FUSED_ATOL,
+                                       "rtol": FUSED_RTOL, "ok": bad == 0}}
+                # the launch's block, and other blocks of the same build
+                by_threads = {t: launch_device_ms(
+                    lambda: fused_mlp.fused_mlp_vg(lib, theta, data, t), fused_mlp.KERNEL, 50)[0]
+                    for t in sorted({launch["threads"], 64, 128, 256})
+                    if t <= fused_mlp.kernel_resources(lib)["max_threads_per_block"]}
+                ok = ok and bad == 0
+                print(json.dumps(dict(record, case=case,
+                                      resources=fused_mlp.kernel_resources(lib), launch=launch,
+                                      chains=C, device_ms=by_threads[launch["threads"]],
+                                      device_ms_by_threads=by_threads, checks=checks)),
+                      flush=True)
+        elif kernel == "smc_closure":
+            for mutation in ("MALA", "MH"):
+                fn = resident_smc.make_resident_smc_mutation(
+                    mixture, *empty, CLOSURE_STEP, SMC_STEPS, chain_block=1024,
+                    mutation=mutation, base_log_pdf=mixture_base, device=device)
+                theta = theta0s["closure"]
+                agree = None
+                for got, want in zip(fn(args.seed, SMC_BETA, theta),
+                                     fn.plain(args.seed, SMC_BETA, theta)[0]):
+                    chains_ok = chain_agreement(got, want, 0)[0]
+                    agree = chains_ok if agree is None else agree & chains_ok
+                share = agree.float().mean().item()
+                checks = {"untuned": {"share_agreeing_with_plain": share,
+                                      "limit": RESIDENT_MIN_AGREEING,
+                                      "ok": share >= RESIDENT_MIN_AGREEING}}
+                # the closure kernel's own device time: the call's copies apart
+                ms = launch_device_ms(lambda: fn(args.seed, SMC_BETA, theta),
+                                      resident_smc.CLOSURE_KERNEL, 50)[0]
+                ok = ok and checks["untuned"]["ok"]
+                print(json.dumps(dict(
+                    record, kernel=f"smc_closure_{mutation.lower()}",
+                    resources=resident_smc.kernel_resources(
+                    resident_smc.load_closure_kernel(closure_programs), mutation,
+                    resident_smc.CLOSURE_KERNEL),
+                    launch=fn.smc_launch(C_SMC, sm_count), particles=C_SMC, steps=SMC_STEPS,
+                    beta=SMC_BETA, device_ms=ms, checks=checks)), flush=True)
+                del fn
         elif kernel == "smc":
             lib = resident_smc.load_kernel(nuts_model, lanes)
             for mutation, step in (("MALA", 0.003), ("MH", 0.01)):

@@ -2,7 +2,9 @@
 paths of the staged HMC, MH and MALA kernels and of the staged ladder move,
 XOR NUTS at depth 3 on the dense NUTS kernel, BASELINE.md configs 1 and 2, the
 XOR ladder and XOR Gibbs on the dense walk kernels, bench.py's XOR HMC problem
-on the dense HMC kernel, and iris SMC MALA on the SMC mutation kernel.
+on the dense HMC kernel, iris SMC MALA on the SMC mutation kernel, the
+FusedHMC paths of iris and XOR on the fused log-posterior kernel, and the 2-d
+mixture's SMC path on the SMC closure kernel.
 
     python3 scripts/main_path_walls.py [--root DIR] [--seed 0] [--paths a,b] [--calls 4]
 
@@ -27,7 +29,14 @@ kernel's build of one thread a chain) and XOR Gibbs (``xor_gibbs``:
 ``Gibbs(scales=0.5)`` on MLP(2,2,1), 32768 x 2048, 1024 burn-in) through
 ``sample_chains(backend="auto")``; and iris SMC MALA (MLP(4,3,3), 16384
 particles, betas (i/20)^4, step 0.003, 5 steps) through
-``SMCSampler.run(backend="auto")``; ``--calls`` times each (4 by default),
+``SMCSampler.run(backend="auto")``; tuned ``FusedHMC`` on config 3's problem
+(``iris_fused``: step 0.02, ``HMCDATuner(l=0.15, e0=0.02)``, at most 64
+leapfrog steps, 32768 chains x 1500 iterations, 500 burn-in) and on bench.py's
+(``xor_fused``: step 0.05, 10 leapfrog steps, 131072 chains x 256), as
+chip_smoke.py's phases 4 and 5 run them; and chip_smoke.py's 2-d mixture
+(``mixture_smc``: 16384 particles, adaptive, MALA step 0.05, 5 steps, at most
+60 stages) through ``SMCSampler.run(backend="auto")``; ``--calls`` times
+each (4 by default),
 every call ended by ``torch.cuda.synchronize()``: the first call builds the
 kernel's function (dispatch's cache), the others reuse it. It prints the
 card's name and power limit, then one JSON line a path: the first call's wall,
@@ -35,6 +44,17 @@ the steady walls and their median, samples/s (SMC: particle-stage-mutations/s)
 at that median, the launches the calls made, and the kernel's CUDA-event time
 (the median of three calls of the cached function after a warm-up; SMC: of one
 mutation launch at the path's shape, its 16384 prior draws at beta 0.3).
+The fused paths give instead the fused kernel's device time a launch (the
+mean over its launches in the trace) and the device time of one whole call
+of the model's value-and-gradient function (``chip_smoke.device_times``:
+each kernel's mean traced launch times its launches a call), both
+``torch.profiler`` over 50 calls on the path's initial chains, and the
+device's busy share of 50 post-burn-in iterations (the profiled device time
+over the host wall of 50 unprofiled ones); the mixture gives the closure
+kernel's device time a launch (50 launches at its 16384 base draws, beta
+0.3) and its runs' busy share. Beside each, the launches the trace holds and
+the launches made: a busy share is a sum over the trace, and reads low when
+the profiler dropped launches.
 ``--root`` imports ``eeyore_tpu_torch`` from another checkout (a ``git
 archive`` of another commit), so that two versions compare on one card in one
 call.
@@ -49,7 +69,8 @@ from pathlib import Path
 
 PATHS = ("config3_hmc", "iris_mh", "iris_mala", "iris_ladder", "xor_nuts_depth_3", "config1_mh",
          "config2_mala", "xor_ladder", "iris_smc_mala", "xor_hmc", "xor_hmc_staged",
-         "xor_gibbs")
+         "xor_gibbs", "iris_fused", "xor_fused", "mixture_smc")
+SCRIPT_ROOT = Path(__file__).resolve().parents[1]
 
 
 def main(argv=None):
@@ -66,6 +87,16 @@ def main(argv=None):
         parser.error(f"--paths takes {PATHS}, got {wanted}")
     if args.calls < 2:
         parser.error("--calls takes at least 2")
+    sys.path.insert(0, str(SCRIPT_ROOT))
+    from chip_smoke import (
+        device_times,
+        launch_device_ms,
+        mixture_base,
+        mixture_init,
+        mixture_log_pdf,
+        traced_kernels,
+    )
+
     sys.path.insert(0, str(Path(args.root).resolve()))
 
     import numpy as np
@@ -75,8 +106,9 @@ def main(argv=None):
         print("main_path_walls: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from eeyore_tpu_torch.datasets import XYDataset
-    from eeyore_tpu_torch.models import MLP, loss_functions, mlp
+    from eeyore_tpu_torch.models import MLP, DistributionModel, loss_functions, mlp
     from eeyore_tpu_torch.ops import (
+        fused_mlp,
         resident_hmc,
         resident_hmc_dense,
         resident_nuts_dense,
@@ -94,6 +126,7 @@ def main(argv=None):
         SMCSampler,
         sample_chains,
     )
+    from eeyore_tpu_torch.ops.fused_hmc import FusedHMC
     from eeyore_tpu_torch.tuners import HMCDATuner
 
     device = torch.device("cuda")
@@ -132,6 +165,17 @@ def main(argv=None):
                                              swap_scheme="even_odd"), xor_rungs)}
     smc = SMCSampler(model, 16384, betas=[(i / 20) ** 4 for i in range(21)], mutation="MALA",
                      mutation_step=0.003, num_mutation_steps=5)
+    mixture = DistributionModel(mixture_log_pdf, 2, dtype=torch.float32, device=device)
+    mixture_smc = SMCSampler(mixture, 16384, betas="adaptive", mutation="MALA",
+                             mutation_step=0.05, num_mutation_steps=5, init_sampler=mixture_init,
+                             base_log_pdf=mixture_base, max_stages=60)
+    empty = (np.zeros((1, 0)), np.zeros((1, 0)))
+    fused = {
+        "iris_fused": (lambda: FusedHMC(model, iris.x, iris.y, step=0.02,
+                                        tuner=HMCDATuner(l=0.15, e0=0.02), max_num_steps=64,
+                                        device=device), iris_theta0s, 1500, 500),
+        "xor_fused": (lambda: FusedHMC(xor_model, xor.x, xor.y, step=0.05, num_steps=10,
+                                       device=device), bench_theta0s, 256, 0)}
 
     def chains_call(kernel, theta0s, data, iters, burnin, backend="auto"):
         return lambda gen: sample_chains(kernel, gen, theta0s, data, iters, burnin,
@@ -159,8 +203,106 @@ def main(argv=None):
                            (xor.x, xor.y), 256, 0),
         "xor_gibbs": (Gibbs(xor_model, scales=0.5), xor_theta0s, (xor.x, xor.y), 2048, 1024)}
     modules = (resident_hmc, resident_hmc_dense, resident_walk, resident_nuts_dense,
-               resident_walk_dense, resident_smc)
+               resident_walk_dense, resident_smc, fused_mlp)
+
+    def reset_launches():
+        for module in modules:
+            for key in module.launch_counts:
+                module.launch_counts[key] = 0
+
+    def read_launches():
+        return {k: v for module in modules for k, v in module.launch_counts.items()}
+
+    def traced_count(traced, name):  # launches of kernels named like ``name`` in a trace
+        return sum(n for k, (n, _) in traced.items() if name in k)
+
+    def walls_of(call):
+        walls, out = [], None
+        for _ in range(args.calls):
+            del out
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+        return walls, out
+
     for name in wanted:
+        if name in fused:
+            make, theta0s, iters, burnin = fused[name]
+            hmc = make()
+            reset_launches()
+            walls, (state, _) = walls_of(lambda: hmc.run(args.seed, theta0s, iters, burnin,
+                                                         record_keys=("sample", "accepted")))
+            launches = read_launches()
+            fn_times = device_times(lambda: hmc.vg(theta0s), 50)
+            kernel_ms, traced = launch_device_ms(lambda: hmc.vg(theta0s), fused_mlp.KERNEL, 50)
+            gen = torch.Generator(device=device).manual_seed(args.seed)
+
+            def steps(state, first, n=50):
+                for i in range(first, first + n):
+                    state, _ = hmc.step_fn(state, i, burnin, generator=gen)
+                return state
+
+            state = steps(state, iters)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state = steps(state, iters + 50)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - start
+            reset_launches()
+            busy = traced_kernels(lambda: steps(state, iters + 100))[1]
+            made = fused_mlp.launch_counts[fused_mlp.KERNEL]
+            steady = float(np.median(walls[1:]))
+            print(json.dumps({
+                "path": name, "root": args.root, "chains": theta0s.shape[0],
+                "iterations": iters, "burnin": burnin, "first_call_seconds": walls[0],
+                "steady_seconds": walls[1:], "steady_median_seconds": steady,
+                "samples_per_s_steady": theta0s.shape[0] * iters / steady,
+                "launches": launches,
+                "kernel_ms": kernel_ms, "kernel_launches_traced": traced,
+                "kernel_ms_is": "device time a launch (torch.profiler, 50 calls)",
+                "fn_device_ms": fn_times["ms"], "fn_device_ms_by_kernel": fn_times["by_kernel"],
+                "fn_launches_traced": fn_times["launches_traced"],
+                "fn_launches_made": fn_times["launches_made"],
+                "device_busy_share_50_iterations":
+                    sum(ms for _, ms in busy.values()) / 1e3 / window,
+                "busy_kernel_launches_traced": traced_count(busy, fused_mlp.KERNEL),
+                "busy_kernel_launches_made": made,
+                "card": card}), flush=True)
+            del hmc, state
+            torch.cuda.empty_cache()
+            continue
+        if name == "mixture_smc":
+            gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+            reset_launches()
+            walls, (_, diags) = walls_of(lambda: mixture_smc.run(gen, empty, backend="auto"))
+            launches = read_launches()
+            reset_launches()
+            busy = traced_kernels(lambda: mixture_smc.run(gen, empty, backend="auto"))[1]
+            made = resident_smc.launch_counts[resident_smc.CLOSURE_KERNEL]
+            mutation = resident_smc.make_resident_smc_mutation(
+                mixture, *empty, 0.05, 5, chain_block=1024, mutation="MALA",
+                base_log_pdf=mixture_base, device=device)
+            draws = mixture_init(torch.Generator(device=device).manual_seed(args.seed), 16384)
+            kernel_ms, traced = launch_device_ms(lambda: mutation(args.seed, 0.3, draws),
+                                                 resident_smc.CLOSURE_KERNEL, 50)
+            steady = float(np.median(walls[1:]))
+            stages = len(diags["beta"])
+            print(json.dumps({
+                "path": name, "root": args.root, "particles": 16384, "stages_last_call": stages,
+                "first_call_seconds": walls[0], "steady_seconds": walls[1:],
+                "steady_median_seconds": steady,
+                "particle_stage_mutations_per_s_steady": 16384 * stages * 5 / steady,
+                "launches": launches,
+                "kernel_ms": kernel_ms, "kernel_launches_traced": traced,
+                "kernel_ms_is": "device time a launch (torch.profiler, 50 launches)",
+                "device_busy_share_one_run": sum(ms for _, ms in busy.values()) / 1e3 / steady,
+                "busy_kernel_launches_traced": traced_count(busy, resident_smc.CLOSURE_KERNEL),
+                "busy_kernel_launches_made": made,
+                "card": card}), flush=True)
+            torch.cuda.empty_cache()
+            continue
         kernel, theta0s, data, iters, burnin = paths[name]
         if name in ladders:
             def call(gen, data=data, iters=iters, burnin=burnin, name=name):

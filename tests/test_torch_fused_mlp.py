@@ -194,11 +194,16 @@ def test_prepare_data_matches_jax():
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel's wrapper launches on CUDA tensors only; it never computes
-    on the CPU."""
+    on the CPU. The fixed data arrays are checked once, when they become the
+    kernel's arguments (``fused_data``), the chains on every launch."""
     p, c, n = 9, 4, 8
-    tensors = [torch.zeros(s) for s in ((p, c), (n, 2), (n, 1), (n, 1), (p, 1), (p, 1))]
+    tensors = [torch.zeros(s) for s in ((c, p), (n, 2), (n, 1), (n, 1), (p, 1), (p, 1))]
+    before = fused_mlp.launch_counts["fused_mlp_vg"]
     with pytest.raises(ValueError, match="CUDA"):
-        fused_mlp.fused_mlp_vg(None, *tensors, 0.0, 1.0)
+        fused_mlp.fused_mlp_vg(None, tensors[0], None, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp.fused_data(*tensors[1:], 0.0, 1.0)
+    assert fused_mlp.launch_counts["fused_mlp_vg"] == before
 
 
 def test_thetas_on_another_device_raise():

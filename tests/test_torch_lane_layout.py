@@ -883,6 +883,132 @@ def test_dense_walk_and_smc_settings_name_the_builds():
     assert resident_smc.library_spec(iris433(), 1)[0] != name
 
 
+
+# ---- the fused log-posterior and the SMC closure pass ----
+
+def test_fused_lanes_follow_the_rows(monkeypatch):
+    """Iris (152 padded rows) takes FUSED_LANES lanes a chain; XOR (8 rows)
+    and the 10-row deep case (16) one thread; lane counts other than 1, 2, 4
+    or 8 raise, and the settings name the build."""
+    from eeyore_tpu_torch.ops import fused_mlp
+
+    assert fused_mlp.fused_lanes(152) == fused_mlp.FUSED_LANES
+    assert [fused_mlp.fused_lanes(n) for n in (8, 16, 31)] == [1, 1, 1]
+    name, source, defines = fused_mlp.library_spec(iris433())
+    assert source == "fused_mlp_vg.cu"
+    assert name.endswith(f"_l{fused_mlp.FUSED_LANES}_b{fused_mlp.FUSED_MIN_BLOCKS}")
+    assert f"FUSED_LANES={fused_mlp.FUSED_LANES}" in defines
+    assert f"FUSED_MIN_BLOCKS={fused_mlp.FUSED_MIN_BLOCKS}" in defines
+    monkeypatch.setattr(fused_mlp, "FUSED_LANES", 8)
+    assert fused_mlp.fused_lanes(32) == 8
+    assert fused_mlp.library_spec(iris433())[0] != name
+    for lanes in (0, 3, 16):
+        monkeypatch.setattr(fused_mlp, "FUSED_LANES", lanes)
+        with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+            fused_mlp.fused_lanes(152)
+        with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+            fused_mlp.library_spec(iris433())
+
+
+@pytest.mark.parametrize("lanes,C,want", [
+    (1, 32768, (128, 256)), (2, 32768, (256, 256)), (4, 32768, (256, 512)),
+    (8, 32768, (256, 1024)), (2, 131072, (256, 1024)), (1, 131072, (128, 1024)),
+    (1, 37, (32, 2)), (8, 37, (32, 10))])
+def test_fused_blocks_balance_the_sms(lanes, C, want):
+    """The largest block (128 threads on one thread a chain, 256 on lanes)
+    where its blocks give every SM two or more; else the block whose busiest
+    SM gets the fewest threads, then the one covering more SMs, then the
+    larger: iris's 32768 chains on one thread take blocks of 128 (2 on 124
+    SMs, 1 on 8; blocks of 96 would put 3 on some), on 2 lanes blocks of 256
+    (2 on 124 SMs); every chain is covered, the last block ragged."""
+    from eeyore_tpu_torch.ops import fused_mlp
+
+    block = 128 if lanes == 1 else 256  # the build's most threads a block
+    threads = fused_mlp.fused_threads(lanes, C, H100_SMS, block)
+    assert (threads, -(-C * lanes // threads)) == want
+    assert threads % 32 == 0
+    assert threads <= block
+
+
+def test_fused_blocks_fit_the_build_and_the_sm():
+    """Blocks the build's registers do not allow, or that the card's
+    occupancy calculator puts no block of on an SM, are never taken."""
+    from eeyore_tpu_torch.ops import fused_mlp
+
+    assert fused_mlp.fused_threads(2, 131072, H100_SMS, 100) == 96
+    asked = []
+    assert fused_mlp.fused_threads(2, 131072, H100_SMS, 256,
+                                   lambda t: asked.append(t) or int(t <= 64)) == 64
+    assert asked == list(range(256, 31, -32))
+    with pytest.raises(ValueError, match="fits an SM"):
+        fused_mlp.fused_threads(1, 32768, H100_SMS, 1024, lambda t: 0)
+
+
+class FakeFusedLibrary:
+    """What the launch report reads of a fused build of ``lanes`` lanes a
+    chain whose source allows ``block`` threads a block."""
+
+    def __init__(self, lanes, block):
+        self.lanes, self.block = lanes, block
+
+    def fused_mlp_vg_lanes(self):
+        return self.lanes
+
+    def fused_mlp_vg_arch(self, out):
+        out[0], out[1], out[2], out[3], out[4] = 35, 4, 3, 1, self.block
+        return 0
+
+    def fused_mlp_vg_error_string(self, code):
+        return b"refused"
+
+    def fused_mlp_vg_resources(self, out):
+        out[0], out[1], out[2] = 64, 0, 1024
+        return 0
+
+    def fused_mlp_vg_max_blocks(self, threads, n_rows, out):
+        out._obj.value = 2048 // threads
+        return 0
+
+
+@pytest.mark.parametrize("lanes,block,C,want", [
+    (1, 128, 32768, (128, 256, 1)), (4, 256, 32768, (256, 512, 1)),
+    (4, 256, 131072, (256, 2048, 2))])
+def test_fused_launch_takes_the_builds_block_limit(lanes, block, C, want):
+    """The launch report caps a block at the most threads the build's
+    source allows (its arch entry), not at what its registers allow."""
+    from eeyore_tpu_torch.ops import fused_mlp
+
+    launch = fused_mlp.fused_launch(FakeFusedLibrary(lanes, block), C, 152, H100_SMS)
+    assert (launch["threads"], launch["blocks"], launch["waves"]) == want
+    assert launch["lanes"] == lanes
+
+
+class FakeClosureLibrary:
+    """What the launch report reads of a closure build."""
+
+    def resident_smc_closure_error_string(self, code):
+        return b"refused"
+
+    def resident_smc_closure_resources(self, move, out):
+        out[0], out[1], out[2] = 48, 0, 1024
+        return 0
+
+    def resident_smc_closure_max_blocks(self, move, threads, out):
+        out._obj.value = 10
+        return 0
+
+
+def test_the_mixtures_closure_launch():
+    """The mixture's 16384 particles on the closure kernel: one thread a
+    particle in blocks of SMC_BLOCK, 128 blocks, whose first wave the
+    report puts on 13 SMs at the card's 10 blocks an SM (the hardware
+    spreads them over 128)."""
+    from eeyore_tpu_torch.ops import resident_smc
+
+    launch = resident_smc.closure_launch(FakeClosureLibrary(), "MALA", 16384, H100_SMS)
+    assert launch == {"lanes": 1, "threads": 128, "blocks": 128, "blocks_per_sm": 10,
+                      "waves": 1, "sms_covered": 13}
+
 # ---- dense XOR HMC: one thread a chain ----
 
 class FakeDenseHMCLibrary:
