@@ -31,7 +31,12 @@ kernels are built for sm_90a). Phases, one JSON line each:
    MLP(4,3,3) and ``resident_nuts_dense`` for XOR MLP(2,2,1), at tree depth
    3, the dense one also with a diagonal metric (the staged one on
    ``NUTS_LANES`` lanes a chain, and on one thread a chain for XOR's tuning
-   groups of 4096 chains). It reports the lane kernels' lanes, occupancy
+   groups of 4096 chains); and for logistic regression LR(6,1) BCE on the 200
+   standardised banknote rows (the ``banknotes_lr`` cases, a one-layer
+   build of each kernel: ``FMV_NUM_LAYERS=1``), ``fused_mlp_vg``,
+   ``resident_hmc``, ``resident_walk`` (whose build holds no Gibbs move: LR
+   has no parameter blocks), ``resident_nuts`` and ``resident_smc`` at the
+   lanes dispatch gives 200 rows. It reports the lane kernels' lanes, occupancy
    targets and the Gibbs cache's choice, the launches of the fused kernel at
    32768 and 131072 chains, of the staged HMC, MH and MALA kernels on the
    iris main paths, of the dense MH and MALA moves on configs 1 and 2 and of
@@ -50,8 +55,9 @@ kernels are built for sm_90a). Phases, one JSON line each:
    2e-5, atol 1e-4; 3e-4 on the 150-row iris case, as tests/test_ops.py::
    compare), for iris MLP(4,3,3) CE, XOR MLP(2,2,1) BCE and MLP(3,4,2,1)
    without biases on layers 0 and 2, a (0.5, 2.0) prior and temperature
-   0.3, the chains ``[C, P]`` as ``make_fused_log_target_vg``'s caller holds
-   them; and times both (the kernel by its device time in
+   0.3, and LR(6,1) on the banknotes (atol 3e-4, 200 rows), the chains
+   ``[C, P]`` as ``make_fused_log_target_vg``'s caller holds them; and times
+   both (the kernel by its device time in
    ``torch.profiler``, and by CUDA events around a launch, which hold the
    host's launch path), and the device time of one whole call of
    ``make_fused_log_target_vg``'s function on the same chains.
@@ -65,6 +71,9 @@ kernels are built for sm_90a). Phases, one JSON line each:
    4096 chains (a cluster of the build with one thread a chain);
    ``resident_hmc_dense`` on untuned XOR (131072 chains, extras), tuned in
    population groups of 8192 chains (a cluster) and per chain;
+   LR(6,1) on the banknotes at 16384 chains: ``resident_hmc`` untuned (step
+   0.02, 8 steps, extras) and tuned (5 burn-in iterations), ``resident_walk``
+   MH (scale 0.1) and MALA (step 0.01) with extras;
    ``resident_walk`` on iris MH (scale 0.1) and MALA (step 0.003), 32768
    chains, extras; ``resident_walk_dense`` on XOR MH MLP(2,2,1) (scale 0.1)
    and MALA MLP(2,3,2,1) (step 0.01), untuned with extras (on lanes), tuned
@@ -95,7 +104,8 @@ kernels are built for sm_90a). Phases, one JSON line each:
    of three launches after a warm-up (all three reported). Then
    ``resident_smc``, the SMC mutation pass, on 16384 particles drawn from
    the prior, 5 steps at beta 0.3 and 1.0: XOR MALA step 0.05, iris MALA
-   step 0.003, iris MH step 0.01, at the chain blocks dispatch gives them;
+   step 0.003, iris MH step 0.01, LR MALA step 0.05, at the chain blocks
+   dispatch gives them;
    and ``resident_smc_closure`` on 16384 draws from the mixture's base, MALA
    and MH step 0.05, against its plain version (the closure by batched
    autograd); a particle agrees when its final theta, pot and accept count
@@ -115,7 +125,8 @@ kernels are built for sm_90a). Phases, one JSON line each:
    agreement under a one-ulp change of theta0 reported. Then tuned staged
    NUTS on XOR (3 burn-in iterations) at the plan's tuning group for
    ``backend="resident"``, which must be JAX's 4096 chains (the build with
-   one thread a chain), held as the tuned iris case is.
+   one thread a chain), held as the tuned iris case is; and untuned LR
+   (step 0.02) on ``resident_nuts``'s one-layer build.
 4. main path, iris, FusedHMC: tuned ``FusedHMC`` on config 3 (32768 chains,
    1500 iterations, 500 burn-in). Checks finite samples, post-burn-in
    acceptance in 0.65 +- 0.15, and pooled posterior means within 5 pooled
@@ -153,6 +164,27 @@ kernels are built for sm_90a). Phases, one JSON line each:
     also post-burn-in acceptance within 0.02 of the one-thread builds'
     (0.875 and 0.999 on the H100, PERF.md). Each reports its launch (lanes a chain,
     blocks, SMs covered).
+11b. main paths, logistic regression, sample_chains(backend="auto")
+    (benchmarks/validate_lr_banknotes.py:37, :63-77): LR(6,1) on the
+    standardised banknotes, MH scale 0.1 and MALA step 0.01 on
+    ``resident_walk`` (phase ``main_sample_chains_walk``) and tuned HMC
+    (``HMCDATuner(l=0.15, e0=0.02)``, at most 64 steps) on ``resident_hmc``
+    (phase ``main_sample_chains_hmc``), 16384 chains x 2048 iterations, 1024
+    burn-in. Each checks one launch of its kernel, finite samples, pooled
+    means within 5 pooled standard errors of the generic path at 4096
+    chains, finite ``multi_rhat`` / ``multi_ess`` on the first 64 chains, and
+    reports its plan, samples/s, acceptance (beside the JAX package's
+    recorded 0.789 and 0.996 for MH and MALA, statistics, not speeds) and its
+    kernel's time beside its bound. Then phase ``main_lr_posterior`` on the MH
+    run: ``predictive_posterior_from_dataset`` over the 200 rows
+    (``shuffle=False``) for the first 64 chains' kept samples (no sample
+    dropped, the first rows within 1e-4 of a float64 host reference, the
+    posterior-mean accuracy at least 0.9); chain 0 through ``to_chainfile``
+    and ``ChainLists.from_file`` (samples equal in float32, accept flags
+    equal); the returned state through ``save_state``/``load_state``, then 16
+    more iterations from it on the same path (one launch); the MMD with
+    ``IsoSEKernel`` of 2048 kernel draws against 2048 generic draws, beside
+    two generic halves'.
 12. main paths, Gibbs, sample_chains(backend="auto"): BASELINE.md config 4
     (``Gibbs(scales=0.1)``, MLP(4,3,2,3), iris) on ``resident_walk``'s Gibbs
     move and XOR MLP(2,2,1) with ``Gibbs(scales=0.5)`` on
@@ -189,7 +221,10 @@ kernels are built for sm_90a). Phases, one JSON line each:
     benchmarks/validate_smc_hard.py, a DistributionModel with a base (16384
     particles, adaptive, MALA 0.05, 5 steps, 60 stages at most; exactly one
     launch of ``resident_smc_closure`` a stage, log-evidence within 0.1 of
-    0, the weighted share of theta_0 > 0 within 0.05 of 0.5). Config 5 and
+    0, the weighted share of theta_0 > 0 within 0.05 of 0.5); LR(6,1) on the
+    banknotes, adaptive, MALA step 0.05 (benchmarks/validate_smc_hard.py:
+    52-54; ``SMC_LANES`` lanes a particle), beside the generic path and the
+    JAX package's recorded 7 stages and log-evidence -15.71. Config 5 and
     the two iris paths run beside the generic path: weighted posterior means
     agree within 5 standard errors of the difference of the two paths' seed
     means (from the spread over seeds: the weights' ESS does not count what
@@ -236,7 +271,9 @@ kernels are built for sm_90a). Phases, one JSON line each:
     ``resident_smc``, ``fused_mlp_vg`` and ``resident_smc_closure`` the lanes
     a chain of each build; beside the closure pass the device time of an
     empty kernel at its launch's blocks and threads (a reading of the launch
-    floor, not part of the bound).
+    floor, not part of the bound); under ``banknotes_lr`` each touched
+    kernel's LR time and bound (the main paths' kernels at their shape, the
+    others at their checks'). Before it, the script's own total seconds.
 
 Then the card's name and power limit, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero; it also exits
@@ -250,6 +287,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -340,7 +378,9 @@ RESIDENT_MIN_AGREEING = 0.99
 # the untuned checks of the staged HMC, MH and MALA kernels on lanes: the
 # least share of chains that agree
 RESIDENT_LANE_MIN_AGREEING = 0.999
-LANE_CASES = ("iris_untuned_extras", "iris_mh_extras", "iris_mala_extras",
+LANE_CASES = ("banknotes_lr_hmc_untuned_extras", "banknotes_lr_mh_extras",
+              "banknotes_lr_mala_extras", "iris_untuned_extras", "iris_mh_extras",
+              "iris_mala_extras",
               "iris_tempering_mala_extras", "iris_tempering_mh_extras",
               "xor_mlp2321_mala_dense_extras", "xor_tempering_mala_dense_extras",
               "xor_tempering_mh_dense_extras")
@@ -351,6 +391,19 @@ WALK_ACCEPTANCE = {"config1_mh_xor": 0.875, "config2_mala_xor_mlp2321": 0.999}
 WALK_ACCEPTANCE_TOL = 0.02
 # config 3's tuning group on the card (dispatch's chain block for iris HMC)
 IRIS_HMC_BLOCK = 256
+# logistic regression on the banknotes (benchmarks/validate_lr_banknotes.py:37):
+# chains, iterations and burn-in of its main paths, tuned HMC's tuning group
+# (dispatch's chain block), and the generic path's chains beside them
+LR_CHAINS, LR_ITERS, LR_BURNIN, LR_HMC_BLOCK = 16384, 2048, 1024, 256
+LR_GENERIC_CHAINS = 4096
+# the posterior-predictive check's rows against a float64 host reference, the
+# iterations resumed from a checkpoint, and the samples a side of the MMD
+LR_PREDICTIVE_CHECK_ROWS, LR_RESUME_ITERS, LR_MMD_SAMPLES = 5, 16, 2048
+# the statistics the JAX package recorded for the LR paths on its TPU (not
+# speeds): post-burn-in acceptance (benchmarks/LR_RESULTS.json) and the
+# adaptive SMC run's stages and log-evidence (benchmarks/SMC_HARD_RESULTS.json)
+LR_JAX_ACCEPTANCE = {"banknotes_lr_mh": 0.7894, "banknotes_lr_mala": 0.9956}
+LR_JAX_SMC = {"stages": 7, "log_evidence": -15.714}
 
 
 # the 2-d mixture of the SMC closure kernel's main path
@@ -493,39 +546,43 @@ def event_times(fn, reps=3, warmup=1):
 
 def vg_work(dims, bias, ce, n_rows, C, with_grad=True):
     """(bytes, f32 operations, special-function operations) that the fused
-    value-and-gradient needs for C chains over n_rows data rows, counted
-    from the code (``csrc/mlp_vg.cuh``; without the gradient, its value-only
-    entry). Bytes: theta read once, value and gradient written once, the
-    data and prior read once. Operations: a multiply-add is 2; an add,
-    subtract, multiply or max is 1; exp, log, log1p and the sigmoid's
-    reciprocal are one special-function operation each."""
+    value-and-gradient needs for C chains over n_rows data rows (without the
+    gradient, the value alone, as ``csrc/mlp_vg.cuh``'s value-only entry
+    computes it). Bytes: theta read once, value and gradient written once,
+    the data and prior read once. Operations: a multiply-add is 2; an add,
+    subtract, multiply, max or select is 1; exp, log, log1p and a
+    reciprocal are one special-function operation each. A hidden sigmoid
+    takes an exp and a reciprocal; the BCE output's softplus takes
+    exp(-|z|) and log1p, and its sigmoid, which only the gradient needs,
+    one reciprocal more on that exp (``mlp_vg.cuh`` spends a second exp
+    there, which the bound does not count)."""
     L = len(dims) - 1
     P = sum(dims[l] * dims[l + 1] + (dims[l + 1] if bias[l] else 0) for l in range(L))
     k = dims[-1]
     layer_macs = [dims[l] * dims[l + 1] for l in range(L)]
     bias_units = sum(dims[l + 1] for l in range(L) if bias[l])
-    sigmoid_units = sum(dims[1:-1]) + (0 if ce else k)
-    sfu = 2 * sigmoid_units                       # exp and reciprocal
+    hidden = sum(dims[1:-1])
+    sfu = 2 * hidden                              # exp and reciprocal
     if not with_grad:
-        ops = 2 * sum(layer_macs) + bias_units + 2 * sigmoid_units
+        ops = 2 * sum(layer_macs) + bias_units + 2 * hidden
         if ce:
             ops += (k - 1) + k + (k - 1) + 1 + 2 * k + 2  # max, shifts, sum, lse, picked, ll
             sfu += k + 1                          # k exps, log
         else:
             ops += k * (3 + 4)                    # softplus, ll
-            sfu += 2 * k
+            sfu += 2 * k                          # exp(-|z|) and log1p
         n_bytes = 4 * (P * C + C + n_rows * (dims[0] + k + 1) + 2 * P)
         return n_bytes, C * (n_rows * ops + 4 * P + 2), C * n_rows * sfu
     macs = 2 * sum(layer_macs) + sum(layer_macs[1:])  # forward, weight grads, deltas
     ops = 2 * macs + 2 * bias_units               # bias add and bias gradient
-    ops += 2 * sigmoid_units                      # 1 + exp(-z), negation
-    ops += 3 * sum(dims[1:-1])                    # delta * a * (1 - a)
+    ops += 2 * hidden                             # 1 + exp(-z), negation
+    ops += 3 * hidden                             # delta * a * (1 - a)
     if ce:
         ops += (k - 1) + k + (k - 1) + 1 + 2 * k + 2 + 3 * k  # max, shifts, sum, lse, picked, ll, deltas
         sfu += k + 2                              # k exps shared by lse and softmax, log, reciprocal
     else:
-        ops += k * (3 + 4 + 2)                    # softplus, ll, delta
-        sfu += 2 * k                              # exp and log1p in softplus
+        ops += k * (3 + 4 + 2 + 2)                # softplus, ll, delta, the sigmoid (1 + e, select)
+        sfu += 3 * k                              # exp(-|z|), log1p; the sigmoid's reciprocal
     prior_ops = 6 * P + 2                         # per chain: diff, square, scale, sum, grad
     n_bytes = 4 * (2 * P * C + C + n_rows * (dims[0] + k + 1) + 2 * P)
     return n_bytes, C * (n_rows * ops + prior_ops), C * n_rows * sfu
@@ -773,9 +830,19 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is false; no result", file=sys.stderr)
         return 1
 
-    from eeyore_tpu_torch.chains import ChainList, ChainLists
+    from eeyore_tpu_torch.chains import ChainList, ChainLists, load_state, save_state
     from eeyore_tpu_torch.datasets import XYDataset
-    from eeyore_tpu_torch.models import MLP, DistributionModel, IIDNormalPrior, loss_functions, mlp
+    from eeyore_tpu_torch.kernels import IsoSEKernel
+    from eeyore_tpu_torch.models import (
+        MLP,
+        DistributionModel,
+        IIDNormalPrior,
+        LogisticRegression,
+        logistic_regression,
+        loss_functions,
+        mlp,
+    )
+    from eeyore_tpu_torch.stats import mmd
     from eeyore_tpu_torch.ops import (
         fused_mlp,
         resident_hmc,
@@ -806,6 +873,7 @@ def main(argv=None):
     from eeyore_tpu_torch.samplers.dispatch import resolve_backend, resolve_smc, resolve_tempering
     from eeyore_tpu_torch.tuners import HMCDATuner
 
+    script_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -830,9 +898,16 @@ def main(argv=None):
     deep_model.temperature = 0.3
     deep_x = rng.normal(size=(10, 3))
     deep_y = rng.integers(0, 2, size=(10, 1)).astype(np.float64)
+    # logistic regression on the Swiss banknotes (examples/logistic_regression/
+    # banknotes.py): LR(6, 1), BCE, an N(0, 1) prior, the 200 rows standardised
+    notes = XYDataset.from_eeyore("banknotes")
+    banknotes = XYDataset((notes.x - notes.x.mean(axis=0)) / notes.x.std(axis=0), notes.y)
+    lr_model = LogisticRegression(loss_functions["binary_classification"], dtype=torch.float32,
+                                  device=device, hparams=logistic_regression.Hyperparameters(6, 1))
     cases = [("iris_mlp433_ce", iris_model, iris.x, iris.y, 3e-4),
              ("xor_mlp221_bce", xor_model, xor.x, xor.y, 1e-4),
-             ("mlp3421_nobias_prior_temp", deep_model, deep_x, deep_y, 1e-4)]
+             ("mlp3421_nobias_prior_temp", deep_model, deep_x, deep_y, 1e-4),
+             ("banknotes_lr6_bce", lr_model, banknotes.x, banknotes.y, 3e-4)]
     resident_cases = [("iris_mlp433_ce", iris_model), ("xor_mlp221_bce", xor_model)]
     empty = (np.zeros((1, 0)), np.zeros((1, 0)))
     mixture = DistributionModel(mixture_log_pdf, 2, dtype=torch.float32, device=device)
@@ -852,8 +927,9 @@ def main(argv=None):
                    "xor": np.linspace(0.5, 2.0, xor_model.num_params)}
     iris_rows = prepare_data(iris_model, iris.x, iris.y)[0].shape[0]
     xor_rows = prepare_data(xor_model, xor.x, xor.y)[0].shape[0]
+    lr_rows = prepare_data(lr_model, banknotes.x, banknotes.y)[0].shape[0]
     case_rows = [prepare_data(model, x, y)[0].shape[0] for _, model, x, y, _ in cases]
-    with concurrent.futures.ThreadPoolExecutor(len(cases) + 19) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(cases) + 23) as pool:
         floor_future = pool.submit(build_launch_floor)
         futures = [pool.submit(fused_mlp.load_kernel, model, fused_mlp.fused_lanes(rows))
                    for (_, model, _, _, _), rows in zip(cases, case_rows)]
@@ -900,7 +976,21 @@ def main(argv=None):
             "xor_mlp221_bce_dense_metric": pool.submit(
                 resident_nuts_dense.load_kernel, xor_model, xor.x, xor.y, NUTS_DEPTH,
                 nuts_metric["xor"])}
+        # the LR builds at one layer: staged HMC (tuned groups of LR_HMC_BLOCK),
+        # MH and MALA, NUTS at NUTS_DEPTH and the SMC pass, at the lanes
+        # dispatch gives 200 rows
+        lr_futures = {
+            resident_hmc.KERNEL: pool.submit(
+                resident_hmc.load_kernel, lr_model,
+                resident_hmc.chain_lanes(lr_rows, LR_HMC_BLOCK, True)),
+            resident_walk.KERNEL: pool.submit(resident_walk.load_kernel, lr_model,
+                                              lanes=resident_walk.chain_lanes(lr_rows)),
+            resident_nuts.KERNEL: pool.submit(resident_nuts.load_kernel, lr_model, NUTS_DEPTH,
+                                              resident_nuts.NUTS_LANES),
+            resident_smc.KERNEL: pool.submit(resident_smc.load_kernel, lr_model,
+                                             resident_smc.smc_lanes(lr_rows))}
         libs = [f.result() for f in futures]
+        lr_libs = {name: f.result() for name, f in lr_futures.items()}
         resident_libs = [f.result() for f in resident_futures]
         dense_lib = dense_future.result()
         walk_lib = walk_future.result()
@@ -1009,6 +1099,32 @@ def main(argv=None):
         f"{resident_smc.CLOSURE_KERNEL}_mixture_2d_{mutation}": resident_smc.closure_launch(
             smc_libs["mixture_2d"], mutation, SMC_PARTICLES, sm_count)
         for mutation in ("MALA", "MH")})
+    # the LR main paths' launches: tuned HMC in groups of LR_HMC_BLOCK, MH and
+    # MALA in chain blocks of 4096, the SMC pass, LR_CHAINS chains
+    lane_launches.update({
+        f"{resident_hmc.KERNEL}_banknotes_lr_tuned_{LR_HMC_BLOCK}": resident_hmc.hmc_launch(
+            lr_libs[resident_hmc.KERNEL], LR_CHAINS, LR_HMC_BLOCK, lr_rows, True, sm_count),
+        f"{resident_smc.KERNEL}_banknotes_lr_MALA": resident_smc.smc_launch(
+            lr_libs[resident_smc.KERNEL], "MALA", SMC_PARTICLES, lr_rows, sm_count)})
+    lane_launches.update({
+        f"{resident_walk.KERNEL}_banknotes_lr_{move}_4096": resident_walk.walk_launch(
+            lr_libs[resident_walk.KERNEL], move, LR_CHAINS, 4096, lr_rows, sm_count)
+        for move in ("mh", "mala")})
+    lr_resources = {
+        resident_hmc.KERNEL: dict(resident_hmc.kernel_resources(lr_libs[resident_hmc.KERNEL]),
+                                  lanes=lr_libs[resident_hmc.KERNEL].resident_hmc_lanes()),
+        resident_nuts.KERNEL: dict(resident_nuts.kernel_resources(lr_libs[resident_nuts.KERNEL]),
+                                   lanes=lr_libs[resident_nuts.KERNEL].resident_nuts_lanes()),
+        **{f"{resident_walk.KERNEL}_{move}": dict(
+            resident_walk.kernel_resources(lr_libs[resident_walk.KERNEL], move),
+            lanes=lr_libs[resident_walk.KERNEL].resident_walk_lanes()) for move in ("mh", "mala")},
+        **{f"{resident_smc.KERNEL}_{mutation}": dict(
+            resident_smc.kernel_resources(lr_libs[resident_smc.KERNEL], mutation),
+            lanes=lr_libs[resident_smc.KERNEL].resident_smc_lanes())
+           for mutation in ("MH", "MALA")},
+        # the walk build of a model without parameter blocks holds no Gibbs move
+        "gibbs_sub_blocks": lr_libs[resident_walk.KERNEL].resident_walk_num_sub_blocks()}
+    check(lr_resources["gibbs_sub_blocks"] == 0, "the LR walk build holds a Gibbs move")
     emit({"phase": "build",
           "kernels": [fused_mlp.KERNEL, resident_hmc.KERNEL, resident_hmc_dense.KERNEL,
                       resident_walk.KERNEL, resident_walk_dense.KERNEL, resident_walk.GIBBS_KERNEL,
@@ -1077,7 +1193,8 @@ def main(argv=None):
                                 smc_libs["mixture_2d"], mutation, resident_smc.CLOSURE_KERNEL),
                                 lanes=1)
                             for mutation in ("MH", "MALA")},
-                        "nuts_depth_3": nuts_resources},
+                        "nuts_depth_3": nuts_resources,
+                        "banknotes_lr": lr_resources},
           "tuned_group_threads_and_cluster_blocks": {
               resident_hmc_dense.KERNEL: {str(cb): v for cb, v in dense_groups.items()},
               resident_walk_dense.KERNEL: walk_dense_groups, "nuts": nuts_groups},
@@ -1143,7 +1260,8 @@ def main(argv=None):
     #    means within 5 pooled standard errors, acceptance within 0.01.
     iris_tuner = HMCDATuner(l=0.15, e0=0.02)
     tuned_kw = dict(step=0.1, num_steps=10, tuner=iris_tuner, max_num_steps=64)
-    dims_of = {id(m): extract_arch(m)[:3] for m in (iris_model, xor_model, xor2321_model)}
+    dims_of = {id(m): extract_arch(m)[:3] for m in (iris_model, xor_model, xor2321_model,
+                                                     lr_model)}
 
     def hmc_case(model, data, C, iters, burnin=0, extras=False, dense=False, **kw):
         module = resident_hmc_dense if dense else resident_hmc
@@ -1332,6 +1450,16 @@ def main(argv=None):
         ("xor_tempering_mh_dense_extras", False, tempering_case(
             xor_model, xor, 32768, "MetropolisHastings", 0.5, 20, extras=True, dense=True,
             chain_block=xor_ladder_block)),
+        # LR(6, 1) on the 200 standardised banknote rows, at one layer
+        ("banknotes_lr_hmc_untuned_extras", False, hmc_case(
+            lr_model, banknotes, LR_CHAINS, 20, extras=True, step=0.02, num_steps=8,
+            chain_block=LR_HMC_BLOCK)),
+        ("banknotes_lr_hmc_tuned_burnin_5", False, hmc_case(
+            lr_model, banknotes, LR_CHAINS, 10, 5, chain_block=LR_HMC_BLOCK, **tuned_kw)),
+        ("banknotes_lr_mh_extras", False, walk_case(lr_model, banknotes, LR_CHAINS, "mh", 0.1,
+                                                    20, extras=True, chain_block=4096)),
+        ("banknotes_lr_mala_extras", False, walk_case(lr_model, banknotes, LR_CHAINS, "mala",
+                                                      0.01, 20, extras=True, chain_block=4096)),
     ]
     kernel_err = {}
     resident_timings = {}
@@ -1471,7 +1599,8 @@ def main(argv=None):
     # its steps, where a fault in the tuner parts every group; every other
     # run to NUTS_MIN_AGREEING of both.
     nuts_data = {name: tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
-                             for a in (ds.x, ds.y)) for name, ds in (("xor", xor), ("iris", iris))}
+                             for a in (ds.x, ds.y))
+                 for name, ds in (("xor", xor), ("iris", iris), ("banknotes", banknotes))}
 
     def nuts_plan(model, data_name, C, backend="auto", **kw):
         kernel = NUTS(model, step=0.1, max_depth=NUTS_DEPTH, fixed_budget=True, **kw)
@@ -1570,6 +1699,10 @@ def main(argv=None):
                       False, 0.1, dict(chain_block=nuts_blocks["xor_staged"],
                                        tuner=HMCDATuner(d=0.8),
                                        num_burnin_iters=NUTS_CHECK_BURNIN)))
+    # LR at one layer, untuned, at the block dispatch gives it
+    nuts_runs.append(("banknotes_lr_nuts_untuned", lr_model, banknotes, False, 0.02,
+                      dict(chain_block=nuts_plan(lr_model, "banknotes",
+                                                 NUTS_CHECK_CHAINS).chain_block)))
     nuts_timings = {}
     gen = torch.Generator(device=device).manual_seed(args.seed)
     for name, model, dataset, dense, step, kw in nuts_runs:
@@ -1648,7 +1781,8 @@ def main(argv=None):
 
     smc_cases = [("xor_mala", xor_model, xor, "MALA", 0.05),
                  ("iris_mala", iris_model, iris, "MALA", 0.003),
-                 ("iris_mh", iris_model, iris, "MH", 0.01)]
+                 ("iris_mh", iris_model, iris, "MH", 0.01),
+                 ("banknotes_lr_mala", lr_model, banknotes, "MALA", 0.05)]
     for name, model, data, mutation, step in smc_cases:
         plan, reason = resolve_smc(SMCSampler(model, SMC_PARTICLES, mutation=mutation,
                                               mutation_step=step),
@@ -2005,6 +2139,200 @@ def main(argv=None):
         del generic
         torch.cuda.empty_cache()
 
+    # 11b. the logistic-regression main paths through sample_chains(backend=
+    #      "auto") (benchmarks/validate_lr_banknotes.py:37, :63-77): MH and
+    #      MALA on resident_walk, tuned HMC on resident_hmc, each LR_CHAINS x
+    #      LR_ITERS with LR_BURNIN burn-in, beside the generic path at
+    #      LR_GENERIC_CHAINS chains; the MH run's chains and state feed phase
+    #      main_lr_posterior. Tuned HMC is held against the generic path's
+    #      untuned HMC (step 0.02, 8 steps): the generic path's per-chain
+    #      dual averaging, as JAX's scanned path's, strands chains on LR in
+    #      float32 (their step turns NaN) and the kernel path strands none
+    #      (tests/test_torch_logistic_regression.py, the tuned HMC tests)
+    lr_data = (banknotes.x, banknotes.y)
+    lr_theta0s = torch.as_tensor(0.1 * rng.normal(size=(LR_CHAINS, lr_model.num_params)),
+                                 dtype=torch.float32, device=device)
+    lr_dims = dims_of[id(lr_model)]
+    lr_data_floats = len(banknotes.x) * (lr_dims[0][0] + lr_dims[0][-1] + 1) \
+        + 2 * lr_model.num_params
+    lr_paths = [
+        ("banknotes_lr_mh", lambda: MetropolisHastings(lr_model, scale=0.1), None,
+         resident_walk, "main_sample_chains_walk"),
+        ("banknotes_lr_mala", lambda: MALA(lr_model, step=0.01), None, resident_walk,
+         "main_sample_chains_walk"),
+        ("banknotes_lr_hmc", lambda: HMC(lr_model, tuner=HMCDATuner(l=0.15, e0=0.02),
+                                         max_num_steps=64),
+         lambda: HMC(lr_model, step=0.02, num_steps=8), resident_hmc, "main_sample_chains_hmc")]
+    lr_main = {}
+
+    def lr_generic(sampler):
+        """A generic run beside an LR path: (chains, acceptance, share of
+        chains that accepted nothing, wall)."""
+        reset_counts()
+        start = time.perf_counter()
+        run = sample_chains(sampler, gen, lr_theta0s[:LR_GENERIC_CHAINS], lr_data, LR_ITERS,
+                            LR_BURNIN, record_keys=("sample", "accepted"), backend="scan")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        check(not any(read_counts().values()), "an LR generic run launched a kernel")
+        accepted = run.tensor("accepted").float()
+        return (run, accepted.mean().item(), (accepted.sum(1) == 0).float().mean().item(),
+                wall)
+
+    for name, sampler, reference, module, phase in lr_paths:
+        plan, reason = resolve_backend(sampler(), lr_data, LR_CHAINS, LR_ITERS, LR_BURNIN,
+                                       platform="cuda")
+        check(plan is not None and plan.backend == "resident",
+              f"{name}: dispatch chose {plan and plan.backend} ({reason}), not resident")
+        reset_counts()
+        kernel = sampler()
+        start = time.perf_counter()
+        chains, state = sample_chains(kernel, gen, lr_theta0s, lr_data, LR_ITERS, LR_BURNIN,
+                                      backend="auto", return_state=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = read_counts()
+        main_launches[module.KERNEL][name] = counts[module.KERNEL]
+        check(counts == {**dict.fromkeys(counts, 0), module.KERNEL: 1},
+              f"{name}: sample_chains made the launches {counts}, not one {module.KERNEL}")
+        ((_, lr_fn),) = kernel._backend_cache.items()
+        samples = chains.get_samples()
+        check(samples.shape == (LR_CHAINS, LR_ITERS - LR_BURNIN, lr_model.num_params),
+              f"{name}: samples of shape {tuple(samples.shape)}")
+        check(bool(torch.isfinite(samples).all()), f"{name}: non-finite samples")
+        acc = chains.tensor("accepted").float().mean().item()
+        lr_summary = pooled_summary(samples)
+        head = ChainLists.from_arrays({k: chains.tensor(k)[:64].cpu() for k in chains.keys()})
+        rhat = head.multi_rhat()[0]
+        ess = head.multi_ess()
+        # the path's kernel at its own shape, the bound from this run's work
+        # (HMC: the evaluations the kernel counted)
+        ms, ms_runs = event_times(lambda: lr_fn(args.seed, lr_theta0s))
+        if module is resident_hmc:
+            evaluations = int(resident_hmc.last_info[resident_hmc.KERNEL]["evaluations"])
+            b_work = resident_work(*lr_dims[:2], False, len(banknotes.x), LR_CHAINS,
+                                   evaluations, LR_ITERS, LR_ITERS - LR_BURNIN, False)
+        else:
+            mala = name.endswith("mala")
+            b_work = walk_work(lr_model.num_params, LR_CHAINS, LR_ITERS, LR_ITERS - LR_BURNIN,
+                               False, mala, vg_work(*lr_dims[:2], False, len(banknotes.x), 1,
+                                                    mala)[1:], lr_data_floats)
+        b_ms, b_by = bound_ms(b_work, sm_count)
+        launch = lane_launch_of(lr_fn, LR_CHAINS)
+        del kernel, lr_fn, head
+        # the generic run it is held against: the same sampler, or for tuned
+        # HMC the untuned one
+        generic, generic_acc, generic_stranded, generic_wall = lr_generic(
+            (reference or sampler)())
+        z = max_z(lr_summary, pooled_summary(generic.get_samples()))
+        lr_main[name] = {"wall": wall, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "acceptance": acc}
+        emit({"phase": phase, "case": name, "plan": [plan.backend, plan.maker.__name__,
+                                                     plan.chain_block],
+              "chains": LR_CHAINS, "iterations": LR_ITERS, "burnin": LR_BURNIN,
+              "seconds": wall, "samples_per_s": LR_CHAINS * LR_ITERS / wall,
+              "acceptance_post_burnin": acc,
+              "jax_recorded_acceptance": LR_JAX_ACCEPTANCE.get(name),
+              "kernel_launches": counts, "launch": launch, "kernel_ms": ms,
+              "kernel_ms_runs": ms_runs, "kernel_bound_ms": b_ms, "kernel_bound_by": b_by,
+              "generic_chains": LR_GENERIC_CHAINS, "generic_seconds": generic_wall,
+              "generic_samples_per_s": LR_GENERIC_CHAINS * LR_ITERS / generic_wall,
+              "generic_acceptance_post_burnin": generic_acc,
+              "generic_share_chains_accepting_nothing": generic_stranded,
+              "held_against": ("generic HMC, step 0.02, 8 steps" if reference
+                               else "the generic path of the same sampler"),
+              "max_abs_z_pooled_mean_vs_generic": z, "limit": 5.0,
+              "multi_rhat_first_64": rhat, "multi_ess_mean_first_64": float(np.mean(ess)),
+              "card": card})
+        check(z <= 5.0, f"{name}: pooled means differ from the generic path's by {z} SEs")
+        check(0.0 < acc <= 1.0, f"{name}: acceptance {acc}")
+        check(math.isfinite(rhat) and all(math.isfinite(e) for e in ess),
+              f"{name}: multi_rhat {rhat} or multi_ess {ess[:4]}... not finite")
+        if name == "banknotes_lr_mh":
+            lr_mh_chains, lr_mh_state, lr_mh_generic = chains, state, generic
+        del chains, samples, generic, state
+        torch.cuda.empty_cache()
+
+    # main_lr_posterior: on the MH run, the posterior predictive of the 200
+    # rows (shuffle=False) over the first 64 chains' kept samples; chain 0
+    # through the reference's CSV chain files and back; the returned state
+    # through a checkpoint, then LR_RESUME_ITERS more iterations from it on
+    # the same path; the MMD of LR_MMD_SAMPLES kernel and generic samples
+    thetas = lr_mh_chains.get_samples()[:64].reshape(-1, lr_model.num_params)
+    start = time.perf_counter()
+    integrals, indices, dropped = lr_model.predictive_posterior_from_dataset(
+        thetas, banknotes, len(banknotes), shuffle=False)
+    predictive_seconds = time.perf_counter() - start
+    check(np.array_equal(indices, np.arange(len(banknotes))) and not dropped.any()
+          and bool(np.all(np.isfinite(integrals))),
+          f"posterior predictive: indices, {int(dropped.sum())} dropped or non-finite integrals")
+    # a reference on a few rows: the likelihood of each sample in float64 on the host
+    host_lr = LogisticRegression(loss_functions["binary_classification"], dtype=torch.float64,
+                                 device="cpu", hparams=logistic_regression.Hyperparameters(6, 1))
+    host_thetas = thetas.double().cpu()
+    reference = [host_lr.lik(host_thetas, torch.as_tensor(banknotes.x[j:j + 1]),
+                             torch.as_tensor(banknotes.y[j:j + 1])).mean().item()
+                 for j in range(LR_PREDICTIVE_CHECK_ROWS)]
+    predictive_err = float(np.max(np.abs(integrals[:LR_PREDICTIVE_CHECK_ROWS] - reference)))
+    accuracy = float(np.mean(integrals > 0.5))
+    with tempfile.TemporaryDirectory() as tmp:
+        keys = tuple(k for k in ("sample", "target_val", "accepted") if k in lr_mh_chains.keys())
+        chain0 = ChainList.from_arrays({k: lr_mh_chains.tensor(k)[0] for k in keys})
+        start = time.perf_counter()
+        chain0.to_chainfile(keys=keys, path=Path(tmp) / "chain0", mode="w")
+        back = ChainLists.from_file([Path(tmp) / "chain0"], keys=keys)
+        chainfile_seconds = time.perf_counter() - start
+        sample_equal = torch.equal(back.tensor("sample")[0].to(torch.float32),
+                                   chain0.column("sample").cpu())
+        accepted_equal = torch.equal(back.tensor("accepted")[0],
+                                     chain0.column("accepted").cpu().to(torch.int64))
+        save_state(Path(tmp) / "state", lr_mh_state)
+        loaded = load_state(Path(tmp) / "state", lr_mh_state)
+    state_equal = all(torch.equal(a, b) and a.device == b.device and a.dtype == b.dtype
+                      for a, b in zip(loaded, lr_mh_state))
+    check(sample_equal and accepted_equal, "chain file round trip: the samples or the accept "
+          "flags came back changed")
+    check(state_equal, "checkpoint round trip: the state came back changed")
+    reset_counts()
+    resumed = sample_chains(MetropolisHastings(lr_model, scale=0.1), gen, loaded.sample, lr_data,
+                            LR_RESUME_ITERS, 0, backend="auto")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    main_launches[resident_walk.KERNEL]["banknotes_lr_mh_resumed"] = counts[resident_walk.KERNEL]
+    check(counts == {**dict.fromkeys(counts, 0), resident_walk.KERNEL: 1},
+          f"resumed LR MH made the launches {counts}")
+    check(resumed.get_samples().shape == (LR_CHAINS, LR_RESUME_ITERS, lr_model.num_params)
+          and bool(torch.isfinite(resumed.get_samples()).all()),
+          "resumed LR MH: samples of the wrong shape or not finite")
+    # independent draws: the last kept sample of distinct chains
+    kernel_draws = lr_mh_chains.get_samples()[:LR_MMD_SAMPLES, -1].double()
+    generic_last = lr_mh_generic.get_samples()[:, -1].double()
+    mmd_kernel_generic = mmd(kernel_draws, generic_last[:LR_MMD_SAMPLES], IsoSEKernel()).item()
+    mmd_generic_halves = mmd(generic_last[:LR_MMD_SAMPLES],
+                             generic_last[LR_MMD_SAMPLES:2 * LR_MMD_SAMPLES],
+                             IsoSEKernel()).item()
+    emit({"phase": "main_lr_posterior", "case": "banknotes_lr_mh",
+          "predictive_samples": thetas.shape[0], "predictive_points": len(banknotes),
+          "predictive_dropped": int(dropped.sum()), "posterior_mean_accuracy": accuracy,
+          "predictive_max_abs_err_vs_float64_host": predictive_err,
+          "predictive_checked_rows": LR_PREDICTIVE_CHECK_ROWS, "predictive_tol": 1e-4,
+          "predictive_seconds": predictive_seconds,
+          "chainfile_keys": list(keys), "chainfile_rows": len(chain0),
+          "chainfile_samples_equal": sample_equal, "chainfile_accepted_equal": accepted_equal,
+          "chainfile_seconds": chainfile_seconds,
+          "checkpoint_state_equal": state_equal, "resumed_iterations": LR_RESUME_ITERS,
+          "resumed_launches": counts[resident_walk.KERNEL],
+          "mmd_iso_se_kernel_vs_generic": mmd_kernel_generic,
+          "mmd_iso_se_generic_halves": mmd_generic_halves, "mmd_samples": LR_MMD_SAMPLES,
+          "card": card})
+    check(predictive_err <= 1e-4, f"posterior predictive: {predictive_err} from the float64 "
+          "reference")
+    check(accuracy >= 0.9, f"posterior predictive: accuracy {accuracy}")
+    check(math.isfinite(mmd_kernel_generic) and math.isfinite(mmd_generic_halves),
+          "MMD not finite")
+    del lr_mh_chains, lr_mh_state, lr_mh_generic, resumed, thetas, loaded
+    torch.cuda.empty_cache()
+
     # 12. the Gibbs main paths through sample_chains(backend="auto"): BASELINE.md
     #     config 4 on iris (staged) and XOR MLP(2,2,1) (dense), each against the
     #     generic path of the same configuration at C_generic chains, and the
@@ -2267,7 +2595,11 @@ def main(argv=None):
             mixture, "adaptive", "MALA", 0.05, init_sampler=mixture_init,
             base_log_pdf=mixture_base, max_stages=60), None, empty,
          resident_smc.CLOSURE_KERNEL),
+        # LR on the banknotes, adaptive (benchmarks/validate_smc_hard.py:52-54, :243-247)
+        ("banknotes_lr_adaptive_mala", smc_sampler(lr_model, "adaptive", "MALA", 0.05),
+         smc_sampler(lr_model, "adaptive", "MALA", 0.05), lr_data, resident_smc.KERNEL),
     ]
+    smc_rows = {id(iris_model): iris_rows, id(xor_model): xor_rows, id(lr_model): lr_rows}
     smc_main, smc_evidence = {}, {}
     for index, (name, sampler, generic_sampler, data, kernel) in enumerate(smc_paths):
         plan, reason = resolve_smc(sampler, data, platform="cuda")
@@ -2311,7 +2643,7 @@ def main(argv=None):
             "kernel_launches_made": len(profile_diags["beta"]),
             "card": card}
         if kernel == resident_smc.KERNEL:  # the launch of this path's build
-            rows = iris_rows if sampler.model is iris_model else xor_rows
+            rows = smc_rows[id(sampler.model)]
             record["launch"] = resident_smc.smc_launch(
                 resident_smc.load_kernel(sampler.model, resident_smc.smc_lanes(rows)),
                 sampler.mutation, sampler.num_particles, rows, sm_count)
@@ -2327,6 +2659,14 @@ def main(argv=None):
             record.update(betas_first_run=runs[0]["diags"]["beta"].tolist(),
                           log_evidence_vs_config5=diff, limit=0.1)
             check(diff <= 0.1, f"{name}: log-evidence {diff} from config 5's")
+        if name == "banknotes_lr_adaptive_mala":
+            for r in runs:
+                betas = r["diags"]["beta"].numpy()
+                check(betas[-1] == 1.0 and bool(np.all(np.diff(betas) > 0)),
+                      f"{name}: betas {betas} do not rise to 1")
+            check(record["launch"]["lanes"] == resident_smc.SMC_LANES,
+                  f"{name}: the pass ran {record['launch']['lanes']} lanes a particle")
+            record.update(jax_recorded=dict(LR_JAX_SMC, source="benchmarks/SMC_HARD_RESULTS.json"))
         if name == "mixture_closure":
             shares = np.array([r["share_theta0_positive"] for r in runs])
             record.update(share_theta0_positive=float(shares.mean()),
@@ -2352,6 +2692,7 @@ def main(argv=None):
             gwalls = sorted(r["wall"] for r in generic_runs)
             record.update(
                 generic_particles=generic_sampler.num_particles,
+                generic_stages=[len(r["diags"]["beta"]) for r in generic_runs],
                 generic_seconds=gwalls[len(gwalls) // 2],
                 generic_mutation_acceptance=float(np.mean(
                     [float(r["diags"]["mutation_acceptance"].mean()) for r in generic_runs])),
@@ -2639,6 +2980,21 @@ def main(argv=None):
     resident_entry["lanes"] = {"iris": resident_libs[0].resident_hmc_lanes(),
                                "xor": resident_libs[1].resident_hmc_lanes()}
     walk_at = f"{C_walk} chains x {walk_iters} iterations, {walk_burnin} burn-in"
+    # each LR path's kernel at its main path's shape (phase 11b), and the
+    # kernels of the LR checks at theirs
+    lr_at = f"LR(6, 1), banknotes, {LR_CHAINS} chains x {LR_ITERS} iterations, {LR_BURNIN} burn-in"
+
+    def lr_path(name):
+        return {k: lr_main[name][k] for k in ("ms", "bound_ms", "bound_by")} | {"timed_at": lr_at}
+
+    def lr_check(timing, timed_at):
+        return dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), timing), timed_at=timed_at)
+
+    resident_entry["banknotes_lr"] = {
+        "main_run_tuned": lr_path("banknotes_lr_hmc"),
+        "untuned_check": lr_check(resident_timings["banknotes_lr_hmc_untuned_extras"],
+                                  f"{LR_CHAINS} chains x 20 iterations, step 0.02, 8 steps"),
+        "lanes": lr_libs[resident_hmc.KERNEL].resident_hmc_lanes()}
 
     def gibbs_entry(module, source, replaces, case):
         ms_, plain_ms_, b_ms_, b_by_ = resident_timings[case]
@@ -2695,7 +3051,11 @@ def main(argv=None):
         dict(smc_entry(resident_smc.KERNEL, SMC_SOURCE, SMC_REPLACES, "xor_mala",
                        "config 5's shape: XOR MLP(2,2,1), MALA step 0.05"),
              lanes={name: lib.resident_smc_lanes() for name, lib in smc_libs.items()
-                    if name != "mixture_2d"}),
+                    if name != "mixture_2d"} | {
+                 "banknotes_lr": lr_libs[resident_smc.KERNEL].resident_smc_lanes()},
+             banknotes_lr=lr_check(smc_timings[("banknotes_lr_mala", 0.3)],
+                                   f"LR(6, 1), MALA step 0.05, {SMC_PARTICLES} particles x "
+                                   f"{SMC_STEPS} steps, beta 0.3")),
         dict(smc_entry(resident_smc.CLOSURE_KERNEL, SMC_CLOSURE_SOURCE, SMC_CLOSURE_REPLACES,
                        "mixture_mala", "the 2-d mixture's main path: MALA step 0.05"),
              lanes=1, launch=mixture_launch,
@@ -2719,12 +3079,16 @@ def main(argv=None):
                               for n in main_paths}}
 
     nuts_entries = [
-        nuts_entry(resident_nuts, NUTS_SOURCE, NUTS_REPLACES, "iris_nuts_untuned",
-                   ["iris_fixed_depth_3"]),
+        dict(nuts_entry(resident_nuts, NUTS_SOURCE, NUTS_REPLACES, "iris_nuts_untuned",
+                        ["iris_fixed_depth_3"]),
+             banknotes_lr=lr_check(nuts_timings["banknotes_lr_nuts_untuned"],
+                                   f"LR(6, 1), step 0.02, {NUTS_CHECK_CHAINS} chains x "
+                                   f"{NUTS_CHECK_ITERS} iterations, depth {NUTS_DEPTH}")),
         nuts_entry(resident_nuts_dense, NUTS_DENSE_SOURCE, NUTS_DENSE_REPLACES,
                    "xor_nuts_dense_untuned",
                    ["xor_fixed_depth_3", "xor_auto", "xor_auto_mass_adapt"])]
 
+    emit({"phase": "total", "seconds": time.perf_counter() - script_start, "card": card})
     emit({"kernels": [
         {"name": fused_mlp.KERNEL, "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": sum(launches.values()),
@@ -2736,14 +3100,19 @@ def main(argv=None):
          "lanes": {name: lib.fused_mlp_vg_lanes() for (name, *_), lib in zip(cases, libs)},
          "cases": {f"{name}_{C}": {"ms": t[0], "fn_device_ms": fused_fn_times[(name, C)],
                                    "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
-                   for (name, C), t in timings.items()}},
+                   for (name, C), t in timings.items()},
+         "banknotes_lr": lr_check(timings[("banknotes_lr6_bce", 32768)][:4],
+                                  "LR(6, 1), banknotes, 32768 chains (kernel_vs_plain)")},
         resident_entry,
         dict(whole_loop_entry(resident_hmc_dense, DENSE_SOURCE, DENSE_REPLACES, xor_timed_at),
              lanes=1),  # one thread a chain
         dict(whole_loop_entry(resident_walk, WALK_SOURCE, WALK_REPLACES,
                               f"{walk_timed[resident_walk.KERNEL][0]}, {walk_at}"),
              other_path=other_walks[resident_walk.KERNEL],
-             lanes={"iris_mh_mala": walk_lib.resident_walk_lanes()}),
+             banknotes_lr={"mh": lr_path("banknotes_lr_mh"),
+                           "mala": lr_path("banknotes_lr_mala")},
+             lanes={"iris_mh_mala": walk_lib.resident_walk_lanes(),
+                    "banknotes_lr_mh_mala": lr_libs[resident_walk.KERNEL].resident_walk_lanes()}),
         dict(whole_loop_entry(resident_walk_dense, WALK_DENSE_SOURCE, WALK_DENSE_REPLACES,
                               f"{walk_timed[resident_walk_dense.KERNEL][0]}, {walk_at}"),
              other_path=other_walks[resident_walk_dense.KERNEL],

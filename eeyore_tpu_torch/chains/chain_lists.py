@@ -4,13 +4,14 @@ Counterpart of ``eeyore_tpu/chains/chain_lists.py``: every recorded key is
 one [num_chains, num_iters, ...] tensor, the output layout of a batched run.
 Per-chain statistics, their ``*_summary`` aggregators, ``multi_rhat`` and the
 keyed ``summary`` are float64 PyTorch (``eeyore_tpu_torch.stats``), on the
-tensors' device. The file methods (``from_file`` and the CSV chain files)
-are not ported yet.
+tensors' device. ``from_file`` reads the reference's CSV chain files.
 """
 
+import numpy as np
 import torch
 
 import eeyore_tpu_torch.stats as st
+from eeyore_tpu_torch.chains.chain_file import ChainFile
 
 _DEFAULT_KEYS = ("sample", "target_val", "accepted")
 
@@ -34,9 +35,23 @@ class ChainLists:
             self._tensors = {k: torch.as_tensor(v) for k, v in vals.items()}
 
     @classmethod
+    def from_chain_list(cls, chain_lists, keys=_DEFAULT_KEYS):
+        """Stack the columns of ``keys`` that every ``ChainList`` holds."""
+        shared = [k for k in keys if all(k in c.keys() for c in chain_lists)]
+        return cls(keys=tuple(shared),
+                   vals={k: torch.stack([c.column(k) for c in chain_lists]) for k in shared})
+
+    @classmethod
     def from_arrays(cls, arrays):
         """Adopt {key: [num_chains, num_iters, ...]} from a batched run."""
         return cls(keys=tuple(arrays), vals=arrays)
+
+    @classmethod
+    def from_file(cls, paths, keys=_DEFAULT_KEYS, mode="a", dtype=np.float64):
+        """One chain per directory of CSV chain files (``ChainFile``)."""
+        loaded = [ChainFile(keys=keys, path=p, mode=mode).to_chainlist(dtype=dtype)
+                  for p in paths]
+        return cls.from_chain_list(loaded, keys=keys)
 
     def keys(self):
         return tuple(self._tensors)
@@ -45,6 +60,12 @@ class ChainLists:
         """The stacked [num_chains, num_iters, ...] tensor of one key (None
         if the key was never recorded)."""
         return self._tensors.get(key)
+
+    @property
+    def vals(self):
+        """Nested-list view: {key: [chain [rows]]}."""
+        return {k: [list(chain) for chain in v] if v is not None else []
+                for k, v in self._tensors.items()}
 
     def __repr__(self):
         return f"{len(self)} Markov chains, each containing {self.num_samples()} samples."
@@ -72,6 +93,9 @@ class ChainLists:
     def get_target_vals(self):
         return self.tensor("target_val")
 
+    def get_grad_vals(self):
+        return self.tensor("grad_val")
+
     def _each_chain(self, fn):
         draws = self.tensor("sample")
         return [fn(draws[c]) for c in range(draws.shape[0])]
@@ -88,6 +112,9 @@ class ChainLists:
         return torch.stack(self._each_chain(
             lambda d: st.mc_cov(d, method=method, adjust=adjust, rowvar=False)))
 
+    def mc_cov_summary(self, g=_chain_mean, method="inse", adjust=False):
+        return g(self.mc_cov(method=method, adjust=adjust))
+
     def mc_se(self, mc_cov_mat=None, method="inse", adjust=False):
         if mc_cov_mat is not None:
             return torch.stack([st.mc_se_from_cov(s) for s in mc_cov_mat])
@@ -96,6 +123,15 @@ class ChainLists:
 
     def mc_se_summary(self, g=_chain_mean, mc_cov_mat=None, method="inse", adjust=False):
         return g(self.mc_se(mc_cov_mat=mc_cov_mat, method=method, adjust=adjust))
+
+    def mc_cor(self, mc_cov_mat=None, method="inse", adjust=False):
+        if mc_cov_mat is not None:
+            return torch.stack([st.cor_from_cov(s) for s in mc_cov_mat])
+        return torch.stack(self._each_chain(
+            lambda d: st.mc_cor(d, method=method, adjust=adjust, rowvar=False)))
+
+    def mc_cor_summary(self, g=_chain_mean, mc_cov_mat=None, method="inse", adjust=False):
+        return g(self.mc_cor(mc_cov_mat=mc_cov_mat, method=method, adjust=adjust))
 
     def acceptance(self):
         flags = self.tensor("accepted")

@@ -3,7 +3,7 @@
 Each ``*_from_numpy`` takes array-likes (numpy arrays, or anything
 ``np.asarray`` accepts, such as the JAX package's arrays and NamedTuples of
 them) and returns the port's tensors on ``device``; ``to_numpy`` goes back.
-Flat thetas are checked against the port's ``MLP.num_params``.
+Flat thetas are checked against the model's ``num_params`` (any of the port's models).
 """
 
 import numpy as np

@@ -1,3 +1,9 @@
+from eeyore_tpu_torch.kernels.function_kernels import (
+    HomogeneousKernel,
+    IsoSEKernel,
+    PeriodicKernel,
+    RQKernel,
+)
 from eeyore_tpu_torch.kernels.proposal_kernels import (
     DEMCKernel,
     MultivariateNormalKernel,

@@ -1,4 +1,5 @@
-from eeyore_tpu_torch.models import mlp
+from eeyore_tpu_torch.models import logistic_regression, mlp
+from eeyore_tpu_torch.models.logistic_regression import LogisticRegression
 from eeyore_tpu_torch.models.losses import (
     binary_classification_loss,
     binary_cross_entropy,

@@ -8,6 +8,7 @@ both the log-likelihood and the log-prior.
 """
 
 import copy
+import hashlib
 
 import torch
 
@@ -30,6 +31,37 @@ class LogTargetModel:
             val = self.log_target(theta, x, y)
             (grad,) = torch.autograd.grad(val.sum(), theta)
         return val.detach(), grad
+
+    def summary(self, theta=None, hashsummary=False):
+        """Print a model summary; with a theta, optionally the sha256
+        checksums of its parameter groups (``hashsummary``)."""
+        print(self)
+        print("-" * 80)
+        print(f"Number of model parameters: {self.num_params}")
+        print("-" * 80)
+        if getattr(self, "prior", None) is not None:
+            print(f"Prior: {self.prior}")
+            print("-" * 80)
+        if hashsummary and theta is not None:
+            print("Hash Summary:")
+            for idx, hashvalue in enumerate(self.hashsummary(theta)):
+                print(f"{idx}: {hashvalue}")
+
+    def hashsummary(self, theta):
+        """sha256 checksums of the flat theta's bytes on the host, one per
+        parameter group when the model has ``unpack``, else one for the
+        whole vector: the JAX package's bytes, so a theta of one dtype
+        hashes the same in both."""
+        theta = torch.as_tensor(theta).detach().cpu()
+        if hasattr(self, "unpack"):
+            chunks = []
+            for w, b in self.unpack(theta):
+                chunks.append(w)
+                if b is not None:
+                    chunks.append(b)
+        else:
+            chunks = [theta]
+        return [hashlib.sha256(c.numpy().tobytes()).hexdigest() for c in chunks]
 
     def with_temperature(self, temperature):
         """Shallow copy with a different temperature."""
@@ -74,6 +106,23 @@ class BayesianModel(LogTargetModel):
 
     def sample_prior(self, generator=None):
         return self.prior.sample(generator)
+
+    def predictive_posterior(self, thetas, x, y):
+        """Posterior-predictive Monte-Carlo integral of the likelihood of
+        (x, y) over the samples ``thetas [S, P]``, NaN integrands dropped:
+        (integral, num_dropped)."""
+        from eeyore_tpu_torch.integrators import MCIntegrator
+
+        return MCIntegrator(f=self.lik, samples=thetas).integrate(x, y)
+
+    def predictive_posterior_from_dataset(self, thetas, dataset, num_points, generator=None,
+                                          shuffle=True):
+        """``predictive_posterior`` of ``num_points`` single points of the
+        dataset: (integrals, indices, nums_dropped)."""
+        from eeyore_tpu_torch.integrators import MCIntegrator
+
+        return MCIntegrator(f=self.lik, samples=thetas).integrate_from_dataset(
+            dataset, num_points, generator=generator, shuffle=shuffle)
 
 
 class DistributionModel(LogTargetModel):

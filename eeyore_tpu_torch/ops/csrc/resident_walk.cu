@@ -17,7 +17,10 @@
 // tempering ladder, and a block is any 32-multiple of threads (for
 // tempering, one that holds whole ladders and divides the chains).
 //
-// Gibbs. The TPU kernel keeps a per-chain cache of the activations of every
+// Gibbs. A model without parameter blocks (LogisticRegression, as in JAX's
+// Gibbs) has no Gibbs sweep: its gibbs_blocks.cuh defines GIBBS_MOVE 0 and
+// the build holds no Gibbs move (its entry points return an error). The
+// TPU kernel keeps a per-chain cache of the activations of every
 // data row and recomputes only the moved unit and what lies downstream. On
 // iris that cache is 4.8 KB a chain, which no thread can hold, so the Gibbs
 // move gives a chain GibbsBlocks::kLanes lanes of a warp (lane_eval.cuh),
@@ -102,12 +105,6 @@ constexpr int kTemperingThreads = kTemperingLanes == 1 ? kMaxThreads : 256;
 #define TEMPERING_LAUNCH_BOUNDS __launch_bounds__(kTemperingThreads, TEMPERING_MIN_BLOCKS)
 #endif
 
-// The Gibbs move's lanes and evaluator (the cache, or the whole forward pass).
-using GibbsLanes = lane_eval::Lanes<GibbsBlocks::kLanes>;
-using GibbsEval =
-    lane_eval::LaneGibbsEval<GibbsLanes, GibbsBlocks::kCached ? GibbsBlocks::kRowsPerLane : 0>;
-using GibbsLayout = lane_eval::LaneGibbsLayout<GibbsLanes, GibbsBlocks>;
-
 template <bool kMALA>
 __global__ void WALK_LAUNCH_BOUNDS
     resident_walk_kernel(const float* __restrict__ theta0,  // [P, C]
@@ -137,34 +134,6 @@ __global__ void WALK_LAUNCH_BOUNDS
   lane_eval::walk_chain<kMALA>(ev, ln, pr, c, 1, theta0, samples, final_theta, accepts, buf,
                                nullptr, nullptr);
 #endif
-}
-
-// at most kGibbsThreads threads a block (ops/resident_hmc_dense.py::
-// UNGROUPED_BLOCK: the chains share nothing), of which GibbsBlocks::kMinBlocks
-// blocks fit an SM
-constexpr int kGibbsThreads = 256;
-
-__global__ void __launch_bounds__(kGibbsThreads, GibbsBlocks::kMinBlocks)
-    resident_walk_gibbs_kernel(const float* __restrict__ theta0,  // [P, C]
-                               const float* __restrict__ x,
-                               const float* __restrict__ y,
-                               const float* __restrict__ mask,
-                               const float* __restrict__ loc,
-                               const float* __restrict__ ivar,
-                               const float* __restrict__ scales,  // [kB]
-                               const ResidentWalkParams pr,
-                               float* __restrict__ samples,      // [kept, rows, C]
-                               float* __restrict__ final_theta,  // [P, C]
-                               float* __restrict__ accepts) {    // [kB, C]
-  extern __shared__ float smem[];
-  const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
-  // the launch covers the chains exactly: every thread reaches the record's barriers
-  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / GibbsBlocks::kLanes;
-  const GibbsLanes ln;
-  const GibbsEval ev{d, pr.prior_const, pr.temperature, pr.n_rows, ln};
-  resident_loop::gibbs_chain<GibbsEval, GibbsBlocks>(
-      ev, pr, c, theta0, scales, samples, final_theta, accepts,
-      GibbsLayout{ln, smem + data_floats(pr.n_rows)});
 }
 
 template <bool kMALA>
@@ -208,10 +177,6 @@ size_t tempering_smem_bytes(bool mala, int n_rows, int threads, bool extras) {
 }
 
 size_t smem_bytes(int move, int n_rows, int threads) {
-  if (move == 2) {  // Gibbs: theta in registers, the record tile
-    return sizeof(float) *
-           (data_floats(n_rows) + lane_eval::tile_floats(GibbsBlocks::kLanes, threads));
-  }
   if (kWalkLanes > 1) {  // a theta slot per chain, the record tile
     return sizeof(float) *
            (data_floats(n_rows) + static_cast<size_t>(kP) * (threads / kWalkLanes) +
@@ -226,6 +191,121 @@ size_t smem_bytes(int move, int n_rows, int threads) {
 
 // Plain C interface, loaded with ctypes. Returns a cudaError_t code.
 
+// ---- The Gibbs move (move 2) ----
+// Only a model with parameter blocks has one (GIBBS_MOVE of the generated
+// gibbs_blocks.cuh). Without them (LogisticRegression) the build holds no
+// Gibbs kernel: the Gibbs entry points below refuse and there are no
+// sub-blocks.
+#if GIBBS_MOVE
+namespace {
+
+// The Gibbs move's lanes and evaluator (the cache, or the whole forward pass).
+using GibbsLanes = lane_eval::Lanes<GibbsBlocks::kLanes>;
+using GibbsEval =
+    lane_eval::LaneGibbsEval<GibbsLanes, GibbsBlocks::kCached ? GibbsBlocks::kRowsPerLane : 0>;
+using GibbsLayout = lane_eval::LaneGibbsLayout<GibbsLanes, GibbsBlocks>;
+
+// at most kGibbsThreads threads a block (ops/resident_hmc_dense.py::
+// UNGROUPED_BLOCK: the chains share nothing), of which GibbsBlocks::kMinBlocks
+// blocks fit an SM
+constexpr int kGibbsThreads = 256;
+
+__global__ void __launch_bounds__(kGibbsThreads, GibbsBlocks::kMinBlocks)
+    resident_walk_gibbs_kernel(const float* __restrict__ theta0,  // [P, C]
+                               const float* __restrict__ x,
+                               const float* __restrict__ y,
+                               const float* __restrict__ mask,
+                               const float* __restrict__ loc,
+                               const float* __restrict__ ivar,
+                               const float* __restrict__ scales,  // [kB]
+                               const ResidentWalkParams pr,
+                               float* __restrict__ samples,      // [kept, rows, C]
+                               float* __restrict__ final_theta,  // [P, C]
+                               float* __restrict__ accepts) {    // [kB, C]
+  extern __shared__ float smem[];
+  const Data d = stage_data(smem, x, y, mask, loc, ivar, pr.n_rows);
+  // the launch covers the chains exactly: every thread reaches the record's barriers
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / GibbsBlocks::kLanes;
+  const GibbsLanes ln;
+  const GibbsEval ev{d, pr.prior_const, pr.temperature, pr.n_rows, ln};
+  resident_loop::gibbs_chain<GibbsEval, GibbsBlocks>(
+      ev, pr, c, theta0, scales, samples, final_theta, accepts,
+      GibbsLayout{ln, smem + data_floats(pr.n_rows)});
+}
+
+// theta in registers, the record tile
+size_t gibbs_smem_bytes(int n_rows, int threads) {
+  return sizeof(float) *
+         (data_floats(n_rows) + lane_eval::tile_floats(GibbsBlocks::kLanes, threads));
+}
+
+int gibbs_resources(int* out) {
+  return static_cast<int>(resident_loop::resources(resident_walk_gibbs_kernel, out));
+}
+
+}  // namespace
+
+extern "C" int resident_walk_num_sub_blocks() { return GibbsBlocks::kB; }
+
+// The Gibbs move's lanes a chain, whether it caches the rows' activations,
+// and the rows a lane caches.
+extern "C" int resident_walk_gibbs_layout(int* out) {
+  out[0] = GibbsBlocks::kLanes;
+  out[1] = GibbsBlocks::kCached ? 1 : 0;
+  out[2] = GibbsBlocks::kRowsPerLane;
+  out[3] = GibbsEval::kCache;
+  return 0;
+}
+
+// Blocks of the Gibbs move of threads threads an SM holds at once, for n_rows
+// staged rows.
+extern "C" int resident_walk_gibbs_max_blocks(int threads, int n_rows, int* out) {
+  return static_cast<int>(resident_loop::max_active_blocks(
+      resident_walk_gibbs_kernel, threads, gibbs_smem_bytes(n_rows, threads), out));
+}
+
+extern "C" int resident_walk_gibbs_launch(const float* theta0, const float* x, const float* y,
+                                          const float* mask, const float* loc,
+                                          const float* ivar, const float* scales,
+                                          const ResidentWalkParams* params, int threads,
+                                          float* samples, float* final_theta, float* accepts,
+                                          void* stream) {
+  const ResidentWalkParams pr = *params;
+  const long long lanes = static_cast<long long>(pr.num_chains) * GibbsBlocks::kLanes;
+  if (threads < 32 || threads > kGibbsThreads || threads % 32 != 0 || pr.tuned ||
+      lanes % threads != 0 ||
+      (GibbsBlocks::kCached && pr.n_rows > GibbsBlocks::kRowsPerLane * GibbsBlocks::kLanes)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const size_t smem = gibbs_smem_bytes(pr.n_rows, threads);
+  const int blocks = static_cast<int>(lanes / threads);
+  return static_cast<int>(resident_loop::launch(resident_walk_gibbs_kernel, blocks, threads, smem,
+                                                1, stream, theta0, x, y, mask, loc, ivar, scales,
+                                                pr, samples, final_theta, accepts));
+}
+
+#else  // no Gibbs move
+
+namespace {
+int gibbs_resources(int*) { return static_cast<int>(cudaErrorInvalidConfiguration); }
+}  // namespace
+
+extern "C" int resident_walk_num_sub_blocks() { return 0; }
+extern "C" int resident_walk_gibbs_layout(int*) {
+  return static_cast<int>(cudaErrorInvalidConfiguration);
+}
+extern "C" int resident_walk_gibbs_max_blocks(int, int, int*) {
+  return static_cast<int>(cudaErrorInvalidConfiguration);
+}
+extern "C" int resident_walk_gibbs_launch(const float*, const float*, const float*,
+                                          const float*, const float*, const float*,
+                                          const float*, const ResidentWalkParams*, int, float*,
+                                          float*, float*, void*) {
+  return static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+#endif  // GIBBS_MOVE
+
 extern "C" int resident_walk_arch(int* out) {
   out[0] = kP;
   out[1] = kIn;
@@ -234,8 +314,6 @@ extern "C" int resident_walk_arch(int* out) {
   out[4] = kMaxThreads;
   return 0;
 }
-
-extern "C" int resident_walk_num_sub_blocks() { return GibbsBlocks::kB; }
 
 // Lanes a chain of the MH and MALA moves, and of the ladder move.
 extern "C" int resident_walk_lanes() { return kWalkLanes; }
@@ -263,26 +341,9 @@ extern "C" int resident_walk_max_blocks(int move, int threads, int n_rows, int* 
                                                    out));
 }
 
-// The Gibbs move's lanes a chain, whether it caches the rows' activations,
-// and the rows a lane caches.
-extern "C" int resident_walk_gibbs_layout(int* out) {
-  out[0] = GibbsBlocks::kLanes;
-  out[1] = GibbsBlocks::kCached ? 1 : 0;
-  out[2] = GibbsBlocks::kRowsPerLane;
-  out[3] = GibbsEval::kCache;
-  return 0;
-}
-
-// Blocks of the Gibbs move of threads threads an SM holds at once, for n_rows
-// staged rows.
-extern "C" int resident_walk_gibbs_max_blocks(int threads, int n_rows, int* out) {
-  return static_cast<int>(resident_loop::max_active_blocks(
-      resident_walk_gibbs_kernel, threads, smem_bytes(2, n_rows, threads), out));
-}
-
 // move: 0 MH, 1 MALA, 2 Gibbs, 3 tempering with MH, 4 tempering with MALA.
 extern "C" int resident_walk_resources(int move, int* out) {
-  if (move == 2) return static_cast<int>(resident_loop::resources(resident_walk_gibbs_kernel, out));
+  if (move == 2) return gibbs_resources(out);
   if (move == 3) {
     return static_cast<int>(resident_loop::resources(resident_walk_tempering_kernel<false>, out));
   }
@@ -318,26 +379,6 @@ extern "C" int resident_walk_launch(int move, const float* theta0, const float* 
                                         stream, theta0, x, y, mask, loc, ivar, pr, samples,
                                         final_theta, accepts);
   return static_cast<int>(err);
-}
-
-extern "C" int resident_walk_gibbs_launch(const float* theta0, const float* x, const float* y,
-                                          const float* mask, const float* loc,
-                                          const float* ivar, const float* scales,
-                                          const ResidentWalkParams* params, int threads,
-                                          float* samples, float* final_theta, float* accepts,
-                                          void* stream) {
-  const ResidentWalkParams pr = *params;
-  const long long lanes = static_cast<long long>(pr.num_chains) * GibbsBlocks::kLanes;
-  if (threads < 32 || threads > kGibbsThreads || threads % 32 != 0 || pr.tuned ||
-      lanes % threads != 0 ||
-      (GibbsBlocks::kCached && pr.n_rows > GibbsBlocks::kRowsPerLane * GibbsBlocks::kLanes)) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  const size_t smem = smem_bytes(2, pr.n_rows, threads);
-  const int blocks = static_cast<int>(lanes / threads);
-  return static_cast<int>(resident_loop::launch(resident_walk_gibbs_kernel, blocks, threads, smem,
-                                                1, stream, theta0, x, y, mask, loc, ivar, scales,
-                                                pr, samples, final_theta, accepts));
 }
 
 extern "C" int resident_walk_tempering_launch(int mala, const float* theta0, const float* x,

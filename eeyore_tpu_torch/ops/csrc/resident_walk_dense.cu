@@ -45,7 +45,9 @@
 // accepted theta and gradient in shared memory at [P][blockDim], the
 // one-thread body dense_body.cuh, no launch bounds), a rule decided before
 // the launch (walk_dense_lanes, dense_tempering_lanes).
-// gibbs_chain (move 2) runs one thread a chain in every build, on the
+// gibbs_chain (move 2) runs one thread a chain in every build of a model
+// with parameter blocks (GIBBS_MOVE of gibbs_blocks.cuh; none without them,
+// as for LogisticRegression), on the
 // generated incremental body dense_gibbs.cuh and the blocking
 // gibbs_blocks.cuh: the
 // per-chain cache of activations and output terms (one float per unit and
@@ -67,7 +69,6 @@
 
 #include "lane_eval.cuh"
 #include "dense_body.cuh"
-#include "dense_gibbs.cuh"
 #include "gibbs_blocks.cuh"
 
 #if !defined(WALK_DENSE_LANES) || !defined(WALK_DENSE_MIN_BLOCKS)
@@ -104,19 +105,6 @@ struct DenseEval {
     return dense_body::vg(th, g);
   }
   __device__ __forceinline__ float v(const float (&th)[kP]) const { return dense_body::v(th); }
-  static constexpr int kCache = dense_gibbs::kCache;
-  __device__ __forceinline__ float init(const float (&th)[kP], float (&c)[kCache]) const {
-    return dense_gibbs::init(th, c);
-  }
-  template <int U>
-  __device__ __forceinline__ float update(const float (&th)[kP], const float (&c)[kCache],
-                                          float (&n)[kCache]) const {
-    return dense_gibbs::update<U>(th, c, n);
-  }
-  template <int U>
-  __device__ __forceinline__ void commit(float (&c)[kCache], const float (&n)[kCache]) const {
-    dense_gibbs::commit<U>(c, n);
-  }
 };
 
 template <bool kMALA>
@@ -145,17 +133,6 @@ __global__ void WALK_DENSE_LAUNCH_BOUNDS
 #endif
   // no block of a cluster leaves while another may read its partial sum
   if (cluster_blocks > 1) cooperative_groups::this_cluster().sync();
-}
-
-__global__ void resident_walk_dense_gibbs_kernel(const float* __restrict__ theta0,  // [P, C]
-                                                 const float* __restrict__ scales,  // [kB]
-                                                 const ResidentWalkParams pr,
-                                                 float* __restrict__ samples,  // [kept, rows, C]
-                                                 float* __restrict__ final_theta,  // [P, C]
-                                                 float* __restrict__ accepts) {    // [kB, C]
-  const int c = resident_loop::chain_index(pr.sublanes, pr.chain_block, pr.num_chains);
-  resident_loop::gibbs_chain<DenseEval, GibbsBlocks>(DenseEval{}, pr, c, theta0, scales, samples,
-                                                     final_theta, accepts);
 }
 
 template <bool kMALA>
@@ -211,6 +188,83 @@ bool lays_out(int threads, const ResidentWalkParams& pr) {
 
 // Plain C interface, loaded with ctypes. Returns a cudaError_t code.
 
+// ---- The Gibbs move (move 2) ----
+// Only a model with parameter blocks has one (GIBBS_MOVE of the generated
+// gibbs_blocks.cuh). Without them (LogisticRegression) the build holds no
+// Gibbs kernel and no dense_gibbs.cuh: the Gibbs entry points below refuse
+// and there are no sub-blocks.
+#if GIBBS_MOVE
+#include "dense_gibbs.cuh"
+
+namespace {
+
+// The dense body with the generated incremental Gibbs updates.
+struct DenseGibbsEval : DenseEval {
+  static constexpr int kCache = dense_gibbs::kCache;
+  __device__ __forceinline__ float init(const float (&th)[kP], float (&c)[kCache]) const {
+    return dense_gibbs::init(th, c);
+  }
+  template <int U>
+  __device__ __forceinline__ float update(const float (&th)[kP], const float (&c)[kCache],
+                                          float (&n)[kCache]) const {
+    return dense_gibbs::update<U>(th, c, n);
+  }
+  template <int U>
+  __device__ __forceinline__ void commit(float (&c)[kCache], const float (&n)[kCache]) const {
+    dense_gibbs::commit<U>(c, n);
+  }
+};
+
+__global__ void resident_walk_dense_gibbs_kernel(const float* __restrict__ theta0,  // [P, C]
+                                                 const float* __restrict__ scales,  // [kB]
+                                                 const ResidentWalkParams pr,
+                                                 float* __restrict__ samples,  // [kept, rows, C]
+                                                 float* __restrict__ final_theta,  // [P, C]
+                                                 float* __restrict__ accepts) {    // [kB, C]
+  const int c = resident_loop::chain_index(pr.sublanes, pr.chain_block, pr.num_chains);
+  resident_loop::gibbs_chain<DenseGibbsEval, GibbsBlocks>(DenseGibbsEval{}, pr, c, theta0,
+                                                          scales, samples, final_theta, accepts);
+}
+
+int gibbs_resources(int* out) {
+  return static_cast<int>(resident_loop::resources(resident_walk_dense_gibbs_kernel, out));
+}
+
+}  // namespace
+
+extern "C" int resident_walk_dense_num_sub_blocks() { return GibbsBlocks::kB; }
+
+extern "C" int resident_walk_dense_gibbs_launch(const float* theta0, const float* scales,
+                                                const ResidentWalkParams* params, int threads,
+                                                float* samples, float* final_theta,
+                                                float* accepts, void* stream) {
+  const ResidentWalkParams pr = *params;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      pr.chain_block % threads != 0 || pr.num_chains % pr.chain_block != 0 || pr.tuned) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  // no shared memory: theta and the cache live in registers
+  return static_cast<int>(resident_loop::launch(resident_walk_dense_gibbs_kernel,
+                                                pr.num_chains / threads, threads, 0, 1, stream,
+                                                theta0, scales, pr, samples, final_theta,
+                                                accepts));
+}
+
+#else  // no Gibbs move
+
+namespace {
+int gibbs_resources(int*) { return static_cast<int>(cudaErrorInvalidConfiguration); }
+}  // namespace
+
+extern "C" int resident_walk_dense_num_sub_blocks() { return 0; }
+extern "C" int resident_walk_dense_gibbs_launch(const float*, const float*,
+                                                const ResidentWalkParams*, int, float*, float*,
+                                                float*, void*) {
+  return static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+#endif  // GIBBS_MOVE
+
 extern "C" int resident_walk_dense_arch(int* out) {
   out[0] = kP;
   out[1] = kIn;
@@ -220,16 +274,12 @@ extern "C" int resident_walk_dense_arch(int* out) {
   return 0;
 }
 
-extern "C" int resident_walk_dense_num_sub_blocks() { return GibbsBlocks::kB; }
-
 // Lanes a chain of the MH, MALA and ladder moves.
 extern "C" int resident_walk_dense_lanes() { return kWalkLanes; }
 
 // move: 0 MH, 1 MALA, 2 Gibbs, 3 tempering with MH, 4 tempering with MALA.
 extern "C" int resident_walk_dense_resources(int move, int* out) {
-  if (move == 2) {
-    return static_cast<int>(resident_loop::resources(resident_walk_dense_gibbs_kernel, out));
-  }
+  if (move == 2) return gibbs_resources(out);
   if (move == 3 || move == 4) {
     return static_cast<int>(
         move == 4 ? resident_loop::resources(resident_walk_dense_tempering_kernel<true>, out)
@@ -295,22 +345,6 @@ extern "C" int resident_walk_dense_launch(int move, const float* theta0,
                                         cluster_blocks, stream, theta0, pr, samples,
                                         final_theta, accepts, cluster_blocks);
   return static_cast<int>(err);
-}
-
-extern "C" int resident_walk_dense_gibbs_launch(const float* theta0, const float* scales,
-                                                const ResidentWalkParams* params, int threads,
-                                                float* samples, float* final_theta,
-                                                float* accepts, void* stream) {
-  const ResidentWalkParams pr = *params;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      pr.chain_block % threads != 0 || pr.num_chains % pr.chain_block != 0 || pr.tuned) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  // no shared memory: theta and the cache live in registers
-  return static_cast<int>(resident_loop::launch(resident_walk_dense_gibbs_kernel,
-                                                pr.num_chains / threads, threads, 0, 1, stream,
-                                                theta0, scales, pr, samples, final_theta,
-                                                accepts));
 }
 
 extern "C" int resident_walk_dense_tempering_launch(int mala, const float* theta0,

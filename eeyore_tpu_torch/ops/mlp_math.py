@@ -26,15 +26,16 @@ def _is_sigmoid(activation):
 
 
 def extract_arch(model):
-    """Static architecture of an MLP: (dims, bias, loss_kind, layer_offsets),
-    with ``layer_offsets[l] = (w_off, b_off or None)`` into the flat theta.
-    Raises ValueError for anything the kernels do not compute: they
-    hard-code sigmoid hidden units (and a sigmoid BCE output) and an IID
-    Normal prior."""
+    """Static architecture of an MLP or a LogisticRegression (a one-layer
+    MLP: ``dims = [input_size, output_size]``): (dims, bias, loss_kind,
+    layer_offsets), with ``layer_offsets[l] = (w_off, b_off or None)`` into
+    the flat theta. Raises ValueError for anything the kernels do not
+    compute: they hard-code sigmoid hidden units (and a sigmoid BCE output)
+    and an IID Normal prior."""
     hp = model.hp
-    dims = list(hp.dims)
-    bias = list(hp.bias)
-    activations = hp.activations
+    dims = list(hp.dims) if hasattr(hp, "dims") else [hp.input_size, hp.output_size]
+    bias = list(hp.bias) if isinstance(hp.bias, (list, tuple)) else [hp.bias]
+    activations = hp.activations if hasattr(hp, "activations") else [hp.activation]
 
     if model.loss is binary_classification_loss:
         loss_kind = "bce"

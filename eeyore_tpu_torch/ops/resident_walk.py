@@ -218,9 +218,16 @@ def gibbs_blocks_source(model, node_subblock_size=None, n_rows=0):
     activations (``kCached``, from ``gibbs_lane_plan`` for ``n_rows`` padded
     rows) and the rows a lane caches ``kRowsPerLane``. The row count enters
     the text only where the cache is taken, so the builds without it share
-    one library."""
+    one library. A model without parameter blocks (``LogisticRegression``,
+    which ``Gibbs`` refuses) gets ``GIBBS_MOVE 0``: its builds hold no Gibbs
+    move."""
     from eeyore_tpu_torch.samplers.gibbs import Gibbs
 
+    if not hasattr(model, "num_par_blocks"):  # no parameter blocks: a build without Gibbs
+        return "\n".join(
+            ["// Generated by eeyore_tpu_torch/ops/resident_walk.py::gibbs_blocks_source for a",
+             "// model without parameter blocks: the build holds no Gibbs move. Do not edit.",
+             "#pragma once", "", "#define GIBBS_MOVE 0", ""])
     subs = [(indices, block) for indices, _, block in
             Gibbs(model, node_subblock_size=node_subblock_size).sub_blocks]
     stride = max(len(indices) for indices, _ in subs)
@@ -233,7 +240,8 @@ def gibbs_blocks_source(model, node_subblock_size=None, n_rows=0):
 
     return "\n".join(
         ["// Generated by eeyore_tpu_torch/ops/resident_walk.py::gibbs_blocks_source for one",
-         "// model and Gibbs blocking. Do not edit.", "#pragma once", "", "struct GibbsBlocks {",
+         "// model and Gibbs blocking. Do not edit.", "#pragma once", "", "#define GIBBS_MOVE 1",
+         "", "struct GibbsBlocks {",
          f"  static constexpr int kB = {len(subs)};",
          f"  static constexpr int kLanes = {plan['lanes']};",
          f"  static constexpr int kMinBlocks = {GIBBS_MIN_BLOCKS};",

@@ -184,8 +184,9 @@ def library_spec(model, x, y, node_subblock_size=None, lanes=None):
     lanes = check_dense_lanes(dense_lanes(n_rows, "mh") if lanes is None else lanes, n_rows)
     tag, defines = arch_defines(model)
     generated = {"dense_body.cuh": dense_source(model, x, y),
-                 "dense_gibbs.cuh": gibbs_dense_source(model, x, y),
                  "gibbs_blocks.cuh": gibbs_blocks_source(model, node_subblock_size)}
+    if hasattr(model, "num_par_blocks"):  # the Gibbs move's body (gibbs_blocks_source)
+        generated["dense_gibbs.cuh"] = gibbs_dense_source(model, x, y)
     if lanes > 1:
         generated["dense_lanes.cuh"] = dense_lane_source(model, x, y, lanes)
     return (f"{KERNEL}_{tag}_l{lanes}_b{WALK_DENSE_MIN_BLOCKS}", "resident_walk_dense.cu",

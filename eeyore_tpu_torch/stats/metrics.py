@@ -1,0 +1,13 @@
+"""SoftAbs metric: the eigenvalue-softened positive-definite form of a
+symmetric matrix, softabs(H, a) = Q diag(lambda / tanh(a lambda)) Q^T.
+
+Counterpart of ``eeyore_tpu/stats/metrics.py``.
+"""
+
+import torch
+
+
+def softabs(hessian, a=1000.0):
+    l, q = torch.linalg.eigh(hessian)
+    softened = l / torch.tanh(a * l)
+    return (q * softened) @ q.T

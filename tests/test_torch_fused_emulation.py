@@ -162,3 +162,33 @@ def test_smc_closure_pass_equals_the_plain_version(build, mutation):  # noqa: F8
     assert max_err((final.T, pot), want[:2]) < 2e-4
     assert torch.equal(accepts, want[2])
     assert 0 < int(accepts.sum()) < steps * N
+
+
+def test_fused_vg_on_lr_equals_the_plain_version_and_jax(build):  # noqa: F811
+    """LR(6, 1) on 40 banknote rows, the build the function takes (40 rows:
+    ``FUSED_LANES`` lanes a chain, one layer), 64 chains: against ``make_vg``
+    and JAX's ``make_fused_log_target_vg(interpret=True)`` in float32, to
+    rtol 2e-5 and atol 1e-4."""
+    import jax.numpy as jnp
+
+    from eeyore_tpu.models import LogisticRegression as JLogisticRegression
+    from eeyore_tpu.models import logistic_regression as jlr
+    from eeyore_tpu.models import loss_functions as jloss_functions
+    from eeyore_tpu.ops.fused_mlp import make_fused_log_target_vg
+
+    model, (x, y) = problem("banknotes40")
+    lanes = fused_mlp.fused_lanes(prepare_data(model, x, y)[0].shape[0])
+    assert lanes == fused_mlp.FUSED_LANES
+    lib = fused_mlp.bind(build(*fused_mlp.library_spec(model, lanes)[1:]))
+    C = 64
+    thetas = np.random.default_rng(7).normal(size=(C, model.num_params)).astype(np.float32)
+    vals, grads = launch_fused(lib, model, x, y, torch.as_tensor(thetas), 128)
+    want_vals, want_grads = plain_fused(model, x, y, torch.as_tensor(thetas))
+    torch.testing.assert_close(vals, want_vals, rtol=2e-5, atol=1e-4)
+    torch.testing.assert_close(grads, want_grads, rtol=2e-5, atol=1e-4)
+    jm = JLogisticRegression(jloss_functions["binary_classification"], dtype=jnp.float32,
+                             hparams=jlr.Hyperparameters(6, 1))
+    jv, jg = make_fused_log_target_vg(jm, np.asarray(x, np.float32), np.asarray(y, np.float32),
+                                      chain_block=C, interpret=True)(jnp.asarray(thetas))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(jv), rtol=2e-5, atol=1e-4)
+    np.testing.assert_allclose(grads.numpy(), np.asarray(jg), rtol=2e-5, atol=1e-4)

@@ -33,7 +33,8 @@ import pytest
 import torch
 
 from eeyore_tpu_torch.datasets import XYDataset
-from eeyore_tpu_torch.models import MLP, loss_functions, mlp
+from eeyore_tpu_torch.models import MLP, LogisticRegression, logistic_regression, loss_functions
+from eeyore_tpu_torch.models import mlp
 from eeyore_tpu_torch.ops import (
     resident_hmc,
     resident_hmc_dense,
@@ -45,7 +46,7 @@ from eeyore_tpu_torch.ops import (
 )
 from eeyore_tpu_torch.ops._build import CSRC
 from eeyore_tpu_torch.ops.fused_mlp import arch_defines
-from eeyore_tpu_torch.ops.mlp_dense import dense_source
+from eeyore_tpu_torch.ops.mlp_dense import dense_source, prepare_dense
 from eeyore_tpu_torch.ops.mlp_math import prepare_data
 from eeyore_tpu_torch.ops.resident_hmc import ResidentHMCParams, unpack_outputs
 from eeyore_tpu_torch.ops.resident_tempering_dense import make_resident_tempering_dense
@@ -106,9 +107,22 @@ def model_of(dims, loss="multiclass_classification", activations="default"):
                hparams=mlp.Hyperparameters(dims=dims, activations=activations))
 
 
+def banknotes_lr(rows):
+    """LR(6, 1), BCE, on the standardised banknotes: every fifth of the 200
+    rows (40, staged) or the first 10 (dense)."""
+    ds = XYDataset.from_eeyore("banknotes")
+    x = (ds.x - ds.x.mean(axis=0)) / ds.x.std(axis=0)
+    pick = slice(None, None, 5) if rows == 40 else slice(None, 10)
+    model = LogisticRegression(loss_functions["binary_classification"], dtype=torch.float32,
+                               device="cpu", hparams=logistic_regression.Hyperparameters(6, 1))
+    return model, (x[pick], ds.y[pick])
+
+
 def problem(name):
     if name == "xor":
         return model_of([2, 2, 1], "binary_classification"), XOR
+    if name in ("banknotes40", "lr10"):
+        return banknotes_lr(40 if name == "banknotes40" else 10)
     ds = XYDataset.from_eeyore("iris", yonehot=True)
     if name == "iris4323":
         return model_of([4, 3, 2, 3], activations=[mlp.sigmoid, mlp.sigmoid, None]), (ds.x, ds.y)
@@ -215,7 +229,9 @@ NUTS_CASES = [("iris", 32, dict(step=0.02)),
               ("xor", 8, dict(step=0.1, record_extras=True)),
               ("xor", 1, dict(step=0.1, tuner=HMCDATuner(d=0.8), num_burnin_iters=3,
                               record_extras=True)),
-              ("iris", 1, dict(step=0.02, inv_mass=np.linspace(0.5, 2.0, 27)))]
+              ("iris", 1, dict(step=0.02, inv_mass=np.linspace(0.5, 2.0, 27))),
+              ("banknotes40", 8, dict(step=0.05, tuner=HMCDATuner(d=0.8), num_burnin_iters=3,
+                                      record_extras=True))]
 
 
 @pytest.mark.parametrize("name,lanes,kw", NUTS_CASES)
@@ -269,7 +285,9 @@ HMC_CASES = [("iris_subset", 1, dict(step=0.05, num_steps=3, record_extras=True)
              ("iris_subset", 8, dict(step=0.05, num_steps=3, record_extras=True)),
              ("iris_subset", 8, HMC_TUNED),
              ("xor", 4, dict(step=0.1, num_steps=4, tuner=HMCDATuner(l=0.5),
-                             num_burnin_iters=5, record_extras=True))]
+                             num_burnin_iters=5, record_extras=True)),
+             ("banknotes40", 2, dict(step=0.05, num_steps=3, record_extras=True)),
+             ("banknotes40", 2, HMC_TUNED)]
 
 
 @pytest.mark.parametrize("name,lanes,kw", HMC_CASES)
@@ -344,7 +362,8 @@ def test_a_tuned_group_as_a_cluster_equals_the_plain_version(build, name, lanes,
 
 
 @pytest.mark.parametrize("name,lanes", [("iris_subset", 1), ("iris_subset", 2),
-                                        ("iris_subset", 4), ("iris_subset", 8), ("xor", 4)])
+                                        ("iris_subset", 4), ("iris_subset", 8), ("xor", 4),
+                                        ("banknotes40", 8)])
 def test_walk_moves_on_lanes_equal_the_plain_version(build, name, lanes):
     model, (x, y) = problem(name)
     C, iters, burnin = 32, 9, 2
@@ -356,7 +375,8 @@ def test_walk_moves_on_lanes_equal_the_plain_version(build, name, lanes):
     assert lib.resident_walk_lanes() == lanes
     theta0s = torch.as_tensor(0.3 * np.random.default_rng(1).normal(size=(C, model.num_params)),
                               dtype=torch.float32)
-    steps = {"mh": 0.5, "mala": 0.5} if name == "xor" else {"mh": 0.05, "mala": 0.003}
+    steps = {"xor": {"mh": 0.5, "mala": 0.5}, "banknotes40": {"mh": 0.3, "mala": 0.05}}.get(
+        name, {"mh": 0.05, "mala": 0.003})
     for move, maker in (("mh", resident_walk.make_resident_mh),
                         ("mala", resident_walk.make_resident_mala)):
         value = steps[move]
@@ -444,7 +464,8 @@ def launch_tempering(lib, fn, move, seed, theta0s, threads):
 TEMPERING_CASES = [("iris_subset", 1, "mala", 8, 3, True), ("iris_subset", 2, "mh", 4, 2, True),
                    ("iris_subset", 2, "mala", 8, 3, False), ("iris_subset", 4, "mala", 4, 3, True),
                    ("iris_subset", 8, "mala", 8, 3, True), ("iris_subset", 8, "mh", 2, 1, True),
-                   ("xor", 1, "mh", 4, 2, True), ("xor", 2, "mala", 4, 3, True)]
+                   ("xor", 1, "mh", 4, 2, True), ("xor", 2, "mala", 4, 3, True),
+                   ("banknotes40", 8, "mala", 8, 3, True)]
 
 
 @pytest.mark.parametrize("name,lanes,move,L,between,extras", TEMPERING_CASES)
@@ -452,7 +473,8 @@ def test_ladder_on_lanes_equals_the_plain_version(build, name, lanes, move, L, b
     model, (x, y) = problem(name)
     C = 64 if lanes == 1 else 32
     iters, burnin = 12, 3  # four swap rounds of each parity at between_step 1
-    value = {"mala": 0.003 if name != "xor" else 0.3, "mh": 0.05 if name != "xor" else 0.5}[move]
+    value = {"mala": {"xor": 0.3, "banknotes40": 0.05}.get(name, 0.003),
+             "mh": {"xor": 0.5, "banknotes40": 0.3}.get(name, 0.05)}[move]
     fn = resident_walk._make_resident(model, x, y, iters, burnin, C, 1, move, value,
                                       temperatures=np.linspace(0.1, 1.0, L) ** 2,
                                       between_step=between, record_extras=extras, device="cpu")
@@ -926,3 +948,99 @@ def test_smc_pass_on_lanes_equals_the_plain_version(build, mutation, step, lanes
         pr.num_particles = N - 1
         assert lib.resident_smc_launch(0, *[None] * 6, ctypes.byref(pr), threads,
                                        *[None] * 4) != 0
+
+
+@pytest.mark.parametrize("mutation,step", [("MALA", 0.05), ("MH", 0.3)])
+def test_smc_pass_on_lr_equals_the_plain_version(build, mutation, step):
+    """The SMC pass of LR(6, 1) on 40 banknote rows, 8 lanes a particle (the
+    main path's build at one layer): two steps of 64 particles."""
+    model, (x, y) = problem("banknotes40")
+    N = 64
+    lib = build(*resident_smc.library_spec(model, 8)[1:])
+    lib.resident_smc_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.POINTER(resident_smc.ResidentSMCParams), ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    fn = resident_smc.make_resident_smc_mutation(model, x, y, step, 2, chain_block=N,
+                                                 mutation=mutation, device="cpu")
+    theta0s = torch.as_tensor(np.random.default_rng(9).normal(size=(N, model.num_params)),
+                              dtype=torch.float32)
+    want, _ = fn.plain(11, 0.3, theta0s)
+    cells = closure(fn.transposed)
+    pr, theta = cells["setup"](11, 0.3, theta0s.T)
+    P = model.num_params
+    final, pot, accepts = torch.zeros((P, N)), torch.zeros(N), torch.zeros(N)
+    err = lib.resident_smc_launch(
+        resident_smc.MOVES[mutation], theta.data_ptr(), *(a.data_ptr() for a in cells["arrays"]),
+        ctypes.byref(pr), resident_smc.smc_threads(8, 1024, N) // 2, final.data_ptr(),
+        pot.data_ptr(), accepts.data_ptr(), None)
+    assert err == 0
+    assert max_err((final.T, pot), want[:2]) < 2e-4
+    assert torch.equal(accepts, want[2])
+    assert 0 < int(accepts.sum()) < 2 * N
+
+
+def test_lr_walk_builds_hold_no_gibbs_move(build):
+    """A model without parameter blocks builds its walk libraries without
+    the Gibbs move: no sub-blocks, and its entry points refuse."""
+    model, (x, y) = problem("banknotes40")
+    lib = build("resident_walk.cu", walk_defines(model, 8),
+                {"gibbs_blocks.cuh": resident_walk.gibbs_blocks_source(model)})
+    out = (ctypes.c_int * 8)()
+    assert lib.resident_walk_num_sub_blocks() == 0
+    assert lib.resident_walk_gibbs_layout(out) != 0
+    assert lib.resident_walk_resources(2, out) != 0
+    model, (x, y) = problem("lr10")
+    spec = resident_walk_dense.library_spec(model, x, y)
+    assert "dense_gibbs.cuh" not in spec[3]
+    dense = build(*spec[1:])
+    assert dense.resident_walk_dense_num_sub_blocks() == 0
+    assert dense.resident_walk_dense_resources(2, out) != 0
+
+
+@pytest.mark.parametrize("move", ["mh", "mala", "hmc", "nuts"])
+def test_dense_lr_equals_the_plain_version(build, move):
+    """LR(6, 1) on 10 banknote rows, on the dense kernels (the bodies
+    generated for one layer): MH on one thread a chain and MALA on 2 lanes
+    (their builds at dispatch's lanes), HMC and NUTS on one thread a chain,
+    1024 chains in blocks of 256."""
+    model, (x, y) = problem("lr10")
+    C = 1024
+    theta0s = torch.as_tensor(0.5 * np.random.default_rng(3).normal(size=(C, model.num_params)),
+                              dtype=torch.float32)
+    if move in ("mh", "mala"):
+        maker = {"mh": resident_walk_dense.make_resident_mh_dense,
+                 "mala": resident_walk_dense.make_resident_mala_dense}[move]
+        lanes = resident_walk_dense.dense_lanes(prepare_dense(model, x, y)[0].shape[0], move)
+        fn = maker(model, x, y, {"mh": 0.3, "mala": 0.05}[move], 9, 2, chain_block=C,
+                   record_extras=True, device="cpu")
+        want, _ = fn.plain(3, theta0s)
+        got = launch_dense_walk(dense_walk_library(build, model, x, y, lanes), fn, move, 3,
+                                theta0s, 256)
+        assert 0 < int(got[2].sum()) < C * 7
+    elif move == "hmc":
+        fn = resident_hmc_dense.make_resident_hmc_dense(model, x, y, num_iters=10, chain_block=C,
+                                                        device="cpu", step=0.05, num_steps=3,
+                                                        record_extras=True)
+        want, info = fn.plain(3, theta0s)
+        got, evaluations = launch_dense_hmc(dense_hmc_library(build, model, x, y), fn, 3,
+                                            theta0s, 256)
+        assert evaluations == info["evaluations"]
+    else:
+        _, source, defines, generated = resident_nuts_dense.library_spec(model, x, y, 3, None)
+        lib = build(source, defines, generated)
+        lib.resident_nuts_dense_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.POINTER(ResidentHMCParams), ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 6)
+        fn = resident_nuts_dense.make_resident_nuts_dense(model, x, y, max_depth=3, num_iters=5,
+                                                          chain_block=C, step=0.05,
+                                                          record_extras=True, device="cpu")
+        want, _ = fn.plain(3, theta0s)
+        pr, theta = closure(fn)["setup"](3, theta0s, False)
+        P = model.num_params
+        out = (torch.zeros((pr.kept, P + 2, C)), torch.zeros((P, C)), torch.zeros(C),
+               torch.zeros(C), torch.zeros(C))
+        assert lib.resident_nuts_dense_launch(theta.data_ptr(), ctypes.byref(pr), 256, 1,
+                                              *(t.data_ptr() for t in out), None) == 0
+        got = resident_nuts.unpack_nuts_outputs(*out[:4], P, True)
+    assert max_err(got, want) < 2e-4
