@@ -261,6 +261,41 @@ kernels are built for sm_90a). Phases, one JSON line each:
     records the kernel, else null beside an estimate from the kernel's
     CUDA-event time), the divergence rate and the kernel's time beside its
     bound.
+16a. main_adaptive_lr: the adaptive samplers, which have no kernel in either
+    package, on the generic path on the card at the width of
+    examples/logistic_regression/banknotes.py: ``RAM(cov0=0.01 I)`` and
+    ``AM()`` through ``sample_chains(backend="auto")`` (dispatch: "has no
+    kernel backend yet"), ``DEMC()`` over a population of 16384 through
+    ``sample_population``, each 16384 x 2048 with 1024 burn-in from phase
+    11b's inits. Checks no launch, no non-finite chain, posterior-mean
+    accuracy at least 0.97, pooled means within 0.12 posterior standard
+    deviations (JAX's AM and RAM threshold on a unit-variance target) of a
+    converged reference (the LR MH kernel at 16384 iterations, every 16th
+    of the last 8192 kept, one launch),
+    and RAM's within 5 pooled standard errors of phase 11b's LR MH kernel
+    run (AM's distance from it a reading); reports walls, samples/s and
+    acceptance.
+16b. main_adaptive_bvn: the bivariate normal of tests/test_samplers.py at
+    4096 chains x 1000 (500 burn-in), at JAX's own thresholds: AM and RAM
+    moments (mean 0.12, covariance 0.2), RAM's acceptance within 0.06 of
+    0.234, DEMC's moments (0.08, 0.15); ``AM(transform=softabs)`` on the
+    mixture of examples/distributions/bivariate_normal_mixture.py finite.
+16c. main_harness_iris: ``SamplerHarness.benchmark`` of config 3's tuned
+    HMC on iris, one batch of 4096 chains (600 epochs, 300 burn-in, one
+    ``resident_hmc`` launch), verbose, keeping 16 chains whose acceptance
+    exceeds 0.3: ``run_counts.txt`` reads 16 successes and no runtime
+    error, the CSVs load back through ``ChainLists.from_file`` as written,
+    and ``summarize_run`` on them gives an acceptance in 0.65 +- 0.15; then
+    ``SamplerHarness.run(verbose=True)`` on the bivariate normal on the card
+    equals the silent generic run from the same generator state.
+16d. run_smc_resident: one call on LR(6,1) (16384 particles, MALA 0.05, 5
+    steps, the default 10 stages), one ``resident_smc`` launch a stage,
+    particles, weights and log-evidence equal to ``make_resident_smc``'s
+    runner from the same seed.
+16e. profiling: ``utils.device_trace`` around five LR MH kernel calls (one
+    launch each) writes a Chrome trace that names the walk kernel;
+    ``utils.timed`` gives one call's wall; the phases' ``PhaseTimer``
+    totals.
 16. kernels: each kernel's launches on the main paths, its error against its
     plain version, its time, the plain version's time and its bound (the
     largest of its bytes at the memory rate, its f32 operations at the f32
@@ -283,6 +318,7 @@ non-zero, printing no result, when no CUDA device is available.
 import argparse
 import concurrent.futures
 import ctypes
+import functools
 import json
 import math
 import subprocess
@@ -404,6 +440,20 @@ LR_PREDICTIVE_CHECK_ROWS, LR_RESUME_ITERS, LR_MMD_SAMPLES = 5, 16, 2048
 # adaptive SMC run's stages and log-evidence (benchmarks/SMC_HARD_RESULTS.json)
 LR_JAX_ACCEPTANCE = {"banknotes_lr_mh": 0.7894, "banknotes_lr_mala": 0.9956}
 LR_JAX_SMC = {"stages": 7, "log_evidence": -15.714}
+# the adaptive samplers' bivariate normal (tests/test_samplers.py:35) and
+# mixture (examples/distributions/bivariate_normal_mixture.py:28-36): chains,
+# iterations and burn-in
+BVN_COV = np.array([[1.0, 0.5], [0.5, 1.0]])
+ADAPTIVE_BVN_CHAINS, BVN_ITERS, BVN_BURNIN = 4096, 1000, 500
+BVN_MIXTURE_MU = 2.0
+# the adaptive samplers on LR: the iterations of the converged MH reference,
+# and the largest distance of a pooled mean from it, in posterior standard
+# deviations (JAX's AM and RAM threshold on a unit-variance target)
+LR_REFERENCE_ITERS, LR_REFERENCE_THIN, ADAPTIVE_MEAN_TOL = 16384, 16, 0.12
+# the LR MH calls that the profiling phase traces
+PROFILED_CALLS = 5
+# the harness's benchmark on iris: chains to keep, chains a batch, epochs
+HARNESS_CHAINS, HARNESS_BATCH, HARNESS_EPOCHS, HARNESS_BURNIN = 16, 4096, 600, 300
 
 
 # the 2-d mixture of the SMC closure kernel's main path
@@ -426,6 +476,14 @@ def mixture_base(t):
 def mixture_init(g, n):
     """n draws of the base from generator g."""
     return MIX_BASE * torch.randn((n, 2), generator=g, device=g.device)
+
+
+def bvn_mixture_log_pdf(t, x, y):
+    """The two-component mixture of N((mu, mu), I) and N((-mu, -mu), I) with
+    equal weights (examples/distributions/bivariate_normal_mixture.py:28-36)."""
+    l1 = -0.5 * ((t - BVN_MIXTURE_MU) ** 2).sum(-1)
+    l2 = -0.5 * ((t + BVN_MIXTURE_MU) ** 2).sum(-1)
+    return torch.logaddexp(l1, l2) - math.log(2.0)
 
 
 def build_launch_floor():
@@ -859,17 +917,26 @@ def main(argv=None):
     from eeyore_tpu_torch.ops.resident_tempering_dense import make_resident_tempering_dense
     from eeyore_tpu_torch.ops.mlp_dense import dense_work, gibbs_dense_work
     from eeyore_tpu_torch.ops.mlp_math import extract_arch, make_vg, prepare_data
+    from eeyore_tpu_torch.ops.resident_smc import run_smc_resident
     from eeyore_tpu_torch.samplers import (
+        AM,
+        DEMC,
         HMC,
         MALA,
         NUTS,
+        RAM,
         Gibbs,
         MetropolisHastings,
         PowerPosteriorSampler,
+        SamplerHarness,
         SMCSampler,
         sample_chains,
         sample_population,
+        summarize_run,
     )
+    from eeyore_tpu_torch.stats import softabs
+    from eeyore_tpu_torch.utils import PhaseTimer, device_trace
+    from eeyore_tpu_torch.utils import timed as timed_call
     from eeyore_tpu_torch.samplers.dispatch import resolve_backend, resolve_smc, resolve_tempering
     from eeyore_tpu_torch.tuners import HMCDATuner
 
@@ -2163,7 +2230,7 @@ def main(argv=None):
         ("banknotes_lr_hmc", lambda: HMC(lr_model, tuner=HMCDATuner(l=0.15, e0=0.02),
                                          max_num_steps=64),
          lambda: HMC(lr_model, step=0.02, num_steps=8), resident_hmc, "main_sample_chains_hmc")]
-    lr_main = {}
+    lr_main, lr_summaries = {}, {}
 
     def lr_generic(sampler):
         """A generic run beside an LR path: (chains, acceptance, share of
@@ -2201,7 +2268,7 @@ def main(argv=None):
               f"{name}: samples of shape {tuple(samples.shape)}")
         check(bool(torch.isfinite(samples).all()), f"{name}: non-finite samples")
         acc = chains.tensor("accepted").float().mean().item()
-        lr_summary = pooled_summary(samples)
+        lr_summary = lr_summaries[name] = pooled_summary(samples)
         head = ChainLists.from_arrays({k: chains.tensor(k)[:64].cpu() for k in chains.keys()})
         rhat = head.multi_rhat()[0]
         ess = head.multi_ess()
@@ -2893,6 +2960,290 @@ def main(argv=None):
               f"{c['generic_accept_stat']} at one step")
         del rec
         torch.cuda.empty_cache()
+
+    # 16a. main_adaptive_lr: the adaptive samplers, which have no kernel in
+    #      either package (docs/PERF_NOTES.md:283-310), on the generic path on
+    #      the card at the full width of the repo's RAM example
+    #      (examples/logistic_regression/banknotes.py): RAM(cov0=0.01 I) and
+    #      AM() through sample_chains(backend="auto"), DEMC through
+    #      sample_population, each LR_CHAINS x LR_ITERS with LR_BURNIN burn-in
+    #      from phase 11b's inits, all three held to the posterior-mean
+    #      accuracy and, by JAX's own AM and RAM threshold (tests/
+    #      test_samplers.py:47-50, 0.12 on a target of unit variance), their
+    #      pooled means to within ADAPTIVE_MEAN_TOL posterior standard
+    #      deviations of a converged reference: the MH kernel at
+    #      LR_REFERENCE_ITERS iterations. RAM is also held within 5 pooled SE
+    #      of the LR MH kernel run of phase 11b; AM's distance from it is a
+    #      reading: under its defaults, AM at 2048 iterations has not
+    #      converged to the precision of 16384 chains (its covariance keeps
+    #      the start's drift), in both packages (PERF.md, section 6)
+    adaptive_timer = PhaseTimer()
+    lr_x = torch.as_tensor(banknotes.x, dtype=torch.float32, device=device)
+    lr_y = torch.as_tensor(banknotes.y, dtype=torch.float32, device=device)
+
+    def posterior_mean_accuracy(samples):
+        """The example's accuracy: the model at the pooled posterior mean."""
+        mean = samples.reshape(-1, samples.shape[-1]).mean(0, dtype=torch.float64)
+        preds = lr_model.forward(mean.to(torch.float32), lr_x)
+        return ((preds > 0.5) == (lr_y > 0.5)).float().mean().item()
+
+    def adaptive_run(run, phase_name):
+        """(recorded {sample, accepted}, wall, launch counts) of ``run()``,
+        the counts set to 0 just before it."""
+        reset_counts()
+        start = time.perf_counter()
+        with adaptive_timer.phase(phase_name):
+            recorded = run()
+            torch.cuda.synchronize()
+        return recorded, time.perf_counter() - start, read_counts()
+
+    reset_counts()
+    with adaptive_timer.phase("banknotes_lr_mh_reference"):
+        reference = sample_chains(MetropolisHastings(lr_model, scale=0.1), gen, lr_theta0s,
+                                  lr_data, LR_REFERENCE_ITERS, LR_REFERENCE_ITERS // 2,
+                                  record_keys=("sample",), return_arrays=True,
+                                  record_thin=LR_REFERENCE_THIN, backend="auto")["sample"]
+        torch.cuda.synchronize()
+    counts = read_counts()
+    main_launches[resident_walk.KERNEL]["banknotes_lr_mh_reference"] = counts[resident_walk.KERNEL]
+    check(counts == {**dict.fromkeys(counts, 0), resident_walk.KERNEL: 1},
+          f"LR MH reference: launches {counts}")
+    reference_summary = pooled_summary(reference)
+    posterior_sd = reference.reshape(-1, reference.shape[-1]).double().std(0)
+    del reference
+    adaptive_keys = ("sample", "accepted")
+    adaptive_lr = [
+        ("banknotes_lr_ram", lambda: RAM(lr_model, cov0=0.01 * np.eye(lr_model.num_params))),
+        ("banknotes_lr_am", lambda: AM(lr_model)),
+        ("banknotes_lr_demc", lambda: DEMC(lr_model))]
+    for name, sampler in adaptive_lr:
+        kernel = sampler()
+        if isinstance(kernel, DEMC):
+            recorded, wall, counts = adaptive_run(lambda: sample_population(
+                kernel, gen, lr_theta0s, lr_data, LR_ITERS, LR_BURNIN,
+                record_keys=adaptive_keys, return_arrays=True), name)
+            reason = "a population kernel (sample_population)"
+        else:
+            plan, reason = resolve_backend(kernel, lr_data, LR_CHAINS, LR_ITERS, LR_BURNIN,
+                                           platform="cuda")
+            check(plan is None and "no kernel backend" in reason,
+                  f"{name}: dispatch gave {plan} ({reason}), not the generic path")
+            recorded, wall, counts = adaptive_run(lambda: sample_chains(
+                kernel, gen, lr_theta0s, lr_data, LR_ITERS, LR_BURNIN,
+                record_keys=adaptive_keys, return_arrays=True, backend="auto"), name)
+        samples = recorded["sample"]
+        check(samples.shape == (LR_CHAINS, LR_ITERS - LR_BURNIN, lr_model.num_params),
+              f"{name}: samples of shape {tuple(samples.shape)}")
+        finite_chains = torch.isfinite(samples).flatten(1).all(1)
+        acc = recorded["accepted"].float().mean().item()
+        accuracy = posterior_mean_accuracy(samples)
+        summary = pooled_summary(samples)
+        # DEMC's walkers share their moves: no pooled SE of independent chains
+        z = (max_z(summary, lr_summaries["banknotes_lr_mh"])
+             if not isinstance(kernel, DEMC) else None)
+        z_reference = max_z(summary, reference_summary) if z is not None else None
+        mean_err_sd = ((summary[0] - reference_summary[0]).abs() / posterior_sd).max().item()
+        emit({"phase": "main_adaptive_lr", "case": name, "path": reason,
+              "chains": LR_CHAINS, "iterations": LR_ITERS, "burnin": LR_BURNIN,
+              "seconds": wall, "samples_per_s": LR_CHAINS * LR_ITERS / wall,
+              "ms_per_iteration": 1e3 * wall / LR_ITERS,
+              "acceptance_post_burnin": acc, "posterior_mean_accuracy": accuracy,
+              "accuracy_limit": 0.97, "non_finite_chains": int((~finite_chains).sum()),
+              "max_abs_z_pooled_mean_vs_lr_mh_kernel": z, "limit": 5.0,
+              "z_is": "a gate for RAM, a reading for AM",
+              "max_abs_z_pooled_mean_vs_reference": z_reference,
+              "max_abs_mean_err_in_posterior_sd": mean_err_sd,
+              "mean_err_limit_in_posterior_sd": ADAPTIVE_MEAN_TOL,
+              "reference": f"MH 0.1 kernel, {LR_REFERENCE_ITERS} iterations, half burn-in",
+              "kernel_launches": counts, "card": card})
+        check(not any(counts.values()), f"{name}: the generic path launched {counts}")
+        check(bool(finite_chains.all()), f"{name}: chains left non-finite")
+        check(accuracy >= 0.97, f"{name}: posterior-mean accuracy {accuracy}")
+        check(mean_err_sd <= ADAPTIVE_MEAN_TOL, f"{name}: pooled means {mean_err_sd} posterior "
+              "SDs from the converged reference")
+        check(not isinstance(kernel, RAM) or z <= 5.0,
+              f"{name}: pooled means {z} SEs from the LR MH kernel run's")
+        del recorded, samples, kernel
+        torch.cuda.empty_cache()
+
+    # 16b. main_adaptive_bvn: the bivariate normal of tests/test_samplers.py
+    #      at ADAPTIVE_BVN_CHAINS chains, at JAX's own thresholds (AM and RAM
+    #      moments :69-72, RAM's acceptance :85-87, DEMC's moments :226-231),
+    #      and AM with softabs on the mixture of examples/distributions/
+    #      bivariate_normal_mixture.py:48
+    bvn_prec = torch.as_tensor(np.linalg.inv(BVN_COV), dtype=torch.float32, device=device)
+    bvn = DistributionModel(lambda t, x, y: -0.5 * ((t @ bvn_prec) * t).sum(-1), 2,
+                            dtype=torch.float32, device=device)
+    bvn_mixture = DistributionModel(bvn_mixture_log_pdf, 2, dtype=torch.float32, device=device)
+    bvn_start = torch.tensor([[2.0, -2.0]], device=device).expand(ADAPTIVE_BVN_CHAINS, 2)
+    bvn_cases = [
+        ("bvn_am", lambda: AM(bvn), bvn, bvn_start, 0.12, 0.2, None),
+        ("bvn_ram", lambda: RAM(bvn), bvn, bvn_start, 0.12, 0.2, 0.234),
+        ("bvn_demc", lambda: DEMC(bvn), bvn,
+         2.0 * torch.randn(ADAPTIVE_BVN_CHAINS, 2, generator=gen, device=device), 0.08, 0.15,
+         None),
+        ("bvn_mixture_am_softabs", lambda: AM(bvn_mixture, transform=functools.partial(
+            softabs, a=1000.0)), bvn_mixture,
+         torch.tensor([[2.0, 2.0]], device=device).expand(ADAPTIVE_BVN_CHAINS, 2), None, None,
+         None)]
+    for name, sampler, model, start_thetas, mean_tol, cov_tol, target in bvn_cases:
+        kernel = sampler()
+        if isinstance(kernel, DEMC):
+            recorded, wall, counts = adaptive_run(lambda: sample_population(
+                kernel, gen, start_thetas, empty, BVN_ITERS, BVN_BURNIN,
+                record_keys=adaptive_keys, return_arrays=True), name)
+        else:
+            recorded, wall, counts = adaptive_run(lambda: sample_chains(
+                kernel, gen, start_thetas, empty, BVN_ITERS, BVN_BURNIN,
+                record_keys=adaptive_keys, return_arrays=True, backend="auto"), name)
+        pooled = recorded["sample"].reshape(-1, 2).double()
+        finite = bool(torch.isfinite(pooled).all())
+        mean_err = pooled.mean(0).abs().max().item()
+        cov_err = (torch.cov(pooled.T) - torch.as_tensor(BVN_COV, dtype=torch.float64,
+                                                        device=device)).abs().max().item()
+        acc = recorded["accepted"].float().mean().item()
+        record = {"phase": "main_adaptive_bvn", "case": name, "chains": ADAPTIVE_BVN_CHAINS,
+                  "iterations": BVN_ITERS, "burnin": BVN_BURNIN, "seconds": wall,
+                  "samples_per_s": ADAPTIVE_BVN_CHAINS * BVN_ITERS / wall,
+                  "acceptance_post_burnin": acc, "finite": finite, "kernel_launches": counts,
+                  "card": card}
+        if mean_tol is not None:
+            record.update(max_abs_mean_err=mean_err, mean_tol=mean_tol, max_abs_cov_err=cov_err,
+                          cov_tol=cov_tol)
+        else:
+            record["share_theta0_positive"] = (pooled[:, 0] > 0).double().mean().item()
+        if target is not None:
+            record.update(target_acceptance=target, acceptance_tol=0.06)
+        emit(record)
+        check(not any(counts.values()), f"{name}: the generic path launched {counts}")
+        check(finite, f"{name}: non-finite samples")
+        check(mean_tol is None or (mean_err <= mean_tol and cov_err <= cov_tol),
+              f"{name}: moments {mean_err}, {cov_err} beyond {mean_tol}, {cov_tol}")
+        check(target is None or abs(acc - target) <= 0.06,
+              f"{name}: acceptance {acc}, target {target}")
+        del recorded, pooled, kernel
+
+    # 16c. main_harness_iris: SamplerHarness.benchmark of config 3's tuned HMC
+    #      on iris, in one batch of HARNESS_BATCH chains through
+    #      sample_chains(backend="auto"), which launches resident_hmc once;
+    #      HARNESS_CHAINS chains kept on an acceptance condition, written as
+    #      CSVs and read back; then SamplerHarness.run(verbose=True) on the
+    #      bivariate normal on the card against the silent generic run
+    with tempfile.TemporaryDirectory() as tmp:
+        harness = SamplerHarness(HMC(iris_model, tuner=HMCDATuner(l=0.15, e0=0.02),
+                                     max_num_steps=64), iris_data,
+                                 generator=torch.Generator(device=device).manual_seed(
+                                     args.seed + 16))
+        reset_counts()
+        start = time.perf_counter()
+        with adaptive_timer.phase("harness_iris_benchmark"):
+            kept = harness.benchmark(
+                num_chains=HARNESS_CHAINS, num_epochs=HARNESS_EPOCHS,
+                num_burnin_epochs=HARNESS_BURNIN, path=Path(tmp) / "bench",
+                batch_chains=HARNESS_BATCH, verbose=True,
+                check_conditions=lambda chain, runtime: chain.acceptance_rate() > 0.3)
+        wall = time.perf_counter() - start
+        counts = read_counts()
+        main_launches[resident_hmc.KERNEL]["harness_iris_benchmark"] = counts[resident_hmc.KERNEL]
+        run_counts = (Path(tmp) / "bench" / "run_counts.txt").read_text()
+        run_dirs = sorted((Path(tmp) / "bench").glob("run*/"))
+        back = ChainLists.from_file(run_dirs, keys=("sample", "accepted"))
+        kept_lists = ChainLists.from_chain_list(kept, keys=("sample", "accepted"))
+        csv_equal = (torch.equal(back.tensor("sample").to(torch.float32),
+                                 kept_lists.tensor("sample"))
+                     and torch.equal(back.tensor("accepted").to(torch.int64),
+                                     kept_lists.tensor("accepted").to(torch.int64)))
+        summary = summarize_run(back)
+        runtime = float((run_dirs[0] / "runtime.txt").read_text())
+        # the verbose generic run on the card, against the silent one
+        loud_harness = SamplerHarness(MALA(bvn, step=0.4), empty,
+                                      theta0=torch.tensor([1.0, 1.0]),
+                                      generator=torch.Generator(device=device).manual_seed(5))
+        silent_harness = SamplerHarness(MALA(bvn, step=0.4), empty,
+                                        theta0=torch.tensor([1.0, 1.0]),
+                                        generator=torch.Generator(device=device).manual_seed(5))
+        reset_counts()
+        with adaptive_timer.phase("harness_bvn_verbose"):
+            loud = loud_harness.run(300, 100, verbose=True, verbose_step=64)
+        silent = silent_harness.run(300, 100, backend="scan")
+        verbose_counts = read_counts()
+        verbose_equal = torch.equal(loud.get_samples(), silent.get_samples())
+    emit({"phase": "main_harness_iris", "chains_kept": len(kept), "batch_chains": HARNESS_BATCH,
+          "epochs": HARNESS_EPOCHS, "burnin_epochs": HARNESS_BURNIN, "seconds": wall,
+          "runtime_per_chain": runtime, "run_counts": run_counts.splitlines(),
+          "kernel_launches": counts, "csv_round_trip_equal": csv_equal,
+          "acceptance_mean": summary.get("acceptance_mean"),
+          "acceptance_quantiles": summary.get("acceptance_quantiles"),
+          "verbose_run_equals_silent": verbose_equal, "verbose_run_launches": verbose_counts,
+          "verbose_run_seconds": loud_harness.last_runtime, "card": card})
+    check(counts == {**dict.fromkeys(counts, 0), resident_hmc.KERNEL: 1},
+          f"harness benchmark: launches {counts}, not one batch on {resident_hmc.KERNEL}")
+    check(run_counts.splitlines()[0] == f"{HARNESS_CHAINS},succesful"
+          and run_counts.splitlines()[2] == "0,runtime_errors",
+          f"harness benchmark: run_counts.txt {run_counts!r}")
+    check(len(run_dirs) == HARNESS_CHAINS and csv_equal,
+          "harness benchmark: the CSVs did not load back as written")
+    acc = summary.get("acceptance_mean", float("nan"))
+    check(math.isfinite(acc) and abs(acc - 0.65) <= 0.15,
+          f"harness benchmark: summarize_run acceptance {acc} outside 0.65 +- 0.15")
+    check(verbose_equal and not any(verbose_counts.values()),
+          "harness run(verbose=True): the chain differs from the silent generic run's")
+
+    # 16d. run_smc_resident: one call on LR(6, 1), beside its maker's runner
+    #      from the same seed
+    smc_kw = dict(num_particles=SMC_PARTICLES, mutation="MALA", mutation_step=0.05,
+                  num_mutation_steps=SMC_STEPS)
+    reset_counts()
+    start = time.perf_counter()
+    with adaptive_timer.phase("run_smc_resident"):
+        one_shot = run_smc_resident(lr_model, banknotes.x, banknotes.y, seed=args.seed + 17,
+                                    **smc_kw)
+        torch.cuda.synchronize()
+    one_shot_wall = time.perf_counter() - start
+    counts = read_counts()
+    main_launches[resident_smc.KERNEL]["run_smc_resident_lr"] = counts[resident_smc.KERNEL]
+    runner_out = resident_smc.make_resident_smc(lr_model, banknotes.x, banknotes.y,
+                                                **smc_kw)(args.seed + 17)
+    stages = len(one_shot[2]["beta"])
+    same = (torch.equal(one_shot[0], runner_out[0]) and torch.equal(one_shot[1], runner_out[1])
+            and one_shot[2]["log_evidence"] == runner_out[2]["log_evidence"])
+    emit({"phase": "run_smc_resident", "case": "banknotes_lr_mala", "stages": stages,
+          "particles": SMC_PARTICLES, "seconds": one_shot_wall,
+          "log_evidence": one_shot[2]["log_evidence"], "equal_to_makers_runner": same,
+          "kernel_launches": counts, "card": card})
+    check(counts == {**dict.fromkeys(counts, 0), resident_smc.KERNEL: stages},
+          f"run_smc_resident: {stages} stages made the launches {counts}")
+    check(same, "run_smc_resident: particles or log-evidence differ from the maker's runner")
+    check(bool(torch.isfinite(one_shot[0]).all()), "run_smc_resident: non-finite particles")
+    del one_shot, runner_out
+
+    # 16e. profiling: device_trace around LR MH kernel calls names the walk
+    #      kernel in its trace (PROFILED_CALLS calls: torch.profiler has
+    #      dropped launches from traces, section 7 of PERF.md); timed gives
+    #      one call's wall
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        with device_trace(Path(tmp) / "trace"):
+            for _ in range(PROFILED_CALLS):
+                sample_chains(MetropolisHastings(lr_model, scale=0.1), gen, lr_theta0s, lr_data,
+                              64, 32, backend="auto")
+            torch.cuda.synchronize()
+        traced_counts = read_counts()
+        (trace_file,) = (Path(tmp) / "trace").glob("*.json")
+        events = json.loads(trace_file.read_text())["traceEvents"]
+    walk_events = [e.get("name", "") for e in events if resident_walk.KERNEL in e.get("name", "")]
+    walk_names = sorted(set(walk_events))
+    _, timed_wall = timed_call(lambda: sample_chains(MetropolisHastings(lr_model, scale=0.1), gen,
+                                                lr_theta0s, lr_data, 64, 32, backend="auto"))
+    emit({"phase": "profiling", "trace_walk_kernel_names": walk_names[:4],
+          "trace_walk_events": len(walk_events), "calls_traced": PROFILED_CALLS,
+          "kernel_launches": traced_counts, "timed_seconds": timed_wall,
+          "phase_timer_seconds": adaptive_timer.report(), "card": card})
+    check(traced_counts[resident_walk.KERNEL] == PROFILED_CALLS,
+          f"profiling: the traced call launched {traced_counts}")
+    check(bool(walk_names), "profiling: the trace names no walk kernel")
+    check(timed_wall > 0, f"profiling: timed gave {timed_wall}")
+    torch.cuda.empty_cache()
 
     # 16. kernels: fused_mlp_vg timed at the iris main path's shape; each
     #     whole-loop kernel at a main path's shape (XOR HMC, untuned, for the

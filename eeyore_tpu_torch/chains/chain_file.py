@@ -14,14 +14,10 @@ import numpy as np
 import torch
 
 from eeyore_tpu_torch.chains.chain import Chain
+from eeyore_tpu_torch.utils.host import host_array
 
 DEFAULT_FMT = {"sample": "%.18e", "target_val": "%.18e", "grad_val": "%.18e",
                "momentum": "%.18e", "hamiltonian": "%.18e", "accepted": "%d"}
-
-
-def _host(v):
-    """A tensor (on any device) or array-like as a numpy array."""
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 class ChainFile(Chain):
@@ -46,7 +42,7 @@ class ChainFile(Chain):
         for key, f in self.vals.items():
             v = state[key]
             if hasattr(v, "__array__"):  # arrays and tensors
-                np.savetxt(f, _host(v).ravel()[np.newaxis], fmt=fmt.get(key, "%.18e"),
+                np.savetxt(f, host_array(v).ravel()[np.newaxis], fmt=fmt.get(key, "%.18e"),
                            delimiter=",")
             else:
                 f.write(str(v) + "\n")
@@ -58,7 +54,7 @@ class ChainFile(Chain):
         fmt = fmt or DEFAULT_FMT
         self.close()
         for key in self.vals.keys():
-            a = _host(arrays[key])
+            a = host_array(arrays[key])
             with open(self.path / (key + ".csv"), self.mode) as f:
                 np.savetxt(f, a.reshape(a.shape[0], -1), fmt=fmt.get(key, "%.18e"),
                            delimiter=",")

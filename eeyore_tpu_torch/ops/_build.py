@@ -8,7 +8,7 @@ only when the listed source or the flags change; it does not track the
 the library's name, and an edited header never loads a stale build. Code is
 generated for Hopper only (``sm_90a``) and without ``--use_fast_math``. The
 build goes to ``ops/_build/<name>/``, which git ignores. A failed build
-raises.
+raises ``KernelError``.
 
 A build may also take generated headers (the dense kernels' bodies, which
 hold one dataset as constants): they are written into the build directory,
@@ -25,6 +25,12 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 _libraries = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel's build, load or launch failed, or a library reports a CUDA
+    error: a fault of the kernel or the card, never of the numbers it was
+    given, so no caller retries it as a failed run."""
 
 
 def headers_hash():
@@ -62,8 +68,11 @@ def load_library(name, source, defines=(), generated=None):
     flags = list(CUDA_FLAGS) + [f"-D{define}" for define in defines]
     if generated:
         flags.append(f"-I{build_dir}")
-    path = load(name=name, sources=[str(CSRC / source)], extra_cuda_cflags=flags,
-                build_directory=str(build_dir), is_python_module=False)
-    lib = ctypes.CDLL(path)
+    try:
+        path = load(name=name, sources=[str(CSRC / source)], extra_cuda_cflags=flags,
+                    build_directory=str(build_dir), is_python_module=False)
+        lib = ctypes.CDLL(path)
+    except (RuntimeError, OSError) as err:
+        raise KernelError(f"building {source} as {name} failed: {err}") from err
     _libraries[name] = lib
     return lib

@@ -112,7 +112,7 @@ def load_kernel(model, lanes=None):
     arch = _arch(lib)
     expected = [model.num_params, dims[0], dims[-1], int(loss_kind == "ce")]
     if arch[:4] != expected:
-        raise RuntimeError(f"{name}: library built for {arch[:4]}, model needs {expected}")
+        raise _build.KernelError(f"{name}: library built for {arch[:4]}, model needs {expected}")
     return lib
 
 
@@ -126,7 +126,7 @@ def _arch(lib):
 
 def _raise_on(lib, err, what):
     if err != 0:
-        raise RuntimeError(f"{what}: {lib.fused_mlp_vg_error_string(err).decode()}")
+        raise _build.KernelError(f"{what}: {lib.fused_mlp_vg_error_string(err).decode()}")
 
 
 def kernel_resources(lib):

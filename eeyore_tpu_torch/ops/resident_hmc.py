@@ -183,13 +183,13 @@ def check_arch(arch_fn, model, name):
     arch_fn(arch)
     expected = [model.num_params, dims[0], dims[-1], int(loss_kind == "ce"), MAX_BLOCK]
     if list(arch) != expected:
-        raise RuntimeError(f"{name}: library built for {list(arch)}, model needs {expected}")
+        raise _build.KernelError(f"{name}: library built for {list(arch)}, model needs {expected}")
 
 
 def raise_on(err, error_string, what):
     """Raise on a non-zero CUDA error code from a library call."""
     if err != 0:
-        raise RuntimeError(f"{what}: {error_string(err).decode()}")
+        raise _build.KernelError(f"{what}: {error_string(err).decode()}")
 
 
 def read_resources(call, error_string, name):

@@ -278,8 +278,8 @@ def load_closure_kernel(programs):
     arch = (ctypes.c_int * 2)()
     lib.resident_smc_closure_arch(arch)
     if list(arch) != [P, MAX_BLOCK]:
-        raise RuntimeError(f"{CLOSURE_KERNEL}: library built for {list(arch)}, the target needs "
-                           f"{[P, MAX_BLOCK]}")
+        raise _build.KernelError(f"{CLOSURE_KERNEL}: library built for {list(arch)}, the "
+                                 f"target needs {[P, MAX_BLOCK]}")
     return lib
 
 
@@ -597,3 +597,14 @@ def make_resident_smc(model, x, y, num_particles, betas=None, num_mutation_steps
         return particles.T.contiguous(), log_w, diagnostics
 
     return runner
+
+
+def run_smc_resident(model, x, y, num_particles, betas=None, num_mutation_steps=2,
+                     mutation="MALA", mutation_step=0.1, ess_threshold=0.5, chain_block=4096,
+                     seed=0, device="cuda"):
+    """One run of :func:`make_resident_smc` (builds the runner, runs it once
+    from ``seed``). For repeated runs build the runner once."""
+    return make_resident_smc(
+        model, x, y, num_particles, betas=betas, num_mutation_steps=num_mutation_steps,
+        mutation=mutation, mutation_step=mutation_step, ess_threshold=ess_threshold,
+        chain_block=chain_block, device=device)(seed)

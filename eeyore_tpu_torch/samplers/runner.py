@@ -37,8 +37,9 @@ def _generator_or_default(generator, device):
 
 
 def _run_generic(kernel, generator, theta0s, schedule, num_iters, num_burnin_iters,
-                 record_keys, record_thin):
-    """Python loop over iterations; returns (final_state, {key: [C, kept, ...]})."""
+                 record_keys, record_thin, on_iteration=None):
+    """Python loop over iterations; returns (final_state, {key: [C, kept, ...]}).
+    ``on_iteration(i, state)``, when given, is called after iteration i."""
     kernel.init_schedule = schedule
     xb, yb = schedule.batch(0)
     # the generic path always hands init a generator, as the JAX runner hands
@@ -53,6 +54,8 @@ def _run_generic(kernel, generator, theta0s, schedule, num_iters, num_burnin_ite
         if since >= 0 and since % record_thin == record_thin - 1:
             for k in record_keys:
                 rows[k].append(info[k])
+        if on_iteration is not None:
+            on_iteration(i, state)
     recorded = {k: torch.stack(v, dim=1) if v else None for k, v in rows.items()}
     return state, recorded
 

@@ -268,7 +268,7 @@ class SMCSampler:
                "mutation_acceptance": torch.mean(acc), "unique_frac": unique_frac}
         return particles, log_w, log_z, out
 
-    def run(self, generator, data, backend="auto", platform=None):
+    def run(self, generator, data, record=False, backend="auto", platform=None):
         """Anneal prior -> posterior over the schedule (fixed, or adaptive
         when constructed with ``betas="adaptive"``). ``data`` (x, y) is moved
         to the model's device and dtype.
@@ -286,7 +286,9 @@ class SMCSampler:
         from ``generator``, so its runs are statistically equivalent to the
         generic path's, not equal; "scan" forces the generic path.
         ``platform`` overrides the device type that dispatch sees; a CUDA
-        plan on CPU tensors runs the plain mutation pass."""
+        plan on CPU tensors runs the plain mutation pass. ``record`` is
+        accepted and ignored, as in the JAX package, whose ``run`` never
+        reads it."""
         model = self.model
         schedule = as_schedule(data).to(device=getattr(model, "device", None),
                                         dtype=getattr(model, "dtype", None))

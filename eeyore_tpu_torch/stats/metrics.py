@@ -8,6 +8,7 @@ import torch
 
 
 def softabs(hessian, a=1000.0):
+    """SoftAbs of ``hessian [..., P, P]``, each matrix of a batch alone."""
     l, q = torch.linalg.eigh(hessian)
     softened = l / torch.tanh(a * l)
-    return (q * softened) @ q.T
+    return (q * softened.unsqueeze(-2)) @ q.mT

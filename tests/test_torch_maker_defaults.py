@@ -62,3 +62,45 @@ def test_maker_defaults_equal_jaxs(module, name):
     for p in set(port) & set(jax):
         assert port[p].default == jax[p].default, (name, p)
         assert port[p].kind == jax[p].kind, (name, p)
+
+
+# public classes and functions of this slice, by (module path, name, method):
+# every keyword's default equal to JAX's; the only differences are the
+# deliberate ones: the generator in place of the key, no ``jit``, and the
+# port's ``device`` and ``platform``
+PUBLIC = [
+    ("samplers.am", "AM", "__init__"),
+    ("samplers.ram", "RAM", "__init__"),
+    ("samplers.demc", "DEMC", "__init__"),
+    ("samplers.harness", "SamplerHarness", "__init__"),
+    ("samplers.harness", "SamplerHarness", "run"),
+    ("samplers.harness", "SamplerHarness", "benchmark"),
+    ("samplers.harness", "SamplerHarness", "reset"),
+    ("samplers.monitor", "summarize_run", None),
+    ("datasets.mld_batcher", "MLDClassificationBatcher", "__init__"),
+    ("ops.resident_smc", "run_smc_resident", None),
+    ("samplers.smc", "SMCSampler", "run"),
+]
+RENAMED = {"key": "generator"}
+PUBLIC_PORT_ONLY = {"device", "platform"}
+PUBLIC_JAX_ONLY = {"jit"}
+
+
+def public_parameters(package, module, name, method):
+    obj = getattr(importlib.import_module(f"{package}.{module}"), name)
+    return inspect.signature(getattr(obj, method) if method else obj).parameters
+
+
+@pytest.mark.parametrize("module,name,method", PUBLIC,
+                         ids=[f"{n}.{m}" if m else n for _, n, m in PUBLIC])
+def test_public_defaults_equal_jaxs(module, name, method):
+    port = public_parameters("eeyore_tpu_torch", module, name, method)
+    jax = {RENAMED.get(p, p): v for p, v in
+           public_parameters("eeyore_tpu", module, name, method).items()}
+    assert set(port) - set(jax) <= PUBLIC_PORT_ONLY
+    assert set(jax) - set(port) <= PUBLIC_JAX_ONLY
+    shared = [p for p in jax if p in port]
+    assert shared == [p for p in port if p in jax]  # the same order
+    for p in shared:
+        assert port[p].default == jax[p].default, (name, p)
+        assert port[p].kind == jax[p].kind, (name, p)

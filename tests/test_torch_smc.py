@@ -244,6 +244,17 @@ def test_conjugate_posterior_and_evidence():
     assert torch.equal(state.log_lik, torch.zeros(4096, dtype=torch.float64))
 
 
+def test_run_accepts_and_ignores_record():
+    """JAX's ``run(key, data, jit=True, record=False, backend="auto")`` takes
+    ``record`` and never reads it; the port's takes it too, and a run with
+    ``record=True`` is the run without it."""
+    smc, data = conjugate(N=512)
+    state, diags = smc.run(torch.Generator().manual_seed(3), data, record=True)
+    again, again_diags = smc.run(torch.Generator().manual_seed(3), data, backend="scan")
+    assert torch.equal(state.particles, again.particles)
+    assert diags["log_evidence"] == again_diags["log_evidence"]
+
+
 def test_adaptive_betas_same_evidence_fewer_stages():
     smc, data = conjugate(betas="adaptive", adaptive_target_ess=0.5)
     state, diags = smc.run(torch.Generator().manual_seed(0), data, backend="scan")
