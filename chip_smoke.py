@@ -296,6 +296,42 @@ kernels are built for sm_90a). Phases, one JSON line each:
     launch each) writes a Chrome trace that names the walk kernel;
     ``utils.timed`` gives one call's wall; the phases' ``PhaseTimer``
     totals.
+16f. parallel_one_rank: a one-rank NCCL group on cuda:0 (a ``file://``
+    init), and every entry point of ``eeyore_tpu_torch.parallel`` on it at
+    full width: ``run_resident_hmc_sharded`` on iris MLP(4,3,3) (32768
+    chains x 1500, 500 burn-in, step 0.02, 8 leapfrog steps, chain_block
+    2048) and with ``dense=True`` on XOR MLP(2,2,1) (131072 x 256, step
+    0.05, 10 steps), ``run_resident_tempering_sharded`` on iris (8 rungs at
+    (i/8)^4, MALA step 0.003, swaps every 10, 2048 chains x 1024, 512
+    burn-in) and dense on XOR (step 0.05, 32768 chains), each one launch
+    and equal bit for bit to the unsharded maker's ``fn(seed, theta0s)``
+    (each wall beside the unsharded call's, the better of two of each);
+    ``run_power_posterior_sharded`` on XOR (8 rungs, MALA 0.01, swaps every
+    5; 200 iterations, 50 burn-in) over 16 seeds, whose cold rung's means
+    stand within 5 pooled standard errors of the generic ladder's (what
+    ``PowerPosteriorSampler.run(backend="scan")`` runs, 16 independent
+    ladders in one ``sample_population`` state);
+    ``run_smc_sharded`` on config 5 over 8 seeds, its log-evidence within
+    phase 14's gate of that phase's 16 generic runs and its weighted means
+    within 5 standard errors of theirs; ``sample_chains_sharded`` on the
+    bivariate normal (MALA 0.4, 4096 chains x 1000, 500 burn-in), equal bit
+    for bit to ``sample_chains(backend="scan")`` with rank 0's generator,
+    its pooled moments within JAX's 0.08 and 0.15.
+16g. parallel_two_ranks: two processes of this script, both on cuda:0, in a
+    Gloo group (NCCL refuses two ranks on one device), each with a 300 s
+    limit: ``sample_chains_sharded`` (2048 chains a rank, each rank's block
+    equal bit for bit to the unsharded run of that block with that rank's
+    generator), ``run_power_posterior_sharded`` (4 rungs a rank, held within
+    1e-5 to the unsharded ladder fed the same draws: the tiled within draws
+    and the shared pair uniforms) and ``run_smc_sharded`` (8192 particles a
+    rank, 2 seeds, log-evidence within phase 14's gate of its generic
+    runs), every collective through the host-staged transport; both exit
+    codes must be 0.
+16h. examples: every script of ``examples_torch/`` through its
+    ``main(device="cuda")``, in process, at its JAX script's sizes or, where
+    those would take too long, at the smaller ones of
+    ``EXAMPLE_CARD_SIZES`` (the phase prints them); ``multichip.py`` as a
+    world of one. Each must return finite statistics.
 16. kernels: each kernel's launches on the main paths, its error against its
     plain version, its time, the plain version's time and its bound (the
     largest of its bytes at the memory rate, its f32 operations at the f32
@@ -319,6 +355,7 @@ import argparse
 import concurrent.futures
 import ctypes
 import functools
+import importlib.util
 import json
 import math
 import subprocess
@@ -454,6 +491,33 @@ LR_REFERENCE_ITERS, LR_REFERENCE_THIN, ADAPTIVE_MEAN_TOL = 16384, 16, 0.12
 PROFILED_CALLS = 5
 # the harness's benchmark on iris: chains to keep, chains a batch, epochs
 HARNESS_CHAINS, HARNESS_BATCH, HARNESS_EPOCHS, HARNESS_BURNIN = 16, 4096, 600, 300
+
+
+# parallel/: the sharded ladder's iterations (burn-in) and seeds a side, its
+# two-rank exact check's iterations (burn-in) and tolerance against the
+# unsharded ladder fed the same draws (float32 on the card), the seeds of
+# the one-rank and two-rank sharded SMC runs (held against phase 14's
+# SMC_SEEDS generic runs), and each rank process's time limit
+PP_SHARDED_ITERS, PP_SHARDED_BURNIN, PP_SHARDED_SEEDS = 200, 50, 16
+PP_EXACT_ITERS, PP_EXACT_BURNIN, PP_EXACT_TOL = 60, 20, 1e-5
+SMC_SHARDED_SEEDS, SMC_TWO_RANK_SEEDS, RANK_TIMEOUT = 8, 2, 300
+# the examples phase: the sizes each example of examples_torch/ runs at on the
+# card where its JAX script's would take too long here (the generic path
+# takes about 3 ms an iteration on the card, generic NUTS more); the others
+# run at their JAX script's sizes
+EXAMPLE_CARD_SIZES = {
+    "mlp/iris_mala.py": dict(num_epochs=1100, num_burnin_epochs=100),
+    "mlp/xor_hmc_many_chains.py": dict(num_iters=500, burnin=100),
+    "mlp/xor_kernel_backends.py": dict(probe_warmup=32),
+    "distributions/bivariate_normal.py": dict(num_iters=200, num_burnin_iters=50),
+    "distributions/bivariate_normal_mixture.py": dict(num_iters=200, num_burnin_iters=50),
+    "distributions/gamma.py": dict(num_iters=500, num_burnin_iters=100),
+    "distributions/nuts_fixed_budget.py": dict(num_iters=20, num_burnin_iters=5,
+                                               probe_warmup=10),
+    "logistic_regression/banknotes.py": dict(num_iters=1000, num_burnin_iters=200),
+    "parallel/multichip.py": dict(num_iters=100, burnin=20, ladder_iters=100,
+                                  ladder_burnin=20),
+}
 
 
 # the 2-d mixture of the SMC closure kernel's main path
@@ -879,14 +943,173 @@ def chain_agreement(got, want, chain_dim, atol=RESIDENT_ATOL, rtol=RESIDENT_RTOL
     return ok, err
 
 
+def numbers(value):
+    """Every number in a nest of dicts, lists and tuples."""
+    if isinstance(value, dict):
+        return [n for v in value.values() for n in numbers(v)]
+    if isinstance(value, (list, tuple)):
+        return [n for v in value for n in numbers(v)]
+    return [float(value)]
+
+
+def smc_evidence_gate(evidence, generic_evidence):
+    """(difference of the mean log-evidences, tolerance, whether checked):
+    within 0.1 nats or 5 generic spreads; past 0.5 nats the tolerance would
+    pass almost any evidence, so the difference is then a reading only."""
+    tol = max(0.1, 5.0 * float(np.std(generic_evidence, ddof=1)))
+    return abs(float(np.mean(evidence)) - float(np.mean(generic_evidence))), tol, tol <= 0.5
+
+
+# the problems that phases 16f and 16g share, built alike in the script and
+# in its rank processes
+
+def bvn_model(device):
+    from eeyore_tpu_torch.models import DistributionModel
+
+    prec = torch.as_tensor(np.linalg.inv(BVN_COV), dtype=torch.float32, device=device)
+    return DistributionModel(lambda t, x, y: -0.5 * ((t @ prec) * t).sum(-1), 2,
+                             dtype=torch.float32, device=device)
+
+
+def bvn_theta0s(seed, num_chains, device):
+    return torch.as_tensor(np.random.default_rng(seed + 16).normal(size=(num_chains, 2)),
+                           dtype=torch.float32, device=device)
+
+
+def xor_problem(device):
+    """(XOR MLP(2,2,1) BCE on ``device``, (x, y))."""
+    from eeyore_tpu_torch.datasets import XYDataset
+    from eeyore_tpu_torch.models import MLP, loss_functions, mlp
+
+    xor = XYDataset.from_eeyore("xor")
+    model = MLP(loss=loss_functions["binary_classification"], dtype=torch.float32, device=device,
+                hparams=mlp.Hyperparameters(dims=[2, 2, 1]))
+    return model, (xor.x, xor.y)
+
+
+def xor_ladder(model):
+    """The sharded ladder's problem: 8 rungs at (i/8)^4, MALA 0.01, swaps every 5."""
+    from eeyore_tpu_torch.samplers import PowerPosteriorSampler
+
+    return PowerPosteriorSampler(model, num_chains=LADDER_RUNGS, sampler="MALA",
+                                 sampler_kwargs={"step": 0.01}, between_step=CHECK_BETWEEN,
+                                 swap_scheme="even_odd")
+
+
+def ladder_theta0(seed, model):
+    return torch.as_tensor(0.1 * np.random.default_rng(seed + 17).normal(size=model.num_params),
+                           dtype=torch.float32, device=model.device)
+
+
+def config5_smc(model, num_particles=SMC_PARTICLES):
+    """BASELINE config 5: betas (i/20)^4, MALA 0.05, SMC_STEPS steps."""
+    from eeyore_tpu_torch.samplers import SMCSampler
+
+    return SMCSampler(model, num_particles, betas=[(i / 20) ** 4 for i in range(21)],
+                      mutation="MALA", mutation_step=0.05, num_mutation_steps=SMC_STEPS)
+
+
+def replay_ladder(pp, generator, theta0, data, num_iters, num_burnin_iters, n_ranks):
+    """The unsharded ladder (MALA, or MH with its default normal proposal)
+    fed what ``n_ranks`` ranks of ``run_power_posterior_sharded`` draw (one
+    generator, alike on every rank): each iteration's normals and uniforms
+    for a rank's N / n_ranks rungs, tiled over the ranks, and each swap
+    round's N pair uniforms, the pair's at min(g, partner). Returns {key:
+    [N, kept, ...]}."""
+    from eeyore_tpu_torch.datasets import as_schedule
+    from eeyore_tpu_torch.parallel.sharded import shard_generator
+
+    N, P = pp.num_chains, theta0.shape[-1]
+    like = dict(dtype=theta0.dtype, device=theta0.device)
+    x, y = as_schedule(data).to(**like).batch(0)
+    gen = shard_generator(generator, theta0.device)
+    inner = pp.init(theta0, x, y).inner
+    idx = torch.arange(N, device=theta0.device)
+    recorded = {k: [] for k in pp.state_keys}
+    for i in range(num_iters):
+        z = torch.randn((N // n_ranks, P), generator=gen, **like).repeat(n_ranks, 1)
+        u = torch.rand(N // n_ranks, generator=gen, **like).repeat(n_ranks)
+        first = z if pp._has_grad else inner.sample + pp.sampler_kwargs.get("scale", 1.0) * z
+        inner = pp._within_moves(inner, x, y, draws=(first, u))
+        if i % pp.between_step == 0:
+            pair_u = torch.rand(N, generator=gen, **like)
+            is_lower = (idx % 2) == (i // pp.between_step) % 2
+            partner = torch.where(is_lower, idx + 1, idx - 1).clamp(0, N - 1)
+            inner = pp._between_moves_even_odd(inner, x, y, i,
+                                               uniforms=pair_u[torch.minimum(idx, partner)])
+        if i >= num_burnin_iters:
+            for k in recorded:
+                recorded[k].append(getattr(inner, k))
+    return {k: torch.stack(v, dim=1) for k, v in recorded.items()}
+
+
+def parallel_rank(args):
+    """One rank of phase 16g: joins the two-rank Gloo group on cuda:0, runs
+    the three entry points that make collectives (sample_chains_sharded as
+    the chain-sharded control) at half the chains a rank, and writes what
+    it got back, with each call's wall, to ``<parallel_dir>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from eeyore_tpu_torch.parallel import (
+        chain_mesh,
+        initialize_distributed,
+        run_power_posterior_sharded,
+        run_smc_sharded,
+        sample_chains_sharded,
+    )
+    from eeyore_tpu_torch.samplers import MALA
+
+    rank, out_dir = args.parallel_rank, Path(args.parallel_dir)
+    initialize_distributed(f"file://{out_dir / 'pg'}", 2, rank, device="cuda:0", backend="gloo")
+    device = torch.device("cuda", 0)
+    xor_model, xor_data = xor_problem(device)
+    empty = (np.zeros((1, 0)), np.zeros((1, 0)))
+    out = {"walls": {}, "backend": dist.get_backend()}
+
+    def walled(name, call):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = call()
+        torch.cuda.synchronize()
+        out["walls"][name] = time.perf_counter() - start
+        return result
+
+    def generator(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    recorded, _ = walled("sample_chains_sharded", lambda: sample_chains_sharded(
+        MALA(bvn_model(device), step=0.4), generator(args.seed),
+        bvn_theta0s(args.seed, ADAPTIVE_BVN_CHAINS, device), empty, BVN_ITERS, BVN_BURNIN,
+        mesh=chain_mesh()))
+    out["chains_sample"] = recorded["sample"].cpu()
+    ladder = walled("run_power_posterior_sharded", lambda: run_power_posterior_sharded(
+        xor_ladder(xor_model), generator(args.seed + 1), ladder_theta0(args.seed, xor_model),
+        xor_data, PP_EXACT_ITERS, PP_EXACT_BURNIN, mesh=chain_mesh(axis_name="temp")))
+    out["ladder"] = {k: v.cpu() for k, v in ladder.items()}
+    smc_mesh = chain_mesh(axis_name="particles")
+    out["smc"] = []
+    for s in range(SMC_TWO_RANK_SEEDS):
+        particles, log_w, diags = walled(f"run_smc_sharded_{s}", lambda: run_smc_sharded(
+            config5_smc(xor_model), generator(args.seed + 2000 + s), xor_data, mesh=smc_mesh))
+        out["smc"].append((particles.cpu(), log_w.cpu(), diags["log_evidence"]))
+    torch.save(out, out_dir / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    # one rank of phase 16g, started by the script itself
+    parser.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no result", file=sys.stderr)
         return 1
+    if args.parallel_rank is not None:
+        return parallel_rank(args)
 
     from eeyore_tpu_torch.chains import ChainList, ChainLists, load_state, save_state
     from eeyore_tpu_torch.datasets import XYDataset
@@ -996,7 +1219,7 @@ def main(argv=None):
     xor_rows = prepare_data(xor_model, xor.x, xor.y)[0].shape[0]
     lr_rows = prepare_data(lr_model, banknotes.x, banknotes.y)[0].shape[0]
     case_rows = [prepare_data(model, x, y)[0].shape[0] for _, model, x, y, _ in cases]
-    with concurrent.futures.ThreadPoolExecutor(len(cases) + 23) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(cases) + 25) as pool:
         floor_future = pool.submit(build_launch_floor)
         futures = [pool.submit(fused_mlp.load_kernel, model, fused_mlp.fused_lanes(rows))
                    for (_, model, _, _, _), rows in zip(cases, case_rows)]
@@ -1015,6 +1238,13 @@ def main(argv=None):
         gibbs_split_future = pool.submit(resident_walk.load_kernel, iris4323_model,
                                          IRIS4323_SPLIT_UNITS, iris_rows)
         gibbs_xor_future = pool.submit(resident_walk.load_kernel, xor_model, None, xor_rows)
+        # the staged XOR walk builds that phase 16h's xor_resident_kernels.py
+        # takes: its MH and MALA moves, and its ladders in blocks of 4096
+        example_walk_futures = [
+            pool.submit(resident_walk.load_kernel, xor_model,
+                        lanes=resident_walk.chain_lanes(xor_rows)),
+            pool.submit(resident_walk.load_kernel, xor_model,
+                        ladder_lanes=resident_walk.tempering_lanes(xor_rows, LADDER_RUNGS, 4096))]
         gibbs_sub_future = pool.submit(resident_walk_dense.load_kernel, xor2321_model, xor.x,
                                        xor.y, xor2321_subblocks)
         # the builds of each dense move's lanes (Gibbs on one thread a chain
@@ -1065,6 +1295,8 @@ def main(argv=None):
         gibbs_lib = gibbs_future.result()
         gibbs_split_lib = gibbs_split_future.result()
         gibbs_xor_lib = gibbs_xor_future.result()
+        for f in example_walk_futures:
+            f.result()
         gibbs_sub_lib = gibbs_sub_future.result()
         walk_dense_libs = {name: f.result() for name, f in walk_dense_futures.items()}
         smc_libs = {name: f.result() for name, f in smc_futures.items()}
@@ -2667,7 +2899,7 @@ def main(argv=None):
          smc_sampler(lr_model, "adaptive", "MALA", 0.05), lr_data, resident_smc.KERNEL),
     ]
     smc_rows = {id(iris_model): iris_rows, id(xor_model): xor_rows, id(lr_model): lr_rows}
-    smc_main, smc_evidence = {}, {}
+    smc_main, smc_evidence, smc_generic = {}, {}, {}
     for index, (name, sampler, generic_sampler, data, kernel) in enumerate(smc_paths):
         plan, reason = resolve_smc(sampler, data, platform="cuda")
         check(plan is not None and plan.backend == "resident",
@@ -2746,16 +2978,13 @@ def main(argv=None):
             check(not any(v for r in generic_runs for v in r["counts"].values()),
                   f"{name}: the generic path launched a kernel")
             gmeans, gevidence = seed_stats(generic_runs)
+            smc_generic[name] = (gmeans, gevidence)
             se = torch.sqrt(means.var(0) / SMC_SEEDS + gmeans.var(0) / SMC_SEEDS)
             z = ((means.mean(0) - gmeans.mean(0)).abs() / se).max().item()
             (m1, s1), (m2, s2) = runs[0]["summary"], generic_runs[0]["summary"]
             z_ess = ((m1 - m2).abs() / torch.sqrt(s1 ** 2 + s2 ** 2)).max().item()
             spread = float(gevidence.std(ddof=1))
-            tol = max(0.1, 5.0 * spread)
-            # past 0.5 nats the tolerance would pass almost any evidence: the
-            # difference is then a reading only
-            evidence_checked = tol <= 0.5
-            diff = abs(evidence.mean() - gevidence.mean())
+            diff, tol, evidence_checked = smc_evidence_gate(evidence, gevidence)
             gwalls = sorted(r["wall"] for r in generic_runs)
             record.update(
                 generic_particles=generic_sampler.num_particles,
@@ -3071,9 +3300,7 @@ def main(argv=None):
     #      moments :69-72, RAM's acceptance :85-87, DEMC's moments :226-231),
     #      and AM with softabs on the mixture of examples/distributions/
     #      bivariate_normal_mixture.py:48
-    bvn_prec = torch.as_tensor(np.linalg.inv(BVN_COV), dtype=torch.float32, device=device)
-    bvn = DistributionModel(lambda t, x, y: -0.5 * ((t @ bvn_prec) * t).sum(-1), 2,
-                            dtype=torch.float32, device=device)
+    bvn = bvn_model(device)
     bvn_mixture = DistributionModel(bvn_mixture_log_pdf, 2, dtype=torch.float32, device=device)
     bvn_start = torch.tensor([[2.0, -2.0]], device=device).expand(ADAPTIVE_BVN_CHAINS, 2)
     bvn_cases = [
@@ -3244,6 +3471,310 @@ def main(argv=None):
     check(bool(walk_names), "profiling: the trace names no walk kernel")
     check(timed_wall > 0, f"profiling: timed gave {timed_wall}")
     torch.cuda.empty_cache()
+
+    # 16f. parallel_one_rank: a one-rank NCCL group on cuda:0, every entry
+    #      point of parallel/ at full width
+    import torch.distributed as dist
+
+    from eeyore_tpu_torch.parallel import (
+        chain_mesh,
+        initialize_distributed,
+        run_power_posterior_sharded,
+        run_resident_hmc_sharded,
+        run_resident_tempering_sharded,
+        run_smc_sharded,
+        sample_chains_sharded,
+    )
+    from eeyore_tpu_torch.parallel.sharded import shard_generator
+
+    def walled(call):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = call()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    ladder_chains, ladder_iters_sharded, ladder_burnin_sharded = 2048, 1024, 512
+    sharded_kernel_paths = [
+        # (path, kernel, runner, its keywords, model, dataset, theta0s)
+        ("sharded_iris_hmc", resident_hmc.KERNEL, run_resident_hmc_sharded,
+         dict(step=0.02, num_steps=8, num_iters=1500, num_burnin_iters=500), iris_model, iris,
+         iris_theta0s),
+        ("sharded_xor_hmc_dense", resident_hmc_dense.KERNEL, run_resident_hmc_sharded,
+         dict(step=0.05, num_steps=10, num_iters=xor_iters, dense=True), xor_model, xor,
+         xor_theta0s),
+        ("sharded_iris_ladder", resident_walk.TEMPERING_KERNEL, run_resident_tempering_sharded,
+         dict(num_rungs=LADDER_RUNGS, step=0.003, between_step=MAIN_BETWEEN,
+              num_iters=ladder_iters_sharded, num_burnin_iters=ladder_burnin_sharded),
+         iris_model, iris, iris_theta0s[:ladder_chains]),
+        ("sharded_xor_ladder_dense", resident_walk_dense.TEMPERING_KERNEL,
+         run_resident_tempering_sharded,
+         dict(num_rungs=LADDER_RUNGS, step=0.05, between_step=MAIN_BETWEEN,
+              num_iters=ladder_iters_sharded, num_burnin_iters=ladder_burnin_sharded, dense=True),
+         xor_model, xor, xor_theta0s[:C_walk]),
+    ]
+
+    def unsharded_fn(runner, kw, model, dataset):
+        kw = dict(kw)
+        dense = kw.pop("dense", False)
+        if runner is run_resident_hmc_sharded:
+            maker = (resident_hmc_dense.make_resident_hmc_dense if dense
+                     else resident_hmc.make_resident_hmc)
+        else:
+            maker = make_resident_tempering_dense if dense else make_resident_tempering
+        return maker(model, dataset.x, dataset.y, chain_block=2048, device=device, **kw)
+
+    parallel_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/pg", 1, 0, device="cuda:0")
+        try:
+            check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                  f"parallel_one_rank: a {dist.get_backend()} group of {dist.get_world_size()}")
+            one_rank = {}
+            for name, kernel, runner, kw, model, dataset, theta0s in sharded_kernel_paths:
+                mesh = chain_mesh()
+                fn = unsharded_fn(runner, kw, model, dataset)
+                seed = args.seed + 31
+                want, unsharded_wall = walled(lambda: fn(seed, theta0s))
+                reset_counts()
+                got, sharded_wall = walled(lambda: runner(
+                    model, dataset.x, dataset.y, seed, theta0s, mesh=mesh, **kw))
+                counts = read_counts()
+                main_launches[kernel][name] = counts[kernel]
+                check(counts == {**dict.fromkeys(counts, 0), kernel: 1},
+                      f"{name}: the sharded run made the launches {counts}")
+                equal = len(got) == len(want) and all(torch.equal(a, b)
+                                                       for a, b in zip(got, want))
+                check(equal, f"{name}: the sharded run differs from the unsharded call")
+                del got, want
+                # a second pair of calls: the better wall of each
+                sharded_walls = [sharded_wall, walled(lambda: runner(
+                    model, dataset.x, dataset.y, seed, theta0s, mesh=mesh, **kw))[1]]
+                unsharded_walls = [unsharded_wall, walled(lambda: fn(seed, theta0s))[1]]
+                torch.cuda.empty_cache()
+                C = theta0s.shape[0]
+                one_rank[name] = {
+                    "kernel": kernel, "chains": C, "iterations": kw["num_iters"],
+                    "seconds": min(sharded_walls), "unsharded_seconds": min(unsharded_walls),
+                    "seconds_all": sharded_walls, "unsharded_seconds_all": unsharded_walls,
+                    "samples_per_s": C * kw["num_iters"] / min(sharded_walls),
+                    "kernel_launches": counts[kernel], "equal_to_unsharded": equal}
+                emit({"phase": "parallel_one_rank", "path": name, **one_rank[name],
+                      "card": card})
+
+            # the sharded ladder against the generic one, PP_SHARDED_SEEDS seeds a side
+            theta0 = ladder_theta0(args.seed, xor_model)
+            temp_mesh = chain_mesh(axis_name="temp")
+            cold, pp_walls = [], []
+            for s in range(PP_SHARDED_SEEDS):
+                g = torch.Generator(device=device).manual_seed(args.seed + 3000 + s)
+                reset_counts()
+                rec, wall = walled(lambda: run_power_posterior_sharded(
+                    xor_ladder(xor_model), g, theta0, xor_data, PP_SHARDED_ITERS,
+                    PP_SHARDED_BURNIN, mesh=temp_mesh))
+                check(not any(read_counts().values()), "the sharded ladder launched a kernel")
+                check(rec["sample"].shape == (LADDER_RUNGS, PP_SHARDED_ITERS - PP_SHARDED_BURNIN,
+                                              xor_model.num_params)
+                      and bool(torch.isfinite(rec["sample"]).all()),
+                      f"sharded ladder: samples {tuple(rec['sample'].shape)} or not finite")
+                cold.append(rec["sample"][-1].double().mean(0))
+                pp_walls.append(wall)
+            # the generic ladder that run(backend="scan") runs, PP_SHARDED_SEEDS
+            # independent ladders in one sample_population state
+            g = torch.Generator(device=device).manual_seed(args.seed + 3500)
+            generic, generic_wall = walled(lambda: sample_population(
+                xor_ladder(xor_model), g, theta0.repeat(PP_SHARDED_SEEDS * LADDER_RUNGS, 1),
+                xor_data, PP_SHARDED_ITERS, PP_SHARDED_BURNIN, record_keys=("sample",)))
+            generic_cold = generic.get_samples()[LADDER_RUNGS - 1::LADDER_RUNGS].double().mean(1)
+            cold = torch.stack(cold)
+            # and one unsharded ladder's wall, beside a sharded run's
+            _, unsharded_wall = walled(lambda: xor_ladder(xor_model).run(
+                g, theta0, xor_data, PP_SHARDED_ITERS, PP_SHARDED_BURNIN, backend="scan"))
+            se = torch.sqrt(cold.var(0) / PP_SHARDED_SEEDS + generic_cold.var(0) / PP_SHARDED_SEEDS)
+            z = ((cold.mean(0) - generic_cold.mean(0)).abs() / se).max().item()
+            one_rank["sharded_xor_power_posterior"] = {
+                "chains": LADDER_RUNGS, "iterations": PP_SHARDED_ITERS, "seeds": PP_SHARDED_SEEDS,
+                "seconds": float(np.median(pp_walls)), "unsharded_seconds": unsharded_wall,
+                "generic_seconds_all_ladders": generic_wall,
+                "max_abs_z_cold_mean_vs_generic": z, "limit": 5.0}
+            emit({"phase": "parallel_one_rank", "path": "sharded_xor_power_posterior",
+                  **one_rank["sharded_xor_power_posterior"], "card": card})
+            check(z <= 5.0, f"sharded ladder: the cold rung's means {z} SEs from the generic's")
+
+            # config 5 sharded, beside phase 14's generic runs
+            particles_mesh = chain_mesh(axis_name="particles")
+            runs, smc_walls = [], []
+            for s in range(SMC_SHARDED_SEEDS):
+                g = torch.Generator(device=device).manual_seed(args.seed + 4000 + s)
+                reset_counts()
+                (particles, log_w, diags), wall = walled(lambda: run_smc_sharded(
+                    config5_smc(xor_model), g, xor_data, mesh=particles_mesh))
+                check(not any(read_counts().values()), "sharded SMC launched a kernel")
+                check(particles.shape == (SMC_PARTICLES, xor_model.num_params)
+                      and bool(torch.isfinite(particles).all()),
+                      f"sharded SMC: particles {tuple(particles.shape)} or not finite")
+                w = torch.softmax(log_w.double(), 0)
+                runs.append((w @ particles.double(), diags["log_evidence"]))
+                smc_walls.append(wall)
+            means = torch.stack([m for m, _ in runs])
+            evidence = np.array([e for _, e in runs])
+            gmeans, gevidence = smc_generic["config5_xor_mala"]
+            z = ((means.mean(0) - gmeans.mean(0)).abs()
+                 / torch.sqrt(means.var(0) / SMC_SHARDED_SEEDS
+                              + gmeans.var(0) / SMC_SEEDS)).max().item()
+            diff, tol, evidence_checked = smc_evidence_gate(evidence, gevidence)
+            one_rank["sharded_config5_smc"] = {
+                "particles": SMC_PARTICLES, "stages": 20, "seeds": SMC_SHARDED_SEEDS,
+                "seconds": float(np.median(smc_walls)),
+                "unsharded_seconds": smc_main["config5_xor_mala"]["generic_seconds"],
+                "log_evidence_mean": float(evidence.mean()),
+                "generic_log_evidence_mean": float(gevidence.mean()),
+                "log_evidence_difference": diff,
+                "log_evidence_tolerance": tol if evidence_checked else None,
+                "max_abs_z_weighted_mean_vs_generic": z, "limit": 5.0}
+            emit({"phase": "parallel_one_rank", "path": "sharded_config5_smc",
+                  **one_rank["sharded_config5_smc"], "card": card})
+            check(z <= 5.0, f"sharded SMC: weighted means {z} SEs from the generic path's")
+            check(not evidence_checked or diff <= tol,
+                  f"sharded SMC: log-evidence {diff} from the generic path's (tolerance {tol})")
+
+            # the chain-sharded generic path, against sample_chains with rank 0's generator
+            bvn_starts = bvn_theta0s(args.seed, ADAPTIVE_BVN_CHAINS, device)
+            g = torch.Generator(device=device).manual_seed(args.seed + 5000)
+            reset_counts()
+            (recorded, _), wall = walled(lambda: sample_chains_sharded(
+                MALA(bvn_model(device), step=0.4), g, bvn_starts, empty, BVN_ITERS, BVN_BURNIN,
+                mesh=chain_mesh()))
+            check(not any(read_counts().values()), "sample_chains_sharded launched a kernel")
+            want, unsharded_wall = walled(lambda: sample_chains(
+                MALA(bvn_model(device), step=0.4), shard_generator(g, device, 0), bvn_starts,
+                empty, BVN_ITERS, BVN_BURNIN, backend="scan", return_arrays=True))
+            equal = all(torch.equal(recorded[k], want[k]) for k in want)
+            pooled = recorded["sample"].reshape(-1, 2).double()
+            mean_err = pooled.mean(0).abs().max().item()
+            cov_err = (torch.cov(pooled.T) - torch.as_tensor(BVN_COV, dtype=torch.float64,
+                                                             device=device)).abs().max().item()
+            one_rank["sharded_bvn_chains"] = {
+                "chains": ADAPTIVE_BVN_CHAINS, "iterations": BVN_ITERS, "seconds": wall,
+                "unsharded_seconds": unsharded_wall, "equal_to_sample_chains": equal,
+                "max_abs_mean_error": mean_err, "max_abs_cov_error": cov_err,
+                "limits": [0.08, 0.15]}
+            emit({"phase": "parallel_one_rank", "path": "sharded_bvn_chains",
+                  **one_rank["sharded_bvn_chains"],
+                  "phase_seconds": time.perf_counter() - parallel_start, "card": card})
+            check(equal, "sample_chains_sharded differs from sample_chains with rank 0's generator")
+            check(mean_err <= 0.08 and cov_err <= 0.15,
+                  f"sample_chains_sharded: moments off by {mean_err}, {cov_err}")
+            del recorded, want
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 16g. parallel_two_ranks: two processes of this script on cuda:0 in a
+    #      Gloo group, each held here against the one-process construction
+    parallel_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--seed", str(args.seed), "--parallel-rank", str(r),
+                                   "--parallel-dir", tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        two_rank_wall = time.perf_counter() - start
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"parallel_two_ranks: rank {r} exited {p.returncode}:\n"
+                  f"{log[-3000:]}")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(2)]
+    g = torch.Generator(device=device).manual_seed(args.seed)
+    bvn_starts = bvn_theta0s(args.seed, ADAPTIVE_BVN_CHAINS, device)
+    half = ADAPTIVE_BVN_CHAINS // 2
+    chains_equal = True
+    for r, out in enumerate(ranks):
+        want = sample_chains(MALA(bvn_model(device), step=0.4), shard_generator(g, device, r),
+                             bvn_starts[r * half:(r + 1) * half], empty, BVN_ITERS, BVN_BURNIN,
+                             backend="scan", return_arrays=True)
+        chains_equal &= torch.equal(out["chains_sample"], want["sample"].cpu())
+    pooled = torch.cat([out["chains_sample"] for out in ranks]).reshape(-1, 2).double()
+    mean_err = pooled.mean(0).abs().max().item()
+    cov_err = (torch.cov(pooled.T) - torch.as_tensor(BVN_COV)).abs().max().item()
+    replay = replay_ladder(xor_ladder(xor_model),
+                           torch.Generator(device=device).manual_seed(args.seed + 1),
+                           ladder_theta0(args.seed, xor_model), xor_data, PP_EXACT_ITERS,
+                           PP_EXACT_BURNIN, 2)
+    ladder_err = max((torch.cat([out["ladder"][k] for out in ranks]).double()
+                      - replay[k].cpu().double()).abs().max().item()
+                     for k in ("sample", "target_val"))
+    ladder_accepted_equal = torch.equal(torch.cat([out["ladder"]["accepted"] for out in ranks]),
+                                        replay["accepted"].cpu())
+    rank_evidence = [ranks[0]["smc"][s][2] for s in range(SMC_TWO_RANK_SEEDS)]
+    smc_replicated = all(ranks[1]["smc"][s][2] == e for s, e in enumerate(rank_evidence))
+    gmeans, gevidence = smc_generic["config5_xor_mala"]
+    means = []
+    for s in range(SMC_TWO_RANK_SEEDS):
+        particles = torch.cat([out["smc"][s][0] for out in ranks]).double()
+        w = torch.softmax(torch.cat([out["smc"][s][1] for out in ranks]).double(), 0)
+        means.append(w @ particles)
+    means = torch.stack(means)
+    z = ((means.mean(0) - gmeans.mean(0).cpu()).abs()
+         / torch.sqrt(means.var(0) / SMC_TWO_RANK_SEEDS
+                      + gmeans.var(0).cpu() / SMC_SEEDS)).max().item()
+    diff, tol, evidence_checked = smc_evidence_gate(rank_evidence, gevidence)
+    emit({"phase": "parallel_two_ranks", "backend": [out["backend"] for out in ranks],
+          "seconds": two_rank_wall, "rank_walls": [out["walls"] for out in ranks],
+          "chains_equal_to_unsharded": chains_equal, "chains_max_abs_mean_error": mean_err,
+          "chains_max_abs_cov_error": cov_err,
+          "ladder_max_abs_error_vs_one_process": ladder_err, "ladder_tolerance": PP_EXACT_TOL,
+          "ladder_accepted_equal": ladder_accepted_equal,
+          "smc_log_evidence": rank_evidence, "smc_log_evidence_replicated": smc_replicated,
+          "smc_log_evidence_difference_vs_generic": diff,
+          "smc_log_evidence_tolerance": tol if evidence_checked else None,
+          "smc_max_abs_z_weighted_mean_vs_generic": z, "limit": 5.0,
+          "phase_seconds": time.perf_counter() - parallel_start, "card": card})
+    check(all(out["backend"] == "gloo" for out in ranks), "parallel_two_ranks: not a Gloo group")
+    check(chains_equal, "parallel_two_ranks: a rank's chains differ from its unsharded run")
+    check(mean_err <= 0.08 and cov_err <= 0.15,
+          f"parallel_two_ranks: chain moments off by {mean_err}, {cov_err}")
+    check(ladder_err <= PP_EXACT_TOL and ladder_accepted_equal,
+          f"parallel_two_ranks: the ladder {ladder_err} from the one-process construction")
+    check(smc_replicated, "parallel_two_ranks: the ranks' log-evidences differ")
+    check(z <= 5.0, f"parallel_two_ranks: SMC weighted means {z} SEs from the generic path's")
+    check(not evidence_checked or diff <= tol,
+          f"parallel_two_ranks: SMC log-evidence {diff} from the generic path's (tolerance {tol})")
+    del ranks, replay
+    torch.cuda.empty_cache()
+
+    # 16h. examples: each script of examples_torch/ through its main(device=
+    #      "cuda"), in process, at EXAMPLE_CARD_SIZES or its JAX script's sizes
+    #      (multichip.py as a world of one)
+    examples_dir = Path(__file__).resolve().parent / "examples_torch"
+    example_walls = {}
+    for script in sorted(examples_dir.rglob("*.py")):
+        relative = str(script.relative_to(examples_dir))
+        spec = importlib.util.spec_from_file_location(f"example_{script.stem}", script)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sizes = EXAMPLE_CARD_SIZES.get(relative, {})
+        reset_counts()
+        stats, wall = walled(lambda: module.main(device="cuda", **sizes))
+        counts = {k: n for k, n in read_counts().items() if n}
+        example_walls[relative] = wall
+        finite = all(math.isfinite(v) for v in numbers(stats))
+        emit({"phase": "examples", "example": relative, "sizes": sizes or "its JAX script's",
+              "seconds": wall, "kernel_launches": counts, "finite": finite, "card": card})
+        check(finite, f"examples: {relative} returned non-finite statistics {stats}")
+        torch.cuda.empty_cache()
+    check(len(example_walls) == 13, f"examples: {len(example_walls)} scripts, not 13")
+    emit({"phase": "examples", "scripts": len(example_walls),
+          "seconds": sum(example_walls.values()), "card": card})
 
     # 16. kernels: fused_mlp_vg timed at the iris main path's shape; each
     #     whole-loop kernel at a main path's shape (XOR HMC, untuned, for the

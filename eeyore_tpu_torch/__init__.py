@@ -12,6 +12,6 @@ the port is tested against; the port imports nothing from it.
 __version__ = "0.1.0"
 
 from eeyore_tpu_torch import (
-    chains, convert, datasets, integrators, kernels, linalg, models, ops, plots, samplers, stats,
-    tuners, utils,
+    chains, convert, datasets, integrators, kernels, linalg, models, ops, parallel, plots, samplers,
+    stats, tuners, utils,
 )

@@ -344,7 +344,7 @@ def _run_plain(vg, arrays, pr, chain_block, theta):
             evaluations = evaluations + active.sum()
             th_s = th + step * p
             v_s, g_s = vg(th_s, *arrays)
-            f = torch.where(n_steps - 1 == s, 0.5, 1.0) * step
+            f = torch.where(n_steps - 1 == s, 0.5, 1.0).to(torch.float32) * step
             p_s = p + f * g_s
             th = torch.where(active, th_s, th)
             p = torch.where(active, p_s, p)

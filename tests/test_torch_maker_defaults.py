@@ -64,10 +64,11 @@ def test_maker_defaults_equal_jaxs(module, name):
         assert port[p].kind == jax[p].kind, (name, p)
 
 
-# public classes and functions of this slice, by (module path, name, method):
-# every keyword's default equal to JAX's; the only differences are the
-# deliberate ones: the generator in place of the key, no ``jit``, and the
-# port's ``device`` and ``platform``
+# public classes and functions, by (module path, name, method): every
+# keyword's default equal to JAX's; the only differences are the deliberate
+# ones: the generator in place of the key (the samplers, and parallel/'s
+# sample_chains_sharded, run_power_posterior_sharded and run_smc_sharded),
+# no ``jit``, and the port's ``device`` and ``platform``
 PUBLIC = [
     ("samplers.am", "AM", "__init__"),
     ("samplers.ram", "RAM", "__init__"),
@@ -80,9 +81,24 @@ PUBLIC = [
     ("datasets.mld_batcher", "MLDClassificationBatcher", "__init__"),
     ("ops.resident_smc", "run_smc_resident", None),
     ("samplers.smc", "SMCSampler", "run"),
+    # parallel/: the ten names of its __init__
+    ("parallel.mesh", "initialize_distributed", None),
+    ("parallel.mesh", "chain_mesh", None),
+    ("parallel.mesh", "ladder_mesh", None),
+    ("parallel.mesh", "chain_sharding", None),
+    ("parallel.sharded", "global_logsumexp", None),
+    ("parallel.sharded", "global_log_ess", None),
+    ("parallel.sharded", "sample_chains_sharded", None),
+    ("parallel.sharded", "run_resident_hmc_sharded", None),
+    ("parallel.sharded", "run_resident_tempering_sharded", None),
+    ("parallel.sharded", "run_power_posterior_sharded", None),
+    ("parallel.sharded", "run_smc_sharded", None),
 ]
 RENAMED = {"key": "generator"}
-PUBLIC_PORT_ONLY = {"device", "platform"}
+# also parallel/'s: the rank's device and backend of initialize_distributed,
+# and the mesh whose axis the two collectives reduce over (JAX's find theirs
+# bound by shard_map)
+PUBLIC_PORT_ONLY = {"device", "platform", "backend", "mesh"}
 PUBLIC_JAX_ONLY = {"jit"}
 
 

@@ -240,9 +240,11 @@ def test_datasets_match_jax(name, yonehot):
 
 
 def test_port_imports_no_jax():
-    """The port and its chip check import neither JAX nor the JAX package."""
+    """The port, its examples and its chip check import neither JAX nor the
+    JAX package."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|eeyore_tpu)(\.|\s|$)", re.MULTILINE)
-    files = sorted((REPO / "eeyore_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    examples = sorted((REPO / "examples_torch").rglob("*.py"))
+    files = sorted((REPO / "eeyore_tpu_torch").rglob("*.py")) + examples + [REPO / "chip_smoke.py"]
+    assert len(files) > 10 and len(examples) == 13
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

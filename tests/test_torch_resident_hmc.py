@@ -237,3 +237,29 @@ def test_build_name_carries_the_headers_hash(tmp_path, monkeypatch):
     assert first == _build.headers_hash()
     (tmp_path / "a.cuh").write_text("// two")
     assert _build.headers_hash() != first
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_plain_version_ignores_the_default_dtype(dense):
+    """The plain version computes in float32 whatever ``torch``'s default
+    dtype: under float64 its last-leapfrog factor once came out float64 and
+    carried the momentum into float64, so the samples moved."""
+    from eeyore_tpu_torch.ops.resident_hmc_dense import make_resident_hmc_dense
+
+    ds = XYDataset.from_eeyore("xor")
+    theta0s = torch.as_tensor(0.1 * np.random.default_rng(0).normal(size=(1024, 9)),
+                              dtype=torch.float32)
+    maker = make_resident_hmc_dense if dense else make_resident_hmc
+    outputs = []
+    default = torch.get_default_dtype()
+    try:
+        for dtype in (torch.float32, torch.float64):
+            torch.set_default_dtype(dtype)
+            model = MLP(loss=loss_functions["binary_classification"], dtype=torch.float32,
+                        device="cpu", hparams=mlp.Hyperparameters(dims=[2, 2, 1]))
+            outputs.append(maker(model, ds.x, ds.y, 0.05, 10, 6, chain_block=1024,
+                                 device="cpu")(1, theta0s))
+    finally:
+        torch.set_default_dtype(default)
+    for a, b in zip(*outputs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
