@@ -14,17 +14,25 @@ A build may also take generated headers (the dense kernels' bodies, which
 hold one dataset as constants): they are written into the build directory,
 which is on the include path, and their hash goes into the name too, so two
 datasets loaded in one process never share a build.
+
+``load_counts`` counts the calls (``loads``) and those that reach
+``cpp_extension.load`` (``builds``): a steady job builds nothing. A call is
+the span ``eeyore.library``, and each span's record keeps both counts'
+increase inside it (``utils/profiling.py``).
 """
 
 import ctypes
 import hashlib
 from pathlib import Path
 
+from eeyore_tpu_torch.utils.profiling import spanned
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 _libraries = {}
+load_counts = {"loads": 0, "builds": 0}
 
 
 class KernelError(RuntimeError):
@@ -42,11 +50,13 @@ def headers_hash():
     return digest.hexdigest()[:10]
 
 
+@spanned("eeyore.library")
 def load_library(name, source, defines=(), generated=None):
     """Compile ``csrc/<source>`` with the ``-D`` ``defines`` into a shared
     library called ``name`` plus the headers' hash (once per process and per
     name), and return it as a ``ctypes.CDLL``. ``generated``: {file name:
     text} of headers to write beside the build, for the source to include."""
+    load_counts["loads"] += 1
     generated = dict(generated or {})
     name = f"{name}_{headers_hash()}"
     if generated:
@@ -68,6 +78,7 @@ def load_library(name, source, defines=(), generated=None):
     flags = list(CUDA_FLAGS) + [f"-D{define}" for define in defines]
     if generated:
         flags.append(f"-I{build_dir}")
+    load_counts["builds"] += 1
     try:
         path = load(name=name, sources=[str(CSRC / source)], extra_cuda_cflags=flags,
                     build_directory=str(build_dir), is_python_module=False)

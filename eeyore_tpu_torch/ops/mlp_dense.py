@@ -16,7 +16,8 @@ header ``dense_body.cuh`` that the dense kernels
 ``nvcc`` without fast math would not fold ``0 * w`` (it is NaN for an
 infinite ``w``), so the dropped terms are left out by the program itself.
 ``dense_work`` counts the operations of the emitted code, for the kernels'
-bounds.
+bounds. Each generated header is the span ``eeyore.codegen``
+(``utils/profiling.py``).
 
 The TPU's ``[P*8, C/8]`` chain tiles (chain ``c = s*(C/8) + column``) are,
 byte for byte, the ``[P, C]`` chain-minor layout the CUDA kernels use, so
@@ -29,6 +30,8 @@ import numpy as np
 import torch
 
 from eeyore_tpu_torch.ops.mlp_math import extract_arch
+from eeyore_tpu_torch.utils.host import host_array
+from eeyore_tpu_torch.utils.profiling import spanned
 
 MAX_DENSE_ROWS = 32
 
@@ -43,8 +46,8 @@ def prepare_dense(model, x, y):
             f"the dense body unrolls the data loop; {x.shape[0]} rows "
             f"> MAX_DENSE_ROWS={MAX_DENSE_ROWS} (use ops/mlp_math.py)")
     P = model.num_params
-    scale = model.prior.scale.detach().cpu().numpy().astype(np.float64).reshape(P)
-    loc = model.prior.loc.detach().cpu().numpy().astype(np.float64).reshape(P)
+    scale = host_array(model.prior.scale).astype(np.float64).reshape(P)
+    loc = host_array(model.prior.loc).astype(np.float64).reshape(P)
     ivar = 1.0 / scale ** 2
     prior_const = float(np.sum(-np.log(scale) - 0.5 * math.log(2.0 * math.pi)))
     temperature = 1.0 if model.temperature is None else float(model.temperature)
@@ -502,6 +505,7 @@ def _emit(model, x, y, with_grad):
     return em, out
 
 
+@spanned("eeyore.codegen")
 def dense_source(model, x, y):
     """The text of ``dense_body.cuh`` for ``model`` and the data ``(x, y)``:
     ``dense_body::v(th)`` (value only) and ``dense_body::vg(th, g)`` (value,
@@ -557,6 +561,7 @@ def _array(values):
     return _literal(values)
 
 
+@spanned("eeyore.codegen")
 def dense_lane_source(model, x, y, lanes):
     """The text of ``dense_lanes.cuh`` for ``model``, the data ``(x, y)`` and
     ``lanes`` lanes a chain: ``dense_body::lane_v(th, r)`` and
@@ -648,6 +653,7 @@ def _emit_gibbs(model, x, y):
     return out
 
 
+@spanned("eeyore.codegen")
 def gibbs_dense_source(model, x, y):
     """The text of ``dense_gibbs.cuh`` for ``model`` and the data ``(x, y)``:
     the cache size ``kCache``, ``init(th, c)`` (the full forward pass into the

@@ -19,6 +19,7 @@ from eeyore_tpu_torch.models.losses import (
     multiclass_classification_loss,
 )
 from eeyore_tpu_torch.models.priors import IIDNormalPrior
+from eeyore_tpu_torch.utils.host import host_array
 
 
 def _is_sigmoid(activation):
@@ -87,8 +88,8 @@ def prepare_data(model, x, y, dtype=np.float32):
     row_mask[:n] = 1.0
 
     P = model.num_params
-    loc = model.prior.loc.detach().cpu().numpy()
-    scale = model.prior.scale.detach().cpu().numpy()
+    loc = host_array(model.prior.loc)
+    scale = host_array(model.prior.scale)
     prior_loc = loc.astype(dtype).reshape(P, 1)
     prior_inv_var = (1.0 / scale.astype(dtype) ** 2).reshape(P, 1)
     prior_const = float(np.sum(-np.log(scale.astype(np.float64)) - 0.5 * math.log(2.0 * math.pi)))

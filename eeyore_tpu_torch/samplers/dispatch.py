@@ -45,6 +45,13 @@ whole ladders in one launch. ``resolve_smc`` and ``run_smc_backend`` send
 ``SMCSampler.run`` to the SMC runner of ``ops/resident_smc.py``: one launch
 of the mutation kernel per stage, its closure kernel for a
 ``DistributionModel`` target.
+
+Tracing (``utils/profiling.py``): ``resolve_backend`` is the span
+``eeyore.plan``; ``run_kernel_backend`` holds ``eeyore.maker`` (the data's
+copy to the host, the cache key and lookup, the maker on a miss),
+``eeyore.seed``, ``eeyore.launch`` and ``eeyore.relayout`` (timed on the
+card). Every read of a device tensor to the host goes through
+``utils/host.py``, which counts the host syncs.
 """
 
 import inspect
@@ -54,6 +61,8 @@ import torch
 
 from eeyore_tpu_torch.datasets import as_schedule
 from eeyore_tpu_torch.ops.mlp_dense import MAX_DENSE_ROWS
+from eeyore_tpu_torch.utils.host import host_array, host_scalar
+from eeyore_tpu_torch.utils.profiling import span, spanned
 
 BACKENDS = ("auto", "scan", "resident", "dense")
 
@@ -82,7 +91,7 @@ def _freeze(v):
     bytes, config objects (tuners) by their type and scalar attributes, so
     two equal configurations share a cache entry."""
     if isinstance(v, torch.Tensor):
-        v = v.detach().cpu().numpy()
+        v = host_array(v)
     if isinstance(v, np.ndarray):
         return ("ndarray", v.shape, str(v.dtype), v.tobytes())
     if isinstance(v, (list, tuple)):
@@ -94,6 +103,13 @@ def _freeze(v):
     return (type(v).__name__, tuple(sorted(
         (k, _freeze(x)) for k, x in vars(v).items()
         if isinstance(x, (bool, int, float, str, type(None))))))
+
+
+def _kernel_seed(generator):
+    """A kernel's seed, drawn from ``generator`` (one host sync on a card)."""
+    return host_scalar(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     device=generator.device if generator is not None
+                                     else "cpu"))
 
 
 def _data_fingerprint(x, y):
@@ -168,7 +184,7 @@ def _dense_group_cap(kernel, x, y):
         return None
     from eeyore_tpu_torch.ops import resident_hmc_dense
 
-    lib = resident_hmc_dense.load_kernel(kernel.model, x.cpu().numpy(), y.cpu().numpy())
+    lib = resident_hmc_dense.load_kernel(kernel.model, host_array(x), host_array(y))
     return _largest_group(_DENSE_BLOCKS, lambda cb: resident_hmc_dense.group_shape(lib, cb))
 
 
@@ -187,7 +203,7 @@ def _hmc_group_cap(kernel, x, y, blocks):
     from eeyore_tpu_torch.ops import resident_hmc
     from eeyore_tpu_torch.ops.mlp_math import prepare_data
 
-    n_rows = prepare_data(kernel.model, x.cpu().numpy(), y.cpu().numpy())[0].shape[0]
+    n_rows = prepare_data(kernel.model, host_array(x), host_array(y))[0].shape[0]
 
     def group_shape(cb):
         lib = resident_hmc.load_kernel(kernel.model, resident_hmc.chain_lanes(n_rows, cb, True))
@@ -206,7 +222,7 @@ def _nuts_group_cap(kernel, x, y, dense, inv_mass, blocks):
     from eeyore_tpu_torch.ops import resident_nuts, resident_nuts_dense
     from eeyore_tpu_torch.ops.mlp_math import prepare_data
 
-    xn, yn = x.cpu().numpy(), y.cpu().numpy()
+    xn, yn = host_array(x), host_array(y)
     if dense:
         lib = resident_nuts_dense.load_kernel(kernel.model, xn, yn, kernel.max_depth, inv_mass)
         return _largest_group(blocks, lambda cb: resident_nuts_dense.group_shape(lib, cb))
@@ -385,6 +401,7 @@ def _platform(kernel, schedule):
     return "cuda" if on_cuda else schedule.x.device.type
 
 
+@spanned("eeyore.plan")
 def resolve_backend(kernel, data, num_chains, num_iters, num_burnin_iters=0, record_thin=1,
                     backend="auto", platform=None, record_keys=None):
     """Decide which engine runs this request.
@@ -463,51 +480,53 @@ def run_kernel_backend(kernel, generator, theta0s, data, num_iters, num_burnin_i
     ``needs_accepted=False`` skips the derived accepted flags (a pass over
     the samples)."""
     schedule = as_schedule(data)
-    x, y = schedule.x[0].cpu().numpy(), schedule.y[0].cpu().numpy()
     theta0s = torch.as_tensor(theta0s)
-
-    cache = getattr(kernel, "_backend_cache", None)
-    if cache is None:
-        cache = kernel._backend_cache = {}
-    # the maker copies the data, the prior and the temperature to the device:
-    # key on their values
-    cache_key = (plan.maker.__name__, str(theta0s.device), plan.chain_block,
-                 _data_fingerprint(x, y), _model_fingerprint(kernel.model),
-                 _freeze(plan.kwargs))
-    if cache_key not in cache:
-        cache[cache_key] = plan.maker(kernel.model, x, y, device=theta0s.device,
-                                      **plan.kwargs)
-    fn = cache[cache_key]
+    with span("eeyore.maker"):
+        x, y = host_array(schedule.x[0]), host_array(schedule.y[0])
+        cache = getattr(kernel, "_backend_cache", None)
+        if cache is None:
+            cache = kernel._backend_cache = {}
+        # the maker copies the data, the prior and the temperature to the device:
+        # key on their values
+        cache_key = (plan.maker.__name__, str(theta0s.device), plan.chain_block,
+                     _data_fingerprint(x, y), _model_fingerprint(kernel.model),
+                     _freeze(plan.kwargs))
+        if cache_key not in cache:
+            cache[cache_key] = plan.maker(kernel.model, x, y, device=theta0s.device,
+                                          **plan.kwargs)
+        fn = cache[cache_key]
     want_extras = bool(plan.kwargs.get("record_extras", False))
     # dispatch hands over chain-major [C, P] inits: say so to the dense HMC
     # function, which would otherwise read the layout from the shape
     call_kw = ({"dense_input": False} if "dense_input" in inspect.signature(fn).parameters
                else {})
 
-    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                             device=generator.device if generator is not None else "cpu"))
-    out = fn(seed, theta0s, **call_kw)
-    if want_extras:
-        out, values, flags = out[:-2], out[-2], out[-1]
-    # [kept, C, P] view of the kernel's [kept, P, C] -> [C, kept, P], one copy
-    samples = out[0].transpose(0, 1).contiguous()
-    final, acc = out[1], out[2]
-    recorded = {"sample": samples}
-    if want_extras:
-        recorded["accepted"] = flags.T.contiguous()
-        recorded["target_val"] = values.T.contiguous()
-    elif needs_accepted:
-        # derived accepted: moved against the previous kept row; where the
-        # kernel returns accepted-transition counts (record_thin 1) the first
-        # kept row takes the count's remainder, else (per-sub-block Gibbs
-        # counts, NUTS's accept_stat sums) it is 1, as in the JAX package
-        moved = torch.any(samples[:, 1:, :] != samples[:, :-1, :], dim=-1)
-        if plan.acc_kind == "counts" and record_thin == 1:
-            first = torch.clamp(torch.round(acc - moved.sum(dim=1)), 0, 1)
-        else:
-            first = torch.ones(moved.shape[0], dtype=acc.dtype, device=acc.device)
-        recorded["accepted"] = torch.cat([first[:, None].to(moved.dtype), moved],
-                                         dim=1).to(torch.int32)
+    with span("eeyore.seed"):
+        seed = _kernel_seed(generator)
+    with span("eeyore.launch"):
+        out = fn(seed, theta0s, **call_kw)
+    with span("eeyore.relayout", device=theta0s.device):
+        if want_extras:
+            out, values, flags = out[:-2], out[-2], out[-1]
+        # [kept, C, P] view of the kernel's [kept, P, C] -> [C, kept, P], one copy
+        samples = out[0].transpose(0, 1).contiguous()
+        final, acc = out[1], out[2]
+        recorded = {"sample": samples}
+        if want_extras:
+            recorded["accepted"] = flags.T.contiguous()
+            recorded["target_val"] = values.T.contiguous()
+        elif needs_accepted:
+            # derived accepted: moved against the previous kept row; where the
+            # kernel returns accepted-transition counts (record_thin 1) the first
+            # kept row takes the count's remainder, else (per-sub-block Gibbs
+            # counts, NUTS's accept_stat sums) it is 1, as in the JAX package
+            moved = torch.any(samples[:, 1:, :] != samples[:, :-1, :], dim=-1)
+            if plan.acc_kind == "counts" and record_thin == 1:
+                first = torch.clamp(torch.round(acc - moved.sum(dim=1)), 0, 1)
+            else:
+                first = torch.ones(moved.shape[0], dtype=acc.dtype, device=acc.device)
+            recorded["accepted"] = torch.cat([first[:, None].to(moved.dtype), moved],
+                                             dim=1).to(torch.int32)
     kept = (num_iters - num_burnin_iters) // record_thin
     info = {"accept_counts": acc, "final": final, "kept": kept, "backend": plan.backend}
     if plan.acc_kind == "stat":
@@ -590,7 +609,7 @@ def resolve_tempering(pp, data, num_iters, num_burnin_iters=0, record_thin=1, ba
     else:
         step = float(pp.sampler_kwargs.get("scale", 1.0))
     kw = dict(num_rungs=L, step=step, sampler=pp.sampler,
-              temperatures=pp.temperatures.cpu().numpy(), between_step=pp.between_step,
+              temperatures=host_array(pp.temperatures), between_step=pp.between_step,
               num_iters=num_iters, num_burnin_iters=num_burnin_iters, record_thin=record_thin,
               record_extras=record_extras)
 
@@ -637,7 +656,7 @@ def run_tempering_backend(pp, generator, theta0, data, num_iters, num_burnin_ite
     from eeyore_tpu_torch.chains import ChainLists
 
     schedule = as_schedule(data)
-    x, y = schedule.x[0].cpu().numpy(), schedule.y[0].cpu().numpy()
+    x, y = host_array(schedule.x[0]), host_array(schedule.y[0])
     theta0 = torch.as_tensor(theta0)
     L = int(pp.num_chains)
     cb = plan.chain_block
@@ -660,9 +679,7 @@ def run_tempering_backend(pp, generator, theta0, data, num_iters, num_burnin_ite
         theta0s = theta0.expand(cb, -1).contiguous()
     else:  # [L, P] per-rung inits, tiled across the block's ladders
         theta0s = theta0.repeat(cb // L, 1)
-    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                             device=generator.device if generator is not None else "cpu"))
-    out = fn(seed, theta0s)
+    out = fn(_kernel_seed(generator), theta0s)
     ladders = out[0][:, :keep].transpose(0, 1).contiguous()  # [keep, kept, P]
     arrays = {"sample": ladders}
     if plan.kwargs.get("record_extras", False):
@@ -747,7 +764,7 @@ def run_smc_backend(smc, generator, data, plan):
     schedule = as_schedule(data)
     x, y = schedule.x[0], schedule.y[0]
     device = x.device
-    xn, yn = x.cpu().numpy(), y.cpu().numpy()
+    xn, yn = host_array(x), host_array(y)
     cache = getattr(smc, "_backend_cache", None)
     if cache is None:
         cache = smc._backend_cache = {}
@@ -767,9 +784,7 @@ def run_smc_backend(smc, generator, data, plan):
             **plan.kwargs)
     runner = cache[cache_key]
 
-    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                             device=generator.device if generator is not None else "cpu"))
-    particles, log_w, diags = runner(seed)
+    particles, log_w, diags = runner(_kernel_seed(generator))
     num_stages = int(diags.get("num_stages", len(diags["beta"])))
     final_beta = float(diags.pop("final_beta", 1.0))
     ess = float(diags.pop("final_weight_ess"))

@@ -14,6 +14,7 @@ import torch
 
 from eeyore_tpu_torch.chains import ChainList, ChainLists
 from eeyore_tpu_torch.datasets import as_schedule
+from eeyore_tpu_torch.utils.profiling import JOB, spanned
 
 
 def _check_thin(num_iters, num_burnin_iters, record_thin):
@@ -80,6 +81,7 @@ def _prepare(kernel, theta0s, data, num_iters, num_burnin_iters, record_thin):
     return theta0s, schedule
 
 
+@spanned(JOB)
 def sample_chains(kernel, generator, theta0s, data, num_iters, num_burnin_iters=0,
                   record_keys=None, return_state=False, return_arrays=False,
                   record_thin=1, backend="auto", platform=None):
@@ -99,6 +101,10 @@ def sample_chains(kernel, generator, theta0s, data, num_iters, num_burnin_iters=
     from a seed taken from ``generator``. ``platform`` overrides the device
     type that dispatch sees ("cuda" or "cpu"); a CUDA plan on CPU tensors
     runs the kernel's plain version.
+
+    Each call is the span ``eeyore.sample_chains`` (``utils/profiling.py``),
+    whose kernel path holds the spans of its layers; the generic path has
+    none of its own.
 
     ``accepted`` is per chain and iteration, [C, kept], except on the generic
     path of ``Gibbs``, which records one flag per sub-block, [C, kept, B];

@@ -1115,17 +1115,14 @@ def test_dense_hmc_and_gibbs_builds_leave_the_routes_unchanged(name, num_chains,
 
 class _HostArray:
     """A stand-in for a CUDA tensor of ``_dense_group_cap``: it asks only
-    ``is_cuda`` and the host copy."""
+    ``is_cuda`` and the host copy (``utils.host.host_array``)."""
 
     is_cuda = True
 
     def __init__(self, a):
         self.a = a
 
-    def cpu(self):
-        return self
-
-    def numpy(self):
+    def __array__(self, dtype=None, copy=None):
         return self.a
 
 

@@ -571,15 +571,16 @@ def test_a_one_thread_tuned_group_larger_than_a_block_is_a_cluster(registers, ch
 
 
 class CudaData:
-    """Data that reads as lying on the card, for dispatch's questions to it."""
+    """Data that reads as lying on the card, for dispatch's questions to it
+    (its host copy through ``utils.host.host_array``)."""
 
     def __init__(self, t):
         self.t = torch.as_tensor(t, dtype=torch.float32)
         self.shape = self.t.shape
         self.is_cuda = True
 
-    def cpu(self):
-        return self.t
+    def __array__(self, dtype=None, copy=None):
+        return self.t.numpy()
 
 
 @pytest.mark.parametrize("name,library,C,want", [

@@ -147,7 +147,7 @@ def test_phase_timer_and_timed():
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with device_trace(tmp_path / "trace"):
         torch.ones(64, 64) @ torch.ones(64, 64)
-    (path,) = (tmp_path / "trace").glob("*.json")
+    (path,) = (tmp_path / "trace").glob("trace_*.json")
     events = json.loads(path.read_text())["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
 
