@@ -5,7 +5,8 @@ window has closed, a sample of the last call's chains, drawn from the seed,
 is replayed transition by transition: from each recorded state (the
 benchmark's own start for the first iteration of a run without burn-in),
 with the draws the kernel's stream gives that chain and iteration
-(``reference/threefry.py``), the reference makes the same transition in
+(``reference/threefry.py``), the reference (the posterior of the file that
+the configuration's ``reference`` names) makes the same transition in
 float64 and its outcome (the proposal where it accepts, the start where it
 rejects) must be the recorded next state. Where the reference's accept test
 lies within ``tie_log`` of its threshold, float32 rounding may decide it
@@ -44,8 +45,8 @@ import math
 
 import torch
 
+from harness.spec import reference_of
 from reference import hmc, mala, nuts, threefry
-from reference.mlp import MLPPosterior
 
 CHUNK = 16384
 
@@ -168,9 +169,12 @@ class Judge:
         self.settings = dict(traffic["args"], tuner=traffic["tuner"],
                              num_burnin_iters=self.burnin)
         self.depth = int(traffic["args"].get("max_depth", 0))
+        self.reference = reference_of(cell.config)
 
     def posterior(self, inputs, dtype):
-        return MLPPosterior(self.cell.config, inputs.x, inputs.y, dtype, self.device)
+        """The configuration's reference posterior on the run's data, in
+        ``dtype`` (float64: the reference; bfloat16: the control)."""
+        return self.reference.posterior(self.cell.config, inputs.x, inputs.y, dtype, self.device)
 
     def _rows(self, inp):
         """The transitions to replay: (starts, ends, chains, iterations,

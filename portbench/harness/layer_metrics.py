@@ -4,8 +4,6 @@ run's context: ``cell``, ``trace`` (``harness.trace.parse``), ``walls``
 "bytes"} of one call's kernel) and ``peaks``; it returns None where the run
 gives it nothing to read."""
 
-import statistics
-
 from harness.trace import kernel_time
 
 
@@ -32,7 +30,3 @@ def roofline_share(ctx, kernel):
     if not seconds:
         return None
     return 100.0 * least_time(ctx)[0] / seconds
-
-
-def median_wall(ctx):
-    return statistics.median(ctx["walls"]) if ctx.get("walls") else None

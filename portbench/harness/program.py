@@ -34,21 +34,39 @@ def dataset(config, device):
             torch.as_tensor(y, dtype=torch.float32, device=device))
 
 
+def _named(table, config, key, value):
+    if value not in table:
+        raise ValueError(f"{config['name']}: unknown {key} {value!r}")
+    return table[value]
+
+
 def build_model(config, device):
+    """The port's float32 MLP as the configuration states it:
+    ``hidden_activation``, ``output_activation`` (``sigmoid``, or null for
+    linear; by default linear under the multiclass cross-entropy and sigmoid
+    otherwise), ``loss`` with its ``loss_args`` and the iid Normal ``prior``."""
     from eeyore_tpu_torch.models import MLP, IIDNormalPrior, loss_functions, mlp
 
-    if config["model"] != "mlp" or config["hidden_activation"] != "sigmoid":
-        raise ValueError(f"{config['name']}: the harness builds sigmoid MLPs")
+    if config["model"] != "mlp":
+        raise ValueError(f"{config['name']}: unknown model {config['model']!r}")
+    if config["dtype"] != "float32":
+        raise ValueError(f"{config['name']}: dtype {config['dtype']!r}: the harness runs float32")
     dims = config["dims"]
-    out = None if config["loss"] == "multiclass_classification" else mlp.sigmoid
+    hidden = _named({"sigmoid": mlp.sigmoid, "relu": torch.relu, "tanh": torch.tanh},
+                    config, "hidden_activation", config["hidden_activation"])
+    default_out = None if config["loss"] == "multiclass_classification" else "sigmoid"
+    out = _named({"sigmoid": mlp.sigmoid, None: None}, config, "output_activation",
+                 config.get("output_activation", default_out))
+    loss = _named(loss_functions, config, "loss", config["loss"])
+    if config.get("loss_args"):
+        loss = functools.partial(loss, **config["loss_args"])
     hp = mlp.Hyperparameters(dims=dims, bias=config["bias"],
-                             activations=[mlp.sigmoid] * (len(dims) - 2) + [out])
+                             activations=[hidden] * (len(dims) - 2) + [out])
     P = config["num_params"]
     prior = IIDNormalPrior(torch.full((P,), float(config["prior"]["loc"])),
                            torch.full((P,), float(config["prior"]["scale"])),
                            dtype=torch.float32, device=device)
-    model = MLP(loss=loss_functions[config["loss"]], hparams=hp, prior=prior,
-                dtype=torch.float32, device=device)
+    model = MLP(loss=loss, hparams=hp, prior=prior, dtype=torch.float32, device=device)
     if model.num_params != P:
         raise ValueError(f"{config['name']}: the port's MLP has {model.num_params} parameters")
     return model

@@ -3,8 +3,9 @@
 A cell (an entry of ``workloads``) names its configuration and its traffic.
 ``portbench/workloads/<cell>.json`` holds what the check needs (the kernel
 that must run, the sample it replays, the limits), the configuration's
-``file`` its model and dataset, ``portbench/traffic/<traffic>.json`` the
-sampling job; a per-layer metric is read by ``portbench/metrics/<name>.py``
+``file`` its model, dataset and reference posterior (``reference``, a file
+under ``portbench/``), ``portbench/traffic/<traffic>.json`` the sampling
+job; a per-layer metric is read by ``portbench/metrics/<name>.py``
 and a kernel's work is counted by ``portbench/work/<kernel>.py``. Adding a
 cell, a configuration, a traffic mix, a metric or a kernel's count is adding
 such files and entries.
@@ -79,6 +80,20 @@ def metric_reader(name):
 
 def work_counter(kernel):
     return load_module(BENCH_DIR / "work" / f"{kernel}.py", f"portbench_work_{kernel}")
+
+
+def reference_of(config):
+    """The reference module that the configuration's ``reference`` key names
+    (a file under ``portbench/``, with ``posterior(config, x, y, dtype,
+    device)``); a path that leads out of ``portbench/`` is refused."""
+    path = (BENCH_DIR / config["reference"]).resolve()
+    if not path.is_relative_to(BENCH_DIR) or not path.is_file():
+        raise ValueError(f"{config['name']}: unknown reference {config['reference']!r}")
+    module = load_module(path, "portbench_reference_" + path.stem)
+    if not callable(getattr(module, "posterior", None)):
+        raise ValueError(f"{config['name']}: the reference {config['reference']!r} "
+                         "has no posterior(config, x, y, dtype, device)")
+    return module
 
 
 def resolve(path):

@@ -2,16 +2,34 @@
 
 The model as its configuration file states it: for each layer l, the weight
 W_l of shape (dims[l+1], dims[l]) flattened row-major and then the bias b_l;
-sigmoid hidden units; a linear output under the multiclass cross-entropy
-(one-hot labels) or a sigmoid output under the binary cross-entropy; an iid
-Normal prior. Written with plain torch operations and autograd, in whatever
-dtype it is given, so the same code is the float64 reference and the
-bfloat16 control.
+hidden units of the configuration's ``hidden_activation`` (sigmoid, relu or
+tanh); a linear output under the multiclass cross-entropy (one-hot labels)
+or a sigmoid output under the binary cross-entropy; an iid Normal prior.
+Written with plain torch operations and autograd, in whatever dtype it is
+given, so the same code is the float64 reference and the bfloat16 control.
 """
 
 import math
 
 import torch
+
+# each hidden activation, and the gradient through it written out from the
+# unit's output a: (upstream m, a) -> m f'(z)
+ACTIVATIONS = {
+    "sigmoid": (torch.sigmoid, lambda m, a: m * a * (1.0 - a)),
+    "relu": (torch.relu, lambda m, a: m * (a > 0).to(m.dtype)),
+    "tanh": (torch.tanh, lambda m, a: m * (1.0 - a * a)),
+}
+# the output activation each likelihood takes (None: linear)
+OUTPUT_ACTIVATIONS = {"multiclass_classification": None,
+                      "binary_classification": "sigmoid"}
+
+
+def _named(table, config, key):
+    name = config[key]
+    if name not in table:
+        raise ValueError(f"{config.get('name', 'configuration')}: unknown {key} {name!r}")
+    return table[name]
 
 
 class MLPPosterior:
@@ -21,10 +39,14 @@ class MLPPosterior:
     def __init__(self, config, x, y, dtype, device):
         self.dims = list(config["dims"])
         self.loss = config["loss"]
-        if self.loss not in ("multiclass_classification", "binary_classification"):
-            raise ValueError(f"unknown loss {self.loss!r}")
-        if config["hidden_activation"] != "sigmoid":
-            raise ValueError("the reference MLP has sigmoid hidden units")
+        out = _named(OUTPUT_ACTIVATIONS, config, "loss")
+        self.act, self.act_back = _named(ACTIVATIONS, config, "hidden_activation")
+        if config.get("output_activation", out) != out:
+            raise ValueError(f"{config.get('name', 'configuration')}: output_activation "
+                             f"{config['output_activation']!r} is not {self.loss}'s {out!r}")
+        if config.get("loss_args"):
+            raise ValueError(f"{config.get('name', 'configuration')}: loss_args: "
+                             f"{self.loss} takes none")
         prior = config["prior"]
         self.loc, self.scale = float(prior["loc"]), float(prior["scale"])
         self.num_params = sum(self.dims[l] * self.dims[l + 1] + self.dims[l + 1]
@@ -48,7 +70,7 @@ class MLPPosterior:
             b = theta[:, off:off + d_out]
             off += d_out
             z = torch.matmul(h, w.transpose(1, 2)) + b[:, None, :]
-            h = torch.sigmoid(z) if l < L - 1 else z
+            h = self.act(z) if l < L - 1 else z
         if self.loss == "multiclass_classification":
             log_lik = torch.sum(self.y * torch.log_softmax(h, dim=-1), dim=(1, 2))
         else:
@@ -73,7 +95,7 @@ class MLPPosterior:
             weights.append(w)
             z = torch.matmul(h, w.transpose(1, 2)) + b[:, None, :]
             if l < L - 1:
-                h = torch.sigmoid(z)
+                h = self.act(z)
                 acts.append(h)
         if self.loss == "multiclass_classification":
             logp = torch.log_softmax(z, dim=-1)
@@ -91,6 +113,11 @@ class MLPPosterior:
             parts.append(torch.sum(delta, dim=1))
             parts.append(g_w.reshape(B, g_w.shape[1] * g_w.shape[2]))
             if l > 0:
-                delta = torch.matmul(delta, weights[l]) * a * (1.0 - a)
+                delta = self.act_back(torch.matmul(delta, weights[l]), a)
         grad = torch.cat(parts[::-1], dim=1) - diff / self.scale
         return val, grad
+
+
+def posterior(config, x, y, dtype, device):
+    """The reference posterior of a configuration that names this file."""
+    return MLPPosterior(config, x, y, dtype, device)
